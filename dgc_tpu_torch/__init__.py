@@ -1,0 +1,19 @@
+"""dgc_tpu_torch — Deep Gradient Compression in PyTorch on NVIDIA Hopper.
+
+The PyTorch/CUDA port of the ``dgc_tpu`` JAX package, which stays the
+reference. Module names follow the reference package so a reader finds the
+counterpart of each piece; the flat-buffer format (layout, transmit-record
+words, wire payload) is identical, so buffers are interchangeable between
+the two.
+
+The hot path runs through three kernels written by hand for ``sm_90a``
+(``dgc_tpu_torch.ops.kernels``): the bit-masked momentum compensate
+(Triton), the exact per-row top-k (CUDA C++) and the post-gather apply
+(CUDA C++). Each has a plain PyTorch version beside it, which a wrapper
+runs only for tensors that lie on the CPU.
+
+Entry points take a ``device`` argument that defaults to ``"cuda"``; they
+raise when no card is present unless the CPU was asked for.
+"""
+
+__all__ = []

@@ -1,0 +1,551 @@
+"""Flat (bucketed) execution engine for DGC, on PyTorch.
+
+Counterpart of ``dgc_tpu/compression/flat.py``. The whole gradient, the
+error-feedback memory and the optimizer state live in a few flat buffers
+with the reference's exact layout (:class:`ParamLayout`): compressed
+tensors first, one tensor per row of a size bucket, then a gap whose first
+slot is the always-zero scatter sentinel, then the dense tail (biases,
+BatchNorm). Buffers are therefore interchangeable with the JAX package's.
+
+:class:`FlatDGCEngine` runs the reference's plain-f32-wire pipeline, split
+into the per-worker halves around the collective so one process can drive
+W workers in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
+
+* :meth:`FlatDGCEngine.compress` — bit-masked momentum compensate (the
+  compensate kernel, in place) and sampled top-k sparsification of every
+  bucket (the top-k kernel) into a fixed-size ``(values, indices)`` payload;
+* ``comm.all_gather`` of values and indices, ``comm.all_reduce`` of the
+  dense tail;
+* :meth:`FlatDGCEngine.apply` — the apply kernel (scatter-add of
+  ``wire / W`` and this worker's transmit record), then the dense tail's
+  non-accumulating correction.
+
+**One deliberate difference from the TPU path.** The JAX engine selects
+with ``lax.approx_max_k`` at recall 0.90 wherever k exceeds 128 (or the
+exact path would pay XLA's sort), both for the sample threshold and for the
+selection. The port selects EXACTLY at every k. On the CPU ``approx_max_k``
+lowers to an exact sort, so the port computes what the JAX package computes
+there — the semantics its parity tests pin.
+
+Random phases: strided sampling draws one uniform per (bucket, stride
+group). The JAX engine draws them from ``fold_in(fold_in(key, bucket),
+group)``; the port draws them on the host from an explicit
+``torch.Generator`` (:meth:`FlatDGCEngine.draw_phases`) — host numbers
+slice the buffers without a device sync — and :meth:`sparsify` takes them
+as an argument, so a test can pass in the JAX-drawn values.
+
+Not ported in this slice: planner regimes and dense-planned buckets,
+gossip, the adaptive send fraction, checksums, the int8/int4/fp16 and
+packed-index wires, segment-split and 3-D/seg-kernel selection, gradient
+clipping, telemetry, and the all-dense exchange at ``compress_ratio >= 1``.
+"""
+
+import math
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dgc_tpu_torch.ops import kernels
+from dgc_tpu_torch.utils.pytree import named_flatten
+
+__all__ = ["ParamLayout", "FlatDGCEngine", "ladder_cols"]
+
+#: block alignment of the compressed-block boundary and the buffer tail
+_ALIGN = 16 * 128
+_LANE = 128
+#: the reference's ladder-kernel column chunk, which fixes row widths
+_LADDER_COL_CHUNK = 128 * 1024
+#: rows wider than this are split into segments by the reference
+#: (``_segment_rows``); no ResNet-20/110 row comes near it
+_SPLIT_COLS = 8 * 1024 * 1024
+#: maximum payload growth a bucket may pay to make its payload the full
+#: [R, max_sel] selection grid (identity ``tight`` map)
+_PAD_PAYLOAD_MAX_FRAC = 0.02
+
+
+def _round_up(n: int, align: int) -> int:
+    return -(-n // align) * align
+
+
+def ladder_cols(max_n: int) -> int:
+    """Row width of a bucket whose widest tensor has ``max_n`` elements:
+    lane-aligned, and a multiple of 128K once wider than that (the
+    reference's layout, fixed by its ladder kernel's column chunk)."""
+    cols = _round_up(max_n, _LANE)
+    if cols > _LADDER_COL_CHUNK:
+        cols = _round_up(cols, _LADDER_COL_CHUNK)
+    return cols
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(int(s) for s in getattr(leaf, "shape", leaf))
+
+
+class _BucketGeom(NamedTuple):
+    """Ratio-independent geometry of one size bucket: a [rows, cols] tile
+    at ``base``; tensor ``names[r]`` occupies row r."""
+    names: Tuple[str, ...]
+    base: int
+    rows: int
+    cols: int
+
+
+class ParamLayout:
+    """Static flat-buffer layout over a nested dict of parameters (leaves
+    are tensors, arrays or shapes), bitwise the reference's: size-bucketed
+    row tiles of the compressed tensors, the sentinel gap, the dense tail.
+    Depends only on shapes and the compressed-name set, never on the
+    compress ratio."""
+
+    #: bucket-count / padding exchange rate of the partition DP
+    FLOOR_SLOTS = 300_000
+
+    def __init__(self, tree, compressed_names: Sequence[str] = ()):
+        named = named_flatten(tree)
+        cset = set(compressed_names)
+        compressed = [n for n in named if n in cset]
+        dense = [n for n in named if n not in cset]
+        self.shapes = {n: _shape(named[n]) for n in named}
+        self.sizes = {n: int(math.prod(self.shapes[n])) for n in named}
+        self.num_params = sum(self.sizes.values())
+
+        self.buckets: List[_BucketGeom] = []
+        self.offsets: Dict[str, int] = {}
+        off = 0
+        for group in self._group_by_size(compressed):
+            cols = ladder_cols(max(self.sizes[n] for n in group))
+            self.buckets.append(_BucketGeom(tuple(group), off, len(group),
+                                            cols))
+            for r, n in enumerate(group):
+                self.offsets[n] = off + r * cols
+            off += len(group) * cols
+        self.compressed_names = [n for g in self.buckets for n in g.names]
+        self.dense_names = dense
+        self.names: List[str] = self.compressed_names + dense
+        #: end of the compressed storage; [t_data, t_compressed) is the gap
+        self.t_data = off
+        self.t_compressed = _round_up(off + 1, _ALIGN) if compressed else 0
+        #: scatter sentinel: always a structural-zero slot
+        self.sentinel = self.t_data
+        off = self.t_compressed
+        for n in dense:
+            self.offsets[n] = off
+            off += self.sizes[n]
+        self.p_data_end = off
+        self.total = _round_up(off, _ALIGN) if off else 0
+        if self.total >= 2 ** 31:
+            raise ValueError("layouts of 2**31 slots or more need the int64 "
+                             "index wire, which is not ported")
+
+    def _group_by_size(self, compressed: Sequence[str]) -> List[List[str]]:
+        """Partition the size-sorted tensors into contiguous buckets by the
+        reference's exact DP minimising ``FLOOR_SLOTS * #buckets + padded
+        slots``."""
+        names = sorted(compressed, key=lambda n: -self.sizes[n])
+        n = len(names)
+        if n == 0:
+            return []
+        sizes = [self.sizes[x] for x in names]
+        best = [float("inf")] * (n + 1)
+        best[n] = 0.0
+        cut = [n] * (n + 1)
+        for i in range(n - 1, -1, -1):
+            cols = ladder_cols(sizes[i])
+            pad = 0
+            for j in range(i, n):
+                pad += cols - sizes[j]
+                c = self.FLOOR_SLOTS + pad + best[j + 1]
+                if c < best[i]:
+                    best[i] = c
+                    cut[i] = j + 1
+        groups, i = [], 0
+        while i < n:
+            groups.append(names[i:cut[i]])
+            i = cut[i]
+        return groups
+
+    @classmethod
+    def for_compressor(cls, tree, compressor) -> "ParamLayout":
+        """The layout whose compressed names are the compressor's
+        initialised attributes."""
+        return cls(tree, list(compressor.attributes))
+
+    def flatten(self, tree, device=None) -> torch.Tensor:
+        """Nested dict (or ``{name: leaf}``) of tensors/arrays -> flat
+        [total] f32, with structural zeros in row tails and gaps."""
+        named = named_flatten(tree)
+        flat = torch.zeros(self.total, dtype=torch.float32, device=device)
+        for n in self.names:
+            o = self.offsets[n]
+            leaf = named[n]
+            if not torch.is_tensor(leaf):
+                leaf = torch.from_numpy(np.array(leaf, np.float32))
+            flat[o:o + self.sizes[n]] = leaf.reshape(-1)
+        return flat
+
+    def unflatten_named(self, flat: torch.Tensor,
+                        keep_1d: bool = False) -> Dict[str, torch.Tensor]:
+        """Flat [total] -> ``{name: view}`` in layout order (views share
+        the flat buffer's storage)."""
+        out = {}
+        for n in self.names:
+            piece = flat[self.offsets[n]:self.offsets[n] + self.sizes[n]]
+            out[n] = piece if keep_1d else piece.view(self.shapes[n])
+        return out
+
+
+class _Bucket(NamedTuple):
+    """Ratio-dependent sparsification attributes of one layout bucket (all
+    static, host-side)."""
+    base: int
+    rows: int
+    cols: int
+    row_offsets: np.ndarray    # [R] global offset of each tensor row
+    numels: np.ndarray         # [R]
+    strides: np.ndarray        # [R] sampling stride
+    num_samples: np.ndarray    # [R]
+    max_s: int
+    topk_samples: np.ndarray   # [R]
+    max_k: int
+    num_selects: np.ndarray    # [R]
+    max_sel: int
+    adapt: np.ndarray          # [R] bool: run threshold adaptation
+    exact: bool                # every row samples its whole tensor
+    tight: np.ndarray          # [payload] positions into the [R*max_sel] grid
+    payload: int
+    #: runs of consecutive rows sharing a sample stride: (r0, r1, stride, n)
+    stride_groups: Tuple[Tuple[int, int, int, int], ...]
+
+
+def _build_buckets(attributes, layout: ParamLayout) -> List[_Bucket]:
+    """Per-ratio sparsification attributes of each layout bucket."""
+    buckets = []
+    for g in layout.buckets:
+        if len(g.names) == 1 and g.cols > _SPLIT_COLS:
+            raise ValueError(f"{g.names[0]}: rows wider than {_SPLIT_COLS} "
+                             "need the segment split, which is not ported")
+        rows = [(layout.offsets[n], a.numel, a.sample_stride,
+                 a.num_samples, a.top_k_samples, a.num_selects)
+                for n, a in ((n, attributes[n]) for n in g.names)]
+        buckets.append(_bucket_from_rows(g.base, g.cols, rows))
+    return buckets
+
+
+def _bucket_from_rows(base: int, cols: int, rows) -> _Bucket:
+    """Assemble a :class:`_Bucket` from per-row tuples ``(row_off, numel,
+    stride, num_samples, topk_samples, num_selects)``. The payload is the
+    tight concatenation of each row's ``num_selects`` slots, or the whole
+    [R, max_sel] grid when that grows the wire by at most 2%."""
+    cols_in = list(zip(*rows))
+    offs = np.array(cols_in[0], np.int64)
+    numels, strides, samples, topks, selects = (
+        np.array(c, np.int32) for c in cols_in[1:])
+    max_sel = int(selects.max())
+    n_rows = len(rows)
+    padded = n_rows * max_sel
+    if padded - int(selects.sum()) <= (
+            _PAD_PAYLOAD_MAX_FRAC * int(selects.sum())):
+        tight = np.arange(padded, dtype=np.int64)
+    else:
+        tight = np.concatenate([
+            np.arange(r * max_sel, r * max_sel + k, dtype=np.int64)
+            for r, k in enumerate(selects)])
+    stride_groups = []
+    r0 = 0
+    for r in range(1, n_rows + 1):
+        if r == n_rows or strides[r] != strides[r0]:
+            stride_groups.append((r0, r, int(strides[r0]),
+                                  int(samples[r0:r].max())))
+            r0 = r
+    return _Bucket(
+        base=base, rows=n_rows, cols=cols, row_offsets=offs, numels=numels,
+        strides=strides, num_samples=samples, max_s=int(samples.max()),
+        topk_samples=topks, max_k=int(topks.max()), num_selects=selects,
+        max_sel=max_sel, adapt=numels > samples,
+        exact=bool((samples >= numels).all()), tight=tight,
+        payload=int(tight.shape[0]), stride_groups=tuple(stride_groups))
+
+
+def _f32_floor_mul(u: float, m: int) -> int:
+    """``floor(u * m)`` in f32, as the reference computes a sample phase."""
+    return int(np.floor(np.float32(u) * np.float32(m)))
+
+
+class FlatDGCEngine:
+    """The flat DGC pipeline for one compressor + layout pair; rebuilt
+    (host-side, cheaply) whenever the warm-up schedule changes the ratio.
+    Memory buffers stay valid across rebuilds."""
+
+    def __init__(self, compressor, layout: ParamLayout):
+        self.c = compressor
+        self.layout = layout
+        self.T = layout.t_compressed
+        if self.T == 0 or compressor.compress_ratio >= 1.0:
+            raise ValueError("the all-dense exchange (nothing compressed, or "
+                             "compress_ratio >= 1) is not ported")
+        self.buckets = _build_buckets(compressor.attributes, layout)
+        sl, off = [], 0
+        for b in self.buckets:
+            sl.append((off, off + b.payload))
+            off += b.payload
+        self._payload_slices = tuple(sl)
+        #: per-worker wire payload in elements
+        self.payload_size = off
+        lower = self.c.compress_lower_bound
+        levels = self.c.max_adaptation_iters + 1
+        # lower ** i, correctly rounded to f32 as XLA's pow computes it
+        self._ladder_np = np.array(
+            [np.float64(np.float32(lower)) ** i for i in range(levels)],
+            np.float32)
+        self._consts: Dict[torch.device, list] = {}
+
+    # -------------------------------------------------------------- #
+    # memory                                                         #
+    # -------------------------------------------------------------- #
+
+    def init_memory(self, device) -> Dict[str, torch.Tensor]:
+        """Error-feedback buffers split at the compressed/dense boundary T,
+        plus the packed transmit record of the last step (deferred
+        masking: the next compensate zeroes those coordinates on read)."""
+        T, P = self.T, self.layout.total
+
+        def z(n, dtype=torch.float32):
+            return torch.zeros(n, dtype=dtype, device=device)
+        return {"momentums_c": z(T), "velocities_c": z(T),
+                "momentums_d": z(P - T), "velocities_d": z(P - T),
+                "sent_bits": z(kernels.num_sent_words(T), torch.int32)}
+
+    def memory_full(self, mem) -> Dict[str, torch.Tensor]:
+        """Canonical ``{momentums, velocities}`` [P] view with the pending
+        transmit mask applied (inspection and checkpoints only)."""
+        keep = kernels.keep_from_bits(mem["sent_bits"], self.T)
+        vc = mem["velocities_c"] * keep
+        mc = mem["momentums_c"]
+        if self.c.memory.momentum_masking:
+            mc = mc * keep
+        return {"momentums": torch.cat([mc, mem["momentums_d"]]),
+                "velocities": torch.cat([vc, mem["velocities_d"]])}
+
+    def memory_state_dict(self, mem):
+        """Per-name ``{momentums, velocities}`` (the reference's
+        checkpoint format, interchangeable with the JAX package's)."""
+        full = self.memory_full(mem)
+        return {k: self.layout.unflatten_named(v, keep_1d=True)
+                for k, v in full.items()}
+
+    def load_memory_state_dict(self, mem, saved):
+        """Per-name saved ``{momentums, velocities}`` (tensors or arrays)
+        -> flat memory, merging by name over ``mem``'s canonical view; gap
+        slots stay zero and nothing is left pending in the record."""
+        if saved is None:
+            return mem
+        lay, T = self.layout, self.T
+        full = self.memory_full(mem)
+        out = {}
+        for key in ("momentums", "velocities"):
+            flat = full[key].clone()
+            for n in lay.names:
+                if n in saved[key]:
+                    piece = saved[key][n]
+                    if not torch.is_tensor(piece):
+                        piece = torch.from_numpy(np.array(piece, np.float32))
+                    o = lay.offsets[n]
+                    flat[o:o + piece.numel()] = piece.reshape(-1)
+            out[key + "_c"] = flat[:T]
+            out[key + "_d"] = flat[T:]
+        out["sent_bits"] = torch.zeros_like(mem["sent_bits"])
+        return out
+
+    def _compensate_acc(self, mem, grad_c: torch.Tensor) -> torch.Tensor:
+        """Momentum correction + local accumulation over [0, T) with the
+        previous step's transmit mask applied on read (the compensate
+        kernel, in place). Returns the compensated gradient, which IS the
+        velocity buffer."""
+        m = self.c.memory
+        kernels.compensate_bits(grad_c, mem["momentums_c"],
+                                mem["velocities_c"], mem["sent_bits"],
+                                m.momentum, m.nesterov, m.momentum_masking)
+        return mem["velocities_c"]
+
+    def _compensate_dense(self, mem, grad: torch.Tensor) -> torch.Tensor:
+        """Non-accumulating correction of the averaged dense tail."""
+        m = self.c.memory
+        mmt = mem["momentums_d"]
+        if m.nesterov:
+            mmt = (mmt + grad) * m.momentum
+            mem["momentums_d"] = mmt
+            return mmt + grad
+        mmt = m.momentum * mmt + grad
+        mem["momentums_d"] = mmt
+        return mmt
+
+    # -------------------------------------------------------------- #
+    # sparsify                                                       #
+    # -------------------------------------------------------------- #
+
+    def draw_phases(self, gen: torch.Generator) -> List[List[float]]:
+        """One uniform per (bucket, stride group) of every sampled bucket,
+        drawn on the host from ``gen``."""
+        out = []
+        for b in self.buckets:
+            n = 0 if b.exact else len(b.stride_groups)
+            out.append(torch.rand(n, generator=gen).tolist())
+        return out
+
+    def _bucket_consts(self, device) -> list:
+        """Per-bucket constant tensors on ``device`` (built once)."""
+        consts = self._consts.get(device)
+        if consts is not None:
+            return consts
+        consts = []
+        for b in self.buckets:
+            def t(a, dtype):
+                return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                       device=device)
+            col = torch.arange(b.cols, device=device)
+            slot = torch.arange(b.max_sel, device=device)
+            c = {
+                "in_row": col[None, :] < t(b.numels, torch.int64)[:, None],
+                "row_off": t(b.row_offsets, torch.int32)[:, None],
+                "slot_ok": slot[None, :] < t(b.num_selects,
+                                             torch.int64)[:, None],
+                "k_idx": t(b.topk_samples - 1, torch.int64)[:, None],
+                "tight": (None if b.payload == b.rows * b.max_sel
+                          else t(b.tight, torch.int64)),
+                "ladder": t(self._ladder_np, torch.float32),
+                "lo": t(np.float32(self.c.compress_lower_bound)
+                        * b.num_selects.astype(np.float32),
+                        torch.float32)[:, None],
+                "adapt": t(b.adapt, torch.bool),
+                "steps": [torch.arange(n, device=device) * stride
+                          for (_, _, stride, n) in b.stride_groups],
+            }
+            consts.append(c)
+        self._consts[device] = consts
+        return consts
+
+    def _sample_rows(self, b: _Bucket, c, imp_rows: torch.Tensor,
+                     phases: Sequence[float]) -> torch.Tensor:
+        """Per-row threshold samples of one bucket: 128-lane blocks at the
+        tensor's sampling rate with one random phase per stride group (the
+        reference's lane-block strided sampling); pad slots read -1."""
+        L = _LANE
+        widths = [n if (stride == 1 or n < L) else -(-n // L) * L
+                  for (_, _, stride, n) in b.stride_groups]
+        width = max(widths)
+        parts = []
+        for gi, (r0, r1, stride, n) in enumerate(b.stride_groups):
+            Rg = r1 - r0
+            nb = -(-n // L)
+            if stride == 1:
+                smp = imp_rows[r0:r1, :n]
+            elif n < L:
+                pos = torch.clamp(c["steps"][gi]
+                                  + _f32_floor_mul(phases[gi], stride),
+                                  max=b.cols - 1)
+                smp = imp_rows[r0:r1, pos]
+            else:
+                sb = max(1, (n * stride) // (nb * L))
+                # a start past the end clamps, as lax.dynamic_slice does
+                phase = min(_f32_floor_mul(phases[gi], sb), sb - 1)
+                smp = imp_rows[r0:r1, :nb * sb * L].reshape(
+                    Rg, nb, sb, L)[:, :, phase, :].reshape(Rg, nb * L)
+            if smp.shape[1] < width:
+                smp = torch.cat([smp, smp.new_full((Rg, width - smp.shape[1]),
+                                                   -1.0)], dim=1)
+            parts.append(smp)
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def _ladder_adapt_from_topk(self, c, top_scores, thr):
+        """Threshold adaptation (``resample=True``): the first ladder level
+        ``thr * lower**i`` that at least ``lower * num_selects`` selections
+        pass, else the last — counted over the sorted selection top-k,
+        which is exact (see the reference's derivation)."""
+        ladder = c["ladder"]
+        t = thr[:, None] * ladder[None, :]
+        counts = (top_scores[:, :, None] >= t[:, None, :]).sum(dim=1)
+        passing = counts.to(torch.float32) >= c["lo"]
+        first = passing.to(torch.int8).argmax(dim=1)
+        i_star = torch.where(passing.any(dim=1), first,
+                             self.c.max_adaptation_iters)
+        return torch.where(c["adapt"], thr * ladder[i_star], thr)
+
+    def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sampled top-k selection over the compressed block [T]. Returns
+        ``(values f32, indices int32)`` of length ``payload_size``;
+        invalid slots carry ``(0.0, sentinel)``."""
+        S = self.layout.sentinel
+        consts = self._bucket_consts(vec_c.device)
+        out_v, out_i = [], []
+        for bi, (b, c) in enumerate(zip(self.buckets, consts)):
+            block = vec_c[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+            imp_rows = torch.where(c["in_row"], block.abs(), -1.0)
+            top_scores, cols = kernels.topk_rows(imp_rows, b.max_sel)
+            if b.exact:
+                # every row samples its whole tensor: the threshold is the
+                # exact k-th largest, so top-num_selects is the selection
+                valid = (top_scores >= 0) & c["slot_ok"]
+            else:
+                samples = self._sample_rows(b, c, imp_rows, phases[bi])
+                sorted_s = kernels.topk_rows(samples.contiguous(), b.max_k)[0]
+                thr = sorted_s.gather(1, c["k_idx"])[:, 0]
+                if self.c.max_adaptation_iters > 0 and b.adapt.any():
+                    thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+                valid = (top_scores >= thr[:, None]) & c["slot_ok"]
+            gidx = torch.where(valid, c["row_off"] + cols, S)
+            vals = torch.where(valid, block.gather(1, cols.long()), 0.0)
+            if c["tight"] is None:
+                out_v.append(vals.reshape(-1))
+                out_i.append(gidx.reshape(-1))
+            else:
+                out_v.append(vals.reshape(-1)[c["tight"]])
+                out_i.append(gidx.reshape(-1)[c["tight"]])
+        return torch.cat(out_v), torch.cat(out_i)
+
+    # -------------------------------------------------------------- #
+    # the exchange                                                   #
+    # -------------------------------------------------------------- #
+
+    def compress(self, flat_grad: torch.Tensor, mem,
+                 phases: Sequence[Sequence[float]]):
+        """One worker's send side: compensate (in place on ``mem``), then
+        sparsify. Returns the ``(values, indices)`` payload."""
+        comp = self._compensate_acc(mem, flat_grad[:self.T])
+        return self.sparsify(comp, phases)
+
+    def apply(self, g_values: torch.Tensor, g_indices: torch.Tensor,
+              dense_sum: torch.Tensor, mem, rank: int,
+              world: int) -> torch.Tensor:
+        """One worker's receive side, from the gathered [W, payload]
+        values/indices and the summed dense tail: the averaged flat [P]
+        gradient. Replaces ``mem``'s transmit record and dense momentum."""
+        T, S = self.T, self.layout.sentinel
+        # out-of-range indices route to the structural-zero sentinel
+        g_indices = torch.where((g_indices >= 0) & (g_indices < T),
+                                g_indices, S)
+        rows = torch.arange(g_indices.shape[0], device=g_indices.device)
+        flags = ((rows[:, None] == rank) & (g_indices != S)).reshape(-1)
+        acc, mem["sent_bits"] = kernels.apply_rows(
+            g_values.reshape(-1), g_indices.reshape(-1), flags, T,
+            divisor=float(world))
+        if self.layout.total == T:
+            return acc
+        out_d = self._compensate_dense(mem, dense_sum / world)
+        return torch.cat([acc, out_d])
+
+    def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
+                 phases, comm) -> List[torch.Tensor]:
+        """compress -> all_gather -> apply for this process's workers
+        (``comm.ranks``), plus the dense-tail all-reduce. Returns each
+        worker's averaged flat gradient; the memories update in place."""
+        T = self.T
+        sent = [self.compress(g, m, ph)
+                for g, m, ph in zip(flat_grads, mems, phases)]
+        g_vals = comm.all_gather([v for v, _ in sent])
+        g_idx = comm.all_gather([i for _, i in sent])
+        dense = comm.all_reduce([g[T:] for g in flat_grads])
+        return [self.apply(gv, gi, d, m, r, comm.world)
+                for gv, gi, d, m, r in zip(g_vals, g_idx, dense, mems,
+                                           comm.ranks)]

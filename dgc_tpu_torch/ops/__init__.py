@@ -1,0 +1,1 @@
+"""dgc_tpu_torch.ops — see the modules' docstrings."""

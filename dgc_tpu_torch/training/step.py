@@ -1,0 +1,101 @@
+"""The data-parallel DGC train step over flat buffers.
+
+Counterpart of ``dgc_tpu/training/step.py``'s flat path. Per local worker:
+forward/backward over ``num_batches_per_step`` micro-batches (each loss
+scaled by ``1/nbps``, gradients summed) with the parameters bound as views
+of the flat buffer, so autograd delivers the flat gradient directly and
+BatchNorm updates that worker's flat statistics in place. Then one
+exchange across all workers (compensate -> sparsify -> all_gather ->
+apply, plus the dense-tail all-reduce), the ``dgc_sgd`` update of the
+replicated parameters, and the loss all-reduce.
+"""
+
+from typing import List, NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from dgc_tpu_torch.compression.flat import ParamLayout
+from dgc_tpu_torch.models.resnet_cifar import param_tree, stats_tree
+from dgc_tpu_torch.training.state import TrainState
+
+__all__ = ["FlatSetup", "make_flat_setup", "make_flat_state", "train_step",
+           "worker_grad"]
+
+
+class FlatSetup(NamedTuple):
+    layout: ParamLayout        # over the parameters
+    stats_layout: ParamLayout  # over the BatchNorm statistics
+    engine: object             # the compressor's flat engine
+
+
+def make_flat_setup(model, dist_opt) -> FlatSetup:
+    """Layouts + engine; rebuild after a warm-up ratio change."""
+    layout, engine = dist_opt.make_flat(param_tree(model))
+    return FlatSetup(layout, ParamLayout(stats_tree(model)), engine)
+
+
+def make_flat_state(model, dist_opt, setup: FlatSetup, device,
+                    flat_params=None, flat_stats=None) -> TrainState:
+    """Initial state from the model's own weights, or from given flat
+    buffers (e.g. carried from the JAX package)."""
+    if flat_params is None:
+        flat_params = setup.layout.flatten(param_tree(model), device=device)
+    if flat_stats is None:
+        flat_stats = setup.stats_layout.flatten(stats_tree(model),
+                                                device=device)
+    local = len(dist_opt.comm.ranks)
+    return TrainState(
+        step=0, params=flat_params.to(device),
+        opt_state=dist_opt.init(flat_params.to(device)),
+        memory=[setup.engine.init_memory(device) for _ in range(local)],
+        batch_stats=[flat_stats.to(device).clone() for _ in range(local)])
+
+
+def _binding(layout: ParamLayout, flat: torch.Tensor):
+    return {n.replace("/", "."): v
+            for n, v in layout.unflatten_named(flat).items()}
+
+
+def worker_grad(model, setup: FlatSetup, params: torch.Tensor,
+                stats: torch.Tensor, images: torch.Tensor,
+                labels: torch.Tensor, nbps: int = 1):
+    """One worker's flat [P] gradient and (scaled, summed) loss;
+    ``stats`` is updated in place. ``images`` NCHW, ``labels`` int64."""
+    fp = params.detach().requires_grad_(True)
+    binding = {**_binding(setup.layout, fp),
+               **_binding(setup.stats_layout, stats)}
+    loss_sum = torch.zeros((), device=params.device)
+    for x, y in zip(images.chunk(nbps), labels.chunk(nbps)):
+        logits = functional_call(model, binding, (x,), {"train": True})
+        loss = F.cross_entropy(logits.float(), y) * (1.0 / nbps)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    return fp.grad, loss_sum
+
+
+def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
+               images: Sequence[torch.Tensor], labels: Sequence[torch.Tensor],
+               gens: Sequence[torch.Generator], nbps: int = 1):
+    """One step for this process's workers (``images[w]`` / ``labels[w]``
+    / ``gens[w]`` per local worker). Returns ``(state, mean loss)``; the
+    loss stays on the device."""
+    comm = dist_opt.comm
+    grads: List[torch.Tensor] = []
+    losses: List[torch.Tensor] = []
+    for w in range(len(comm.ranks)):
+        g, loss = worker_grad(model, setup, state.params,
+                              state.batch_stats[w], images[w], labels[w],
+                              nbps)
+        grads.append(g)
+        losses.append(loss)
+    phases = [setup.engine.draw_phases(gen) for gen in gens]
+    params, opt_state, _ = dist_opt.update_flat(
+        grads, state.opt_state, state.params, state.memory, phases,
+        setup.engine)
+    mean_loss = comm.all_reduce(losses)[0] / comm.world
+    state.step += 1
+    state.params = params
+    state.opt_state = opt_state
+    return state, mean_loss

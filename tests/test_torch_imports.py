@@ -1,0 +1,48 @@
+"""The port stands alone: importing every module of ``dgc_tpu_torch`` (and
+``chip_smoke.py``) loads neither JAX nor the JAX package. Checked in a
+fresh interpreter, because this test process has imported both."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import dgc_tpu_torch, dgc_tpu_torch.train, chip_smoke
+mods = [m.name for m in pkgutil.walk_packages(dgc_tpu_torch.__path__,
+                                              "dgc_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+print(json.dumps({"modules": mods, "loaded": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dgc_tpu"))}))
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_no_jax():
+    out = _run(["-c", _PROBE], ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "dgc_tpu_torch.ops.kernels" in res["modules"]
+    assert "dgc_tpu_torch.compression.flat" in res["modules"]
+    assert res["loaded"] == []
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    """Without a CUDA device, and alone in a directory, the smoke script
+    exits non-zero and prints no result."""
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    for cwd in (ROOT, str(tmp_path)):
+        out = _run(["chip_smoke.py"], cwd)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
