@@ -5,26 +5,42 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. Build every CUDA kernel of the main path from ``dgc_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and compile the Triton kernel.
+1. Build every CUDA kernel from ``dgc_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and compile the Triton kernels.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes ResNet-20's DGC path gives it across the wm5 warm-up (bitwise),
-   and time kernel, plain version and the PyTorch yardstick call, L2-warm:
-   each time is the device time per call, 20 calls queued behind a spin
-   kernel so the card runs them back to back (``ms``, also printed as
-   ``kernel_ms``, is the kernel's).
+   shapes the DGC paths give it — ResNet-20 across the wm5 warm-up for
+   ``compensate_bits``, ``topk_rows`` and ``apply_rows``, and ResNet-50
+   at the epoch-0 and epoch-5 ratios for those and the segment
+   candidates (with ties planted in every segment bucket), both models'
+   guarded weights for the opaque copies (bitwise) — and time kernel,
+   plain version and
+   the PyTorch yardstick call, L2-warm: each time is the device time per
+   call, 20 calls queued behind a spin kernel so the card runs them back
+   to back (``ms``, also printed as ``kernel_ms``, is the kernel's).
 3. Check the flat engine's W=4 exchange on the card against the same
-   exchange on the CPU (plain versions) on one input: bitwise.
-4. The main path: ResNet-20 at full width, batch 128 per worker, W=4
-   ``LocalComm`` workers on the card — 3 steps at the epoch-0 ratio, the
-   engine rebuild, 3 steps at 0.001. Launch counters are zeroed just
-   before and read just after; every kernel must have launched.
+   exchange on the CPU (plain versions) on one input: bitwise, for
+   ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios; and
+   ``engine.sparsify(vec, phases)`` without candidates (the standalone
+   candidates kernel) against the same call with the fused candidates.
+4. The ResNet-20 path: full width, batch 128 per worker, W=4 ``LocalComm``
+   workers on the card — 2 steps at the epoch-0 ratio, the engine
+   rebuild, 2 steps at 0.001.
+4b. The ResNet-50 path (the main path): full width, 224x224
+   synthetic ImageNet, batch 32 per worker, W=4 ``LocalComm`` workers on
+   the card — 1 step at the epoch-0 ratio 0.316 (the ``lax_top_k`` route),
+   the engine rebuild, 3 steps at 0.001 (the segment path).
+4c. The standalone-candidates path: ``engine.sparsify`` with no candidates
+   at ResNet-50 geometry, for 4 workers.
+   Each path's launch counters are zeroed just before it and read just
+   after; every kernel that the path runs must have launched. A kernel's
+   ``launches`` is the count of its own path (ResNet-50, else the one
+   path that runs it), ``launches_by_path`` has all three.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group.
 
 With ``--profile``, ``torch.profiler`` (device activity only) also records
-three more main-path steps at ratio 0.001 between phases 4 and 5 and prints
-their step times, the device time by kernel and the device's busy share of
-the same window.
+three more steps of each model at ratio 0.001 between phases 4c and 5 and
+prints their step times, the device time by kernel and the device's busy
+share of the same window.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It trains in full f32:
@@ -79,24 +95,27 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _geometries():
-    """The flat engine's bucket geometry for ResNet-20 at every wm5
-    ratio: {epoch: (compress ratio, engine)}."""
+def _geometries(recipe="resnet20_wm5", epochs=range(6)):
+    """The flat engine's bucket geometry for a recipe's model at the wm5
+    ratios of ``epochs``: {epoch: (compress ratio, engine)}."""
+    import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.compression.dgc import DGCCompressor
     from dgc_tpu_torch.compression.flat import FlatDGCEngine, ParamLayout
     from dgc_tpu_torch.compression.memory import DGCSGDMemory
-    from dgc_tpu_torch.models import resnet_cifar
-    cc = configs.resnet20_wm5().train.compression
+    from dgc_tpu_torch.models import create, param_tree
+    cfg = configs.RECIPES[recipe]()
+    cc = cfg.train.compression
     comp = DGCCompressor(
         cc.compress_ratio, memory=DGCSGDMemory(cc.memory.momentum),
         sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs)
-    model = resnet_cifar.resnet20()
-    tree = resnet_cifar.param_tree(model)
+    model = create(cfg.model.name, cfg.model.num_classes,
+                   torch.Generator())                   # shapes only
+    tree = param_tree(model)
     comp.initialize((n.replace(".", "/"), tuple(p.shape))
                     for n, p in model.named_parameters() if p.dim() > 1)
     out = {}
-    for epoch in range(6):
+    for epoch in epochs:
         comp.warmup_compress_ratio(epoch)
         out[epoch] = (comp.compress_ratio,
                       FlatDGCEngine(comp, ParamLayout.for_compressor(
@@ -111,12 +130,15 @@ def phase_build():
     build.build(verbose=True)
     t_nvcc = time.perf_counter() - t0
     t0 = time.perf_counter()
-    n = 8192
+    n = 2 * kernels.SEG_SPAN
     g = torch.zeros(n, device=DEVICE)
+    bits = torch.zeros(kernels.num_sent_words(n), dtype=torch.int32,
+                       device=DEVICE)
     kernels.compensate_bits(g, torch.zeros_like(g), torch.zeros_like(g),
-                            torch.zeros(kernels.num_sent_words(n),
-                                        dtype=torch.int32, device=DEVICE),
-                            0.9)
+                            bits, 0.9)
+    kernels.compensate_bits_cands(g, torch.zeros_like(g),
+                                  torch.zeros_like(g), bits, 0.9)
+    kernels.seg_top2_candidates(g, 0, 2, kernels.SEG_SPAN)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     print(f"[build] nvcc {t_nvcc:.1f} s (parallel), triton {t_triton:.1f} s")
@@ -139,9 +161,38 @@ def _check_equal(name, got, want):
                 if a.dtype == torch.float32 and a.numel()), default=0.0)
 
 
-def phase_kernels(geoms):
-    """Bitwise checks and timings at the main path's shapes. Returns
-    {kernel: entry} with per-call details under "calls"."""
+def _topk_inputs(eng, gen, host_gen):
+    """``(role, input, k)`` of every top-k kernel call one worker's step
+    makes with this engine, on random data: each bucket's selection and
+    sampled threshold, over the [R, cols] importance (2-D path) or the
+    candidates and the raw-view samples (segment path)."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    consts = eng._bucket_consts(torch.device(DEVICE))
+    vec = torch.randn(eng.T, device=DEVICE, generator=gen)
+    out = []
+    for b, c, seg in zip(eng.buckets, consts, eng._seg):
+        phases = torch.rand(len(b.stride_groups), generator=host_gen).tolist()
+        if seg:
+            sel = K.seg_top2_candidates(vec, b.base, b.rows,
+                                        b.cols)[0].abs()
+            smp = eng._sample_rows_3d(b, c, vec.view(-1, 128), phases)
+        else:
+            block = vec[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+            sel = torch.where(c["in_row"], block.abs(), -1.0)
+            smp = (None if b.exact else
+                   eng._sample_rows(b, c, sel, phases).contiguous())
+        for role, inp, k in (("select", sel, b.max_sel),
+                             ("threshold", smp, b.max_k)):
+            if inp is not None and k <= K.TOPK_MAX_K:
+                out.append((role, inp, k))
+    return out
+
+
+def phase_kernels(geoms, geoms50):
+    """Bitwise checks and timings of ``compensate_bits``, ``topk_rows`` and
+    ``apply_rows`` at the paths' shapes.
+    Returns {kernel: entry} with per-call details under "calls"."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     dev = DEVICE
@@ -172,21 +223,14 @@ def phase_kernels(geoms):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         calls=[{"shape": [T], "per_worker_step": 1}])
 
-    # --- K2 top-k: every selection and threshold call of the warm-up ---
+    # --- K2 top-k: every selection and threshold call it takes, ResNet-20
+    #     across the warm-up and ResNet-50 at the epoch-0 and epoch-5
+    #     ratios (selections above its k take the lax_top_k route) ---
     calls, errs = [], []
     host_gen = torch.Generator().manual_seed(1)
-    for epoch, (ratio, eng) in geoms.items():
-        consts = eng._bucket_consts(torch.device(dev))
-        for b, c in zip(eng.buckets, consts):
-            x = torch.randn(b.rows, b.cols, device=dev, generator=gen).abs()
-            imp = torch.where(c["in_row"], x, -1.0)
-            inputs = [("select", imp, b.max_sel)]
-            if not b.exact:
-                phases = torch.rand(len(b.stride_groups),
-                                    generator=host_gen).tolist()
-                smp = eng._sample_rows(b, c, imp, phases).contiguous()
-                inputs.append(("threshold", smp, b.max_k))
-            for role, inp, k in inputs:
+    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
+        for epoch, (ratio, eng) in gs.items():
+            for role, inp, k in _topk_inputs(eng, gen, host_gen):
                 errs.append(_check_equal("topk_rows", K.topk_rows(inp, k),
                                          K.topk_rows_plain(inp, k)))
                 R, cols = inp.shape
@@ -195,87 +239,264 @@ def phase_kernels(geoms):
                 bound_ms, bound_by = _bound(4 * R * cols + 8 * R * k,
                                             R * cols)
                 calls.append(dict(
-                    epoch=epoch, ratio=ratio, role=role, shape=[R, cols],
-                    k=k, **_timed(
+                    model=model, epoch=epoch, ratio=ratio, role=role,
+                    shape=[R, cols], k=k, **_timed(
                         ms=lambda: K.topk_rows(inp, k),
                         plain_ms=lambda: K.topk_rows_plain(inp, k),
                         library_ms=lambda: torch.topk(inp, k, dim=1)),
                     bound_ms=bound_ms, bound_by=bound_by))
-    steady = [c for c in calls if c["epoch"] == 5]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    step = {m: {k: sum(c[k] for c in calls
+                       if c["model"] == m and c["epoch"] == 5)
+                for k in keys} for m in ("resnet20", "resnet50")}
     entries["topk_rows"] = dict(
         name="topk_rows", route="cuda",
         source="dgc_tpu_torch/csrc/topk_rows.cu",
         replaces="dgc_tpu/ops/kernels.py:739",
         check="bitwise vs topk_rows_plain (stable sort)",
-        max_abs_err=max(errs),
-        **{k: sum(c[k] for c in steady)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        bound_by=steady[0]["bound_by"],
-        summed_over="the calls of one worker's step at ratio 0.001",
+        max_abs_err=max(errs), **step["resnet50"], bound_by="bytes",
+        summed_over="the calls of one worker's ResNet-50 step at ratio "
+                    "0.001", resnet20_step=step["resnet20"],
         calls=calls)
 
-    # --- K3 apply at W=4 on real gathered payloads, with duplicates ---
+    # --- K3 apply at W=4 on real gathered payloads, with duplicates, for
+    #     both models at the epoch-0 and epoch-5 ratios ---
     from dgc_tpu_torch.parallel.comm import LocalComm
     world, calls, errs = 4, [], []
-    for epoch in (0, 5):
-        eng = geoms[epoch][1]
-        common = torch.randn(eng.layout.total, device=dev, generator=gen)
-        sent = []
-        for w in range(world):
-            # correlated workers: overlapping selections -> duplicates
-            grad = common + 0.3 * torch.randn(eng.layout.total, device=dev,
-                                              generator=gen)
-            mem = eng.init_memory(dev)
-            ph = eng.draw_phases(torch.Generator().manual_seed(w))
-            sent.append(eng.compress(grad, mem, ph))
-        gv = LocalComm(world).all_gather([s[0] for s in sent])[0]
-        gi = LocalComm(world).all_gather([s[1] for s in sent])[0]
-        S = eng.layout.sentinel
-        flags = ((torch.arange(world, device=dev)[:, None] == 0)
-                 & (gi != S)).reshape(-1)
-        vals, idx = gv.reshape(-1), gi.reshape(-1)
-        real = idx[idx != S]
-        dups = int(real.numel() - torch.unique(real).numel())
-        errs.append(_check_equal(
-            "apply_rows", K.apply_rows(vals, idx, flags, eng.T, float(world)),
-            K.apply_rows_plain(vals, idx, flags, eng.T, float(world))))
-        n, nwords = vals.numel(), K.num_sent_words(eng.T)
-        ilong = idx.long()
-        # bytes: values, indices, flags read, acc and the record written;
-        # ops: a divide and an add per entry
-        bound_ms, bound_by = _bound(9 * n + 4 * eng.T + 4 * nwords, 2 * n)
-        calls.append(dict(
-            epoch=epoch, payload_per_worker=eng.payload_size, entries=n,
-            duplicate_entries=dups,
-            **_timed(
-                ms=lambda: K.apply_rows(vals, idx, flags, eng.T,
-                                        float(world)),
-                plain_ms=lambda: K.apply_rows_plain(
-                    vals, idx, flags, eng.T, float(world)),
-                library_ms=lambda: torch.zeros(
-                    eng.T, device=dev).index_add_(0, ilong, vals / world)),
-            bound_ms=bound_ms, bound_by=bound_by))
-    steady = calls[-1]
+    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
+        for epoch in (0, 5):
+            eng = gs[epoch][1]
+            common = torch.randn(eng.layout.total, device=dev, generator=gen)
+            sent = []
+            for w in range(world):
+                # correlated workers: overlapping selections -> duplicates
+                grad = common + 0.3 * torch.randn(
+                    eng.layout.total, device=dev, generator=gen)
+                mem = eng.init_memory(dev)
+                ph = eng.draw_phases(torch.Generator().manual_seed(w))
+                sent.append(eng.compress(grad, mem, ph))
+            gv = LocalComm(world).all_gather([s[0] for s in sent])[0]
+            gi = LocalComm(world).all_gather([s[1] for s in sent])[0]
+            S = eng.layout.sentinel
+            flags = ((torch.arange(world, device=dev)[:, None] == 0)
+                     & (gi != S)).reshape(-1)
+            vals, idx = gv.reshape(-1), gi.reshape(-1)
+            real = idx[idx != S]
+            dups = int(real.numel() - torch.unique(real).numel())
+            errs.append(_check_equal(
+                "apply_rows",
+                K.apply_rows(vals, idx, flags, eng.T, float(world)),
+                K.apply_rows_plain(vals, idx, flags, eng.T, float(world))))
+            n, nwords = vals.numel(), K.num_sent_words(eng.T)
+            ilong = idx.long()
+            # bytes: values, indices, flags read, acc and the record
+            # written; ops: a divide and an add per entry
+            bound_ms, bound_by = _bound(9 * n + 4 * eng.T + 4 * nwords,
+                                        2 * n)
+            calls.append(dict(
+                model=model, epoch=epoch,
+                payload_per_worker=eng.payload_size, entries=n,
+                duplicate_entries=dups,
+                **_timed(
+                    ms=lambda: K.apply_rows(vals, idx, flags, eng.T,
+                                            float(world)),
+                    plain_ms=lambda: K.apply_rows_plain(
+                        vals, idx, flags, eng.T, float(world)),
+                    library_ms=lambda: torch.zeros(
+                        eng.T, device=dev).index_add_(0, ilong,
+                                                      vals / world)),
+                bound_ms=bound_ms, bound_by=bound_by))
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    steady = {c["model"]: c for c in calls if c["epoch"] == 5}
     entries["apply_rows"] = dict(
         name="apply_rows", route="cuda",
         source="dgc_tpu_torch/csrc/apply_rows.cu",
         replaces="dgc_tpu/ops/kernels.py:1743",
         check="bitwise vs apply_rows_plain (payload-order sums)",
-        max_abs_err=max(errs),
-        **{k: steady[k] for k in ("ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by")},
+        max_abs_err=max(errs), **{k: steady["resnet50"][k] for k in keys},
+        of="one worker's apply at ResNet-50, ratio 0.001, W=4",
+        resnet20_step={k: steady["resnet20"][k] for k in keys},
         calls=calls)
+    return entries
+
+
+def _plant_ties(g, m, v, start, span):
+    """Three segments from ``start`` whose stored velocity (g, with m and
+    v zero) holds ties: one all zero, one of a single value (every lane a
+    256-way tie), one random with equal |v| in blocks 3 and 200 of lane 7
+    (signs mixed) and in blocks 5, 6 and 255 of lane 9. Returns
+    ``[(segment, lane, blocks, values)]`` that the candidates must show."""
+    m[start:start + 3 * span] = 0.0
+    v[start:start + 3 * span] = 0.0
+    g[start:start + span] = 0.0
+    g[start + span:start + 2 * span] = -1.5
+    s = start + 2 * span
+    for block, lane, val in ((3, 7, 9.0), (200, 7, -9.0), (5, 9, 8.0),
+                             (6, 9, 8.0), (255, 9, -8.0)):
+        g[s + block * 128 + lane] = val
+    seg = start // span
+    return [(seg, lane, (0, 1), (0.0, 0.0)) for lane in (0, 127)] + [
+        (seg + 1, lane, (0, 1), (-1.5, -1.5)) for lane in (0, 127)] + [
+        (seg + 2, 7, (3, 200), (9.0, -9.0)), (seg + 2, 9, (5, 6), (8.0, 8.0))]
+
+
+def phase_seg_kernels(geoms50):
+    """The segment-candidate kernels at ResNet-50's T and buckets (ratio
+    0.001), bitwise against their plain versions and each other, on ties
+    planted at the start of every segment bucket; times."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    eng = geoms50[5][1]
+    T, span = eng.T, K.SEG_SPAN
+    nw, nseg = K.num_sent_words(T), T // span
+    g, m, v = (torch.randn(T, device=dev, generator=gen) for _ in range(3))
+    ties = []
+    for b, seg in zip(eng.buckets, eng._seg):
+        if seg:
+            ties += _plant_ties(g, m, v, b.base, span)
+    sent = torch.randperm(T, device=dev, generator=gen)[:T // 1000].int()
+    bits = K.pack_sent_bits(sent, T)
+    want = K.compensate_bits_cands_plain(g, m, v, bits, 0.9)
+    for seg, lane, blocks, vals in ties:       # the ties reach the kernel
+        if (tuple(want[3][seg, :, lane].tolist()) != blocks
+                or tuple(want[2][seg, :, lane].tolist()) != vals):
+            raise AssertionError(f"planted tie at segment {seg} lane {lane}")
+    got = K.compensate_bits_cands(g, m.clone(), v.clone(), bits, 0.9)
+    err = _check_equal("compensate_bits_cands", got, want)
+    # compensate_bits at this T (the epoch-0 ratio's compensate) too
+    _check_equal("compensate_bits at ResNet-50's T",
+                 K.compensate_bits(g, m.clone(), v.clone(), bits, 0.9),
+                 want[:2])
+    mm, vv = m.clone(), v.clone()
+    # bytes: g, m, v read, m, v written, the record read, 2 KB of
+    # candidates per segment written; ops: ~5 per element for the
+    # compensate, ~4 compares per element for the candidates
+    bound_ms, bound_by = _bound(20 * T + 4 * nw + 2048 * nseg, 9 * T)
+    same_t = _device_ms(lambda: K.compensate_bits(g, mm, vv, bits, 0.9))
+    entries = {"compensate_bits_cands": dict(
+        name="compensate_bits_cands", route="triton",
+        source="dgc_tpu_torch/ops/kernels.py",
+        replaces="dgc_tpu/ops/kernels.py:1265",
+        check="bitwise vs compensate_bits_cands_plain; m, v bitwise "
+              "compensate_bits", max_abs_err=err,
+        **_timed(ms=lambda: K.compensate_bits_cands(g, mm, vv, bits, 0.9),
+                 plain_ms=lambda: K.compensate_bits_cands_plain(
+                     g, m, v, bits, 0.9)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        compensate_bits_ms_same_T=same_t,
+        calls=[{"shape": [T], "segments": nseg, "per_worker_step": 1}])}
+
+    vec = got[1]
+    calls, errs = [], []
+    for b, seg in zip(eng.buckets, eng._seg):
+        if not seg:
+            continue
+        R, cols, base = b.rows, b.cols, b.base
+        ns = cols // span
+        a = K.seg_top2_candidates(vec, base, R, cols)
+        errs.append(_check_equal("seg_top2_candidates", a,
+                                 K.seg_top2_candidates_plain(vec, base, R,
+                                                             cols)))
+        s0 = base // span
+        _check_equal("seg_top2_candidates vs the fused candidates", a, (
+            got[2][s0:s0 + R * ns].reshape(R, -1),
+            K.seg_cols_local(got[3][s0:s0 + R * ns].view(R, ns, 2, 128))))
+        region = vec[base:base + R * cols]
+        # bytes: the bucket read once, 2 KB of candidates per segment
+        # written; ops: ~4 compares per element
+        bound_ms, bound_by = _bound(4 * R * cols + 2048 * R * ns,
+                                    4 * R * cols)
+        calls.append(dict(shape=[R, cols], segments=R * ns, **_timed(
+            ms=lambda: K.seg_top2_candidates(vec, base, R, cols),
+            plain_ms=lambda: K.seg_top2_candidates_plain(vec, base, R, cols),
+            # a time only: torch.topk's tie order is not the kernel's
+            library_ms=lambda: region.abs().view(R * ns, 256, 128).topk(
+                2, dim=1)), bound_ms=bound_ms, bound_by=bound_by))
+    entries["seg_top2_candidates"] = dict(
+        name="seg_top2_candidates", route="triton",
+        source="dgc_tpu_torch/ops/kernels.py",
+        replaces="dgc_tpu/ops/kernels.py:1130",
+        check="bitwise vs seg_top2_candidates_plain and vs "
+              "compensate_bits_cands' candidates", max_abs_err=max(errs),
+        **{k: sum(c[k] for c in calls)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=calls[0]["bound_by"],
+        summed_over="the six segment-path buckets of one worker's step",
+        calls=calls)
+    return entries
+
+
+def phase_opaque_kernels(geoms20, geoms50):
+    """The opaque copies at the guarded weights of both models: forward
+    and backward bitwise against the plain versions; times."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    dev = DEVICE
+    entries, calls = {}, {"opaque_view": [], "opaque_view_from": []}
+    errs = {k: [] for k in calls}
+    for model, geoms in (("resnet20", geoms20), ("resnet50", geoms50)):
+        lay = geoms[5][1].layout
+        flat = torch.randn(lay.total, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               lay.total % 1000))
+        for n in sorted(lay.convert_hoist_risky()):
+            base, size = lay.offsets[n], lay.sizes[n]
+            shape = lay.shapes[n]
+            gout = torch.randn(size, device=dev)
+            outs = {}
+            for where in (dev, "cpu"):
+                fp = flat.detach().to(where).requires_grad_(True)
+                if K.opaque_view_eligible(lay.total, base, size):
+                    kind = "opaque_view_from"
+                    y = K.opaque_view_from(fp, base, size)
+                else:
+                    kind = "opaque_view"
+                    y = K.opaque_view(fp[base:base + size].view(shape))
+                y.backward(gout.to(where).view(y.shape))
+                outs[where] = (y.detach().reshape(-1), fp.grad)
+            errs[kind].append(_check_equal(
+                kind, outs[dev], [t.to(dev) for t in outs["cpu"]]))
+            src = flat[base:base + size]
+            view = src.view(shape)
+            run = ((lambda: K.opaque_view_from(flat, base, size))
+                   if kind == "opaque_view_from"
+                   else (lambda: K.opaque_view(view)))
+            plain = ((lambda: K.opaque_view_from_plain(flat, base, size))
+                     if kind == "opaque_view_from"
+                     else (lambda: K.opaque_view_plain(view)))
+            # bytes: the tensor read once and written once; no arithmetic
+            bound_ms, bound_by = _bound(8 * size, 0)
+            calls[kind].append(dict(
+                model=model, tensor=n, numel=size, **_timed(
+                    ms=run, plain_ms=plain, library_ms=src.clone),
+                bound_ms=bound_ms, bound_by=bound_by))
+    for kind, line in (("opaque_view", 1776), ("opaque_view_from", 1872)):
+        c = calls[kind][-1]          # the last model that binds one
+        entries[kind] = dict(
+            name=kind, route="cuda",
+            source="dgc_tpu_torch/csrc/opaque_copy.cu",
+            replaces=f"dgc_tpu/ops/kernels.py:{line}",
+            check="bitwise vs the plain copy, forward and backward",
+            max_abs_err=max(errs[kind]),
+            **{k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+            calls=calls[kind])
+    return entries
+
+
+def _print_entries(entries):
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
         print(f"[kernel] {e['name']}: {e['ms']:.4f} ms on the device "
               f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f})")
         print(json.dumps({"calls": e["name"], "detail": e.pop("calls")}))
-    return entries
 
 
-def phase_engine_vs_cpu(geoms):
+def phase_engine_vs_cpu(geoms, label, steps):
     """The W=4 exchange on the card and on the CPU, same inputs: every
-    output bitwise."""
+    output bitwise, at the epoch-0 and epoch-5 ratios."""
     import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
     for epoch in (0, 5):
@@ -284,7 +505,7 @@ def phase_engine_vs_cpu(geoms):
         for dev in ("cpu", DEVICE):
             mems = [eng.init_memory(dev) for _ in range(4)]
             res = []
-            for step in range(2):
+            for step in range(steps):
                 grads = [torch.randn(eng.layout.total,
                                      generator=torch.Generator().manual_seed(
                                          100 * step + w)).to(dev)
@@ -294,44 +515,95 @@ def phase_engine_vs_cpu(geoms):
                 res += eng.exchange(grads, mems, phases, LocalComm(4))
             res += [t for m in mems for t in m.values()]
             outs[dev] = [t.cpu() for t in res]
-        _check_equal(f"engine exchange (epoch {epoch})", outs[DEVICE],
-                     outs["cpu"])
-    print("[engine] W=4 exchange: card == CPU bitwise at the epoch-0 and "
-          "epoch-5 ratios")
+        _check_equal(f"{label} engine exchange (epoch {epoch})",
+                     outs[DEVICE], outs["cpu"])
+    print(f"[engine] {label} W=4 exchange, {steps} step(s): card == CPU "
+          "bitwise at the epoch-0 and epoch-5 ratios")
 
 
-def phase_main_path():
-    import torch
+def _zero_counts():
+    from dgc_tpu_torch.compression import flat
     from dgc_tpu_torch.ops import kernels as K
+    K.reset_launches()
+    flat.ROUTES["lax_top_k"] = 0
+
+
+def _read_counts(label, must_launch):
+    """The launch and route counts since :func:`_zero_counts`; fails when
+    a kernel (or route) of ``must_launch`` has none."""
+    from dgc_tpu_torch.compression import flat
+    from dgc_tpu_torch.ops import kernels as K
+    counts = {**K.LAUNCHES, **flat.ROUTES}
+    missing = [k for k in must_launch if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: never launched: {missing}")
+    print(f"[{label}] launches {counts}")
+    return counts
+
+
+def phase_train_path(label, recipe, schedule, must_launch):
+    """A ``Trainer`` over W=4 ``LocalComm`` workers on the card:
+    ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before the
+    steps and read just after."""
+    import torch
+    from dgc_tpu_torch import configs
     from dgc_tpu_torch.parallel.comm import LocalComm
     from dgc_tpu_torch.train import Trainer
-    trainer = Trainer(comm=LocalComm(4), device=DEVICE)
-    K.reset_launches()
+    trainer = Trainer(configs.RECIPES[recipe](), comm=LocalComm(4),
+                      device=DEVICE)
+    _zero_counts()
     times, losses, ratios = {}, {}, {}
-    for epoch in (0, 5):
+    for epoch, steps in schedule:
         t = []
-        losses[epoch] = [float(x) for x in trainer.run_epoch(epoch, 3, t)]
+        losses[epoch] = [float(x) for x in trainer.run_epoch(epoch, steps,
+                                                             t)]
         times[epoch] = t
         ratios[epoch] = trainer.compression.compress_ratio
-    launches = dict(K.LAUNCHES)
+    counts = _read_counts(label, must_launch)
     for epoch, ls in losses.items():
-        if not all(math.isfinite(x) for x in ls):
-            raise AssertionError(f"non-finite loss at epoch {epoch}: {ls}")
+        if len(ls) != dict(schedule)[epoch] or not all(
+                math.isfinite(x) for x in ls):
+            raise AssertionError(f"{label}: losses at epoch {epoch}: {ls}")
     if not bool(torch.isfinite(trainer.state.params).all()):
-        raise AssertionError("non-finite parameters after the main path")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    for epoch in (0, 5):
-        print(f"[main] epoch {epoch} ratio {ratios[epoch]:.4g} loss "
+        raise AssertionError(f"{label}: non-finite parameters")
+    for epoch, _ in schedule:
+        print(f"[{label}] epoch {epoch} ratio {ratios[epoch]:.4g} loss "
               f"{losses[epoch]} step_s {times[epoch]}")
-    print(f"[main] launches {launches}")
-    return trainer, launches
+    return trainer, counts
 
 
-def phase_profile(trainer, steps=3):
-    """Over ``steps`` further steps at the last ratio, traced with
+def phase_standalone_candidates(geoms50):
+    """The standalone-candidates path at ResNet-50 geometry (ratio 0.001)
+    for 4 workers: ``engine.sparsify(vec, phases)`` without candidates,
+    counts zeroed just before and read just after; each payload bitwise
+    the same call with the compensate pass's candidates."""
+    import torch
+    eng = geoms50[5][1]
+    vecs, cands, phases = [], [], []
+    for w in range(4):
+        mem = eng.init_memory(DEVICE)
+        grad = torch.randn(eng.layout.total, device=DEVICE,
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(50 + w))
+        vec, c = eng._compensate_acc(mem, grad[:eng.T])
+        vecs.append(vec)
+        cands.append(c)
+        phases.append(eng.draw_phases(torch.Generator().manual_seed(w)))
+    torch.cuda.synchronize()
+    _zero_counts()
+    alone = [eng.sparsify(v, p) for v, p in zip(vecs, phases)]
+    torch.cuda.synchronize()
+    counts = _read_counts("candidates", ["seg_top2_candidates"])
+    for a, v, c, p in zip(alone, vecs, cands, phases):
+        _check_equal("sparsify without candidates", a,
+                     eng.sparsify(v, p, seg_cands=c))
+    print("[candidates] sparsify without candidates == with the fused "
+          "candidates, bitwise, 4 workers")
+    return counts
+
+
+def phase_profile(trainer, label, steps=3):
+    """Over ``steps`` further steps at the epoch-5 ratio, traced with
     ``torch.profiler`` on the device only (no host-side events, which
     slow the host): the step times, the device time by kernel, and the
     device's busy share (the union of kernel intervals) of the host wall
@@ -365,17 +637,28 @@ def phase_profile(trainer, steps=3):
             end = t1_us
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ours = {k: v for k, v in by_name.items()
-            if any(n in k for n in ("compensate_bits_kernel",
-                                    "topk_rows_kernel", "apply_rows_kernel"))}
+            if any(n in k for n in _KERNEL_SYMBOLS)}
     print(json.dumps({"profile": {
-        "steps": steps, "step_s": step_s, "wall_ms": wall_ms,
-        "device_busy_ms": busy_us / 1e3,
+        "model": label, "steps": steps, "step_s": step_s,
+        "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "busy_share": busy_us / 1e3 / wall_ms,
         "device_kernel_ms": sum(v[0] for v in by_name.values()),
         "ported_kernels": {k[:60]: {"ms": v[0], "count": v[1]}
                            for k, v in ours.items()},
         "top": [{"kernel": k[:90], "ms": v[0], "count": v[1]}
                 for k, v in rows[:20]]}}))
+
+
+#: the device symbols of the ported kernels, as the profiler names them
+_KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
+                   "seg_top2_kernel", "topk_rows_kernel", "apply_rows_kernel",
+                   "opaque_copy_kernel")
+
+#: the path whose count is a kernel's ``launches`` where it is not the
+#: ResNet-50 main path (which binds no ``opaque_view`` and launches no
+#: standalone candidates)
+_OWN_PATH = {"opaque_view": "resnet20",
+             "seg_top2_candidates": "standalone_candidates"}
 
 
 def phase_process_group():
@@ -407,15 +690,33 @@ def main(argv):
     t_start = time.perf_counter()
     phase_build()
     geoms = _geometries()
-    entries = phase_kernels(geoms)
-    phase_engine_vs_cpu(geoms)
-    trainer, launches = phase_main_path()
+    geoms50 = _geometries("resnet50_wm5", (0, 5))
+    entries = phase_kernels(geoms, geoms50)
+    entries.update(phase_seg_kernels(geoms50))
+    entries.update(phase_opaque_kernels(geoms, geoms50))
+    _print_entries(entries)
+    phase_engine_vs_cpu(geoms, "resnet20", steps=2)
+    phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
+    common = ["topk_rows", "apply_rows", "opaque_view_from"]
+    r20, c20 = phase_train_path(
+        "resnet20", "resnet20_wm5", [(0, 2), (5, 2)],
+        common + ["compensate_bits", "opaque_view"])
+    r50, c50 = phase_train_path(
+        "resnet50", "resnet50_wm5", [(0, 1), (5, 3)],
+        common + ["compensate_bits", "compensate_bits_cands", "lax_top_k"])
+    c_alone = phase_standalone_candidates(geoms50)
     if "--profile" in argv:
-        phase_profile(trainer)
-    del trainer
+        phase_profile(r20, "resnet20")
+        phase_profile(r50, "resnet50")
+    del r20, r50
     phase_process_group()
+    by_path = {"resnet50": c50, "resnet20": c20,
+               "standalone_candidates": c_alone}
     for name, e in entries.items():
-        e["launches"] = launches[name]
+        e["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        # the count of the one path that is each kernel's own
+        e["launches_path"] = _OWN_PATH.get(name, "resnet50")
+        e["launches"] = by_path[e["launches_path"]][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

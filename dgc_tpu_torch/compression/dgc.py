@@ -48,14 +48,17 @@ def sampling_geometry(numel: int, sample_ratio: float,
 
 class DGCCompressor:
     """Deep Gradient Compression: momentum-corrected sampled top-k with
-    bounded threshold adaptation and the epoch-wise warm-up schedule."""
+    bounded threshold adaptation and the epoch-wise warm-up schedule.
+    It behaves as the reference's with ``approx_recall`` set (its
+    default): the segment path is taken wherever the reference takes it."""
 
     def __init__(self, compress_ratio: float, memory: DGCSGDMemory = None,
                  sample_ratio: float = 0.01, strided_sample: bool = True,
                  compress_upper_bound: float = 1.3,
                  compress_lower_bound: float = 0.8,
                  max_adaptation_iters: int = 10, resample: bool = True,
-                 warmup_epochs: int = -1, verbose: bool = False):
+                 warmup_epochs: int = -1,
+                 verbose: bool = False):
         if not strided_sample:
             raise ValueError("the port samples strided lane blocks only "
                              "(strided_sample=True)")

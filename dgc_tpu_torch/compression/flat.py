@@ -13,19 +13,34 @@ W workers in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
 
 * :meth:`FlatDGCEngine.compress` — bit-masked momentum compensate (the
   compensate kernel, in place) and sampled top-k sparsification of every
-  bucket (the top-k kernel) into a fixed-size ``(values, indices)`` payload;
+  bucket into a fixed-size ``(values, indices)`` payload;
 * ``comm.all_gather`` of values and indices, ``comm.all_reduce`` of the
   dense tail;
 * :meth:`FlatDGCEngine.apply` — the apply kernel (scatter-add of
   ``wire / W`` and this worker's transmit record), then the dense tail's
   non-accumulating correction.
 
+Two selection paths, chosen per bucket exactly as the reference chooses
+them:
+
+* the 2-D path: top-k over the [R, cols] importance view (|v|, row tails
+  -1), thresholds from lane-block samples of that view;
+* the segment path (:meth:`FlatDGCEngine._use_seg_kernel`, ImageNet-scale
+  buckets at small ratios): the compensate pass also emits, per (row,
+  lane, 256-block segment), the two largest-|v| candidates
+  (:func:`kernels.compensate_bits_cands`), and the bucket selects its
+  top ``max_sel`` among those; thresholds come from the same lane blocks,
+  read raw from the flat buffer (:meth:`FlatDGCEngine._sample_rows_3d`).
+
 **One deliberate difference from the TPU path.** The JAX engine selects
 with ``lax.approx_max_k`` at recall 0.90 wherever k exceeds 128 (or the
 exact path would pay XLA's sort), both for the sample threshold and for the
-selection. The port selects EXACTLY at every k. On the CPU ``approx_max_k``
-lowers to an exact sort, so the port computes what the JAX package computes
-there — the semantics its parity tests pin.
+selection. The port selects EXACTLY at every k (:func:`select_topk`: the
+top-k kernel up to its k limit, :func:`lax_top_k` above it). On the CPU
+``approx_max_k`` lowers to an exact sort, so the port computes what the JAX
+package computes there — the semantics its parity tests pin.
+The compressor has no ``approx_recall``: the port gates the segment path
+as the reference does with ``approx_recall`` set (its default, 0.90).
 
 Random phases: strided sampling draws one uniform per (bucket, stride
 group). The JAX engine draws them from ``fold_in(fold_in(key, bucket),
@@ -34,14 +49,16 @@ group)``; the port draws them on the host from an explicit
 slice the buffers without a device sync — and :meth:`sparsify` takes them
 as an argument, so a test can pass in the JAX-drawn values.
 
-Not ported in this slice: planner regimes and dense-planned buckets,
-gossip, the adaptive send fraction, checksums, the int8/int4/fp16 and
-packed-index wires, segment-split and 3-D/seg-kernel selection, gradient
-clipping, telemetry, and the all-dense exchange at ``compress_ratio >= 1``.
+Not ported yet (``ROADMAP.md``): planner regimes and dense-planned
+buckets, gossip, the adaptive send fraction, checksums, the int8/int4/fp16
+and packed-index wires, the segment split of rows wider than 8M and the
+3-D selection of wide buckets that are not segment-aligned (VGG-16),
+gradient clipping, telemetry, and the all-dense exchange at
+``compress_ratio >= 1``.
 """
 
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +66,8 @@ import torch
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.utils.pytree import named_flatten
 
-__all__ = ["ParamLayout", "FlatDGCEngine", "ladder_cols"]
+__all__ = ["ParamLayout", "FlatDGCEngine", "ladder_cols", "lax_top_k",
+           "select_topk", "ROUTES"]
 
 #: block alignment of the compressed-block boundary and the buffer tail
 _ALIGN = 16 * 128
@@ -62,10 +80,35 @@ _SPLIT_COLS = 8 * 1024 * 1024
 #: maximum payload growth a bucket may pay to make its payload the full
 #: [R, max_sel] selection grid (identity ``tight`` map)
 _PAD_PAYLOAD_MAX_FRAC = 0.02
+#: the reference's minimum row width for its 3-D selection path
+_SEL3D_MIN_COLS = 3 * 1024 * 1024
+
+#: calls of the :func:`lax_top_k` route since the last reset (on any
+#: device); the top-k kernel's own launches are in ``kernels.LAUNCHES``
+ROUTES = {"lax_top_k": 0}
 
 
 def _round_up(n: int, align: int) -> int:
     return -(-n // align) * align
+
+
+def lax_top_k(x: torch.Tensor, k: int):
+    """Counterpart of ``jax.lax.top_k`` over the rows of a [R, cols] f32
+    tensor (a PyTorch call, as the reference's is an XLA op): a stable
+    descending sort, then the first k. Returns ``(values [R, k], columns
+    [R, k] int32)``, ties to the lower column."""
+    ROUTES["lax_top_k"] += 1
+    v, i = torch.sort(x, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k].to(torch.int32)
+
+
+def select_topk(x: torch.Tensor, k: int):
+    """Exact per-row top-k, routed by k before the call: the top-k kernel
+    where its shared-memory sort holds k, :func:`lax_top_k` above that (the
+    warm-up selections of ImageNet-scale buckets)."""
+    if k <= kernels.TOPK_MAX_K:
+        return kernels.topk_rows(x, k)
+    return lax_top_k(x, k)
 
 
 def ladder_cols(max_n: int) -> int:
@@ -184,6 +227,31 @@ class ParamLayout:
             flat[o:o + self.sizes[n]] = leaf.reshape(-1)
         return flat
 
+    def mask_vector(self, predicate, device=None) -> torch.Tensor:
+        """[total] 0/1 f32 mask from a per-name predicate (e.g. the
+        ``optimize_bn_separately`` weight-decay split); gaps are 0."""
+        out = torch.zeros(self.total, dtype=torch.float32, device=device)
+        for n in self.names:
+            if predicate(n):
+                out[self.offsets[n]:self.offsets[n] + self.sizes[n]] = 1.0
+        return out
+
+    def convert_hoist_risky(self) -> frozenset:
+        """The reference's set of compressed tensors whose view of the flat
+        buffer it binds through an opaque copy: conv/dense weights whose
+        base offset and the buffer total are both multiples of
+        ``prod(shape[1:])``, in buffers at least 4x the tensor."""
+        out = set()
+        for n in self.compressed_names:
+            shape = self.shapes[n]
+            if len(shape) < 2 or self.total < 4 * self.sizes[n]:
+                continue
+            trailing = int(np.prod(shape[1:], dtype=np.int64))
+            if (trailing > 1 and self.offsets[n] % trailing == 0
+                    and self.total % trailing == 0):
+                out.add(n)
+        return frozenset(out)
+
     def unflatten_named(self, flat: torch.Tensor,
                         keep_1d: bool = False) -> Dict[str, torch.Tensor]:
         """Flat [total] -> ``{name: view}`` in layout order (views share
@@ -224,7 +292,8 @@ def _build_buckets(attributes, layout: ParamLayout) -> List[_Bucket]:
     for g in layout.buckets:
         if len(g.names) == 1 and g.cols > _SPLIT_COLS:
             raise ValueError(f"{g.names[0]}: rows wider than {_SPLIT_COLS} "
-                             "need the segment split, which is not ported")
+                             "need the segment split, which is not ported "
+                             "(ROADMAP.md)")
         rows = [(layout.offsets[n], a.numel, a.sample_stride,
                  a.num_samples, a.top_k_samples, a.num_selects)
                 for n, a in ((n, attributes[n]) for n in g.names)]
@@ -285,6 +354,17 @@ class FlatDGCEngine:
             raise ValueError("the all-dense exchange (nothing compressed, or "
                              "compress_ratio >= 1) is not ported")
         self.buckets = _build_buckets(compressor.attributes, layout)
+        #: per bucket: selects through the segment candidates
+        self._seg = [self._use_seg_kernel(b) for b in self.buckets]
+        for b, seg in zip(self.buckets, self._seg):
+            if self._use_3d(b) and not seg:
+                raise ValueError(
+                    f"bucket [{b.rows}, {b.cols}] at {b.base} needs the 3-D "
+                    "selection of wide buckets that are not segment-"
+                    "aligned, which is not ported (ROADMAP.md)")
+        #: any bucket takes the segment path: the compensate pass then
+        #: emits the candidates itself (the reference's ``_seg_fused``)
+        self._seg_fused = any(self._seg)
         sl, off = [], 0
         for b in self.buckets:
             sl.append((off, off + b.payload))
@@ -357,16 +437,20 @@ class FlatDGCEngine:
         out["sent_bits"] = torch.zeros_like(mem["sent_bits"])
         return out
 
-    def _compensate_acc(self, mem, grad_c: torch.Tensor) -> torch.Tensor:
+    def _compensate_acc(self, mem, grad_c: torch.Tensor):
         """Momentum correction + local accumulation over [0, T) with the
-        previous step's transmit mask applied on read (the compensate
-        kernel, in place). Returns the compensated gradient, which IS the
-        velocity buffer."""
+        previous step's transmit mask applied on read (in place). Returns
+        ``(compensated gradient, candidates or None)``: the gradient IS the
+        velocity buffer; where a bucket takes the segment path the fused
+        kernel also emits the ``(values, blocks)`` candidates."""
         m = self.c.memory
-        kernels.compensate_bits(grad_c, mem["momentums_c"],
-                                mem["velocities_c"], mem["sent_bits"],
-                                m.momentum, m.nesterov, m.momentum_masking)
-        return mem["velocities_c"]
+        args = (grad_c, mem["momentums_c"], mem["velocities_c"],
+                mem["sent_bits"], m.momentum, m.nesterov, m.momentum_masking)
+        if self._seg_fused:
+            _, vec, cv, cb = kernels.compensate_bits_cands(*args)
+            return vec, (cv, cb)
+        kernels.compensate_bits(*args)
+        return mem["velocities_c"], None
 
     def _compensate_dense(self, mem, grad: torch.Tensor) -> torch.Tensor:
         """Non-accumulating correction of the averaged dense tail."""
@@ -399,7 +483,7 @@ class FlatDGCEngine:
         if consts is not None:
             return consts
         consts = []
-        for b in self.buckets:
+        for b, seg in zip(self.buckets, self._seg):
             def t(a, dtype):
                 return torch.as_tensor(np.asarray(a), dtype=dtype,
                                        device=device)
@@ -420,10 +504,113 @@ class FlatDGCEngine:
                 "adapt": t(b.adapt, torch.bool),
                 "steps": [torch.arange(n, device=device) * stride
                           for (_, _, stride, n) in b.stride_groups],
+                "numels": t(b.numels, torch.int32)[:, None],
+                "blocks3d": ([self._sample_blocks_3d(b, gi, device)
+                              for gi in range(len(b.stride_groups))]
+                             if seg else None),
             }
             consts.append(c)
         self._consts[device] = consts
         return consts
+
+    # -------------------------------------------------------------- #
+    # the segment path                                               #
+    # -------------------------------------------------------------- #
+
+    def _sampled_strided_ok(self, b: _Bucket) -> bool:
+        """The reference's shared preconditions of its layout-free
+        selection paths (with ``approx_recall`` set, as it always is for
+        the port): every row genuinely sampled with a stride, resample
+        adaptation."""
+        return (not b.exact and self.c.strided_sample and self.c.resample
+                and bool((b.strides > 1).all())
+                and bool((b.num_samples >= 128).all()))
+
+    def _use_3d(self, b: _Bucket) -> bool:
+        """The reference's gate of its 3-D selection path (wide buckets)."""
+        return (self._sampled_strided_ok(b) and b.cols % _LANE == 0
+                and b.cols >= _SEL3D_MIN_COLS)
+
+    def _use_seg_kernel(self, b: _Bucket) -> bool:
+        """Whether a bucket selects through the segment candidates: the
+        sampled+strided preconditions, enough (lane, segment) cells that
+        per-cell top-2 captures the top set (cells >= 3 max_sel), and a
+        segment-aligned region (the reference's gate)."""
+        cells = (b.cols // _LANE // kernels.SEG_BLOCKS) * _LANE
+        return (self._sampled_strided_ok(b)
+                and cells >= 3 * b.max_sel
+                and kernels.seg_top2_eligible(self.T // _LANE, b.base,
+                                              b.cols, b.rows))
+
+    def _sample_blocks_3d(self, b: _Bucket, gi: int, device):
+        """``(ids, sb)``: the [Rg, nb] ids of the 128-lane blocks that
+        stride group ``gi`` samples at phase 0, in the [T/128, 128] view of
+        the flat buffer (block j of row r is ``base/128 + r * cols/128 +
+        j * sb``), and the block stride ``sb`` the phase ranges over."""
+        r0, r1, stride, n = b.stride_groups[gi]
+        nb_s = -(-n // _LANE)
+        sb = max(1, (n * stride) // (nb_s * _LANE))
+        rows = torch.arange(r0, r1, device=device)[:, None]
+        return (b.base // _LANE + rows * (b.cols // _LANE)
+                + torch.arange(nb_s, device=device)[None, :] * sb), sb
+
+    def _sample_rows_3d(self, b: _Bucket, c, v2d: torch.Tensor,
+                        phases: Sequence[float]) -> torch.Tensor:
+        """Per-row threshold samples of a segment-path bucket: the lane
+        blocks :meth:`_sample_rows` takes, gathered from the [T/128, 128]
+        view of the flat buffer and |.| taken after the gather, so
+        structural-zero row tails read 0 (not -1); the phase is not
+        clamped (the reference's ``_sample_rows_3d``). Pad slots read -1."""
+        width = max(ids.shape[1] for ids, _ in c["blocks3d"]) * _LANE
+        parts = []
+        for (ids, sb), u in zip(c["blocks3d"], phases):
+            blocks = ids + _f32_floor_mul(u, sb)
+            smp = v2d[blocks.reshape(-1)].abs().reshape(ids.shape[0], -1)
+            if smp.shape[1] < width:
+                smp = torch.cat([smp, smp.new_full(
+                    (ids.shape[0], width - smp.shape[1]), -1.0)], dim=1)
+            parts.append(smp)
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def _sparsify_bucket_seg(self, vec_c: torch.Tensor, b: _Bucket, c,
+                             phases: Sequence[float], cands):
+        """Selection over one segment-path bucket (the reference's
+        ``_sparsify_bucket_3d`` seg branch): sampled threshold, top
+        ``max_sel`` among the per-(row, lane, segment) top-2 candidates,
+        ladder adaptation from that top-k, validity ``score >= thr & slot <
+        num_selects & column < numel``. Returns ``(values [R, max_sel],
+        global indices [R, max_sel])``."""
+        R, cols = b.rows, b.cols
+        samples = self._sample_rows_3d(b, c, vec_c.view(-1, _LANE), phases)
+        thr = select_topk(samples, b.max_k)[0].gather(1, c["k_idx"])[:, 0]
+        if cands is not None:
+            # this bucket's contiguous range of the compensate pass's
+            # candidates
+            cv_all, cb_all = cands
+            span = kernels.SEG_SPAN
+            if cv_all.shape[0] * span < b.base + R * cols:
+                raise ValueError(
+                    f"{cv_all.shape[0]} candidate segments do not cover the "
+                    f"bucket [{R}, {cols}] at {b.base}")
+            s0, nsr = b.base // span, cols // span
+            cvals = cv_all[s0:s0 + R * nsr].reshape(R, -1)
+            ccols = kernels.seg_cols_local(
+                cb_all[s0:s0 + R * nsr].view(R, nsr, 2, _LANE))
+        else:
+            cvals, ccols = kernels.seg_top2_candidates(vec_c, b.base, R, cols)
+        top_scores, c2 = select_topk(cvals.abs(), b.max_sel)
+        # one gather of the (value bits, column) pairs
+        packed = torch.stack([cvals.view(torch.int32), ccols], dim=-1)
+        sel = packed.gather(1, c2.long()[:, :, None].expand(-1, -1, 2))
+        sel_vals = sel[:, :, 0].contiguous().view(torch.float32)
+        cols_sel = sel[:, :, 1]
+        if self.c.max_adaptation_iters > 0 and b.adapt.any():
+            thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+        valid = ((top_scores >= thr[:, None]) & c["slot_ok"]
+                 & (cols_sel < c["numels"]))
+        gidx = torch.where(valid, c["row_off"] + cols_sel,
+                           self.layout.sentinel)
+        return torch.where(valid, sel_vals, 0.0), gidx
 
     def _sample_rows(self, b: _Bucket, c, imp_rows: torch.Tensor,
                      phases: Sequence[float]) -> torch.Tensor:
@@ -471,31 +658,24 @@ class FlatDGCEngine:
                              self.c.max_adaptation_iters)
         return torch.where(c["adapt"], thr * ladder[i_star], thr)
 
-    def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]]
+    def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]],
+                 seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sampled top-k selection over the compressed block [T]. Returns
         ``(values f32, indices int32)`` of length ``payload_size``;
-        invalid slots carry ``(0.0, sentinel)``."""
-        S = self.layout.sentinel
+        invalid slots carry ``(0.0, sentinel)``. ``seg_cands`` are the
+        compensate pass's candidates (:func:`kernels.compensate_bits_cands`);
+        without them a segment-path bucket computes its own
+        (:func:`kernels.seg_top2_candidates`)."""
         consts = self._bucket_consts(vec_c.device)
         out_v, out_i = [], []
         for bi, (b, c) in enumerate(zip(self.buckets, consts)):
-            block = vec_c[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
-            imp_rows = torch.where(c["in_row"], block.abs(), -1.0)
-            top_scores, cols = kernels.topk_rows(imp_rows, b.max_sel)
-            if b.exact:
-                # every row samples its whole tensor: the threshold is the
-                # exact k-th largest, so top-num_selects is the selection
-                valid = (top_scores >= 0) & c["slot_ok"]
+            if self._seg[bi]:
+                vals, gidx = self._sparsify_bucket_seg(vec_c, b, c,
+                                                       phases[bi], seg_cands)
             else:
-                samples = self._sample_rows(b, c, imp_rows, phases[bi])
-                sorted_s = kernels.topk_rows(samples.contiguous(), b.max_k)[0]
-                thr = sorted_s.gather(1, c["k_idx"])[:, 0]
-                if self.c.max_adaptation_iters > 0 and b.adapt.any():
-                    thr = self._ladder_adapt_from_topk(c, top_scores, thr)
-                valid = (top_scores >= thr[:, None]) & c["slot_ok"]
-            gidx = torch.where(valid, c["row_off"] + cols, S)
-            vals = torch.where(valid, block.gather(1, cols.long()), 0.0)
+                vals, gidx = self._sparsify_bucket_2d(vec_c, b, c,
+                                                      phases[bi])
             if c["tight"] is None:
                 out_v.append(vals.reshape(-1))
                 out_i.append(gidx.reshape(-1))
@@ -503,6 +683,27 @@ class FlatDGCEngine:
                 out_v.append(vals.reshape(-1)[c["tight"]])
                 out_i.append(gidx.reshape(-1)[c["tight"]])
         return torch.cat(out_v), torch.cat(out_i)
+
+    def _sparsify_bucket_2d(self, vec_c: torch.Tensor, b: _Bucket, c,
+                            phases: Sequence[float]):
+        """Selection over the [R, cols] importance view of one bucket.
+        Returns ``(values [R, max_sel], global indices [R, max_sel])``."""
+        block = vec_c[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+        imp_rows = torch.where(c["in_row"], block.abs(), -1.0)
+        top_scores, cols = select_topk(imp_rows, b.max_sel)
+        if b.exact:
+            # every row samples its whole tensor: the threshold is the
+            # exact k-th largest, so top-num_selects is the selection
+            valid = (top_scores >= 0) & c["slot_ok"]
+        else:
+            samples = self._sample_rows(b, c, imp_rows, phases)
+            sorted_s = select_topk(samples.contiguous(), b.max_k)[0]
+            thr = sorted_s.gather(1, c["k_idx"])[:, 0]
+            if self.c.max_adaptation_iters > 0 and b.adapt.any():
+                thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+            valid = (top_scores >= thr[:, None]) & c["slot_ok"]
+        gidx = torch.where(valid, c["row_off"] + cols, self.layout.sentinel)
+        return torch.where(valid, block.gather(1, cols.long()), 0.0), gidx
 
     # -------------------------------------------------------------- #
     # the exchange                                                   #
@@ -512,8 +713,8 @@ class FlatDGCEngine:
                  phases: Sequence[Sequence[float]]):
         """One worker's send side: compensate (in place on ``mem``), then
         sparsify. Returns the ``(values, indices)`` payload."""
-        comp = self._compensate_acc(mem, flat_grad[:self.T])
-        return self.sparsify(comp, phases)
+        comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
+        return self.sparsify(comp, phases, seg_cands=cands)
 
     def apply(self, g_values: torch.Tensor, g_indices: torch.Tensor,
               dense_sum: torch.Tensor, mem, rank: int,

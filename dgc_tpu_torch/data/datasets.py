@@ -1,11 +1,12 @@
-"""CIFAR-10/100 and the deterministic synthetic stand-in.
+"""CIFAR-10/100, ImageNet, and the deterministic synthetic stand-in.
 
 Counterpart of ``dgc_tpu/data/datasets.py``: a dataset is a dict of splits
 ('train', 'test'); each split has ``__len__`` and ``get_batch(indices) ->
 (images f32 NHWC, labels int32)``, all numpy on the host. ``CIFAR`` reads
 the standard python pickle batches and falls back to :func:`Synthetic`
 (the same images and labels as the reference's, from the same numpy
-seeds) when the data root is missing.
+seeds) when the data root is missing; ``ImageNet`` does the same at
+224x224 with ImageNet's normalisation (its folder reader is not ported).
 """
 
 import os
@@ -14,11 +15,13 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["ArraySplit", "SyntheticSplit", "CIFAR", "Synthetic",
-           "CIFAR_MEAN", "CIFAR_STD"]
+__all__ = ["ArraySplit", "SyntheticSplit", "CIFAR", "ImageNet", "Synthetic",
+           "CIFAR_MEAN", "CIFAR_STD", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _normalize(images_u8: np.ndarray, mean: np.ndarray,
@@ -153,3 +156,19 @@ def CIFAR(root: str, num_classes: int = 10, image_size: int = 32,
         "test": ArraySplit(test_x, test_y, CIFAR_MEAN, CIFAR_STD,
                            train=False),
     }
+
+
+def ImageNet(root: str, num_classes: int = 1000, image_size: int = 224,
+             synthetic_size: int = 512, seed: int = 0) -> Dict[str, object]:
+    """ImageNet from ``root/train`` and ``root/val``, or the synthetic
+    stand-in (``synthetic_size`` training images) when ``root`` holds
+    neither. Reading the image folders is not ported yet."""
+    if not (os.path.isdir(os.path.join(root, "train"))
+            and os.path.isdir(os.path.join(root, "val"))):
+        return Synthetic(num_classes=num_classes, image_size=image_size,
+                         n_train=synthetic_size,
+                         n_test=max(synthetic_size // 4, 64),
+                         mean=IMAGENET_MEAN, std=IMAGENET_STD, seed=seed)
+    raise NotImplementedError(
+        f"{root} holds ImageNet image folders, whose reader is not ported "
+        "yet (ROADMAP.md); move them away to train on the synthetic split")

@@ -19,16 +19,13 @@ running variance is updated with the BIASED batch variance.
 """
 
 import math
-from typing import Dict, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dgc_tpu_torch.utils.pytree import nest
-
-__all__ = ["CifarResNet", "resnet20", "resnet110", "init_variables",
-           "param_tree", "stats_tree"]
+__all__ = ["CifarResNet", "resnet20", "resnet110", "init_variables"]
 
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
@@ -134,16 +131,6 @@ def resnet20(num_classes: int = 10) -> CifarResNet:
 
 def resnet110(num_classes: int = 10) -> CifarResNet:
     return CifarResNet((18, 18, 18), num_classes)
-
-
-def param_tree(model: nn.Module) -> Dict:
-    """The parameters as a nested dict with flax's structure and names."""
-    return nest(dict(model.named_parameters()), sep=".")
-
-
-def stats_tree(model: nn.Module) -> Dict:
-    """The BatchNorm running statistics as flax's ``batch_stats`` tree."""
-    return nest(dict(model.named_buffers()), sep=".")
 
 
 @torch.no_grad()

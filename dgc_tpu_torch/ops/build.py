@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: one shared library per source file
-SOURCES = ("topk_rows.cu", "apply_rows.cu")
+SOURCES = ("topk_rows.cu", "apply_rows.cu", "opaque_copy.cu")
 # no --use_fast_math: the apply kernel's divide must stay IEEE
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

@@ -1,25 +1,30 @@
 """The hot-path kernels of the flat DGC engine, and the transmit-record
 format they share.
 
-Counterpart of ``dgc_tpu/ops/kernels.py``. Three kernels are written by
+Counterpart of ``dgc_tpu/ops/kernels.py``. Seven kernels are written by
 hand for Hopper, each with a plain PyTorch version of the same function in
 this module and a launch counter (:data:`LAUNCHES`):
 
-=====================  =========  ==========================================
-wrapper                route      replaces (dgc_tpu/ops/kernels.py)
-=====================  =========  ==========================================
-:func:`compensate_bits`  Triton   ``fused_compensate_bits`` (:527)
-:func:`topk_rows`      CUDA C++   ``topk_rows`` (:739)
-:func:`apply_rows`     CUDA C++   ``payload_apply_bits`` (:1643) /
-                                  ``dgc_apply_rows`` (:1743)
-=====================  =========  ==========================================
+============================  ========  ===================================
+wrapper                       route     replaces (dgc_tpu/ops/kernels.py)
+============================  ========  ===================================
+:func:`compensate_bits`       Triton    ``fused_compensate_bits`` (:527)
+:func:`topk_rows`             CUDA C++  ``topk_rows`` (:739)
+:func:`seg_top2_candidates`   Triton    ``seg_top2_candidates`` (:1130)
+:func:`compensate_bits_cands` Triton    ``fused_compensate_bits_cands``
+                                        (:1265)
+:func:`apply_rows`            CUDA C++  ``payload_apply_bits`` (:1643) /
+                                        ``dgc_apply_rows`` (:1743)
+:func:`opaque_view`           CUDA C++  ``opaque_view`` (:1799)
+:func:`opaque_view_from`      CUDA C++  ``opaque_view_from`` (:1856)
+============================  ========  ===================================
 
 A wrapper runs the plain version only for tensors that lie on the CPU; for
 a CUDA tensor it launches its kernel or raises. It checks device, dtype,
 shape and contiguity first. The CUDA C++ sources are in
 ``dgc_tpu_torch/csrc`` (built by :mod:`dgc_tpu_torch.ops.build`); the
-Triton kernel is defined and compiled on its first launch. Kernels launch
-on PyTorch's current stream and never synchronise.
+Triton kernels are defined and compiled on their first launch. Kernels
+launch on PyTorch's current stream and never synchronise.
 
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
 :func:`keep_from_bits`) define a format shared with the JAX package and are
@@ -36,17 +41,28 @@ from dgc_tpu_torch.ops import build as _build
 __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "keep_from_bits", "compensate_bits", "compensate_bits_plain",
            "topk_rows", "topk_rows_plain", "TOPK_MAX_K", "apply_rows",
-           "apply_rows_plain", "stage_payload"]
+           "apply_rows_plain", "stage_payload", "SEG_BLOCKS", "SEG_SPAN",
+           "seg_top2_eligible", "seg_cols_local", "seg_top2_candidates",
+           "seg_top2_candidates_plain", "compensate_bits_cands",
+           "compensate_bits_cands_plain", "opaque_view", "opaque_view_from",
+           "opaque_view_eligible"]
 
 _LANE = 128
+#: f32 sublanes of the reference's (8, 128) tile (opaque-view alignment)
+_SUBLANE = 8
 #: flat elements covered by one 128-word row of the transmit record
 _BITS_GROUP = 32 * _LANE
 #: largest k the top-k kernel's shared-memory sort takes (128 KB of words)
 TOPK_MAX_K = 16384
+#: 128-lane blocks per candidate segment, and the elements it spans
+SEG_BLOCKS = 256
+SEG_SPAN = SEG_BLOCKS * _LANE
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"compensate_bits": 0, "topk_rows": 0, "apply_rows": 0}
+LAUNCHES = {"compensate_bits": 0, "topk_rows": 0, "apply_rows": 0,
+            "compensate_bits_cands": 0, "seg_top2_candidates": 0,
+            "opaque_view": 0, "opaque_view_from": 0}
 
 
 def reset_launches() -> None:
@@ -134,30 +150,33 @@ def keep_from_bits(bits: torch.Tensor, total: int) -> torch.Tensor:
 # 4096-element word group; the ragged tail (T % 4096 may be 2048) is
 # masked. Multiplying by the keep mask, not a select, keeps signed zeros
 # and NaNs as the reference has them; the launch disables FMA contraction
-# so `momentum * m0 + g` rounds twice, as the plain version does.
+# so `momentum * m0 + g` rounds twice, as the plain version does. The body
+# (_compensate_tile) is shared with compensate_bits_cands (K5).
 
-# triton.language, bound at the first build: a module global, because
-# Triton resolves the names a kernel uses in the kernel's globals
+# triton.language and the shared @triton.jit helpers, bound at the first
+# build: module globals, because Triton resolves the names a kernel uses in
+# the kernel's globals
 tl = None
+_compensate_tile = _top2_tile = _merge_top2 = _seg_top2_cell = None
 _TRITON = {}
 
 
-def _compensate_triton():
-    global tl
-    kernel = _TRITON.get("compensate_bits")
-    if kernel is not None:
-        return kernel
+def _triton_kernels():
+    """Define the Triton kernels (on first use; the CPU has no Triton).
+    Returns ``{name: kernel}``."""
+    global tl, _compensate_tile, _top2_tile, _merge_top2, _seg_top2_cell
+    if _TRITON:
+        return _TRITON
     import triton
     import triton.language as _tl
     tl = _tl
 
     @triton.jit
-    def compensate_bits_kernel(g_ptr, m_ptr, v_ptr, b_ptr, n, momentum,
-                               NESTEROV: tl.constexpr,
-                               MASK_MOMENTUM: tl.constexpr,
-                               BLOCK: tl.constexpr):
-        p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        inb = p < n
+    def _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, inb, momentum,
+                         NESTEROV: tl.constexpr,
+                         MASK_MOMENTUM: tl.constexpr):
+        # the bit-masked compensate of the elements at flat positions p
+        # (any shape); stores m and v, returns the stored velocity
         g = tl.load(g_ptr + p, mask=inb, other=0.0)
         m0 = tl.load(m_ptr + p, mask=inb, other=0.0)
         v0 = tl.load(v_ptr + p, mask=inb, other=0.0)
@@ -175,9 +194,120 @@ def _compensate_triton():
             ov = v0 + m
         tl.store(m_ptr + p, m, mask=inb)
         tl.store(v_ptr + p, ov, mask=inb)
+        return ov
 
-    _TRITON["compensate_bits"] = compensate_bits_kernel
-    return compensate_bits_kernel
+    @triton.jit
+    def _top2_tile(x, blk):
+        # per lane (column of the [CH, 128] tile): the two largest |x|,
+        # first-occurrence ties to the lower block; the second excludes
+        # the first block by index; the signed value is read back at the
+        # block as a sum with zeros (so -0.0 reads +0.0, as the TPU cell
+        # function's masked sum does)
+        a = tl.abs(x)
+        a1 = tl.max(a, axis=0)
+        b1 = tl.min(tl.where(a >= a1[None, :], blk, 1 << 30), axis=0)
+        hit1 = blk == b1[None, :]
+        x1 = tl.sum(tl.where(hit1, x, 0.0), axis=0)
+        a_2 = tl.where(hit1, -1.0, a)
+        a2 = tl.max(a_2, axis=0)
+        b2 = tl.min(tl.where(a_2 >= a2[None, :], blk, 1 << 30), axis=0)
+        x2 = tl.sum(tl.where(blk == b2[None, :], x, 0.0), axis=0)
+        return a1, b1, x1, a2, b2, x2
+
+    @triton.jit
+    def _merge_top2(ra1, rb1, rx1, ra2, rb2, rx2, ca1, cb1, cx1, ca2, cb2,
+                    cx2):
+        # the running top-2 of the blocks so far and the top-2 of the next
+        # tile, whose blocks all come later: a tile entry ranks first only
+        # when strictly larger, so the order (|x| desc, block asc) holds
+        c_first = ca1 > ra1
+        s_c2 = c_first & (ca2 > ra1)             # second is the tile's 2nd
+        s_c1 = (ca1 > ra2) & (ca1 <= ra1)        # second is the tile's 1st
+        na1 = tl.where(c_first, ca1, ra1)
+        nb1 = tl.where(c_first, cb1, rb1)
+        nx1 = tl.where(c_first, cx1, rx1)
+        na2 = tl.where(c_first, tl.where(s_c2, ca2, ra1),
+                       tl.where(s_c1, ca1, ra2))
+        nb2 = tl.where(c_first, tl.where(s_c2, cb2, rb1),
+                       tl.where(s_c1, cb1, rb2))
+        nx2 = tl.where(c_first, tl.where(s_c2, cx2, rx1),
+                       tl.where(s_c1, cx1, rx2))
+        return na1, nb1, nx1, na2, nb2, nx2
+
+    @triton.jit
+    def _seg_top2_cell(g_ptr, m_ptr, v_ptr, b_ptr, x_ptr, start, n,
+                       momentum, COMPENSATE: tl.constexpr,
+                       NESTEROV: tl.constexpr, MASK_MOMENTUM: tl.constexpr):
+        # one 256-block x 128-lane segment at flat position `start`, in
+        # eight 32-block tiles (one transmit-record row each): with
+        # COMPENSATE, each tile is compensated (m, v stored) and its stored
+        # velocity feeds the candidates; else the tile is read from x_ptr
+        rows = tl.arange(0, 32)[:, None] + tl.zeros([32, 128], tl.int32)
+        lane = tl.arange(0, 128)[None, :]
+        ra1 = tl.full([128], -1.0, tl.float32)
+        ra2 = tl.full([128], -1.0, tl.float32)
+        rb1 = tl.zeros([128], tl.int32)
+        rb2 = tl.zeros([128], tl.int32)
+        rx1 = tl.zeros([128], tl.float32)
+        rx2 = tl.zeros([128], tl.float32)
+        for c in tl.static_range(8):
+            blk = rows + c * 32
+            p = start + blk * 128 + lane
+            inb = p < n
+            if COMPENSATE:
+                x = _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, inb,
+                                     momentum, NESTEROV, MASK_MOMENTUM)
+            else:
+                x = tl.load(x_ptr + p, mask=inb, other=0.0)
+            ca1, cb1, cx1, ca2, cb2, cx2 = _top2_tile(x, blk)
+            ra1, rb1, rx1, ra2, rb2, rx2 = _merge_top2(
+                ra1, rb1, rx1, ra2, rb2, rx2, ca1, cb1, cx1, ca2, cb2, cx2)
+        return rx1, rb1, rx2, rb2
+
+    @triton.jit
+    def compensate_bits_kernel(g_ptr, m_ptr, v_ptr, b_ptr, n, momentum,
+                               NESTEROV: tl.constexpr,
+                               MASK_MOMENTUM: tl.constexpr,
+                               BLOCK: tl.constexpr):
+        p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, p < n, momentum,
+                         NESTEROV, MASK_MOMENTUM)
+
+    @triton.jit
+    def compensate_bits_cands_kernel(g_ptr, m_ptr, v_ptr, b_ptr, cv_ptr,
+                                     cb_ptr, n, nseg, momentum,
+                                     NESTEROV: tl.constexpr,
+                                     MASK_MOMENTUM: tl.constexpr):
+        s = tl.program_id(0)
+        x1, b1, x2, b2 = _seg_top2_cell(
+            g_ptr, m_ptr, v_ptr, b_ptr, g_ptr, s * 32768, n, momentum,
+            True, NESTEROV, MASK_MOMENTUM)
+        lane = tl.arange(0, 128)
+        ok = (lane < 128) & (s < nseg)     # the ragged tail emits nothing
+        o = s * 256 + lane
+        tl.store(cv_ptr + o, x1, mask=ok)
+        tl.store(cv_ptr + o + 128, x2, mask=ok)
+        tl.store(cb_ptr + o, b1, mask=ok)
+        tl.store(cb_ptr + o + 128, b2, mask=ok)
+
+    @triton.jit
+    def seg_top2_kernel(x_ptr, cv_ptr, cb_ptr, base, cols, nseg, n):
+        r = tl.program_id(0)
+        s = tl.program_id(1)
+        x1, b1, x2, b2 = _seg_top2_cell(
+            x_ptr, x_ptr, x_ptr, x_ptr, x_ptr, base + r * cols + s * 32768,
+            n, 0.0, False, False, False)
+        lane = tl.arange(0, 128)
+        o = (r * nseg + s) * 256 + lane
+        tl.store(cv_ptr + o, x1)
+        tl.store(cv_ptr + o + 128, x2)
+        tl.store(cb_ptr + o, b1)
+        tl.store(cb_ptr + o + 128, b2)
+
+    _TRITON.update(compensate_bits=compensate_bits_kernel,
+                   compensate_bits_cands=compensate_bits_cands_kernel,
+                   seg_top2_candidates=seg_top2_kernel)
+    return _TRITON
 
 
 def compensate_bits_plain(grad, mmt, vec, bits, momentum: float,
@@ -196,18 +326,23 @@ def compensate_bits_plain(grad, mmt, vec, bits, momentum: float,
     return m, v0 + m
 
 
+def _check_compensate(name, grad, mmt, vec, bits) -> None:
+    n = grad.shape[0]
+    _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,),
+           f"{name}: grad, mmt, vec must be 1-D of one length")
+    _check(all(t.dtype == torch.float32 for t in (grad, mmt, vec)),
+           f"{name}: grad, mmt, vec must be float32")
+    _check(bits.dtype == torch.int32 and bits.shape == (num_sent_words(n),),
+           f"{name}: bits must be int32 [num_sent_words(T)]")
+
+
 def compensate_bits(grad, mmt, vec, bits, momentum: float,
                     nesterov: bool = False, momentum_masking: bool = True):
     """Bit-masked momentum compensate, updating ``mmt`` and ``vec`` IN
     PLACE (they have no other reader afterwards); returns them. All of
     grad/mmt/vec are f32 [T]; ``bits`` is the previous step's record."""
     n = grad.shape[0]
-    _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,),
-           "compensate_bits: grad, mmt, vec must be 1-D of one length")
-    _check(all(t.dtype == torch.float32 for t in (grad, mmt, vec)),
-           "compensate_bits: grad, mmt, vec must be float32")
-    _check(bits.dtype == torch.int32 and bits.shape == (num_sent_words(n),),
-           "compensate_bits: bits must be int32 [num_sent_words(T)]")
+    _check_compensate("compensate_bits", grad, mmt, vec, bits)
     if not _on_card("compensate_bits", grad, mmt, vec, bits):
         m, v = compensate_bits_plain(grad, mmt, vec, bits, momentum,
                                      nesterov, momentum_masking)
@@ -215,7 +350,7 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
         vec.copy_(v)
         return mmt, vec
     if n:
-        kernel = _compensate_triton()
+        kernel = _triton_kernels()["compensate_bits"]
         grid = (-(-n // _BITS_GROUP),)
         kernel[grid](grad, mmt, vec, bits, n, float(momentum),
                      NESTEROV=bool(nesterov),
@@ -224,6 +359,148 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
                      enable_fp_fusion=False)
         LAUNCHES["compensate_bits"] += 1
     return mmt, vec
+
+
+# ------------------------------------------------------------------ #
+# K4, K5: per-(lane, segment) top-2 candidates (Triton)              #
+# ------------------------------------------------------------------ #
+#
+# Replace dgc_tpu/ops/kernels.py::seg_top2_candidates and
+# ::fused_compensate_bits_cands, which share one cell function
+# (_seg_top2_block). A segment is 256 blocks of 128 lanes (32,768
+# elements); for each lane it yields the two largest |v| in the order
+# (|v| descending, block ascending) as (signed value, segment-local block).
+# One Triton program per segment walks it in eight [32, 128] tiles, one
+# transmit-record row each, and merges each tile's top-2 into a running
+# top-2 per lane (_seg_top2_cell); the tile walk needs no cross-program
+# reduction and keeps the tile in registers. Both kernels run that one
+# @triton.jit cell, so their candidates agree bitwise by construction, and
+# the fused kernel compensates each tile with the @triton.jit body of
+# compensate_bits, so its m and v are bitwise that kernel's.
+#
+# Bound on the card: bytes. The fused pass moves the compensate's 20 B per
+# element plus the record and 2 KB of candidates per segment (541 MB at
+# ResNet-50's T = 27,068,416: 0.16 ms at 3.35 TB/s); the standalone pass
+# reads each bucket once (4 B per element). The candidate compares ride
+# the stream: a few per element, far below the f32 rate.
+
+def seg_top2_eligible(total_blocks: int, base: int, cols: int,
+                      rows: int = 1) -> bool:
+    """Whether a bucket's [rows, cols] region can be read by the candidates
+    kernels straight out of the flat buffer of ``total_blocks`` 128-lane
+    blocks: base and row width whole segments, the region inside the
+    buffer (the reference's gate)."""
+    return (base % SEG_SPAN == 0 and cols % SEG_SPAN == 0
+            and total_blocks * _LANE >= base + rows * cols)
+
+
+def seg_cols_local(blks: torch.Tensor) -> torch.Tensor:
+    """Per-segment block ids [R, nseg, 2, 128] -> bucket-local columns
+    [R, nseg * 256] in (segment, slot, lane) order: ``(blk + seg * 256) *
+    128 + lane``. The one recomposition both candidate sources go
+    through."""
+    R, nseg = blks.shape[0], blks.shape[1]
+    lane = torch.arange(_LANE, dtype=torch.int32, device=blks.device)
+    seg0 = torch.arange(nseg, dtype=torch.int32,
+                        device=blks.device) * SEG_BLOCKS
+    return ((blks + seg0[None, :, None, None]) * _LANE
+            + lane[None, None, None, :]).reshape(R, -1)
+
+
+def _top2_plain(x: torch.Tensor):
+    """Plain cell function over [S, 256, 128] segments: ``(values
+    [S, 2, 128] f32, blocks [S, 2, 128] int32)``; the value read back at
+    the block plus 0.0 (the kernels' masked sum), so -0.0 reads +0.0."""
+    a = x.abs()
+    blk = torch.arange(SEG_BLOCKS, dtype=torch.int32,
+                       device=x.device).view(1, SEG_BLOCKS, 1)
+    b1 = torch.where(a >= a.amax(1, keepdim=True), blk,
+                     SEG_BLOCKS).amin(1, keepdim=True)
+    a_2 = torch.where(blk == b1, -1.0, a)
+    b2 = torch.where(a_2 >= a_2.amax(1, keepdim=True), blk,
+                     SEG_BLOCKS).amin(1, keepdim=True)
+    blocks = torch.cat([b1, b2], 1)
+    return x.gather(1, blocks.long()) + 0.0, blocks
+
+
+def seg_top2_candidates_plain(flat: torch.Tensor, base: int, rows: int,
+                              cols: int):
+    """Plain version of :func:`seg_top2_candidates`."""
+    nseg = cols // SEG_SPAN
+    x = flat[base:base + rows * cols].view(rows * nseg, SEG_BLOCKS, _LANE)
+    vals, blks = _top2_plain(x)
+    return (vals.view(rows, -1),
+            seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
+
+
+def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
+    """Per-(row, lane, segment) top-2 candidates of the bucket [rows, cols]
+    at ``base`` of the flat f32 buffer, read in place. Returns ``(signed
+    values [rows, C] f32, bucket-local columns [rows, C] int32)`` with
+    ``C = cols / 32768 * 256``, in (segment, slot, lane) order."""
+    _check(flat.dim() == 1 and flat.dtype == torch.float32
+           and flat.shape[0] % _LANE == 0,
+           "seg_top2_candidates: flat must be a lane-aligned 1-D float32 "
+           "tensor")
+    _check(seg_top2_eligible(flat.shape[0] // _LANE, base, cols, rows),
+           f"seg_top2_candidates: [{rows}, {cols}] at {base} is not "
+           "segment-aligned inside the buffer")
+    if not _on_card("seg_top2_candidates", flat):
+        return seg_top2_candidates_plain(flat, base, rows, cols)
+    nseg = cols // SEG_SPAN
+    vals = torch.empty((rows * nseg, 2, _LANE), dtype=torch.float32,
+                       device=flat.device)
+    blks = torch.empty((rows * nseg, 2, _LANE), dtype=torch.int32,
+                       device=flat.device)
+    if rows and nseg:
+        kernel = _triton_kernels()["seg_top2_candidates"]
+        kernel[(rows, nseg)](flat, vals, blks, base, cols, nseg,
+                             flat.shape[0], num_warps=8)
+        LAUNCHES["seg_top2_candidates"] += 1
+    return (vals.view(rows, -1),
+            seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
+
+
+def compensate_bits_cands_plain(grad, mmt, vec, bits, momentum: float,
+                                nesterov: bool = False,
+                                momentum_masking: bool = True):
+    """Plain version of :func:`compensate_bits_cands`: returns new
+    ``(mmt', vec', cand values, cand blocks)``."""
+    m, v = compensate_bits_plain(grad, mmt, vec, bits, momentum, nesterov,
+                                 momentum_masking)
+    nseg = v.shape[0] // SEG_SPAN
+    cv, cb = _top2_plain(v[:nseg * SEG_SPAN].view(nseg, SEG_BLOCKS, _LANE))
+    return m, v, cv, cb
+
+
+def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
+                          nesterov: bool = False,
+                          momentum_masking: bool = True):
+    """:func:`compensate_bits` (``mmt``, ``vec`` updated IN PLACE) that
+    also emits the segment top-2 candidates of the stored velocity, for
+    the ``T // 32768`` complete segments. Returns ``(mmt, vec, cand values
+    [nseg, 2, 128] f32, cand blocks [nseg, 2, 128] int32)``; the
+    candidates are bitwise :func:`seg_top2_candidates` on ``vec``."""
+    n = grad.shape[0]
+    _check_compensate("compensate_bits_cands", grad, mmt, vec, bits)
+    if not _on_card("compensate_bits_cands", grad, mmt, vec, bits):
+        m, v, cv, cb = compensate_bits_cands_plain(
+            grad, mmt, vec, bits, momentum, nesterov, momentum_masking)
+        mmt.copy_(m)
+        vec.copy_(v)
+        return mmt, vec, cv, cb
+    nseg = n // SEG_SPAN
+    cv = torch.empty((nseg, 2, _LANE), dtype=torch.float32,
+                     device=grad.device)
+    cb = torch.empty((nseg, 2, _LANE), dtype=torch.int32, device=grad.device)
+    if n:
+        kernel = _triton_kernels()["compensate_bits_cands"]
+        kernel[(-(-n // SEG_SPAN),)](
+            grad, mmt, vec, bits, cv, cb, n, nseg, float(momentum),
+            NESTEROV=bool(nesterov), MASK_MOMENTUM=bool(momentum_masking),
+            num_warps=8, enable_fp_fusion=False)
+        LAUNCHES["compensate_bits_cands"] += 1
+    return mmt, vec, cv, cb
 
 
 # ------------------------------------------------------------------ #
@@ -349,3 +626,100 @@ def apply_rows(values, indices, flags, total: int,
             raise RuntimeError(f"apply_rows launch failed: CUDA error {err}")
         LAUNCHES["apply_rows"] += 1
     return acc, bits
+
+
+# ------------------------------------------------------------------ #
+# K6, K7: opaque views (CUDA C++, csrc/opaque_copy.cu)               #
+# ------------------------------------------------------------------ #
+#
+# Replace dgc_tpu/ops/kernels.py::opaque_view (_opaque_copy) and
+# ::opaque_view_from (_opaque_from): an identity copy of one weight into a
+# buffer of its own, which the train step binds in place of a view of the
+# flat parameter buffer for the tensors ParamLayout.convert_hoist_risky
+# names. Bound on the card: bytes, one read and one write of the tensor.
+
+def opaque_view_eligible(total: int, base: int, numel: int) -> bool:
+    """Whether :func:`opaque_view_from` takes ``flat[base:base+numel]``
+    (the reference's tile alignment)."""
+    tile = _SUBLANE * _LANE
+    return (total % _LANE == 0 and base % tile == 0 and numel % tile == 0
+            and numel > 0 and base + numel <= total)
+
+
+_COPY_ARGS = {"opaque_copy_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p]}
+
+
+def _copy_on_card(name: str, src: torch.Tensor, offset: int,
+                  numel: int) -> torch.Tensor:
+    out = torch.empty(numel, dtype=torch.float32, device=src.device)
+    if numel:
+        lib = _build.library("opaque_copy.cu", _COPY_ARGS)
+        err = lib.opaque_copy_launch(src.data_ptr() + 4 * offset,
+                                     out.data_ptr(), numel,
+                                     *_stream_args(src))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
+    return out
+
+
+def opaque_view_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`opaque_view`'s forward."""
+    return x.clone()
+
+
+def opaque_view_from_plain(flat: torch.Tensor, base: int,
+                           numel: int) -> torch.Tensor:
+    """Plain version of :func:`opaque_view_from`'s forward."""
+    return flat[base:base + numel].clone()
+
+
+class _OpaqueView(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        if not _on_card("opaque_view", x):
+            return opaque_view_plain(x)
+        return _copy_on_card("opaque_view", x, 0, x.numel()).view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _OpaqueViewFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, base, numel):
+        ctx.base, ctx.total = base, flat.shape[0]
+        if not _on_card("opaque_view_from", flat):
+            return opaque_view_from_plain(flat, base, numel)
+        return _copy_on_card("opaque_view_from", flat, base, numel)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of the slice it replaces (not a kernel on the TPU
+        # either: a dynamic_update_slice into zeros)
+        out = g.new_zeros(ctx.total)
+        out[ctx.base:ctx.base + g.shape[0]] = g
+        return out, None, None
+
+
+def opaque_view(x: torch.Tensor) -> torch.Tensor:
+    """Identity with a buffer of its own: a copy of the f32 tensor ``x``;
+    the gradient passes through unchanged."""
+    _check(x.dtype == torch.float32, "opaque_view: x must be float32")
+    return _OpaqueView.apply(x)
+
+
+def opaque_view_from(flat: torch.Tensor, base: int,
+                     numel: int) -> torch.Tensor:
+    """:func:`opaque_view` of ``flat[base:base+numel]``, read straight from
+    the flat f32 buffer; the gradient is the [total] zeros with the
+    cotangent at ``base``. Needs :func:`opaque_view_eligible`."""
+    _check(flat.dim() == 1 and flat.dtype == torch.float32,
+           "opaque_view_from: flat must be a 1-D float32 tensor")
+    _check(opaque_view_eligible(flat.shape[0], base, numel),
+           f"opaque_view_from: [{base}, {base + numel}) of {flat.shape[0]} "
+           "is not tile-aligned")
+    return _OpaqueViewFrom.apply(flat, base, numel)

@@ -1,10 +1,14 @@
-"""Training harness: ResNet-20 on CIFAR-10 with DGC (the wm5 recipe).
+"""Training harness: a DGC recipe of :mod:`dgc_tpu_torch.configs` —
+ResNet-20 on CIFAR-10 (the default), ResNet-50 or ResNet-18 on ImageNet,
+all with the wm5 warm-up.
 
 Counterpart of the repository's ``train.py`` for the port. ``Trainer``
-builds the dataset (synthetic when no CIFAR root exists), the model, the
-compressor, ``dgc_sgd`` behind the distributed optimizer, and the flat
-state; :meth:`Trainer.run_epoch` applies the warm-up schedule (rebuilding
-the engine when the ratio changes) and runs the epoch's steps.
+builds the config's dataset (synthetic when no data root exists), model,
+compressor, learning-rate schedule, ``dgc_sgd`` (nesterov and the
+BatchNorm weight-decay split as the config says) behind the distributed
+optimizer, and the flat state; :meth:`Trainer.run_epoch` applies the
+warm-up schedule (rebuilding the engine when the ratio changes) and runs
+the epoch's steps.
 
 Workers: ``--world W`` simulates W workers on one device in lockstep
 (``LocalComm``). With ``--init-method`` each process is one worker of a
@@ -13,6 +17,12 @@ Workers: ``--world W`` simulates W workers on one device in lockstep
 
     python -m dgc_tpu_torch.train --device cpu --world 2 --steps 2 \\
         --epochs 1 --batch-size 8 --synthetic-size 64
+    python -m dgc_tpu_torch.train --config resnet50_wm5 --device cpu \\
+        --world 2 --epochs 1 --steps 1 --batch-size 2 --image-size 32 \\
+        --synthetic-size 16
+
+``--image-size`` only shrinks the synthetic images (for CPU runs), as the
+JAX harness's ``--dataset.image_size`` override does.
 """
 
 import argparse
@@ -25,14 +35,16 @@ import torch
 
 from dgc_tpu_torch import configs as _configs
 from dgc_tpu_torch.compression.dgc import DGCCompressor
+from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
-from dgc_tpu_torch.data.datasets import CIFAR
+from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
-from dgc_tpu_torch.models import resnet_cifar
+from dgc_tpu_torch.models import create, param_tree
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
 from dgc_tpu_torch.optim.sgd import dgc_sgd
 from dgc_tpu_torch.parallel.comm import Comm, LocalComm, ProcessGroupComm
-from dgc_tpu_torch.training.lr import cosine_schedule, make_lr_schedule
+from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
+                                       multistep_schedule)
 from dgc_tpu_torch.training.step import (make_flat_setup, make_flat_state,
                                          train_step)
 from dgc_tpu_torch.utils.device import resolve_device
@@ -51,18 +63,18 @@ class Trainer:
         self.verbose = verbose
         tc = cfg.train
         self.seed = cfg.seed
-        self.dataset = CIFAR(cfg.dataset.root, cfg.dataset.num_classes,
-                             cfg.dataset.image_size,
-                             synthetic_size=cfg.dataset.synthetic_size)
+        dc = cfg.dataset
+        self.dataset = {"cifar": CIFAR, "imagenet": ImageNet}[dc.name](
+            dc.root, dc.num_classes, dc.image_size,
+            synthetic_size=dc.synthetic_size)
         self.nbps = tc.num_batches_per_step
         self.bs = tc.batch_size
         self.global_batch = comm.world * self.nbps * self.bs
 
-        model = getattr(resnet_cifar, cfg.model.name)(cfg.model.num_classes)
         # initialised on the host, so every device starts from one weights
-        resnet_cifar.init_variables(
-            model, torch.Generator().manual_seed(self.seed))
-        self.model = model.to(self.device)
+        self.model = create(cfg.model.name, cfg.model.num_classes,
+                            torch.Generator().manual_seed(self.seed),
+                            cfg.model.zero_init_residual).to(self.device)
 
         cc = tc.compression
         self.compression = DGCCompressor(
@@ -80,16 +92,23 @@ class Trainer:
         self.steps_per_epoch = num_steps_per_epoch(
             len(self.dataset["train"]), self.global_batch,
             drop_last=self.nbps > 1)
-        oc = tc.optimizer
+        oc, sc = tc.optimizer, tc.scheduler
+        decay = (cosine_schedule(sc.t_max) if sc.name == "cosine"
+                 else multistep_schedule(sc.milestones, sc.gamma))
         lr = make_lr_schedule(
             scaled_lr=oc.lr * self.nbps * comm.world, world_size=comm.world,
             num_steps_per_epoch=self.steps_per_epoch,
-            warmup_lr_epochs=tc.warmup_lr_epochs,
-            decay=cosine_schedule(tc.scheduler.t_max),
+            warmup_lr_epochs=tc.warmup_lr_epochs, decay=decay,
             schedule_lr_per_epoch=tc.schedule_lr_per_epoch)
+        wd_mask = None
+        if tc.optimize_bn_separately:
+            # BatchNorm parameters get no weight decay: a 0/1 mask over [P]
+            wd_mask = ParamLayout.for_compressor(
+                param_tree(self.model), self.compression).mask_vector(
+                    lambda n: "BatchNorm" not in n, device=self.device)
         self.dist = DistributedOptimizer(
-            dgc_sgd(lr, momentum=oc.momentum,
-                    weight_decay=oc.weight_decay),
+            dgc_sgd(lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
+                    nesterov=oc.nesterov, weight_decay_mask=wd_mask),
             self.compression, comm)
         self.setup = make_flat_setup(self.model, self.dist)
         self.state = make_flat_state(self.model, self.dist, self.setup,
@@ -152,6 +171,8 @@ class Trainer:
 
 def main(argv=None) -> List[float]:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", default="resnet20_wm5",
+                   choices=sorted(_configs.RECIPES))
     p.add_argument("--device", default="cuda")
     p.add_argument("--world", type=int, default=1,
                    help="workers (LocalComm), or the group size with "
@@ -164,13 +185,17 @@ def main(argv=None) -> List[float]:
                    help="at most this many steps per epoch")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--synthetic-size", type=int, default=None)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="side of the synthetic images (small for CPU runs)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
     # this slice trains in full f32: no TF32 in cuDNN or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _configs.resnet20_wm5()
+    cfg = _configs.RECIPES[args.config]()
+    if args.image_size:
+        cfg.dataset.image_size = args.image_size
     if args.batch_size:
         cfg.train.batch_size = args.batch_size
     if args.synthetic_size:

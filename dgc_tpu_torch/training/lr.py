@@ -1,16 +1,17 @@
 """Learning-rate schedule: linear warm-up of the scaled LR, then a per-epoch
-decay (cosine for CIFAR).
+decay (cosine for CIFAR, multistep for ImageNet).
 
 Counterpart of ``dgc_tpu/training/lr.py``. The schedule is a host function
 ``step -> lr`` evaluated in float32 arithmetic exactly as the reference's
 traced one, so both packages take the same learning rate at every step.
 """
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["warmup_factor", "cosine_schedule", "make_lr_schedule"]
+__all__ = ["warmup_factor", "cosine_schedule", "multistep_schedule",
+           "make_lr_schedule"]
 
 _f = np.float32
 
@@ -25,6 +26,17 @@ def cosine_schedule(t_max: float) -> Callable:
     """Cosine annealing factor over epochs after the warm-up (to 0)."""
     def fn(t):
         return _f(0.5) * (_f(1) + np.cos(_f(np.pi) * t / _f(t_max)))
+    return fn
+
+
+def multistep_schedule(milestones: Sequence[float],
+                       gamma: float = 0.1) -> Callable:
+    """``gamma ** (milestones passed)`` over epochs after the warm-up
+    (``torch.optim.lr_scheduler.MultiStepLR``), in f32."""
+    ms = np.asarray(sorted(milestones), np.float32)
+
+    def fn(t):
+        return _f(gamma) ** _f(np.sum(_f(t) >= ms))
     return fn
 
 

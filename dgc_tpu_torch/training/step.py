@@ -8,6 +8,13 @@ BatchNorm updates that worker's flat statistics in place. Then one
 exchange across all workers (compensate -> sparsify -> all_gather ->
 apply, plus the dense-tail all-reduce), the ``dgc_sgd`` update of the
 replicated parameters, and the loss all-reduce.
+
+As in the reference, the weights that ``ParamLayout.convert_hoist_risky``
+names are bound through an opaque copy instead of a view of the flat
+buffer: ``kernels.opaque_view_from`` (read straight from the flat buffer)
+where the view is tile-aligned, else ``kernels.opaque_view`` of the view.
+Both pass the gradient through unchanged, so the step computes the same
+numbers either way.
 """
 
 from typing import List, NamedTuple, Sequence
@@ -17,7 +24,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from dgc_tpu_torch.compression.flat import ParamLayout
-from dgc_tpu_torch.models.resnet_cifar import param_tree, stats_tree
+from dgc_tpu_torch.models import param_tree, stats_tree
+from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.training.state import TrainState
 
 __all__ = ["FlatSetup", "make_flat_setup", "make_flat_state", "train_step",
@@ -54,8 +62,17 @@ def make_flat_state(model, dist_opt, setup: FlatSetup, device,
 
 
 def _binding(layout: ParamLayout, flat: torch.Tensor):
-    return {n.replace("/", "."): v
-            for n, v in layout.unflatten_named(flat).items()}
+    """``{module path: tensor}`` over ``flat``: views, and the opaque copies
+    of the layout's convert-hoist-risky weights (compressed ones only)."""
+    views = layout.unflatten_named(flat)
+    for n in layout.convert_hoist_risky():
+        base, size = layout.offsets[n], layout.sizes[n]
+        if kernels.opaque_view_eligible(layout.total, base, size):
+            views[n] = kernels.opaque_view_from(flat, base, size).view(
+                layout.shapes[n])
+        else:
+            views[n] = kernels.opaque_view(views[n])
+    return {n.replace("/", "."): v for n, v in views.items()}
 
 
 def worker_grad(model, setup: FlatSetup, params: torch.Tensor,

@@ -33,8 +33,10 @@ def test_port_imports_no_jax():
     out = _run(["-c", _PROBE], ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "dgc_tpu_torch.ops.kernels" in res["modules"]
-    assert "dgc_tpu_torch.compression.flat" in res["modules"]
+    for mod in ("ops.kernels", "compression.flat", "models.resnet_imagenet",
+                "data.datasets", "training.lr", "training.step", "configs",
+                "interop"):
+        assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 
 

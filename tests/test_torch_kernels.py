@@ -196,8 +196,18 @@ def test_launch_counters_count_only_launches():
     tk.topk_rows(torch.randn(2, 256), 3)
     tk.apply_rows(torch.ones(4), torch.arange(4, dtype=torch.int32),
                   torch.ones(4, dtype=torch.bool), 128)
+    flat = torch.randn(2 * tk.SEG_SPAN)
+    tk.seg_top2_candidates(flat, 0, 2, tk.SEG_SPAN)
+    tk.compensate_bits_cands(flat, torch.zeros_like(flat),
+                             torch.zeros_like(flat),
+                             torch.zeros(tk.num_sent_words(flat.numel()),
+                                         dtype=torch.int32), 0.9)
+    tk.opaque_view(flat[:100])
+    tk.opaque_view_from(flat, 1024, 2048)
     assert tk.LAUNCHES == {"compensate_bits": 0, "topk_rows": 0,
-                           "apply_rows": 0}
+                           "apply_rows": 0, "compensate_bits_cands": 0,
+                           "seg_top2_candidates": 0, "opaque_view": 0,
+                           "opaque_view_from": 0}
 
 
 def test_apply_rows_drops_out_of_range_indices():

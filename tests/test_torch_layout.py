@@ -14,7 +14,7 @@ from dgc_tpu.utils.pytree import named_flatten as jax_named_flatten
 from dgc_tpu_torch.compression import dgc as tdgc
 from dgc_tpu_torch.compression import flat as tflat
 from dgc_tpu_torch.compression.memory import DGCSGDMemory as TMemory
-from dgc_tpu_torch.models import resnet_cifar
+from dgc_tpu_torch.models import param_tree, resnet_cifar, stats_tree
 from dgc_tpu_torch.utils.pytree import named_flatten
 
 WM5_RATIOS = (0.316, 0.1, 0.0316, 0.01, 0.0032, 0.001)
@@ -41,14 +41,14 @@ def test_named_flatten_order_matches_jax(name):
     jv = jax.eval_shape(lambda: getattr(jmodels, name)().init(
         jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=True))
     model = getattr(resnet_cifar, name)()
-    for tree, ttree in ((jv["params"], resnet_cifar.param_tree(model)),
-                        (jv["batch_stats"], resnet_cifar.stats_tree(model))):
+    for tree, ttree in ((jv["params"], param_tree(model)),
+                        (jv["batch_stats"], stats_tree(model))):
         jnamed = jax_named_flatten(tree)[0]
         tnamed = named_flatten(ttree)
         assert list(tnamed) == list(jnamed)
         assert {n: tuple(t.shape) for n, t in tnamed.items()} == {
             n: tuple(a.shape) for n, a in jnamed.items()}
-    names = list(named_flatten(resnet_cifar.param_tree(model)))
+    names = list(named_flatten(param_tree(model)))
     # sorted keys: every BasicBlock_* before BatchNorm_0, Conv_0, Dense_0
     assert names.index("BasicBlock_8/Conv_1/kernel") < names.index(
         "BatchNorm_0/bias")

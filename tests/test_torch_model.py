@@ -18,7 +18,7 @@ from dgc_tpu.compression.flat import ParamLayout as JaxLayout
 from dgc_tpu.models.resnet_cifar import CifarResNet as FlaxResNet
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.interop import carry_variables, export_variables
-from dgc_tpu_torch.models import resnet_cifar
+from dgc_tpu_torch.models import param_tree, resnet_cifar, stats_tree
 from dgc_tpu_torch.training.step import FlatSetup, worker_grad
 
 STAGES = (1, 1, 1)
@@ -34,8 +34,8 @@ def case():
     images = rng.randn(8, 32, 32, 3).astype(np.float32)
     labels = rng.randint(0, 10, 8).astype(np.int32)
     model = resnet_cifar.CifarResNet(STAGES)
-    layout = ParamLayout(resnet_cifar.param_tree(model))
-    stats_layout = ParamLayout(resnet_cifar.stats_tree(model))
+    layout = ParamLayout(param_tree(model))
+    stats_layout = ParamLayout(stats_tree(model))
     flat_p, flat_s = carry_variables(v["params"], v["batch_stats"], layout,
                                      stats_layout)
     return dict(flax=flax_model, v=v, images=images, labels=labels,
