@@ -12,16 +12,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``compensate_bits``, ``topk_rows`` and ``apply_rows``, and ResNet-50
    at the epoch-0 and epoch-5 ratios for those and the segment
    candidates (with ties planted in every segment bucket), both models'
-   guarded weights for the opaque copies (bitwise) — and time kernel,
-   plain version and
-   the PyTorch yardstick call, L2-warm: each time is the device time per
-   call, 20 calls queued behind a spin kernel so the card runs them back
-   to back (``ms``, also printed as ``kernel_ms``, is the kernel's).
+   guarded weights for the opaque copies, and every bucket the
+   megakernel or the fused select takes at epochs 3-5 of both models
+   for ``dgc_forward_rows`` and ``select_pack_rows`` (plus the gate's
+   widest row, an empty row at an unaligned base, all momentum flags,
+   planted ties and a selected -0.0) — bitwise; and time kernel, plain
+   version and the PyTorch yardstick call, L2-warm: each time is the
+   device time per call, 20 calls queued behind a spin kernel so the card
+   runs them back to back (``ms``, also printed as ``kernel_ms``, is the
+   kernel's).
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
-   ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios; and
-   ``engine.sparsify(vec, phases)`` without candidates (the standalone
-   candidates kernel) against the same call with the fused candidates.
+   ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios, and with
+   ``megakernel=True`` and ``fused_select=True`` at the epoch-3 and
+   epoch-5 ratios (the card's megakernel engine also against the card's
+   default engine); and ``engine.sparsify(vec, phases)`` without
+   candidates (the standalone candidates kernel) against the same call
+   with the fused candidates.
 4. The ResNet-20 path: full width, batch 128 per worker, W=4 ``LocalComm``
    workers on the card — 2 steps at the epoch-0 ratio, the engine
    rebuild, 2 steps at 0.001.
@@ -31,10 +38,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the engine rebuild, 3 steps at 0.001 (the segment path).
 4c. The standalone-candidates path: ``engine.sparsify`` with no candidates
    at ResNet-50 geometry, for 4 workers.
+4d. The megakernel paths, W=4 on the card as above: ``resnet20_wm5_
+   megakernel`` 2 steps at epoch 3 and 2 at epoch 5; ``resnet20_wm5``
+   with ``fused_select`` 2 and 1; ``resnet50_wm5_megakernel`` 1 and 2.
    Each path's launch counters are zeroed just before it and read just
    after; every kernel that the path runs must have launched. A kernel's
    ``launches`` is the count of its own path (ResNet-50, else the one
-   path that runs it), ``launches_by_path`` has all three.
+   path named in ``_OWN_PATH``), ``launches_by_path`` has all six.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group.
 
 With ``--profile``, ``torch.profiler`` (device activity only) also records
@@ -95,9 +105,10 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _geometries(recipe="resnet20_wm5", epochs=range(6)):
+def _geometries(recipe="resnet20_wm5", epochs=range(6), **flags):
     """The flat engine's bucket geometry for a recipe's model at the wm5
-    ratios of ``epochs``: {epoch: (compress ratio, engine)}."""
+    ratios of ``epochs``, with the compressor's ``flags`` (``megakernel``,
+    ``fused_select``): {epoch: (compress ratio, engine)}."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.compression.dgc import DGCCompressor
@@ -108,7 +119,8 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6)):
     cc = cfg.train.compression
     comp = DGCCompressor(
         cc.compress_ratio, memory=DGCSGDMemory(cc.memory.momentum),
-        sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs)
+        sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs,
+        **flags)
     model = create(cfg.model.name, cfg.model.num_classes,
                    torch.Generator())                   # shapes only
     tree = param_tree(model)
@@ -486,6 +498,145 @@ def phase_opaque_kernels(geoms20, geoms50):
     return entries
 
 
+def _fused_ids(eng):
+    """The 2-D buckets that select through ``select_pack_rows``."""
+    return [bi for bi, b in enumerate(eng.buckets)
+            if not eng._seg[bi] and eng._use_fused_select(b)]
+
+
+def _select_cases(model, geoms):
+    """``(label, R, cols, base, numels, k)`` of every bucket that the
+    megakernel or the fused select takes at ``geoms``' ratios."""
+    out = []
+    for epoch, (_, eng) in geoms.items():
+        for bi in sorted(set(eng._mk_fwd_ids) | set(_fused_ids(eng))):
+            b = eng.buckets[bi]
+            out.append((f"{model} epoch {epoch} bucket {bi}", b.rows, b.cols,
+                        b.base, [int(n) for n in b.numels], b.max_sel))
+    return out
+
+
+def _tie_columns(cols):
+    """The columns of row 0 where every case plants ties of the largest
+    |v'|, in column order."""
+    return [1, cols // 3, cols // 2, cols - 129]
+
+
+def _plant_select_ties(g, m, v, cols, base):
+    """In a bucket region at ``base``: ties of the largest |v'| in row 0
+    (g = +-50 with m = v = 0 gives equal |v'| under every momentum flag,
+    far above the random entries), signs mixed; and g = m = v = -0.0 at
+    column 5 of rows 0 and 1, which makes v' = -0.0 there under every
+    flag."""
+    for c, val in zip(_tie_columns(cols), (50.0, -50.0, 50.0, -50.0)):
+        g[base + c], m[base + c], v[base + c] = val, 0.0, 0.0
+    for r in (0, 1):
+        g[base + r * cols + 5] = m[base + r * cols + 5] = -0.0
+        v[base + r * cols + 5] = -0.0
+
+
+def phase_select_kernels(geoms20, geoms50):
+    """``select_pack_rows`` and ``dgc_forward_rows`` bitwise against their
+    plain versions at every bucket the megakernel or the fused select
+    takes in ``geoms20`` / ``geoms50`` (engines built with both flags), at
+    the gate's widest row, and on a bucket with an empty row at a base
+    that is not a multiple of 32 x 128, whose row 1 (100 valid columns,
+    k = 164) selects the planted -0.0; every momentum flag combination on
+    ResNet-20's epoch-3 [16, 9216] bucket. Times."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = (_select_cases("resnet20", geoms20)
+             + _select_cases("resnet50", geoms50)
+             + [("gate's widest row", 2, 131072, 640, [131072, 70000], 1024),
+                ("empty row", 3, 16384, 128 * 37, [16384, 100, 0], 164)])
+    flags = [dict(nesterov=n, momentum_masking=mm)
+             for n in (False, True) for mm in (True, False)]
+    calls = {"select_pack_rows": [], "dgc_forward_rows": []}
+    errs = {k: [] for k in calls}
+    for label, R, cols, base, numels, k in cases:
+        n = R * cols
+        total = base + n + 4096             # the record runs past the end
+        g, m, v = (torch.randn(total, device=dev, generator=gen)
+                   for _ in range(3))
+        _plant_select_ties(g, m, v, cols, base)
+        bits = K.pack_sent_bits(torch.randperm(
+            total, device=dev, generator=gen)[:total // 50].int(), total)
+        nr = torch.tensor(numels, dtype=torch.int32, device=dev)
+        gs = g[base:base + n]
+        all_flags = label == "resnet20 epoch 3 bucket 1"   # [16, 9216]
+        for fl in (flags if all_flags else flags[:1]):
+            want = K.dgc_forward_rows_plain(gs, m[base:base + n],
+                                            v[base:base + n], bits, base, nr,
+                                            k, 0.9, **fl)
+            ms, vs = m[base:base + n].clone(), v[base:base + n].clone()
+            sel = K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k, 0.9,
+                                     **fl)
+            errs["dgc_forward_rows"].append(_check_equal(
+                f"dgc_forward_rows {label} {fl}", (ms, vs, *sel), want))
+            top = want[2][0, :4]
+            if (want[1][5:6].view(torch.int32).item() != -2 ** 31
+                    or not bool((top == top[0]).all())
+                    or want[4][0, :4].tolist() != _tie_columns(cols)):
+                raise AssertionError(f"{label}: the planted ties or -0.0 "
+                                     "did not reach the selection")
+        if numels[1] < k:           # row 1 selects its -0.0, read +0.0
+            slot = want[4][1].tolist().index(5)
+            if want[3][1, slot:slot + 1].view(torch.int32).item() != 0:
+                raise AssertionError(f"{label}: the selected -0.0")
+        x = want[1].view(R, cols)
+        errs["select_pack_rows"].append(_check_equal(
+            f"select_pack_rows {label}", K.select_pack_rows(x, nr, k),
+            K.select_pack_rows_plain(x, nr, k)))
+        col = torch.arange(cols, device=dev)[None, :]
+        # select: x read, (score, value, column) written; a few compares
+        # per element
+        b_sel = _bound(4 * n + 4 * R + 12 * R * k, 2 * n)
+        calls["select_pack_rows"].append(dict(
+            case=label, shape=[R, cols], k=k, **_timed(
+                ms=lambda: K.select_pack_rows(x, nr, k),
+                plain_ms=lambda: K.select_pack_rows_plain(x, nr, k),
+                library_ms=lambda: x.gather(1, torch.topk(torch.where(
+                    col < nr[:, None], x.abs(), -1.0), k, dim=1).indices)),
+            bound_ms=b_sel[0], bound_by=b_sel[1]))
+        # forward: g, m, v read and m, v written (20 B per element), the
+        # region's record words read, the selection written; ~5 operations
+        # per element for the compensate and a compare
+        words = ((base + n - 1) // 4096 - base // 4096 + 1) * 128
+        b_fwd = _bound(20 * n + 4 * words + 4 * R + 12 * R * k, 6 * n)
+        win = K.realign_bits(bits, base, n)
+        calls["dgc_forward_rows"].append(dict(
+            case=label, shape=[R, cols], k=k, base=base, **_timed(
+                ms=lambda: K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k,
+                                              0.9),
+                plain_ms=lambda: K.dgc_forward_rows_plain(
+                    gs, ms, vs, bits, base, nr, k, 0.9),
+                unfused_ms=lambda: K.select_pack_rows(K.compensate_bits(
+                    gs, ms, vs, win, 0.9)[1].view(R, cols), nr, k)),
+            library_ms=None, bound_ms=b_fwd[0], bound_by=b_fwd[1]))
+    entries = {}
+    for name, src, line in (
+            ("select_pack_rows", "select_pack_rows.cu", 853),
+            ("dgc_forward_rows", "dgc_forward_rows.cu", 1427)):
+        step = [c for c in calls[name]
+                if c["case"].startswith("resnet20 epoch 5")]
+        entries[name] = dict(
+            name=name, route="cuda", source=f"dgc_tpu_torch/csrc/{src}",
+            replaces=f"dgc_tpu/ops/kernels.py:{line}",
+            check=f"bitwise vs {name}_plain at every case",
+            max_abs_err=max(errs[name]),
+            **{key: (None if step[0][key] is None
+                     else sum(c[key] for c in step))
+               for key in step[0] if key.endswith("_ms") or key == "ms"},
+            bound_by=step[0]["bound_by"],
+            summed_over="the calls of one worker's ResNet-20 step at ratio "
+                        "0.001 (both buckets)", calls=calls[name])
+    entries["select_pack_rows"]["replaces_also"] = (
+        "dgc_tpu/ops/kernels.py:1001 (_select_pack_rows_mr)")
+    return entries
+
+
 def _print_entries(entries):
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
@@ -494,31 +645,63 @@ def _print_entries(entries):
         print(json.dumps({"calls": e["name"], "detail": e.pop("calls")}))
 
 
+def _exchange_run(eng, dev, steps):
+    """``steps`` W=4 exchanges of ``eng`` on ``dev`` from seeded inputs:
+    every worker's exchanged gradient and final memory, on the CPU."""
+    import torch
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    mems = [eng.init_memory(dev) for _ in range(4)]
+    res = []
+    for step in range(steps):
+        grads = [torch.randn(eng.layout.total,
+                             generator=torch.Generator().manual_seed(
+                                 100 * step + w)).to(dev)
+                 for w in range(4)]
+        phases = [eng.draw_phases(torch.Generator().manual_seed(
+            10 * step + w)) for w in range(4)]
+        res += eng.exchange(grads, mems, phases, LocalComm(4))
+    res += [t for m in mems for t in m.values()]
+    return [t.cpu() for t in res]
+
+
 def phase_engine_vs_cpu(geoms, label, steps):
     """The W=4 exchange on the card and on the CPU, same inputs: every
     output bitwise, at the epoch-0 and epoch-5 ratios."""
-    import torch
-    from dgc_tpu_torch.parallel.comm import LocalComm
     for epoch in (0, 5):
         eng = geoms[epoch][1]
-        outs = {}
-        for dev in ("cpu", DEVICE):
-            mems = [eng.init_memory(dev) for _ in range(4)]
-            res = []
-            for step in range(steps):
-                grads = [torch.randn(eng.layout.total,
-                                     generator=torch.Generator().manual_seed(
-                                         100 * step + w)).to(dev)
-                         for w in range(4)]
-                phases = [eng.draw_phases(torch.Generator().manual_seed(
-                    10 * step + w)) for w in range(4)]
-                res += eng.exchange(grads, mems, phases, LocalComm(4))
-            res += [t for m in mems for t in m.values()]
-            outs[dev] = [t.cpu() for t in res]
         _check_equal(f"{label} engine exchange (epoch {epoch})",
-                     outs[DEVICE], outs["cpu"])
+                     _exchange_run(eng, DEVICE, steps),
+                     _exchange_run(eng, "cpu", steps))
     print(f"[engine] {label} W=4 exchange, {steps} step(s): card == CPU "
           "bitwise at the epoch-0 and epoch-5 ratios")
+
+
+def phase_routes_vs_cpu(recipe, label, steps, epochs=(3, 5)):
+    """The W=4 exchange with ``megakernel=True`` and with
+    ``fused_select=True``, card against CPU, bitwise; and the card's
+    megakernel engine against the card's default engine, bitwise (the
+    exchanged gradients and memories: the payloads differ only where a
+    selected -0.0 travels as +0.0, which no sum sees)."""
+    geoms = {route: _geometries(recipe, epochs, **flags) for route, flags in (
+        ("default", {}), ("megakernel", {"megakernel": True}),
+        ("fused_select", {"fused_select": True}))}
+    for epoch in epochs:
+        card = {}
+        for route in ("megakernel", "fused_select"):
+            eng = geoms[route][epoch][1]
+            card[route] = _exchange_run(eng, DEVICE, steps)
+            _check_equal(f"{label} {route} exchange (epoch {epoch})",
+                         card[route], _exchange_run(eng, "cpu", steps))
+        _check_equal(f"{label} megakernel vs default engine (epoch {epoch})",
+                     card["megakernel"],
+                     _exchange_run(geoms["default"][epoch][1], DEVICE,
+                                   steps))
+        print(f"[routes] {label} epoch {epoch}: megakernel owns buckets "
+              f"{list(geoms['megakernel'][epoch][1]._mk_fwd_ids)}, fused "
+              f"select on {_fused_ids(geoms['fused_select'][epoch][1])}")
+    print(f"[routes] {label} W=4 exchange, {steps} step(s), epochs "
+          f"{list(epochs)}: megakernel and fused_select card == CPU, "
+          "megakernel == default on the card, bitwise")
 
 
 def _zero_counts():
@@ -541,16 +724,18 @@ def _read_counts(label, must_launch):
     return counts
 
 
-def phase_train_path(label, recipe, schedule, must_launch):
-    """A ``Trainer`` over W=4 ``LocalComm`` workers on the card:
+def phase_train_path(label, recipe, schedule, must_launch, **compression):
+    """A ``Trainer`` over W=4 ``LocalComm`` workers on the card, with the
+    recipe's compression settings overridden by ``compression``:
     ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before the
     steps and read just after."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.parallel.comm import LocalComm
     from dgc_tpu_torch.train import Trainer
-    trainer = Trainer(configs.RECIPES[recipe](), comm=LocalComm(4),
-                      device=DEVICE)
+    cfg = configs.RECIPES[recipe]()
+    cfg.train.compression.update(compression)
+    trainer = Trainer(cfg, comm=LocalComm(4), device=DEVICE)
     _zero_counts()
     times, losses, ratios = {}, {}, {}
     for epoch, steps in schedule:
@@ -652,13 +837,16 @@ def phase_profile(trainer, label, steps=3):
 #: the device symbols of the ported kernels, as the profiler names them
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
                    "seg_top2_kernel", "topk_rows_kernel", "apply_rows_kernel",
-                   "opaque_copy_kernel")
+                   "opaque_copy_kernel", "select_pack_rows_kernel",
+                   "dgc_forward_rows_kernel")
 
 #: the path whose count is a kernel's ``launches`` where it is not the
-#: ResNet-50 main path (which binds no ``opaque_view`` and launches no
-#: standalone candidates)
+#: ResNet-50 default path (which binds no ``opaque_view`` and launches
+#: neither the standalone candidates nor the fused routes' kernels)
 _OWN_PATH = {"opaque_view": "resnet20",
-             "seg_top2_candidates": "standalone_candidates"}
+             "seg_top2_candidates": "resnet50_megakernel",
+             "select_pack_rows": "resnet20_fused_select",
+             "dgc_forward_rows": "resnet20_megakernel"}
 
 
 def phase_process_group():
@@ -694,24 +882,38 @@ def main(argv):
     entries = phase_kernels(geoms, geoms50)
     entries.update(phase_seg_kernels(geoms50))
     entries.update(phase_opaque_kernels(geoms, geoms50))
+    both = dict(megakernel=True, fused_select=True)
+    entries.update(phase_select_kernels(
+        _geometries("resnet20_wm5", (3, 4, 5), **both),
+        _geometries("resnet50_wm5", (3, 4, 5), **both)))
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
+    phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
+    phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1)
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
-    r20, c20 = phase_train_path(
+    by_path = {}
+    r20, by_path["resnet20"] = phase_train_path(
         "resnet20", "resnet20_wm5", [(0, 2), (5, 2)],
         common + ["compensate_bits", "opaque_view"])
-    r50, c50 = phase_train_path(
+    r50, by_path["resnet50"] = phase_train_path(
         "resnet50", "resnet50_wm5", [(0, 1), (5, 3)],
         common + ["compensate_bits", "compensate_bits_cands", "lax_top_k"])
-    c_alone = phase_standalone_candidates(geoms50)
+    by_path["standalone_candidates"] = phase_standalone_candidates(geoms50)
+    by_path["resnet20_megakernel"] = phase_train_path(
+        "resnet20_megakernel", "resnet20_wm5_megakernel", [(3, 2), (5, 2)],
+        ["dgc_forward_rows", "compensate_bits", "apply_rows"])[1]
+    by_path["resnet20_fused_select"] = phase_train_path(
+        "resnet20_fused_select", "resnet20_wm5", [(3, 2), (5, 1)],
+        ["select_pack_rows"], fused_select=True)[1]
+    by_path["resnet50_megakernel"] = phase_train_path(
+        "resnet50_megakernel", "resnet50_wm5_megakernel", [(3, 1), (5, 2)],
+        ["dgc_forward_rows", "seg_top2_candidates", "apply_rows"])[1]
     if "--profile" in argv:
         phase_profile(r20, "resnet20")
         phase_profile(r50, "resnet50")
     del r20, r50
     phase_process_group()
-    by_path = {"resnet50": c50, "resnet20": c20,
-               "standalone_candidates": c_alone}
     for name, e in entries.items():
         e["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         # the count of the one path that is each kernel's own

@@ -3,9 +3,13 @@
 Counterpart of ``dgc_tpu/compression/dgc.py``: the static, host-side half
 of the compressor (``sampling_geometry``, ``initialize``,
 ``warmup_compress_ratio``). The sparsification itself runs over flat
-buffers in :mod:`dgc_tpu_torch.compression.flat`; this slice ports only
-the plain f32 wire, so the reference's int8/fp16/packed-index wire flags
-and its opt-in fused paths are not options here.
+buffers in :mod:`dgc_tpu_torch.compression.flat`. The port carries the
+plain f32 wire only, so the reference's int8/fp16/packed-index wire flags
+are not options here. Of its opt-in fused paths it carries two:
+``fused_select`` (the select-and-pack kernel on the 2-D buckets) and
+``megakernel`` (the forward megakernel on the buckets it owns, the spans
+between them on the compensate kernel; also ``DGC_MEGAKERNEL=1``). Both
+change no result, only the kernels that compute it.
 """
 
 import math
@@ -57,8 +61,8 @@ class DGCCompressor:
                  compress_upper_bound: float = 1.3,
                  compress_lower_bound: float = 0.8,
                  max_adaptation_iters: int = 10, resample: bool = True,
-                 warmup_epochs: int = -1,
-                 verbose: bool = False):
+                 warmup_epochs: int = -1, fused_select: bool = False,
+                 megakernel: bool = False, verbose: bool = False):
         if not strided_sample:
             raise ValueError("the port samples strided lane blocks only "
                              "(strided_sample=True)")
@@ -80,6 +84,10 @@ class DGCCompressor:
         self.compress_lower_bound = compress_lower_bound
         self.max_adaptation_iters = max_adaptation_iters
         self.resample = resample
+        #: read by the flat engine: the select-and-pack kernel, and the
+        #: forward megakernel (flat.py, the module docstring)
+        self.fused_select = fused_select
+        self.megakernel = megakernel
         self.verbose = verbose
         self.attributes: Dict[str, TensorAttrs] = {}
 

@@ -42,6 +42,25 @@ package computes there — the semantics its parity tests pin.
 The compressor has no ``approx_recall``: the port gates the segment path
 as the reference does with ``approx_recall`` set (its default, 0.90).
 
+Two opt-in routes of the reference replace kernels of that pipeline on the
+2-D path, chosen per bucket by the reference's on-card gates:
+
+* ``DGCCompressor(fused_select=True)`` (:meth:`FlatDGCEngine.
+  _use_fused_select`): the bucket's top-k and value gather become one
+  select-and-pack kernel (:func:`kernels.select_pack_rows`);
+* ``DGCCompressor(megakernel=True)``, or ``DGC_MEGAKERNEL=1`` in the
+  environment (:meth:`FlatDGCEngine._use_megakernel_fwd`): the buckets it
+  owns (``_mk_fwd_ids``) compensate and select in one kernel per bucket
+  (:func:`kernels.dgc_forward_rows`), the spans between them compensate
+  through the compensate kernel on windows of the transmit record
+  (:func:`kernels.realign_bits`), and the segment-path buckets compute
+  their own candidates (:func:`kernels.seg_top2_candidates`). The apply
+  is the apply kernel, as on the default route.
+
+Both give the default route's payload, memory and exchanged gradient
+bitwise, except that a selected -0.0 travels as +0.0 (as in the
+reference's Pallas kernels), which changes no sum.
+
 Random phases: strided sampling draws one uniform per (bucket, stride
 group). The JAX engine draws them from ``fold_in(fold_in(key, bucket),
 group)``; the port draws them on the host from an explicit
@@ -58,6 +77,7 @@ gradient clipping, telemetry, and the all-dense exchange at
 """
 
 import math
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +102,10 @@ _SPLIT_COLS = 8 * 1024 * 1024
 _PAD_PAYLOAD_MAX_FRAC = 0.02
 #: the reference's minimum row width for its 3-D selection path
 _SEL3D_MIN_COLS = 3 * 1024 * 1024
+#: the reference's on-card bound on ``max_sel * cols`` of a fused select
+_FUSED_SELECT_MAX_WORK = 16_000_000
+#: widest row the forward megakernel takes (the reference's VMEM bound)
+_MK_MAX_COLS = 128 * 1024
 
 #: calls of the :func:`lax_top_k` route since the last reset (on any
 #: device); the top-k kernel's own launches are in ``kernels.LAUNCHES``
@@ -365,6 +389,15 @@ class FlatDGCEngine:
         #: any bucket takes the segment path: the compensate pass then
         #: emits the candidates itself (the reference's ``_seg_fused``)
         self._seg_fused = any(self._seg)
+        #: the forward megakernel's opt-in, read where the reference reads
+        #: it: the compressor's flag or ``DGC_MEGAKERNEL=1``
+        self._megakernel = bool(
+            getattr(compressor, "megakernel", False)
+            or os.environ.get("DGC_MEGAKERNEL", "") == "1")
+        #: bucket ids whose compensate and selection run the forward
+        #: megakernel, in base order
+        self._mk_fwd_ids = tuple(bi for bi in range(len(self.buckets))
+                                 if self._use_megakernel_fwd(bi))
         sl, off = [], 0
         for b in self.buckets:
             sl.append((off, off + b.payload))
@@ -504,11 +537,12 @@ class FlatDGCEngine:
                 "adapt": t(b.adapt, torch.bool),
                 "steps": [torch.arange(n, device=device) * stride
                           for (_, _, stride, n) in b.stride_groups],
-                "numels": t(b.numels, torch.int32)[:, None],
+                "numels_r": t(b.numels, torch.int32),
                 "blocks3d": ([self._sample_blocks_3d(b, gi, device)
                               for gi in range(len(b.stride_groups))]
                              if seg else None),
             }
+            c["numels"] = c["numels_r"][:, None]
             consts.append(c)
         self._consts[device] = consts
         return consts
@@ -541,6 +575,26 @@ class FlatDGCEngine:
                 and cells >= 3 * b.max_sel
                 and kernels.seg_top2_eligible(self.T // _LANE, b.base,
                                               b.cols, b.rows))
+
+    def _use_fused_select(self, b: _Bucket) -> bool:
+        """Whether a 2-D bucket selects through the select-and-pack kernel:
+        the ``fused_select`` opt-in, k within the kernel's bound and the
+        reference's on-card work bound."""
+        return (getattr(self.c, "fused_select", False)
+                and b.max_sel <= kernels.MR_MAX_K
+                and b.max_sel * b.cols <= _FUSED_SELECT_MAX_WORK)
+
+    def _use_megakernel_fwd(self, bi: int) -> bool:
+        """Whether bucket ``bi`` compensates and selects through the forward
+        megakernel (the reference's on-card gate): the megakernel opt-in, a
+        2-D bucket (not segment-path, not 3-D), ``0 < max_sel <= min(cols,
+        MR_MAX_K)``, lane-aligned base and width, rows of at most 128K
+        columns. The port's state and gradients are f32 throughout."""
+        b = self.buckets[bi]
+        return (self._megakernel and not self._seg[bi] and not self._use_3d(b)
+                and 0 < b.max_sel <= min(b.cols, kernels.MR_MAX_K)
+                and b.base % _LANE == 0 and b.cols % _LANE == 0
+                and b.cols <= _MK_MAX_COLS)
 
     def _sample_blocks_3d(self, b: _Bucket, gi: int, device):
         """``(ids, sb)``: the [Rg, nb] ids of the 128-lane blocks that
@@ -659,14 +713,17 @@ class FlatDGCEngine:
         return torch.where(c["adapt"], thr * ladder[i_star], thr)
 
     def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]],
-                 seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 fwd_sel: Optional[Dict[int, Tuple[torch.Tensor, ...]]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sampled top-k selection over the compressed block [T]. Returns
         ``(values f32, indices int32)`` of length ``payload_size``;
         invalid slots carry ``(0.0, sentinel)``. ``seg_cands`` are the
         compensate pass's candidates (:func:`kernels.compensate_bits_cands`);
         without them a segment-path bucket computes its own
-        (:func:`kernels.seg_top2_candidates`)."""
+        (:func:`kernels.seg_top2_candidates`). ``fwd_sel`` maps a bucket id
+        to the ``(scores, values, columns)`` the forward megakernel already
+        selected (:meth:`_compensate_megakernel`)."""
         consts = self._bucket_consts(vec_c.device)
         out_v, out_i = [], []
         for bi, (b, c) in enumerate(zip(self.buckets, consts)):
@@ -674,8 +731,8 @@ class FlatDGCEngine:
                 vals, gidx = self._sparsify_bucket_seg(vec_c, b, c,
                                                        phases[bi], seg_cands)
             else:
-                vals, gidx = self._sparsify_bucket_2d(vec_c, b, c,
-                                                      phases[bi])
+                vals, gidx = self._sparsify_bucket_2d(
+                    vec_c, b, c, phases[bi], (fwd_sel or {}).get(bi))
             if c["tight"] is None:
                 out_v.append(vals.reshape(-1))
                 out_i.append(gidx.reshape(-1))
@@ -685,12 +742,23 @@ class FlatDGCEngine:
         return torch.cat(out_v), torch.cat(out_i)
 
     def _sparsify_bucket_2d(self, vec_c: torch.Tensor, b: _Bucket, c,
-                            phases: Sequence[float]):
-        """Selection over the [R, cols] importance view of one bucket.
+                            phases: Sequence[float], fused=None):
+        """Selection over the [R, cols] importance view of one bucket: the
+        top ``max_sel`` by importance with their values — ``fused`` (the
+        forward megakernel's), else the select-and-pack kernel's under
+        ``fused_select``, else the top-k of the importance and a gather —
+        then the sampled threshold and its adaptation from those scores.
         Returns ``(values [R, max_sel], global indices [R, max_sel])``."""
         block = vec_c[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
-        imp_rows = torch.where(c["in_row"], block.abs(), -1.0)
-        top_scores, cols = select_topk(imp_rows, b.max_sel)
+        if fused is None and self._use_fused_select(b):
+            fused = kernels.select_pack_rows(block, c["numels_r"], b.max_sel)
+        imp_rows = (torch.where(c["in_row"], block.abs(), -1.0)
+                    if fused is None or not b.exact else None)
+        if fused is not None:
+            top_scores, sel_vals, cols = fused
+        else:
+            top_scores, cols = select_topk(imp_rows, b.max_sel)
+            sel_vals = block.gather(1, cols.long())
         if b.exact:
             # every row samples its whole tensor: the threshold is the
             # exact k-th largest, so top-num_selects is the selection
@@ -703,16 +771,53 @@ class FlatDGCEngine:
                 thr = self._ladder_adapt_from_topk(c, top_scores, thr)
             valid = (top_scores >= thr[:, None]) & c["slot_ok"]
         gidx = torch.where(valid, c["row_off"] + cols, self.layout.sentinel)
-        return torch.where(valid, block.gather(1, cols.long()), 0.0), gidx
+        return torch.where(valid, sel_vals, 0.0), gidx
 
     # -------------------------------------------------------------- #
     # the exchange                                                   #
     # -------------------------------------------------------------- #
 
+    def _compensate_megakernel(self, mem, grad_c: torch.Tensor):
+        """The megakernel route's compensate over [0, T), in place: each
+        bucket of ``_mk_fwd_ids`` runs the forward megakernel on its region
+        (compensate and selection in one launch); every span between them
+        runs the compensate kernel on a window of the transmit record.
+        Each element takes the default route's arithmetic. Returns
+        ``(velocity, {bucket id: (scores, values, columns)})``."""
+        m = self.c.memory
+        flags = (m.momentum, m.nesterov, m.momentum_masking)
+        mmt, vec, bits = (mem["momentums_c"], mem["velocities_c"],
+                          mem["sent_bits"])
+        consts = self._bucket_consts(grad_c.device)
+
+        def span(lo, hi):
+            if hi > lo:
+                kernels.compensate_bits(
+                    grad_c[lo:hi], mmt[lo:hi], vec[lo:hi],
+                    kernels.realign_bits(bits, lo, hi - lo), *flags)
+
+        fwd_sel, pos = {}, 0
+        for bi in self._mk_fwd_ids:        # bucket bases rise with the id
+            b = self.buckets[bi]
+            hi = b.base + b.rows * b.cols
+            span(pos, b.base)
+            fwd_sel[bi] = kernels.dgc_forward_rows(
+                grad_c[b.base:hi], mmt[b.base:hi], vec[b.base:hi], bits,
+                b.base, consts[bi]["numels_r"], b.max_sel, *flags)
+            pos = hi
+        span(pos, self.T)
+        return vec, fwd_sel
+
     def compress(self, flat_grad: torch.Tensor, mem,
                  phases: Sequence[Sequence[float]]):
         """One worker's send side: compensate (in place on ``mem``), then
-        sparsify. Returns the ``(values, indices)`` payload."""
+        sparsify. Returns the ``(values, indices)`` payload. With buckets
+        on the forward megakernel the segment-path buckets get no fused
+        candidates and compute their own, as in the reference."""
+        if self._mk_fwd_ids:
+            vec, fwd_sel = self._compensate_megakernel(mem,
+                                                       flat_grad[:self.T])
+            return self.sparsify(vec, phases, fwd_sel=fwd_sel)
         comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
         return self.sparsify(comp, phases, seg_cands=cands)
 

@@ -8,23 +8,27 @@ them):
 * :func:`resnet50_wm5` — ResNet-50 on ImageNet: ``configs/__init__.py``,
   ``configs/imagenet/__init__.py``, ``configs/imagenet/resnet50.py``,
   ``configs/dgc/__init__.py``, ``configs/dgc/wm5.py``;
-* :func:`resnet18_wm5` — the same with ``configs/imagenet/resnet18.py``.
+* :func:`resnet18_wm5` — the same with ``configs/imagenet/resnet18.py``;
+* :func:`resnet20_wm5_megakernel` and :func:`resnet50_wm5_megakernel` —
+  the first two with ``configs/dgc/megakernel.py`` stacked last.
 
 All use DGC at compress ratio 0.001 with the 5-epoch warm-up.
 """
 
 from dgc_tpu_torch.utils.config import Config
 
-__all__ = ["resnet20_wm5", "resnet50_wm5", "resnet18_wm5", "RECIPES"]
+__all__ = ["resnet20_wm5", "resnet50_wm5", "resnet18_wm5",
+           "resnet20_wm5_megakernel", "resnet50_wm5_megakernel", "RECIPES"]
 
 
 def _dgc() -> Config:
-    """``configs/dgc/__init__.py`` + ``configs/dgc/wm5.py``."""
+    """``configs/dgc/__init__.py`` + ``configs/dgc/wm5.py``, with the
+    compressor's default ``fused_select`` and ``megakernel`` (off)."""
     return Config(
         compress_ratio=0.001, sample_ratio=0.01, strided_sample=True,
         compress_upper_bound=1.3, compress_lower_bound=0.8,
         max_adaptation_iters=10, resample=True, warmup_epochs=5,
-        memory=Config(momentum=0.9))
+        fused_select=False, megakernel=False, memory=Config(momentum=0.9))
 
 
 def resnet20_wm5() -> Config:
@@ -97,6 +101,24 @@ def resnet18_wm5() -> Config:
                      optimize_bn_separately=False)
 
 
+def _megakernel(cfg: Config) -> Config:
+    """``configs/dgc/megakernel.py`` stacked on a recipe."""
+    cfg.train.compression.megakernel = True
+    return cfg
+
+
+def resnet20_wm5_megakernel() -> Config:
+    """:func:`resnet20_wm5` on the megakernel route."""
+    return _megakernel(resnet20_wm5())
+
+
+def resnet50_wm5_megakernel() -> Config:
+    """:func:`resnet50_wm5` on the megakernel route."""
+    return _megakernel(resnet50_wm5())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {"resnet20_wm5": resnet20_wm5, "resnet50_wm5": resnet50_wm5,
-           "resnet18_wm5": resnet18_wm5}
+           "resnet18_wm5": resnet18_wm5,
+           "resnet20_wm5_megakernel": resnet20_wm5_megakernel,
+           "resnet50_wm5_megakernel": resnet50_wm5_megakernel}

@@ -4,8 +4,8 @@ Each ``dgc_tpu_torch/csrc/*.cu`` file exposes a plain C launch function and
 is compiled by ``nvcc`` into its own shared library, loaded with
 :mod:`ctypes` (no PyTorch headers: a build takes seconds, not minutes).
 Libraries land in ``build/kernels/`` at the root of the checkout, named by
-a hash of their source and flags, so an edited source is rebuilt and an
-unchanged one is reused. :func:`build` starts one ``nvcc`` per missing
+a hash of their source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source is rebuilt and an unchanged one is reused. :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module and
@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: one shared library per source file
-SOURCES = ("topk_rows.cu", "apply_rows.cu", "opaque_copy.cu")
+SOURCES = ("topk_rows.cu", "apply_rows.cu", "opaque_copy.cu",
+           "select_pack_rows.cu", "dgc_forward_rows.cu")
 # no --use_fast_math: the apply kernel's divide must stay IEEE
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
@@ -44,7 +45,8 @@ def _nvcc() -> str:
 
 
 def _target(src: str) -> Path:
-    text = (CSRC / src).read_bytes()
+    text = (CSRC / src).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha1(text + " ".join(_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}-{h}.so"
 

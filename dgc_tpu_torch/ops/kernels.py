@@ -1,7 +1,7 @@
 """The hot-path kernels of the flat DGC engine, and the transmit-record
 format they share.
 
-Counterpart of ``dgc_tpu/ops/kernels.py``. Seven kernels are written by
+Counterpart of ``dgc_tpu/ops/kernels.py``. Nine kernels are written by
 hand for Hopper, each with a plain PyTorch version of the same function in
 this module and a launch counter (:data:`LAUNCHES`):
 
@@ -10,9 +10,12 @@ wrapper                       route     replaces (dgc_tpu/ops/kernels.py)
 ============================  ========  ===================================
 :func:`compensate_bits`       Triton    ``fused_compensate_bits`` (:527)
 :func:`topk_rows`             CUDA C++  ``topk_rows`` (:739)
+:func:`select_pack_rows`      CUDA C++  ``select_pack_rows`` (:853) and
+                                        ``_select_pack_rows_mr`` (:1001)
 :func:`seg_top2_candidates`   Triton    ``seg_top2_candidates`` (:1130)
 :func:`compensate_bits_cands` Triton    ``fused_compensate_bits_cands``
                                         (:1265)
+:func:`dgc_forward_rows`      CUDA C++  ``dgc_forward_rows`` (:1427)
 :func:`apply_rows`            CUDA C++  ``payload_apply_bits`` (:1643) /
                                         ``dgc_apply_rows`` (:1743)
 :func:`opaque_view`           CUDA C++  ``opaque_view`` (:1799)
@@ -27,8 +30,8 @@ Triton kernels are defined and compiled on their first launch. Kernels
 launch on PyTorch's current stream and never synchronise.
 
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
-:func:`keep_from_bits`) define a format shared with the JAX package and are
-bitwise its functions.
+:func:`keep_from_bits`, :func:`realign_bits`) define a format shared with
+the JAX package and are bitwise its functions.
 """
 
 import ctypes
@@ -39,8 +42,11 @@ import torch
 from dgc_tpu_torch.ops import build as _build
 
 __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
-           "keep_from_bits", "compensate_bits", "compensate_bits_plain",
-           "topk_rows", "topk_rows_plain", "TOPK_MAX_K", "apply_rows",
+           "keep_from_bits", "realign_bits", "compensate_bits",
+           "compensate_bits_plain", "topk_rows", "topk_rows_plain",
+           "TOPK_MAX_K", "select_pack_rows", "select_pack_rows_plain",
+           "MR_MAX_K", "dgc_forward_rows", "dgc_forward_rows_plain",
+           "apply_rows",
            "apply_rows_plain", "stage_payload", "SEG_BLOCKS", "SEG_SPAN",
            "seg_top2_eligible", "seg_cols_local", "seg_top2_candidates",
            "seg_top2_candidates_plain", "compensate_bits_cands",
@@ -54,6 +60,9 @@ _SUBLANE = 8
 _BITS_GROUP = 32 * _LANE
 #: largest k the top-k kernel's shared-memory sort takes (128 KB of words)
 TOPK_MAX_K = 16384
+#: largest k of the select-and-pack kernels (the reference's multi-round
+#: bound, ``_MR_MAX_K``)
+MR_MAX_K = 8 * _LANE
 #: 128-lane blocks per candidate segment, and the elements it spans
 SEG_BLOCKS = 256
 SEG_SPAN = SEG_BLOCKS * _LANE
@@ -62,7 +71,8 @@ SEG_SPAN = SEG_BLOCKS * _LANE
 #: adds one where it launches its kernel and nowhere else
 LAUNCHES = {"compensate_bits": 0, "topk_rows": 0, "apply_rows": 0,
             "compensate_bits_cands": 0, "seg_top2_candidates": 0,
-            "opaque_view": 0, "opaque_view_from": 0}
+            "opaque_view": 0, "opaque_view_from": 0, "select_pack_rows": 0,
+            "dgc_forward_rows": 0}
 
 
 def reset_launches() -> None:
@@ -135,6 +145,31 @@ def keep_from_bits(bits: torch.Tensor, total: int) -> torch.Tensor:
     m = torch.arange(32, dtype=torch.int32, device=bits.device).view(1, 32, 1)
     keep = ((b3 >> m) & 1) == 0
     return keep.reshape(-1)[:total].to(torch.float32)
+
+
+def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
+    """Window the packed transmit record onto the region ``[base, base+n)``
+    (both lane-aligned): ``num_sent_words(n)`` words whose
+    ``keep_from_bits(out, n)`` is ``keep_from_bits(bits, total)[base:base +
+    n]``, words past the record reading 0. A region whose start row ``S =
+    base // 128`` is not a multiple of 32 takes a funnel shift across
+    adjacent word groups: ``out[j] = (w[q+j] >>> sh) | (w[q+j+1] << (32 -
+    sh))``, ``q, sh = divmod(S, 32)``, in uint32 (computed here in int64)."""
+    _check(base % _LANE == 0 and n % _LANE == 0,
+           f"realign_bits: base {base} and n {n} must be lane-aligned")
+    wr = num_sent_words(n) // _LANE          # word groups of the window
+    q, sh = divmod(base // _LANE, 32)
+    w2 = bits.view(-1, _LANE)
+    need = q + wr + 1 - w2.shape[0]          # one zero guard group
+    if need > 0:
+        w2 = torch.cat([w2, w2.new_zeros((need, _LANE))])
+    if sh == 0:
+        return w2[q:q + wr].reshape(-1)
+    u = w2.to(torch.int64) & 0xFFFFFFFF
+    out = (u[q:q + wr] >> sh) | ((u[q + 1:q + wr + 1] << (32 - sh))
+                                 & 0xFFFFFFFF)
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+        torch.int32).reshape(-1)
 
 
 # ------------------------------------------------------------------ #
@@ -543,6 +578,145 @@ def topk_rows(x: torch.Tensor, k: int):
             raise RuntimeError(f"topk_rows launch failed: CUDA error {err}")
         LAUNCHES["topk_rows"] += 1
     return vals, cols_out
+
+
+# ------------------------------------------------------------------ #
+# K8: fused select and pack (CUDA C++, csrc/select_pack_rows.cu)     #
+# ------------------------------------------------------------------ #
+
+def select_pack_rows_plain(x: torch.Tensor, numels: torch.Tensor, k: int):
+    """Plain version of :func:`select_pack_rows`: the row tail masked to
+    importance -1, the stable top-k of |x| (``lax.top_k`` order), the
+    signed values gathered at the selected columns. A selected -0.0 reads
+    +0.0 (the gather plus 0.0), as the Pallas kernels' one-hot masked sum
+    reads it; the reference's gather keeps the sign."""
+    col = torch.arange(x.shape[1], device=x.device)
+    imp = torch.where(col[None, :] < numels[:, None], x.abs(), -1.0)
+    scores, cols = topk_rows_plain(imp, k)
+    return scores, x.gather(1, cols.long()) + 0.0, cols
+
+
+def _check_select(name: str, R: int, cols: int, numels: torch.Tensor,
+                  k: int) -> None:
+    _check(numels.shape == (R,) and numels.dtype == torch.int32,
+           f"{name}: numels must be int32 [R]")
+    _check(0 < k <= min(cols, MR_MAX_K),
+           f"{name}: k={k} outside (0, min(cols={cols}, {MR_MAX_K})]")
+
+
+def _select_outputs(R: int, k: int, device):
+    return (torch.empty((R, k), dtype=torch.float32, device=device),
+            torch.empty((R, k), dtype=torch.float32, device=device),
+            torch.empty((R, k), dtype=torch.int32, device=device))
+
+
+_SELECT_ARGS = {"select_pack_rows_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p]}
+
+
+def select_pack_rows(x: torch.Tensor, numels: torch.Tensor, k: int):
+    """Fused threshold -> select -> pack over a bucket's [R, cols] f32
+    block: per row, ``(scores, signed values, int32 columns)`` [R, k] of
+    the k most important entries, importance ``|x|`` over the first
+    ``numels[r]`` columns and -1 past them, in ``lax.top_k`` order. ``0 <
+    k <= MR_MAX_K``; a selected -0.0 is written +0.0 (see
+    :func:`select_pack_rows_plain`)."""
+    _check(x.dim() == 2 and x.dtype == torch.float32,
+           "select_pack_rows: x must be a 2-D float32 tensor")
+    R, cols = x.shape
+    _check_select("select_pack_rows", R, cols, numels, k)
+    if not _on_card("select_pack_rows", x, numels):
+        return select_pack_rows_plain(x, numels, k)
+    out = _select_outputs(R, k, x.device)
+    if R:
+        lib = _build.library("select_pack_rows.cu", _SELECT_ARGS)
+        err = lib.select_pack_rows_launch(
+            x.data_ptr(), numels.data_ptr(), R, cols, k,
+            *(t.data_ptr() for t in out), *_stream_args(x))
+        if err:
+            raise RuntimeError(
+                f"select_pack_rows launch failed: CUDA error {err}")
+        LAUNCHES["select_pack_rows"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ #
+# K9: the forward megakernel (CUDA C++, csrc/dgc_forward_rows.cu)    #
+# ------------------------------------------------------------------ #
+
+def dgc_forward_rows_plain(grad, mmt, vec, bits, base: int,
+                           numels: torch.Tensor, k: int, momentum: float,
+                           nesterov: bool = False,
+                           momentum_masking: bool = True):
+    """Plain version of :func:`dgc_forward_rows` (the engine's unfused
+    sequence over one bucket region): window the record
+    (:func:`realign_bits`), compensate (:func:`compensate_bits_plain`),
+    select and pack the [R, cols] view of the velocity
+    (:func:`select_pack_rows_plain`). Returns new ``(mmt', vec', scores,
+    values, columns)``."""
+    n, R = grad.shape[0], numels.shape[0]
+    m, v = compensate_bits_plain(grad, mmt, vec, realign_bits(bits, base, n),
+                                 momentum, nesterov, momentum_masking)
+    return (m, v, *select_pack_rows_plain(v.view(R, n // R), numels, k))
+
+
+_FORWARD_ARGS = {"dgc_forward_rows_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p]}
+
+
+def dgc_forward_rows(grad, mmt, vec, bits, base: int, numels: torch.Tensor,
+                     k: int, momentum: float, nesterov: bool = False,
+                     momentum_masking: bool = True):
+    """The forward megakernel over one bucket: ``grad``, ``mmt``, ``vec``
+    are the bucket's flat f32 region ``[R * cols]`` at flat offset
+    ``base`` of the buffers whose transmit record is ``bits`` (the full
+    record). Compensates with the record's mask applied on read, updating
+    ``mmt`` and ``vec`` IN PLACE, and returns the selection of the
+    compensated velocity, ``(scores, values, columns)`` [R, k]: bitwise
+    :func:`compensate_bits` then :func:`select_pack_rows` on the region."""
+    if any(t.dtype != torch.float32 for t in (grad, mmt, vec)):
+        raise ValueError(
+            "dgc_forward_rows is f32-only (the bf16 error-feedback state "
+            f"must stay on the unfused path): got {grad.dtype}/"
+            f"{mmt.dtype}/{vec.dtype}")
+    n, R = grad.shape[0], numels.shape[0]
+    _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,)
+           and R > 0 and n % R == 0,
+           "dgc_forward_rows: grad, mmt, vec must be 1-D of one length, "
+           "a multiple of len(numels)")
+    cols = n // R
+    _check(cols % _LANE == 0 and base % _LANE == 0,
+           f"dgc_forward_rows: cols {cols} and base {base} must be "
+           "lane-aligned")
+    _check(bits.dim() == 1 and bits.dtype == torch.int32,
+           "dgc_forward_rows: bits must be a 1-D int32 record")
+    _check_select("dgc_forward_rows", R, cols, numels, k)
+    if not _on_card("dgc_forward_rows", grad, mmt, vec, bits, numels):
+        m, v, *sel = dgc_forward_rows_plain(grad, mmt, vec, bits, base,
+                                            numels, k, momentum, nesterov,
+                                            momentum_masking)
+        mmt.copy_(m)
+        vec.copy_(v)
+        return tuple(sel)
+    _check(all(t.data_ptr() % 16 == 0 for t in (grad, mmt, vec)),
+           "dgc_forward_rows: grad, mmt, vec must be 16-byte aligned")
+    out = _select_outputs(R, k, grad.device)
+    lib = _build.library("dgc_forward_rows.cu", _FORWARD_ARGS)
+    err = lib.dgc_forward_rows_launch(
+        grad.data_ptr(), mmt.data_ptr(), vec.data_ptr(), bits.data_ptr(),
+        bits.shape[0], base, numels.data_ptr(), R, cols, k, float(momentum),
+        int(nesterov), int(momentum_masking), *(t.data_ptr() for t in out),
+        *_stream_args(grad))
+    if err:
+        raise RuntimeError(f"dgc_forward_rows launch failed: CUDA error {err}")
+    LAUNCHES["dgc_forward_rows"] += 1
+    return out
 
 
 # ------------------------------------------------------------------ #

@@ -22,7 +22,11 @@ Workers: ``--world W`` simulates W workers on one device in lockstep
         --synthetic-size 16
 
 ``--image-size`` only shrinks the synthetic images (for CPU runs), as the
-JAX harness's ``--dataset.image_size`` override does.
+JAX harness's ``--dataset.image_size`` override does. ``--megakernel`` and
+``--fused-select`` turn on the compressor's fused routes, as the JAX
+harness's ``--train.compression.megakernel True`` and
+``--train.compression.fused_select True`` do (the ``*_megakernel`` recipes
+are their base recipes with ``--megakernel``).
 """
 
 import argparse
@@ -84,6 +88,7 @@ class Trainer:
             compress_lower_bound=cc.compress_lower_bound,
             max_adaptation_iters=cc.max_adaptation_iters,
             resample=cc.resample, warmup_epochs=cc.warmup_epochs,
+            fused_select=cc.fused_select, megakernel=cc.megakernel,
             verbose=verbose)
         self.compression.initialize(
             (n.replace(".", "/"), tuple(p.shape))
@@ -187,6 +192,12 @@ def main(argv=None) -> List[float]:
     p.add_argument("--synthetic-size", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None,
                    help="side of the synthetic images (small for CPU runs)")
+    p.add_argument("--megakernel", action="store_true",
+                   help="compensate and select through the forward "
+                        "megakernel where it applies")
+    p.add_argument("--fused-select", action="store_true",
+                   help="select through the select-and-pack kernel where "
+                        "it applies")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -200,6 +211,10 @@ def main(argv=None) -> List[float]:
         cfg.train.batch_size = args.batch_size
     if args.synthetic_size:
         cfg.dataset.synthetic_size = args.synthetic_size
+    if args.megakernel:
+        cfg.train.compression.megakernel = True
+    if args.fused_select:
+        cfg.train.compression.fused_select = True
     if args.init_method:
         import torch.distributed as dist
         if device.type == "cuda":

@@ -204,10 +204,16 @@ def test_launch_counters_count_only_launches():
                                          dtype=torch.int32), 0.9)
     tk.opaque_view(flat[:100])
     tk.opaque_view_from(flat, 1024, 2048)
+    numels = torch.tensor([256, 7], dtype=torch.int32)
+    tk.select_pack_rows(flat[:512].view(2, 256), numels, 3)
+    tk.dgc_forward_rows(flat[:512], torch.zeros(512), torch.zeros(512),
+                        torch.zeros(128, dtype=torch.int32), 0, numels, 3,
+                        0.9)
     assert tk.LAUNCHES == {"compensate_bits": 0, "topk_rows": 0,
                            "apply_rows": 0, "compensate_bits_cands": 0,
                            "seg_top2_candidates": 0, "opaque_view": 0,
-                           "opaque_view_from": 0}
+                           "opaque_view_from": 0, "select_pack_rows": 0,
+                           "dgc_forward_rows": 0}
 
 
 def test_apply_rows_drops_out_of_range_indices():
