@@ -16,11 +16,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    megakernel or the fused select takes at epochs 3-5 of both models
    for ``dgc_forward_rows`` and ``select_pack_rows`` (plus the gate's
    widest row, an empty row at an unaligned base, all momentum flags,
-   planted ties and a selected -0.0) — bitwise; and time kernel, plain
+   planted ties and a selected -0.0); ``fused_compensate`` and
+   ``fused_compensate_masked`` at n = 2,101,248 (f32 state) and 2,105,345
+   (bf16), every flag combination, infinities, NaNs and bf16 rounding
+   ties planted, and ``fused_compensate`` at ResNet-20's 22 compressed
+   tensors; ``ladder_counts`` at [17, 262144], L = 11, with values
+   planted on the levels, and at ResNet-50's adaptive buckets at the
+   epoch-0 and epoch-5 ratios — bitwise; and time kernel, plain
    version and the PyTorch yardstick call, L2-warm: each time is the
    device time per call, 20 calls queued behind a spin kernel so the card
    runs them back to back (``ms``, also printed as ``kernel_ms``, is the
-   kernel's).
+   kernel's; the 2.1M-element compensates also get ``ms_l2_cold``).
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
    ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios, and with
@@ -28,7 +34,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    epoch-5 ratios (the card's megakernel engine also against the card's
    default engine); and ``engine.sparsify(vec, phases)`` without
    candidates (the standalone candidates kernel) against the same call
-   with the fused candidates.
+   with the fused candidates. The per-tensor W=4 exchange
+   (``DistributedOptimizer.exchange``) on the card against the CPU at
+   ResNet-20's epoch-0 and epoch-5 ratios (bitwise, memory included,
+   apart from coordinates several workers sent: rtol 1e-6), and against
+   the card's flat engine at ratio 0.05, ``sample_ratio=1.0`` (ResNet-20
+   3 steps, ResNet-50 1; rtol 1e-5, atol 1e-6).
 4. The ResNet-20 path: full width, batch 128 per worker, W=4 ``LocalComm``
    workers on the card — 2 steps at the epoch-0 ratio, the engine
    rebuild, 2 steps at 0.001.
@@ -44,7 +55,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    Each path's launch counters are zeroed just before it and read just
    after; every kernel that the path runs must have launched. A kernel's
    ``launches`` is the count of its own path (ResNet-50, else the one
-   path named in ``_OWN_PATH``), ``launches_by_path`` has all six.
+   path named in ``_OWN_PATH``), ``launches_by_path`` has all of them.
+   After the ResNet-20 path, the masked check: ``fused_compensate_
+   masked`` on its engine's own transmit record and state, bitwise
+   ``compensate_bits``.
+4e. The per-tensor path ``resnet20_per_tensor``: ``train_step_per_tensor``
+   at full width, batch 128 per worker, W=4 ``LocalComm`` on the card, 2
+   steps at the epoch-0 ratio, the compressor's re-initialisation, 2 at
+   0.001: 22 ``fused_compensate`` launches per worker and step, no
+   ``compensate_bits``.
+4f. The ladder check: on the flat engine's own velocity at each wm5
+   ratio of ResNet-20 and ResNet-50, every bucket whose selection is an
+   exact top-k of the row and that adapts: ``_ladder_adapt`` (through
+   ``ladder_counts``) bitwise ``_ladder_adapt_from_topk``.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group.
 
 With ``--profile``, ``torch.profiler`` (device activity only) also records
@@ -95,6 +118,15 @@ def _timed(**fns):
     """``{key: device ms}`` for each of ``ms=kernel, plain_ms=plain,
     library_ms=library`` given."""
     return {key: _device_ms(fn) for key, fn in fns.items()}
+
+
+def _cold_ms(fn):
+    """Device time per call with the 50 MB L2 flushed before each call:
+    each call follows a 128 MB fill, whose own time is subtracted."""
+    import torch
+    flush = torch.empty(32 * 1024 * 1024, device=DEVICE)
+    both = _device_ms(lambda: (flush.fill_(1.0), fn()))
+    return both - _device_ms(lambda: flush.fill_(1.0))
 
 
 def _bound(nbytes, ops):
@@ -151,26 +183,37 @@ def phase_build():
     kernels.compensate_bits_cands(g, torch.zeros_like(g),
                                   torch.zeros_like(g), bits, 0.9)
     kernels.seg_top2_candidates(g, 0, 2, kernels.SEG_SPAN)
+    for dt in (torch.float32, torch.bfloat16):
+        kernels.fused_compensate(g, torch.zeros_like(g, dtype=dt),
+                                 torch.zeros_like(g, dtype=dt), 0.9)
+        kernels.fused_compensate_masked(g, torch.zeros_like(g, dtype=dt),
+                                        torch.zeros_like(g, dtype=dt),
+                                        torch.zeros_like(g), 0.9)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     print(f"[build] nvcc {t_nvcc:.1f} s (parallel), triton {t_triton:.1f} s")
 
 
 def _check_equal(name, got, want):
+    """Bitwise equality of each pair (floats by their bits, so signed
+    zeros and NaN payloads count); returns the largest absolute difference
+    over the finite values."""
     import torch
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs "
                                  f"{b.shape}/{b.dtype}")
-        if a.dtype == torch.float32:
-            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if a.dtype in bits:
+            same = torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
         else:
             same = torch.equal(a, b)
         if not same:
             raise AssertionError(f"{name}: kernel and plain version differ")
-    return max((float((a.double() - b.double()).abs().max())
-                for a, b in zip(got, want)
-                if a.dtype == torch.float32 and a.numel()), default=0.0)
+    errs = [(a.double() - b.double()).abs() for a, b in zip(got, want)
+            if a.dtype in bits]
+    errs = [e[torch.isfinite(e)] for e in errs]
+    return max((float(e.max()) for e in errs if e.numel()), default=0.0)
 
 
 def _topk_inputs(eng, gen, host_gen):
@@ -637,6 +680,176 @@ def phase_select_kernels(geoms20, geoms50):
     return entries
 
 
+def _plant_specials(g, m, v):
+    """Infinities and NaNs in g, m and v at the start of the buffers, and
+    from element 8 on bf16 rounding ties: with m = v = 0 and no nesterov,
+    m' = v' = g exactly, so a g half-way between two bf16 values must round
+    to the even one (1 + 2**-8 -> 1.0, 1 + 3 * 2**-8 -> 1.015625, ...).
+    Returns the tie positions and the bf16 values they must store."""
+    inf, nan = float("inf"), float("nan")
+    g[0], g[1], g[2], m[3], v[4], m[5], v[5] = inf, -inf, nan, inf, nan, \
+        -inf, inf
+    ties = [(1 + 2 ** -8, 1.0), (1 + 3 * 2 ** -8, 1.015625),
+            (-(1 + 2 ** -8), -1.0), (3 + 2 ** -7, 3.0),
+            (3 + 3 * 2 ** -7, 3.03125)]
+    for i, (x, _) in enumerate(ties):
+        g[8 + i], m[8 + i], v[8 + i] = x, 0.0, 0.0
+    return [(8 + i, want) for i, (_, want) in enumerate(ties)]
+
+
+def _compensate_state(n, dtype, gen, sent_frac=0.25):
+    """Random f32 gradient, state in ``dtype`` and a transmit count vector
+    (0 = keep), with :func:`_plant_specials`' values."""
+    import torch
+    dev = DEVICE
+    g, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(3))
+    ties = _plant_specials(g, m, v)
+    sent = (torch.rand(n, device=dev, generator=gen) < sent_frac).float()
+    sent[:16] = 0.0
+    sent[5] = 1.0                          # an inf masked by a multiply
+    return g, m.to(dtype), v.to(dtype), sent, ties
+
+
+def phase_compensate_ladder_kernels(geoms20, geoms50):
+    """``fused_compensate`` and ``fused_compensate_masked`` bitwise against
+    their plain versions at the on-chip check's sizes of the reference
+    (n = 2,101,248 with f32 state, 2,105,345 with bf16), with every flag
+    combination, infinities, NaNs and bf16 rounding ties planted, and
+    ``fused_compensate`` at each of ResNet-20's compressed tensor sizes;
+    ``ladder_counts`` bitwise against its plain version at [17, 262144],
+    L = 11, with values planted on the levels, and at ResNet-50's adaptive
+    buckets at the epoch-0 and epoch-5 ratios. Times."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(4)
+    calls = {"fused_compensate": [], "fused_compensate_masked": [],
+             "ladder_counts": []}
+    errs = {k: [] for k in calls}
+    for n, dtype in ((2_101_248, torch.float32), (2_105_345, torch.bfloat16)):
+        g, m, v, sent, ties = _compensate_state(n, dtype, gen)
+        for name, flag_sets in (
+                ("fused_compensate", [dict(nesterov=f) for f in (0, 1)]),
+                ("fused_compensate_masked",
+                 [dict(nesterov=f, momentum_masking=mm)
+                  for f in (0, 1) for mm in (1, 0)])):
+            masked = name == "fused_compensate_masked"
+            extra = (sent,) if masked else ()
+            kern = getattr(K, name)
+            plain = getattr(K, name + "_plain")
+            for fl in flag_sets:
+                fl = {k: bool(x) for k, x in fl.items()}
+                want = plain(g, m, v, *extra, 0.9, **fl)
+                got = kern(g, m.clone(), v.clone(), *extra, 0.9, **fl)
+                errs[name].append(_check_equal(
+                    f"{name} n={n} {dtype} {fl}", got, want))
+                if dtype == torch.bfloat16 and not fl["nesterov"]:
+                    for i, val in ties:
+                        if float(want[1][i]) != val:
+                            raise AssertionError(f"{name}: the bf16 tie at "
+                                                 f"{i} did not round to even")
+            mm, vv = m.clone(), v.clone()
+            per = 4 * dtype.itemsize + 4 + 4 * masked   # bytes per element
+            bound_ms, bound_by = _bound(per * n, 5 * n)
+            calls[name].append(dict(
+                shape=[n], state=str(dtype).split(".")[-1], **_timed(
+                    ms=lambda: kern(g, mm, vv, *extra, 0.9),
+                    plain_ms=lambda: plain(g, m, v, *extra, 0.9)),
+                ms_l2_cold=_cold_ms(lambda: kern(g, mm, vv, *extra, 0.9)),
+                bound_ms=bound_ms, bound_by=bound_by))
+    # fused_compensate at ResNet-20's compressed tensors: one worker step
+    lay = geoms20[5][1].layout
+    for nm in lay.compressed_names:
+        n = lay.sizes[nm]
+        g, m, v = (torch.randn(n, device=dev, generator=gen)
+                   for _ in range(3))
+        errs["fused_compensate"].append(_check_equal(
+            f"fused_compensate {nm}",
+            K.fused_compensate(g, m.clone(), v.clone(), 0.9),
+            K.fused_compensate_plain(g, m, v, 0.9)))
+        mm, vv = m.clone(), v.clone()
+        bound_ms, bound_by = _bound(20 * n, 5 * n)
+        calls["fused_compensate"].append(dict(
+            tensor=nm, shape=[n], state="float32", **_timed(
+                ms=lambda: K.fused_compensate(g, mm, vv, 0.9),
+                plain_ms=lambda: K.fused_compensate_plain(g, m, v, 0.9)),
+            bound_ms=bound_ms, bound_by=bound_by))
+    # ladder_counts at the reference's check shape, levels planted
+    levels, lower = 11, 0.8
+    imp = torch.rand(17, 262144, device=dev, generator=gen) * 3.0
+    thr = torch.rand(17, device=dev, generator=gen) + 0.5
+    thr[3] = 0.0
+    imp[2, 7] = float("nan")
+    imp[:, -100:] = -1.0
+    fac = K.ladder_factors(lower, levels).to(dev)
+    for i in range(levels):
+        lv = fac[i] * thr
+        imp[:, 1000 + 3 * i] = lv
+        imp[:, 1001 + 3 * i] = torch.nextafter(lv, torch.full_like(lv, 9.0))
+        imp[:, 1002 + 3 * i] = torch.nextafter(lv, torch.full_like(lv, -9.0))
+    cases = [("[17, 262144] planted", imp, thr)]
+    for epoch in (0, 5):
+        eng = geoms50[epoch][1]
+        consts = eng._bucket_consts(torch.device(dev))
+        vec = torch.randn(eng.T, device=dev, generator=gen)
+        for b, c in zip(eng.buckets, consts):
+            if b.exact or not b.adapt.any():
+                continue
+            block = vec[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+            x = torch.where(c["in_row"], block.abs(), -1.0)
+            k = min(b.max_sel, b.cols)
+            cases.append((f"resnet50 epoch {epoch} [{b.rows}, {b.cols}]", x,
+                          torch.topk(x, k, dim=1).values[:, -1].contiguous()))
+    for label, x, t in cases:
+        want = K.ladder_counts_plain(x, t, lower, levels)
+        if "planted" in label and not bool((want[3] == want[3, 0]).all()):
+            raise AssertionError("ladder_counts: thr = 0 counts every "
+                                 "level alike")
+        errs["ladder_counts"].append(_check_equal(
+            f"ladder_counts {label}", [K.ladder_counts(x, t, lower, levels)],
+            [want]))
+        R, cols = x.shape
+        # bytes: the rows read once, the [R, L] counts written; ops: L
+        # compares per element
+        bound_ms, bound_by = _bound(4 * R * cols + 4 * R * levels,
+                                    levels * R * cols)
+        calls["ladder_counts"].append(dict(
+            case=label, shape=[R, cols], levels=levels, **_timed(
+                ms=lambda: K.ladder_counts(x, t, lower, levels),
+                plain_ms=lambda: K.ladder_counts_plain(x, t, lower, levels)),
+            bound_ms=bound_ms, bound_by=bound_by))
+    entries = {}
+    step = [c for c in calls["fused_compensate"] if "tensor" in c]
+    entries["fused_compensate"] = dict(
+        name="fused_compensate", route="triton",
+        source="dgc_tpu_torch/ops/kernels.py",
+        replaces="dgc_tpu/ops/kernels.py:171",
+        check="bitwise vs fused_compensate_plain (f32 and bf16 state, "
+              "infinities, NaNs, bf16 ties)",
+        max_abs_err=max(errs["fused_compensate"]),
+        **{k: sum(c[k] for c in step)
+           for k in ("ms", "plain_ms", "bound_ms")},
+        bound_by="bytes", library_ms=None,
+        summed_over=f"the {len(step)} calls of one worker's ResNet-20 "
+                    "per-tensor step (f32 state)",
+        calls=calls["fused_compensate"])
+    for name, line, key in (("fused_compensate_masked", 275, 0),
+                            ("ladder_counts", 652, 0)):
+        c = calls[name][key]
+        entries[name] = dict(
+            name=name, route="cuda" if name == "ladder_counts" else "triton",
+            source=("dgc_tpu_torch/csrc/ladder_counts.cu"
+                    if name == "ladder_counts"
+                    else "dgc_tpu_torch/ops/kernels.py"),
+            replaces=f"dgc_tpu/ops/kernels.py:{line}",
+            check=f"bitwise vs {name}_plain at every case",
+            max_abs_err=max(errs[name]),
+            **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            library_ms=None, of=str(c.get("case", c["shape"])),
+            calls=calls[name])
+    return entries
+
+
 def _print_entries(entries):
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
@@ -702,6 +915,315 @@ def phase_routes_vs_cpu(recipe, label, steps, epochs=(3, 5)):
     print(f"[routes] {label} W=4 exchange, {steps} step(s), epochs "
           f"{list(epochs)}: megakernel and fused_select card == CPU, "
           "megakernel == default on the card, bitwise")
+
+
+def _per_tensor_compressor(recipe, epoch=None, **overrides):
+    """The recipe's compressor at the wm5 ratio of ``epoch`` (or with
+    ``overrides``, e.g. ``compress_ratio`` and ``sample_ratio``) over the
+    recipe model's compressed tensors, and ``{name: shape}`` of every
+    parameter (the model built on the CPU for its shapes)."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.compression.dgc import DGCCompressor
+    from dgc_tpu_torch.compression.memory import DGCSGDMemory
+    from dgc_tpu_torch.models import create, param_tree
+    from dgc_tpu_torch.utils.pytree import named_flatten
+    cfg = configs.RECIPES[recipe]()
+    cc = cfg.train.compression
+    kw = dict(compress_ratio=cc.compress_ratio, sample_ratio=cc.sample_ratio,
+              warmup_epochs=cc.warmup_epochs)
+    kw.update(overrides)
+    comp = DGCCompressor(kw.pop("compress_ratio"),
+                         memory=DGCSGDMemory(cc.memory.momentum), **kw)
+    model = create(cfg.model.name, cfg.model.num_classes, torch.Generator())
+    shapes = {n: tuple(p.shape) for n, p in
+              named_flatten(param_tree(model)).items()}
+    comp.initialize((n, sh) for n, sh in shapes.items() if len(sh) > 1)
+    if epoch is not None:
+        comp.warmup_compress_ratio(epoch)
+    return comp, shapes
+
+
+def _worker_grads(shapes, dev, seed):
+    """One worker's ``{name: gradient}``, views of one seeded flat draw."""
+    import torch
+    total = sum(math.prod(sh) for sh in shapes.values())
+    flat = torch.randn(total, generator=torch.Generator().manual_seed(
+        seed)).to(dev)
+    out, off = {}, 0
+    for n, sh in shapes.items():
+        k = math.prod(sh)
+        out[n] = flat[off:off + k].view(sh)
+        off += k
+    return out
+
+
+def _per_tensor_run(comp, shapes, dev, steps, sent=None):
+    """``steps`` W=4 per-tensor exchanges (``DistributedOptimizer.
+    exchange`` over ``LocalComm(4)``) on ``dev`` from seeded gradients and
+    phases: every worker's exchanged gradients, then its memory, on the
+    CPU, in name order. ``sent`` collects ``{(step, name): [(valid
+    indices, their |values|) per worker]}``."""
+    import torch
+    from dgc_tpu_torch.optim.distributed import DistributedOptimizer
+    from dgc_tpu_torch.optim.sgd import dgc_sgd
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    dist = DistributedOptimizer(dgc_sgd(0.1), comp, LocalComm(4))
+    zeros = {n: torch.zeros(sh) for n, sh in shapes.items()}
+    mems = [dist.init_memory(zeros, dev) for _ in range(4)]
+    sparsify = comp.sparsify
+    step = 0
+
+    def recording(grad, name, phase=0):
+        vals, idx, valid = sparsify(grad, name, phase)
+        if sent is not None:
+            sent.setdefault((step, name), []).append(
+                (idx[valid].cpu(), vals[valid].float().abs().cpu()))
+        return vals, idx, valid
+    comp.sparsify = recording
+    res = []
+    try:
+        for step in range(steps):
+            grads = [_worker_grads(shapes, dev, 100 * step + w)
+                     for w in range(4)]
+            phases = [comp.draw_phases(torch.Generator().manual_seed(
+                10 * step + w)) for w in range(4)]
+            outs, mems = dist.exchange(grads, mems, phases)
+            res.append([{n: t.cpu() for n, t in o.items()} for o in outs])
+    finally:
+        del comp.sparsify
+    return res, [{k: {n: t.cpu() for n, t in m[k].items()} for k in m}
+                 for m in mems]
+
+
+def phase_per_tensor_vs_cpu(recipe="resnet20_wm5", label="resnet20",
+                            steps=2):
+    """The per-tensor W=4 exchange on the card and on the CPU, same inputs,
+    at the epoch-0 and epoch-5 ratios: memory bitwise; the exchanged
+    gradients bitwise apart from coordinates several workers sent, whose
+    sums ``index_add_`` takes in atomic order on the card: two orders of a
+    sum of W terms differ by at most (W - 1) eps sum|v_i| (the division by
+    W = 4 is exact), so they are held within eps sum|v_i|."""
+    import torch
+    for epoch in (0, 5):
+        comp, shapes = _per_tensor_compressor(recipe, epoch)
+        sent = {}
+        cpu_out, cpu_mem = _per_tensor_run(comp, shapes, "cpu", steps, sent)
+        card_out, card_mem = _per_tensor_run(comp, shapes, DEVICE, steps)
+        for m_card, m_cpu in zip(card_mem, cpu_mem):
+            for k in m_cpu:
+                _check_equal(f"{label} per-tensor memory (epoch {epoch})",
+                             list(m_card[k].values()),
+                             list(m_cpu[k].values()))
+        n_dup, eps = 0, torch.finfo(torch.float32).eps
+        for step, (o_card, o_cpu) in enumerate(zip(card_out, cpu_out)):
+            for n in shapes:
+                numel = math.prod(shapes[n])
+                dup = torch.zeros(numel, dtype=torch.bool)
+                mass = torch.zeros(numel)
+                if (step, n) in sent:
+                    idx = torch.cat([i for i, _ in sent[(step, n)]]).long()
+                    u, c = idx.unique(return_counts=True)
+                    dup[u[c > 1]] = True
+                    mass.index_add_(0, idx, torch.cat(
+                        [a for _, a in sent[(step, n)]]))
+                n_dup += int(dup.sum())
+                for a, b in zip(o_card, o_cpu):
+                    x, y = a[n].reshape(-1), b[n].reshape(-1)
+                    _check_equal(f"{label} per-tensor {n} (epoch {epoch})",
+                                 [x[~dup]], [y[~dup]])
+                    if bool(((x - y).abs() > eps * mass)[dup].any()):
+                        raise AssertionError(f"{label} per-tensor {n}: the "
+                                             "duplicate coordinates")
+        print(f"[per-tensor] {label} W=4 exchange, {steps} step(s), epoch "
+              f"{epoch}: card == CPU bitwise, memory included, apart from "
+              f"{n_dup} coordinates several workers sent (within eps "
+              "sum|v_i|)")
+
+
+def phase_per_tensor_vs_flat(recipe, label, steps):
+    """On the card, the per-tensor W=4 exchange against the flat engine's,
+    same gradients, ``sample_ratio=1.0`` at ratio 0.05 (the JAX package's
+    test_flat.py contract): exchanged gradients and memory within rtol
+    1e-5 / atol 1e-6 over ``steps`` steps."""
+    import torch
+    from dgc_tpu_torch.compression.flat import FlatDGCEngine, ParamLayout
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    comp, shapes = _per_tensor_compressor(recipe, compress_ratio=0.05,
+                                          sample_ratio=1.0, warmup_epochs=-1)
+    out_p, mem_p = _per_tensor_run(comp, shapes, DEVICE, steps)
+    eng = FlatDGCEngine(comp, ParamLayout.for_compressor(shapes, comp))
+    mems = [eng.init_memory(DEVICE) for _ in range(4)]
+    worst = 0.0
+    for step in range(steps):
+        grads = [eng.layout.flatten(_worker_grads(shapes, DEVICE,
+                                                  100 * step + w),
+                                    device=DEVICE) for w in range(4)]
+        outs = eng.exchange(grads, mems, [[[]] * len(eng.buckets)] * 4,
+                            LocalComm(4))
+        for w in range(4):
+            got = eng.layout.unflatten_named(outs[w].cpu())
+            for n in shapes:
+                a, b = got[n], out_p[step][w][n]
+                if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"{label} per-tensor vs flat {n}")
+                worst = max(worst, float((a - b).abs().max()))
+    for w in range(4):
+        sd = eng.memory_state_dict(mems[w])
+        for k in sd:
+            for n in shapes:
+                if not torch.allclose(sd[k][n].cpu(), mem_p[w][k][n],
+                                      rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"{label} per-tensor vs flat {k} {n}")
+    print(f"[per-tensor] {label} W=4, {steps} step(s), ratio 0.05, "
+          f"sample_ratio 1.0: per-tensor == flat engine on the card "
+          f"(rtol 1e-5, atol 1e-6; largest difference {worst:.3g})")
+
+
+def phase_masked_check(trainer):
+    """``fused_compensate_masked`` on the flat engine's own transmit record
+    and state after a training path (the record expanded to a count
+    vector) against ``compensate_bits`` on the record itself: bitwise.
+    Counts zeroed just before the masked launch and read just after."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    eng, mem = trainer.setup.engine, trainer.state.memory[0]
+    T, mcfg = eng.T, eng.c.memory
+    g = torch.randn(T, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(6))
+    sent = 1.0 - K.keep_from_bits(mem["sent_bits"], T)
+    args = (mcfg.momentum, mcfg.nesterov, mcfg.momentum_masking)
+    m, v = mem["momentums_c"].clone(), mem["velocities_c"].clone()
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = K.fused_compensate_masked(g, m, v, sent, *args)
+    torch.cuda.synchronize()
+    counts = _read_counts("masked_check", ["fused_compensate_masked"])
+    want = K.compensate_bits(g, mem["momentums_c"].clone(),
+                             mem["velocities_c"].clone(), mem["sent_bits"],
+                             *args)
+    _check_equal("fused_compensate_masked vs compensate_bits on the "
+                 "engine's record", got, want)
+    print(f"[masked_check] T={T}, {int(sent.sum())} coordinates pending in "
+          "the record: fused_compensate_masked == compensate_bits bitwise")
+    return counts
+
+
+def phase_per_tensor_path(label="resnet20_per_tensor", recipe="resnet20_wm5",
+                          schedule=((0, 2), (5, 2))):
+    """The per-tensor path: ``train_step_per_tensor`` at full width, the
+    recipe's batch per worker, W=4 ``LocalComm`` on the card; ``schedule``
+    is ``[(epoch, steps)]``, the compressor re-initialised at each epoch's
+    ratio. Counts zeroed just before the steps and read just after: every
+    compressed tensor's compensate launches ``fused_compensate`` once per
+    worker and step, and nothing launches ``compensate_bits``."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.data.sampler import epoch_batches
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    from dgc_tpu_torch.training.step import (make_flat_state,
+                                             make_per_tensor_setup,
+                                             train_step_per_tensor)
+    trainer = Trainer(configs.RECIPES[recipe](), comm=LocalComm(4),
+                      device=DEVICE)
+    setup = make_per_tensor_setup(trainer.model, trainer.dist)
+    state = make_flat_state(trainer.model, trainer.dist, setup,
+                            trainer.device)
+    n_comp = len(trainer.compression.attributes)
+    torch.cuda.synchronize()
+    _zero_counts()
+    times, losses, ratios = {}, {}, {}
+    for epoch, steps in schedule:
+        trainer.compression.warmup_compress_ratio(epoch)
+        ratios[epoch] = trainer.compression.compress_ratio
+        it = epoch_batches(len(trainer.dataset["train"]),
+                           trainer.global_batch, epoch, seed=trainer.seed)
+        times[epoch], losses[epoch] = [], []
+        for _, idx in zip(range(steps), it):
+            xs, ys = trainer._batches(idx)
+            t0 = time.perf_counter()
+            state, loss = train_step_per_tensor(
+                trainer.model, setup, trainer.dist, state, xs, ys,
+                trainer.gens)
+            torch.cuda.synchronize()
+            times[epoch].append(time.perf_counter() - t0)
+            losses[epoch].append(float(loss))
+    counts = _read_counts(label, ["fused_compensate"])
+    want = n_comp * 4 * sum(st for _, st in schedule)
+    if counts["fused_compensate"] != want or counts["compensate_bits"]:
+        raise AssertionError(f"{label}: fused_compensate launched "
+                             f"{counts['fused_compensate']} times (want "
+                             f"{want}), compensate_bits "
+                             f"{counts['compensate_bits']}")
+    for epoch, ls in losses.items():
+        if not all(math.isfinite(x) for x in ls):
+            raise AssertionError(f"{label}: losses at epoch {epoch}: {ls}")
+        print(f"[{label}] epoch {epoch} ratio {ratios[epoch]:.4g} loss {ls} "
+              f"step_s {times[epoch]}")
+    if not bool(torch.isfinite(state.params).all()):
+        raise AssertionError(f"{label}: non-finite parameters")
+    return counts
+
+
+def _ladder_inputs(eng, bi, vec, gen):
+    """One 2-D bucket's importance view, selection top-k and sampled
+    threshold, as the engine's ``_sparsify_bucket_2d`` forms them."""
+    from dgc_tpu_torch.compression.flat import select_topk
+    import torch
+    b = eng.buckets[bi]
+    c = eng._bucket_consts(torch.device(DEVICE))[bi]
+    block = vec[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+    imp = torch.where(c["in_row"], block.abs(), -1.0)
+    top = select_topk(imp, b.max_sel)[0]
+    phases = torch.rand(len(b.stride_groups), generator=gen).tolist()
+    smp = eng._sample_rows(b, c, imp, phases).contiguous()
+    thr = select_topk(smp, b.max_k)[0].gather(1, c["k_idx"])[:, 0]
+    return imp, top, thr, c
+
+
+def phase_ladder_check(engines):
+    """The full-scan ladder (``flat._ladder_adapt``, through
+    ``ladder_counts``) against the engine's from-top-k derivation on the
+    engine's own velocity (the compensate of a seeded gradient), at every
+    bucket whose selection is an exact top-k of the row and that adapts,
+    for ``engines`` ``[(label, engine)]``: the adapted thresholds equal
+    bitwise. Counts zeroed just before the ladder calls and read after."""
+    import numpy as np
+    import torch
+    from dgc_tpu_torch.compression import flat
+    dev, gen = DEVICE, torch.Generator().manual_seed(8)
+    inputs = []
+    for label, eng in engines:
+        mem = eng.init_memory(dev)
+        grad = torch.randn(eng.layout.total, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               eng.T % 1000))
+        vec, _ = eng._compensate_acc(mem, grad[:eng.T])
+        for bi, b in enumerate(eng.buckets):
+            if (eng._seg[bi] or eng._use_3d(b) or b.exact
+                    or not b.adapt.any()):
+                continue
+            inputs.append((label, bi, b, eng, *_ladder_inputs(eng, bi, vec,
+                                                              gen)))
+    torch.cuda.synchronize()
+    _zero_counts()
+    full = [flat._ladder_adapt(
+        imp, thr, torch.from_numpy(b.num_selects.astype(np.float32)).to(dev),
+        c["adapt"], eng.c.compress_lower_bound, eng.c.max_adaptation_iters)
+        for _, _, b, eng, imp, _, thr, c in inputs]
+    torch.cuda.synchronize()
+    counts = _read_counts("ladder_check", ["ladder_counts"])
+    moved = 0
+    for (label, bi, b, eng, imp, top, thr, c), a in zip(inputs, full):
+        want = eng._ladder_adapt_from_topk(c, top, thr)
+        _check_equal(f"ladder {label} bucket {bi} [{b.rows}, {b.cols}]",
+                     [a], [want])
+        moved += int((a != thr).sum())
+    print(f"[ladder_check] {len(inputs)} bucket-epochs: _ladder_adapt "
+          "(ladder_counts) == _ladder_adapt_from_topk bitwise; "
+          f"{moved} row thresholds adapted")
+    return counts
 
 
 def _zero_counts():
@@ -838,15 +1360,22 @@ def phase_profile(trainer, label, steps=3):
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
                    "seg_top2_kernel", "topk_rows_kernel", "apply_rows_kernel",
                    "opaque_copy_kernel", "select_pack_rows_kernel",
-                   "dgc_forward_rows_kernel")
+                   "dgc_forward_rows_kernel", "fused_compensate_kernel",
+                   "ladder_counts_kernel")
 
 #: the path whose count is a kernel's ``launches`` where it is not the
 #: ResNet-50 default path (which binds no ``opaque_view`` and launches
-#: neither the standalone candidates nor the fused routes' kernels)
+#: neither the standalone candidates, the fused routes' kernels nor the
+#: per-tensor path's compensate; no training path launches the
+#: count-masked compensate or the ladder counts, which the reference
+#: keeps as tested building blocks: their checks are their paths)
 _OWN_PATH = {"opaque_view": "resnet20",
              "seg_top2_candidates": "resnet50_megakernel",
              "select_pack_rows": "resnet20_fused_select",
-             "dgc_forward_rows": "resnet20_megakernel"}
+             "dgc_forward_rows": "resnet20_megakernel",
+             "fused_compensate": "resnet20_per_tensor",
+             "fused_compensate_masked": "masked_check",
+             "ladder_counts": "ladder_check"}
 
 
 def phase_process_group():
@@ -878,7 +1407,8 @@ def main(argv):
     t_start = time.perf_counter()
     phase_build()
     geoms = _geometries()
-    geoms50 = _geometries("resnet50_wm5", (0, 5))
+    geoms50_all = _geometries("resnet50_wm5")
+    geoms50 = {e: geoms50_all[e] for e in (0, 5)}
     entries = phase_kernels(geoms, geoms50)
     entries.update(phase_seg_kernels(geoms50))
     entries.update(phase_opaque_kernels(geoms, geoms50))
@@ -886,16 +1416,21 @@ def main(argv):
     entries.update(phase_select_kernels(
         _geometries("resnet20_wm5", (3, 4, 5), **both),
         _geometries("resnet50_wm5", (3, 4, 5), **both)))
+    entries.update(phase_compensate_ladder_kernels(geoms, geoms50))
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
     phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
     phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1)
+    phase_per_tensor_vs_cpu()
+    phase_per_tensor_vs_flat("resnet20_wm5", "resnet20", steps=3)
+    phase_per_tensor_vs_flat("resnet50_wm5", "resnet50", steps=1)
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
     by_path = {}
     r20, by_path["resnet20"] = phase_train_path(
         "resnet20", "resnet20_wm5", [(0, 2), (5, 2)],
         common + ["compensate_bits", "opaque_view"])
+    by_path["masked_check"] = phase_masked_check(r20)
     r50, by_path["resnet50"] = phase_train_path(
         "resnet50", "resnet50_wm5", [(0, 1), (5, 3)],
         common + ["compensate_bits", "compensate_bits_cands", "lax_top_k"])
@@ -909,6 +1444,10 @@ def main(argv):
     by_path["resnet50_megakernel"] = phase_train_path(
         "resnet50_megakernel", "resnet50_wm5_megakernel", [(3, 1), (5, 2)],
         ["dgc_forward_rows", "seg_top2_candidates", "apply_rows"])[1]
+    by_path["resnet20_per_tensor"] = phase_per_tensor_path()
+    by_path["ladder_check"] = phase_ladder_check(
+        [(f"resnet20 epoch {e}", g[1]) for e, g in geoms.items()]
+        + [(f"resnet50 epoch {e}", g[1]) for e, g in geoms50_all.items()])
     if "--profile" in argv:
         phase_profile(r20, "resnet20")
         phase_profile(r50, "resnet50")

@@ -1,24 +1,40 @@
-"""DGCCompressor — per-tensor sampling geometry and the warm-up schedule.
+"""DGCCompressor — sampled top-k sparsification with momentum correction.
 
-Counterpart of ``dgc_tpu/compression/dgc.py``: the static, host-side half
-of the compressor (``sampling_geometry``, ``initialize``,
-``warmup_compress_ratio``). The sparsification itself runs over flat
-buffers in :mod:`dgc_tpu_torch.compression.flat`. The port carries the
-plain f32 wire only, so the reference's int8/fp16/packed-index wire flags
-are not options here. Of its opt-in fused paths it carries two:
-``fused_select`` (the select-and-pack kernel on the 2-D buckets) and
-``megakernel`` (the forward megakernel on the buckets it owns, the spans
-between them on the compensate kernel; also ``DGC_MEGAKERNEL=1``). Both
-change no result, only the kernels that compute it.
+Counterpart of ``dgc_tpu/compression/dgc.py``. The host-side half
+(``sampling_geometry``, ``initialize``, ``warmup_compress_ratio``) serves
+both paths:
+
+* the per-tensor path, the reference DGC's own API and the oracle the flat
+  engine is held against: ``compress`` (the memory's compensate — the
+  ``fused_compensate`` kernel — then :meth:`DGCCompressor.sparsify` and the
+  memory's update), ``communicate``, ``exchange_fused`` and ``decompress``,
+  tensor by tensor, with the f32, fp16 (``fp16_values``) or int8
+  (``int8_values``, with or without ``int8_error_feedback``) wire;
+* the flat engine (:mod:`dgc_tpu_torch.compression.flat`,
+  :meth:`DGCCompressor.make_flat_exchange`), which carries the plain f32
+  wire and f32 state only (it raises on the other wires and on bf16
+  memory), with two of the reference's opt-in fused paths:
+  ``fused_select`` (the select-and-pack kernel on the 2-D buckets) and
+  ``megakernel`` (the forward megakernel on the buckets it owns, the spans
+  between them on the compensate kernel; also ``DGC_MEGAKERNEL=1``). Both
+  change no result, only the kernels that compute it.
+
+The strided sample's phase is drawn on the host (:meth:`DGCCompressor.
+draw_phases`) where the reference folds a PRNG key per tensor.
 """
 
 import math
 from typing import Dict, NamedTuple, Tuple
 
+import torch
+
+from dgc_tpu_torch.compression.base import CompressCtx, Compressor
 from dgc_tpu_torch.compression.flat import FlatDGCEngine
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
+from dgc_tpu_torch.ops import sparsify as ops
 
-__all__ = ["DGCCompressor", "TensorAttrs", "sampling_geometry"]
+__all__ = ["DGCCompressor", "TensorAttrs", "sampling_geometry",
+           "quantize_int8"]
 
 
 class TensorAttrs(NamedTuple):
@@ -50,7 +66,21 @@ def sampling_geometry(numel: int, sample_ratio: float,
     return num_samples, sample_stride
 
 
-class DGCCompressor:
+def quantize_int8(values: torch.Tensor):
+    """Symmetric per-vector int8 quantization: ``(q, scale)`` with ``scale =
+    max|values| / 127`` (in the values' dtype, then f32) and round half to
+    even; an all-zero vector quantizes to zeros with scale 0. Dequantized,
+    ``q * scale`` is within scale/2 of each value."""
+    vmax = (values.abs().max() if values.numel()
+            else values.new_zeros(()))
+    scale = (vmax / torch.tensor(127.0, dtype=vmax.dtype,
+                                 device=vmax.device)).to(torch.float32)
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.clamp(torch.round(values / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+class DGCCompressor(Compressor):
     """Deep Gradient Compression: momentum-corrected sampled top-k with
     bounded threshold adaptation and the epoch-wise warm-up schedule.
     It behaves as the reference's with ``approx_recall`` set (its
@@ -61,14 +91,28 @@ class DGCCompressor:
                  compress_upper_bound: float = 1.3,
                  compress_lower_bound: float = 0.8,
                  max_adaptation_iters: int = 10, resample: bool = True,
-                 warmup_epochs: int = -1, fused_select: bool = False,
-                 megakernel: bool = False, verbose: bool = False):
+                 fp16_values: bool = False, warmup_epochs: int = -1,
+                 fused_select: bool = False, megakernel: bool = False,
+                 int8_values: bool = False,
+                 int8_error_feedback: bool = True, verbose: bool = False):
         if not strided_sample:
             raise ValueError("the port samples strided lane blocks only "
-                             "(strided_sample=True)")
+                             "(strided_sample=True); the uniform sampler is "
+                             "ROADMAP.md queue 1 item 2")
         if not resample:
             raise ValueError("the port adapts thresholds by the resample "
-                             "ladder only (resample=True)")
+                             "ladder only (resample=True): the flat engine "
+                             "has no batched non-resample adaptation "
+                             "(ROADMAP.md queue 1 item 2)")
+        if int8_values and fp16_values:
+            raise ValueError("int8_values and fp16_values are mutually "
+                             "exclusive wire formats")
+        #: the per-tensor wire: fp16 values, or int8 values with one f32
+        #: scale per tensor (the residual fed back into the velocity under
+        #: ``int8_error_feedback``); the flat engine refuses both
+        self.fp16_values = fp16_values
+        self.int8_values = int8_values
+        self.int8_error_feedback = int8_error_feedback
         self.base_compress_ratio = self.compress_ratio = (
             compress_ratio if compress_ratio <= 1.0 else 1.0 / compress_ratio)
         self.memory = DGCSGDMemory() if memory is None else memory
@@ -79,7 +123,8 @@ class DGCCompressor:
                              if warmup_epochs > 0 else 1)
         self.sample_ratio = min(max(sample_ratio, 0.01), 1.0)
         self.strided_sample = strided_sample
-        # read only by the non-resample adaptation, which is not ported
+        # read only by the non-resample adaptation (ops.adapt_threshold),
+        # which the compressor does not take yet (resample=False raises)
         self.compress_upper_bound = compress_upper_bound
         self.compress_lower_bound = compress_lower_bound
         self.max_adaptation_iters = max_adaptation_iters
@@ -127,6 +172,151 @@ class DGCCompressor:
             self.initialize(list(self.attributes.items()))
             return True
         return False
+
+    def draw_phases(self, gen: torch.Generator) -> Dict[str, int]:
+        """The per-tensor path's strided-sample phases, drawn on the host
+        from ``gen``: ``{name: start in [0, stride)}`` for every tensor
+        that samples (numel above its sample count), in attribute order."""
+        return {n: ops.draw_phase(gen, a.sample_stride)
+                for n, a in self.attributes.items()
+                if a.numel > a.num_samples}
+
+    # -------------------------------------------------------------- #
+    # the per-tensor path                                            #
+    # -------------------------------------------------------------- #
+
+    def sparsify(self, grad: torch.Tensor, name: str, phase: int = 0):
+        """Fixed-size sampled top-k of one tensor: the threshold is the
+        ``top_k_samples``-th largest |sample|, adapted over the whole
+        tensor where it samples, then :func:`ops.select_by_threshold`.
+        Returns ``(values, int32 indices, valid)`` of ``num_selects``
+        slots, in the gradient's dtype (bf16 under the bf16 memory)."""
+        attrs = self.attributes[name]
+        flat = grad.reshape(-1)
+        importance = flat.abs()
+        if attrs.numel == attrs.num_samples:
+            samples = importance
+        else:
+            samples = ops.strided_sample(importance, attrs.num_samples,
+                                         attrs.sample_stride, phase)
+        threshold = ops.topk_threshold(samples, attrs.top_k_samples)
+        if attrs.numel > attrs.num_samples:
+            threshold = ops.adapt_threshold(
+                importance, threshold, attrs.num_selects,
+                self.compress_lower_bound, self.compress_upper_bound,
+                self.max_adaptation_iters, self.resample)
+        return ops.select_by_threshold(flat, importance, threshold,
+                                       attrs.num_selects)
+
+    def compress(self, mem_state, name: str, grad: torch.Tensor,
+                 phase: int = 0):
+        """Momentum-corrected sparsification of a compressed tensor (the
+        memory updates in place; the payload's values are gathered before
+        the memory's update zeroes them), or the dense payload of any other.
+        Returns ``(payload, ctx, mem_state)``: ``(values, indices)``,
+        ``(q, indices, scale)`` under ``int8_values``, or the gradient."""
+        if self.compress_ratio < 1.0 and name in self.attributes:
+            attrs = self.attributes[name]
+            compensated, mem_state = self.memory.compensate(
+                mem_state, name, grad, accumulate=True)
+            values, indices, valid = self.sparsify(compensated, name, phase)
+            mem_state = self.memory.update(mem_state, name, indices, valid)
+            ctx = CompressCtx(name=name, numel=attrs.numel, shape=attrs.shape,
+                              dtype=grad.dtype, compressed=True)
+            if self.int8_values:
+                q, scale = quantize_int8(values)
+                if self.int8_error_feedback:
+                    # what travels is q * scale: the rounding residual goes
+                    # back into the velocity update() just zeroed
+                    residual = torch.where(
+                        valid, values - q.to(values.dtype)
+                        * scale.to(values.dtype), 0.0)
+                    mem_state = self.memory.feed_back(mem_state, name,
+                                                      indices, residual)
+                return (q, indices, scale), ctx, mem_state
+            if self.fp16_values and values.is_floating_point():
+                values = values.to(torch.float16)
+            return (values, indices), ctx, mem_state
+        ctx = CompressCtx(name=name, numel=grad.numel(),
+                          shape=tuple(grad.shape), dtype=grad.dtype,
+                          compressed=False)
+        payload = grad
+        if self.fp16_values and grad.is_floating_point():
+            payload = grad.to(torch.float16)
+        return payload, ctx, mem_state
+
+    def communicate(self, payloads, ctx: CompressCtx, comm):
+        """The collective over every local worker's payload: an all-gather
+        of each component of a sparse payload (per worker a tuple of
+        [W, ...] stacks), a sum of dense ones."""
+        if ctx.compressed:
+            parts = [comm.all_gather([p[i] for p in payloads])
+                     for i in range(len(payloads[0]))]
+            return [tuple(part[w] for part in parts)
+                    for w in range(len(payloads))]
+        return comm.all_reduce(payloads)
+
+    def exchange_fused(self, compressed, comm, world_size: int, mem_states):
+        """Every sparse payload in two all-gathers (values, indices; plus
+        the [n_tensors] scales under int8): ``compressed[w]`` maps each
+        name to ``(payload, ctx)`` for local worker w. Returns ``(outs,
+        mem_states)``, ``outs[w]`` mapping names to decompressed
+        gradients; each equals the unfused exchange's."""
+        names = list(compressed[0])
+        sizes = [compressed[0][n][0][0].shape[0] for n in names]
+        g_values = comm.all_gather([torch.cat([c[n][0][0] for n in names])
+                                    for c in compressed])
+        g_indices = comm.all_gather([torch.cat([c[n][0][1] for n in names])
+                                     for c in compressed])
+        g_scales = None
+        if self.int8_values:
+            g_scales = comm.all_gather([torch.stack([c[n][0][2]
+                                                     for n in names])
+                                        for c in compressed])
+        outs = []
+        for w, c in enumerate(compressed):
+            out, offset = {}, 0
+            for i, (n, sz) in enumerate(zip(names, sizes)):
+                piece = (g_values[w][:, offset:offset + sz],
+                         g_indices[w][:, offset:offset + sz])
+                if g_scales is not None:
+                    piece = piece + (g_scales[w][:, i],)
+                out[n], mem_states[w] = self.decompress(
+                    piece, c[n][1], mem_states[w], world_size)
+                offset += sz
+            outs.append(out)
+        return outs, mem_states
+
+    def decompress(self, gathered, ctx: CompressCtx, mem_state,
+                   world_size: int, op: str = "average"):
+        """One worker's gradient from the gathered payloads: the
+        scatter-add of every worker's values (a sum, then ``/ world_size``
+        under ``op="average"``), or for a dense payload the average and the
+        memory's non-accumulating correction. Returns ``(grad,
+        mem_state)``."""
+        avg = op == "average"
+        if ctx.compressed:
+            if self.int8_values:
+                q, indices, scales = gathered          # [W,k], [W,k], [W]
+                values = q.to(ctx.dtype) * scales[:, None].to(ctx.dtype)
+            else:
+                values, indices = gathered             # [W, k] each
+                if self.fp16_values:
+                    values = values.to(ctx.dtype)
+            dense = ops.scatter_add_dense(ctx.numel, indices, values,
+                                          dtype=ctx.dtype)
+            if avg:
+                dense = dense / world_size
+            return dense.reshape(ctx.shape), mem_state
+        grad = gathered
+        if self.fp16_values and grad.is_floating_point():
+            grad = grad.to(ctx.dtype)
+        if avg:
+            grad = grad / world_size
+        grad = grad.to(ctx.dtype)
+        out, mem_state = self.memory.compensate(mem_state, ctx.name, grad,
+                                                accumulate=False)
+        return out.reshape(ctx.shape), mem_state
 
     def make_flat_exchange(self, layout):
         """The flat-buffer engine over ``layout``; call again after every

@@ -68,10 +68,17 @@ group)``; the port draws them on the host from an explicit
 slice the buffers without a device sync — and :meth:`sparsify` takes them
 as an argument, so a test can pass in the JAX-drawn values.
 
-Not ported yet (``ROADMAP.md``): planner regimes and dense-planned
-buckets, gossip, the adaptive send fraction, checksums, the int8/int4/fp16
-and packed-index wires, the segment split of rows wider than 8M and the
-3-D selection of wide buckets that are not segment-aligned (VGG-16),
+The engine's threshold ladder is also kept as a full scan,
+:func:`_ladder_adapt` (the ladder-counts kernel, :func:`kernels.
+ladder_counts`), the oracle the from-top-k derivation is held against; as
+in the reference, :meth:`FlatDGCEngine.sparsify` does not call it.
+
+Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
+for one): planner regimes and dense-planned buckets, gossip, the adaptive
+send fraction, checksums, the int8/int4/fp16 and packed-index wires and
+the bf16 error-feedback state (the per-tensor path has the int8 and fp16
+wires and the bf16 state), the segment split of rows wider than 8M and
+the 3-D selection of wide buckets that are not segment-aligned (VGG-16),
 gradient clipping, telemetry, and the all-dense exchange at
 ``compress_ratio >= 1``.
 """
@@ -365,6 +372,73 @@ def _f32_floor_mul(u: float, m: int) -> int:
     return int(np.floor(np.float32(u) * np.float32(m)))
 
 
+def _pow_ladder(lower: float, levels: int) -> np.ndarray:
+    """``lower ** i`` for i < ``levels`` as XLA's f32 pow computes it:
+    ``float32(lower)`` raised in double, rounded once to f32 (the ladder
+    of the adaptation's pick and of its from-top-k counts; the ladder
+    kernel's own levels round ``lower ** i`` from the double ``lower``,
+    :func:`kernels.ladder_factors`)."""
+    return np.array([np.float64(np.float32(lower)) ** i
+                     for i in range(levels)], np.float32)
+
+
+def _topk_counts(top_scores: torch.Tensor, thr: torch.Tensor,
+                 ladder: torch.Tensor) -> torch.Tensor:
+    """Per-row counts of the sorted selection top-k at each level ``thr *
+    ladder[i]``."""
+    t = thr[:, None] * ladder[None, :]
+    return (top_scores[:, :, None] >= t[:, None, :]).sum(dim=1)
+
+
+def _ladder_choice(counts, thr, ladder, lo, adapt, max_iters: int):
+    """The stopping rule over per-level pass counts: the first level whose
+    count reaches ``lo`` ([R, 1] f32), else the last; ``thr * ladder[i*]``
+    where ``adapt``, else ``thr``."""
+    passing = counts.to(torch.float32) >= lo
+    first = passing.to(torch.int8).argmax(dim=1)
+    i_star = torch.where(passing.any(dim=1), first, max_iters)
+    return torch.where(adapt, thr * ladder[i_star], thr)
+
+
+def _ladder_pick(counts, thr, num_selects, adapt_mask, lower: float,
+                 max_iters: int):
+    """Closed-form ladder stopping rule from per-level pass counts (the
+    reference's ``_ladder_pick``): first i with count >= ``lower *
+    num_selects`` (f32 [R]), else ``max_iters``."""
+    ladder = torch.from_numpy(_pow_ladder(lower, max_iters + 1)).to(
+        thr.device)
+    lo = (num_selects.to(torch.float32)
+          * torch.tensor(lower, dtype=torch.float32,
+                         device=thr.device))[:, None]
+    return _ladder_choice(counts, thr, ladder, lo, adapt_mask, max_iters)
+
+
+def _ladder_adapt(imp_rows, thr, num_selects, adapt_mask, lower: float,
+                  max_iters: int):
+    """One-pass threshold adaptation for ``resample=True`` over the full
+    [R, cols] importance view: every ladder level's count in one read
+    (:func:`kernels.ladder_counts`), then :func:`_ladder_pick`. Kept as
+    the reference keeps it: the full-scan oracle that the engine's
+    from-top-k derivation (:func:`_ladder_adapt_from_topk`) is held
+    against; :meth:`FlatDGCEngine.sparsify` does not call it."""
+    counts = kernels.ladder_counts(imp_rows, thr, lower, max_iters + 1)
+    return _ladder_pick(counts, thr, num_selects, adapt_mask, lower,
+                        max_iters)
+
+
+def _ladder_adapt_from_topk(top_scores, thr, num_selects, adapt_mask,
+                            lower: float, max_iters: int):
+    """The same adaptation with the counts taken over the sorted selection
+    top-k (exact for an exact top-k: a count above k only ever needs to
+    reach ``lower * num_selects <= k``). The two ladders differ by an ulp
+    at some levels, so an importance inside that gap is counted
+    differently, as in the reference."""
+    ladder = torch.from_numpy(_pow_ladder(lower, max_iters + 1)).to(
+        thr.device)
+    return _ladder_pick(_topk_counts(top_scores, thr, ladder), thr,
+                        num_selects, adapt_mask, lower, max_iters)
+
+
 class FlatDGCEngine:
     """The flat DGC pipeline for one compressor + layout pair; rebuilt
     (host-side, cheaply) whenever the warm-up schedule changes the ratio.
@@ -377,6 +451,18 @@ class FlatDGCEngine:
         if self.T == 0 or compressor.compress_ratio >= 1.0:
             raise ValueError("the all-dense exchange (nothing compressed, or "
                              "compress_ratio >= 1) is not ported")
+        mdt = getattr(compressor.memory, "dtype", None)
+        if mdt not in (None, torch.float32):
+            raise ValueError(
+                f"the flat engine keeps f32 error-feedback state only, not "
+                f"{mdt}: its bf16 memory is ROADMAP.md queue 1 item 7 (the "
+                "per-tensor path, DistributedOptimizer.exchange, takes it)")
+        for flag in ("int8_values", "fp16_values"):
+            if getattr(compressor, flag, False):
+                raise ValueError(
+                    f"the flat engine carries the plain f32 wire only: "
+                    f"{flag} is ROADMAP.md queue 1 item 7 (the per-tensor "
+                    "path, DistributedOptimizer.exchange, takes it)")
         self.buckets = _build_buckets(compressor.attributes, layout)
         #: per bucket: selects through the segment candidates
         self._seg = [self._use_seg_kernel(b) for b in self.buckets]
@@ -405,12 +491,8 @@ class FlatDGCEngine:
         self._payload_slices = tuple(sl)
         #: per-worker wire payload in elements
         self.payload_size = off
-        lower = self.c.compress_lower_bound
-        levels = self.c.max_adaptation_iters + 1
-        # lower ** i, correctly rounded to f32 as XLA's pow computes it
-        self._ladder_np = np.array(
-            [np.float64(np.float32(lower)) ** i for i in range(levels)],
-            np.float32)
+        self._ladder_np = _pow_ladder(self.c.compress_lower_bound,
+                                      self.c.max_adaptation_iters + 1)
         self._consts: Dict[torch.device, list] = {}
 
     # -------------------------------------------------------------- #
@@ -703,14 +785,9 @@ class FlatDGCEngine:
         ``thr * lower**i`` that at least ``lower * num_selects`` selections
         pass, else the last — counted over the sorted selection top-k,
         which is exact (see the reference's derivation)."""
-        ladder = c["ladder"]
-        t = thr[:, None] * ladder[None, :]
-        counts = (top_scores[:, :, None] >= t[:, None, :]).sum(dim=1)
-        passing = counts.to(torch.float32) >= c["lo"]
-        first = passing.to(torch.int8).argmax(dim=1)
-        i_star = torch.where(passing.any(dim=1), first,
-                             self.c.max_adaptation_iters)
-        return torch.where(c["adapt"], thr * ladder[i_star], thr)
+        return _ladder_choice(_topk_counts(top_scores, thr, c["ladder"]),
+                              thr, c["ladder"], c["lo"], c["adapt"],
+                              self.c.max_adaptation_iters)
 
     def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]],
                  seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

@@ -1,26 +1,30 @@
 """The hot-path kernels of the flat DGC engine, and the transmit-record
 format they share.
 
-Counterpart of ``dgc_tpu/ops/kernels.py``. Nine kernels are written by
+Counterpart of ``dgc_tpu/ops/kernels.py``. Twelve kernels are written by
 hand for Hopper, each with a plain PyTorch version of the same function in
 this module and a launch counter (:data:`LAUNCHES`):
 
-============================  ========  ===================================
-wrapper                       route     replaces (dgc_tpu/ops/kernels.py)
-============================  ========  ===================================
-:func:`compensate_bits`       Triton    ``fused_compensate_bits`` (:527)
-:func:`topk_rows`             CUDA C++  ``topk_rows`` (:739)
-:func:`select_pack_rows`      CUDA C++  ``select_pack_rows`` (:853) and
-                                        ``_select_pack_rows_mr`` (:1001)
-:func:`seg_top2_candidates`   Triton    ``seg_top2_candidates`` (:1130)
-:func:`compensate_bits_cands` Triton    ``fused_compensate_bits_cands``
-                                        (:1265)
-:func:`dgc_forward_rows`      CUDA C++  ``dgc_forward_rows`` (:1427)
-:func:`apply_rows`            CUDA C++  ``payload_apply_bits`` (:1643) /
-                                        ``dgc_apply_rows`` (:1743)
-:func:`opaque_view`           CUDA C++  ``opaque_view`` (:1799)
-:func:`opaque_view_from`      CUDA C++  ``opaque_view_from`` (:1856)
-============================  ========  ===================================
+==============================  ========  =================================
+wrapper                         route     replaces (dgc_tpu/ops/kernels.py)
+==============================  ========  =================================
+:func:`fused_compensate`        Triton    ``fused_compensate`` (:171)
+:func:`fused_compensate_masked` Triton    ``fused_compensate_masked``
+                                          (:275)
+:func:`compensate_bits`         Triton    ``fused_compensate_bits`` (:527)
+:func:`ladder_counts`           CUDA C++  ``ladder_counts`` (:652)
+:func:`topk_rows`               CUDA C++  ``topk_rows`` (:739)
+:func:`select_pack_rows`        CUDA C++  ``select_pack_rows`` (:853) and
+                                          ``_select_pack_rows_mr`` (:1001)
+:func:`seg_top2_candidates`     Triton    ``seg_top2_candidates`` (:1130)
+:func:`compensate_bits_cands`   Triton    ``fused_compensate_bits_cands``
+                                          (:1265)
+:func:`dgc_forward_rows`        CUDA C++  ``dgc_forward_rows`` (:1427)
+:func:`apply_rows`              CUDA C++  ``payload_apply_bits`` (:1643) /
+                                          ``dgc_apply_rows`` (:1743)
+:func:`opaque_view`             CUDA C++  ``opaque_view`` (:1799)
+:func:`opaque_view_from`        CUDA C++  ``opaque_view_from`` (:1856)
+==============================  ========  =================================
 
 A wrapper runs the plain version only for tensors that lie on the CPU; for
 a CUDA tensor it launches its kernel or raises. It checks device, dtype,
@@ -42,7 +46,12 @@ import torch
 from dgc_tpu_torch.ops import build as _build
 
 __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
-           "keep_from_bits", "realign_bits", "compensate_bits",
+           "keep_from_bits", "realign_bits", "keep_from_sent",
+           "fused_compensate", "fused_compensate_plain",
+           "fused_compensate_masked", "fused_compensate_masked_plain",
+           "ladder_counts", "ladder_counts_plain", "ladder_factors",
+           "LADDER_MAX_LEVELS",
+           "compensate_bits",
            "compensate_bits_plain", "topk_rows", "topk_rows_plain",
            "TOPK_MAX_K", "select_pack_rows", "select_pack_rows_plain",
            "MR_MAX_K", "dgc_forward_rows", "dgc_forward_rows_plain",
@@ -69,7 +78,9 @@ SEG_SPAN = SEG_BLOCKS * _LANE
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"compensate_bits": 0, "topk_rows": 0, "apply_rows": 0,
+LAUNCHES = {"fused_compensate": 0, "fused_compensate_masked": 0,
+            "ladder_counts": 0, "compensate_bits": 0, "topk_rows": 0,
+            "apply_rows": 0,
             "compensate_bits_cands": 0, "seg_top2_candidates": 0,
             "opaque_view": 0, "opaque_view_from": 0, "select_pack_rows": 0,
             "dgc_forward_rows": 0}
@@ -186,25 +197,41 @@ def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
 # masked. Multiplying by the keep mask, not a select, keeps signed zeros
 # and NaNs as the reference has them; the launch disables FMA contraction
 # so `momentum * m0 + g` rounds twice, as the plain version does. The body
-# (_compensate_tile) is shared with compensate_bits_cands (K5).
+# (_compensate_tile) is shared with compensate_bits_cands (K5), and its
+# arithmetic (_momentum_correct) with fused_compensate(_masked) (K10/K11).
 
 # triton.language and the shared @triton.jit helpers, bound at the first
 # build: module globals, because Triton resolves the names a kernel uses in
 # the kernel's globals
 tl = None
-_compensate_tile = _top2_tile = _merge_top2 = _seg_top2_cell = None
+_momentum_correct = _compensate_tile = None
+_top2_tile = _merge_top2 = _seg_top2_cell = None
 _TRITON = {}
 
 
 def _triton_kernels():
     """Define the Triton kernels (on first use; the CPU has no Triton).
     Returns ``{name: kernel}``."""
-    global tl, _compensate_tile, _top2_tile, _merge_top2, _seg_top2_cell
+    global tl, _momentum_correct, _compensate_tile, _top2_tile, \
+        _merge_top2, _seg_top2_cell
     if _TRITON:
         return _TRITON
     import triton
     import triton.language as _tl
     tl = _tl
+
+    @triton.jit
+    def _momentum_correct(g, m0, v0, momentum, NESTEROV: tl.constexpr):
+        # the momentum correction of every compensate kernel, in f32 on
+        # masked state: returns (m', v'); the launches disable FMA
+        # contraction, so each product and sum rounds on its own
+        if NESTEROV:
+            m = (m0 + g) * momentum
+            ov = v0 + m + g
+        else:
+            m = momentum * m0 + g
+            ov = v0 + m
+        return m, ov
 
     @triton.jit
     def _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, inb, momentum,
@@ -221,15 +248,41 @@ def _triton_kernels():
         if MASK_MOMENTUM:
             m0 = m0 * keep
         v0 = v0 * keep
-        if NESTEROV:
-            m = (m0 + g) * momentum
-            ov = v0 + m + g
-        else:
-            m = momentum * m0 + g
-            ov = v0 + m
+        m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
         tl.store(m_ptr + p, m, mask=inb)
         tl.store(v_ptr + p, ov, mask=inb)
         return ov
+
+    @triton.jit
+    def fused_compensate_kernel(g_ptr, m_ptr, v_ptr, s_ptr, n, momentum,
+                                NESTEROV: tl.constexpr,
+                                MASKED: tl.constexpr,
+                                MASK_MOMENTUM: tl.constexpr,
+                                BF16: tl.constexpr, BLOCK: tl.constexpr):
+        # K10 (MASKED false) and K11 (MASKED: keep = (sent == 0) as 0.0 /
+        # 1.0, multiplied after the up-cast); state f32, or bf16 with the
+        # math in f32 and one round-to-nearest-even per stored value
+        p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        inb = p < n
+        g = tl.load(g_ptr + p, mask=inb, other=0.0)
+        m0 = tl.load(m_ptr + p, mask=inb, other=0.0).to(tl.float32)
+        v0 = tl.load(v_ptr + p, mask=inb, other=0.0).to(tl.float32)
+        if MASKED:
+            sent = tl.load(s_ptr + p, mask=inb, other=0.0)
+            keep = (sent == 0).to(tl.float32)
+            if MASK_MOMENTUM:
+                m0 = m0 * keep
+            v0 = v0 * keep
+        m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
+        if BF16:
+            tl.store(m_ptr + p, m.to(tl.bfloat16, fp_downcast_rounding="rtne"),
+                     mask=inb)
+            tl.store(v_ptr + p,
+                     ov.to(tl.bfloat16, fp_downcast_rounding="rtne"),
+                     mask=inb)
+        else:
+            tl.store(m_ptr + p, m, mask=inb)
+            tl.store(v_ptr + p, ov, mask=inb)
 
     @triton.jit
     def _top2_tile(x, blk):
@@ -339,7 +392,8 @@ def _triton_kernels():
         tl.store(cb_ptr + o, b1)
         tl.store(cb_ptr + o + 128, b2)
 
-    _TRITON.update(compensate_bits=compensate_bits_kernel,
+    _TRITON.update(fused_compensate=fused_compensate_kernel,
+                   compensate_bits=compensate_bits_kernel,
                    compensate_bits_cands=compensate_bits_cands_kernel,
                    seg_top2_candidates=seg_top2_kernel)
     return _TRITON
@@ -394,6 +448,197 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
                      enable_fp_fusion=False)
         LAUNCHES["compensate_bits"] += 1
     return mmt, vec
+
+
+# ------------------------------------------------------------------ #
+# K10, K11: record-less and count-masked compensate (Triton)         #
+# ------------------------------------------------------------------ #
+#
+# Replace dgc_tpu/ops/kernels.py::fused_compensate (_compensate_kernel),
+# the per-tensor memory's accumulating compensate, and
+# ::fused_compensate_masked (_compensate_masked_kernel), the same with the
+# previous step's transmit COUNT vector applied on read. One Triton kernel,
+# specialised on MASKED; its arithmetic is compensate_bits' own
+# (_momentum_correct), so the three compensates agree bitwise. The TPU
+# pads to 16 x 128 tiles; here one program covers BLOCK elements and the
+# ragged tail is masked, so any length runs copy-free. State is f32 or
+# bf16 (the bf16 error-feedback memory): loaded in its dtype, up-cast, the
+# math in f32, one round-to-nearest-even per stored value (`fp_downcast_
+# rounding="rtne"`, as `.to(torch.bfloat16)` rounds). FMA contraction is
+# off at launch. Bound on the card: bytes, 20 B per element with f32
+# state, 12 with bf16, plus 4 for the count vector of the masked form.
+
+_COMPENSATE_BLOCK = 4096
+
+
+def keep_from_sent(sent: torch.Tensor) -> torch.Tensor:
+    """Transmit count -> multiplicative keep mask in the count's dtype:
+    1.0 where the coordinate was not transmitted (count 0), else 0.0."""
+    return (sent == 0).to(sent.dtype)
+
+
+def fused_compensate_plain(grad, mmt, vec, momentum: float,
+                           nesterov: bool = False):
+    """Plain version of :func:`fused_compensate` (``fused_compensate_
+    reference``'s op order): the state up-cast to the gradient's dtype,
+    the momentum correction, one rounding to the state's dtype. Returns
+    new ``(mmt', vec')``."""
+    sdt = mmt.dtype
+    m0, v0 = mmt.to(grad.dtype), vec.to(grad.dtype)
+    if nesterov:
+        m = (m0 + grad) * momentum
+        v = v0 + m + grad
+    else:
+        m = momentum * m0 + grad
+        v = v0 + m
+    return m.to(sdt), v.to(sdt)
+
+
+def fused_compensate_masked_plain(grad, mmt, vec, sent, momentum: float,
+                                  nesterov: bool = False,
+                                  momentum_masking: bool = True):
+    """Plain version of :func:`fused_compensate_masked`: the keep mask
+    ``sent == 0`` in the gradient's dtype, multiplied into the up-cast
+    state (the momentum only under ``momentum_masking``), then
+    :func:`fused_compensate_plain`. Returns new ``(mmt', vec')``."""
+    kf = keep_from_sent(sent).to(grad.dtype)
+    m0 = mmt.to(grad.dtype)
+    if momentum_masking:
+        m0 = m0 * kf
+    m, v = fused_compensate_plain(grad, m0, vec.to(grad.dtype) * kf,
+                                  momentum, nesterov)
+    return m.to(mmt.dtype), v.to(mmt.dtype)
+
+
+def _check_state(name, grad, mmt, vec, sent=None) -> None:
+    n = grad.shape[0]
+    _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,)
+           and (sent is None or sent.shape == (n,)),
+           f"{name}: grad, mmt, vec{', sent' if sent is not None else ''} "
+           "must be 1-D of one length")
+    _check(grad.dtype == torch.float32
+           and (sent is None or sent.dtype == torch.float32),
+           f"{name}: grad{' and sent' if sent is not None else ''} must be "
+           "float32")
+    _check(mmt.dtype == vec.dtype
+           and mmt.dtype in (torch.float32, torch.bfloat16),
+           f"{name}: mmt and vec must be both float32 or both bfloat16, got "
+           f"{mmt.dtype}/{vec.dtype}")
+
+
+def _launch_compensate(name, grad, mmt, vec, sent, momentum, nesterov,
+                       momentum_masking) -> None:
+    n = grad.shape[0]
+    if n:
+        kernel = _triton_kernels()["fused_compensate"]
+        kernel[(-(-n // _COMPENSATE_BLOCK),)](
+            grad, mmt, vec, grad if sent is None else sent, n,
+            float(momentum), NESTEROV=bool(nesterov),
+            MASKED=sent is not None, MASK_MOMENTUM=bool(momentum_masking),
+            BF16=mmt.dtype == torch.bfloat16, BLOCK=_COMPENSATE_BLOCK,
+            num_warps=8, enable_fp_fusion=False)
+        LAUNCHES[name] += 1
+
+
+def fused_compensate(grad, mmt, vec, momentum: float,
+                     nesterov: bool = False):
+    """Momentum correction and local accumulation in one pass, updating
+    ``mmt`` and ``vec`` IN PLACE (the TPU kernel aliases them to its
+    outputs); returns them. ``grad`` is f32 [n]; ``mmt``, ``vec`` are f32
+    or bf16 [n]."""
+    _check_state("fused_compensate", grad, mmt, vec)
+    if not _on_card("fused_compensate", grad, mmt, vec):
+        m, v = fused_compensate_plain(grad, mmt, vec, momentum, nesterov)
+        mmt.copy_(m)
+        vec.copy_(v)
+        return mmt, vec
+    _launch_compensate("fused_compensate", grad, mmt, vec, None, momentum,
+                       nesterov, True)
+    return mmt, vec
+
+
+def fused_compensate_masked(grad, mmt, vec, sent, momentum: float,
+                            nesterov: bool = False,
+                            momentum_masking: bool = True):
+    """:func:`fused_compensate` with the previous step's transmit count
+    ``sent`` (f32 [n], 0 = keep) applied on read: ``keep = (sent == 0)``
+    multiplies the up-cast velocity, and the momentum under
+    ``momentum_masking``. Updates ``mmt`` and ``vec`` IN PLACE; returns
+    them."""
+    _check_state("fused_compensate_masked", grad, mmt, vec, sent)
+    if not _on_card("fused_compensate_masked", grad, mmt, vec, sent):
+        m, v = fused_compensate_masked_plain(grad, mmt, vec, sent, momentum,
+                                             nesterov, momentum_masking)
+        mmt.copy_(m)
+        vec.copy_(v)
+        return mmt, vec
+    _launch_compensate("fused_compensate_masked", grad, mmt, vec, sent,
+                       momentum, nesterov, momentum_masking)
+    return mmt, vec
+
+
+# ------------------------------------------------------------------ #
+# K12: threshold-ladder counts (CUDA C++, csrc/ladder_counts.cu)     #
+# ------------------------------------------------------------------ #
+
+#: most levels the ladder kernel takes (the reference's lane bound)
+LADDER_MAX_LEVELS = _LANE
+
+
+def ladder_factors(lower_bound: float, levels: int) -> torch.Tensor:
+    """The ladder's level factors ``float32(lower_bound ** i)``, i <
+    ``levels``: the Python double power rounded once, as the Pallas
+    kernel and ``ladder_counts_reference`` form them (the engine's
+    from-top-k ladder rounds ``float32(lower_bound)`` first and differs
+    at some levels)."""
+    return torch.tensor([float(lower_bound) ** i for i in range(levels)],
+                        dtype=torch.float32)
+
+
+def ladder_counts_plain(imp_rows: torch.Tensor, thr: torch.Tensor,
+                        lower_bound: float, levels: int) -> torch.Tensor:
+    """Plain version of :func:`ladder_counts`: one compare and count per
+    level. Returns [R, levels] int32."""
+    f = ladder_factors(lower_bound, levels).to(imp_rows.device)
+    cols = [(imp_rows >= f[i] * thr[:, None]).sum(dim=1, dtype=torch.int32)
+            for i in range(levels)]
+    return torch.stack(cols, dim=1)
+
+
+_LADDER_ARGS = {"ladder_counts_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p]}
+
+
+def ladder_counts(imp_rows: torch.Tensor, thr: torch.Tensor,
+                  lower_bound: float, levels: int) -> torch.Tensor:
+    """Per-row pass counts of the whole threshold ladder in one read:
+    ``counts[r, i] = #{imp_rows[r] >= float32(lower_bound ** i) *
+    thr[r]}`` for i < ``levels`` <= 128, over a [R, cols] f32 importance
+    view (row tails -1, never counted at thresholds >= 0; a NaN is never
+    counted). Returns [R, levels] int32."""
+    _check(imp_rows.dim() == 2 and imp_rows.dtype == torch.float32,
+           "ladder_counts: imp_rows must be a 2-D float32 tensor")
+    R, cols = imp_rows.shape
+    _check(thr.shape == (R,) and thr.dtype == torch.float32,
+           "ladder_counts: thr must be float32 [R]")
+    _check(0 < levels <= LADDER_MAX_LEVELS,
+           f"ladder_counts: levels={levels} outside (0, "
+           f"{LADDER_MAX_LEVELS}]")
+    if not _on_card("ladder_counts", imp_rows, thr):
+        return ladder_counts_plain(imp_rows, thr, lower_bound, levels)
+    out = torch.zeros((R, levels), dtype=torch.int32, device=imp_rows.device)
+    if R and cols:
+        factors = ladder_factors(lower_bound, levels).numpy()
+        lib = _build.library("ladder_counts.cu", _LADDER_ARGS)
+        err = lib.ladder_counts_launch(
+            imp_rows.data_ptr(), thr.data_ptr(), factors.ctypes.data, R, cols,
+            levels, out.data_ptr(), *_stream_args(imp_rows))
+        if err:
+            raise RuntimeError(f"ladder_counts launch failed: CUDA error {err}")
+        LAUNCHES["ladder_counts"] += 1
+    return out
 
 
 # ------------------------------------------------------------------ #

@@ -1,30 +1,51 @@
 """Distributed optimizer — compressed exchange, then the base optimizer.
 
-Counterpart of ``dgc_tpu/optim/distributed.py``'s flat path
-(``make_flat`` / ``update_flat``): the compressor's flat engine exchanges
-the flat gradients of this process's workers over a :class:`Comm`, and
-the wrapped optimizer steps the (replicated) flat parameters with the
-exchanged gradient.
+Counterpart of ``dgc_tpu/optim/distributed.py``, over a :class:`Comm` that
+serves this process's workers (``comm.ranks``) in one call:
+
+* the flat path (``make_flat`` / ``update_flat``): the compressor's flat
+  engine exchanges each worker's flat [P] gradient;
+* the per-tensor path (``init_memory`` / ``exchange`` / ``update``): the
+  compressor's ``compress`` -> ``communicate`` -> ``decompress`` tensor by
+  tensor, with every sparse payload in two all-gathers under
+  ``fuse_payloads`` (``exchange_fused``), dense ones through the
+  all-reduce.
+
+Either way the wrapped optimizer steps the (replicated) flat parameters:
+the per-tensor path flattens the exchanged gradient into the parameters'
+layout first (``dgc_sgd`` is elementwise, so per tensor and flat give the
+same numbers). The two-tier exchange (``local_axis_name``) is not ported.
 """
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.parallel.comm import Comm
+from dgc_tpu_torch.utils.pytree import named_flatten
 
 __all__ = ["DistributedOptimizer"]
 
 
 class DistributedOptimizer:
-    def __init__(self, optimizer, compressor, comm: Comm):
+    def __init__(self, optimizer, compressor, comm: Comm,
+                 fuse_payloads: bool = True,
+                 local_axis_name: Optional[str] = None):
+        if local_axis_name is not None:
+            raise ValueError("the two-tier exchange (local_axis_name) is not "
+                             "ported (ROADMAP.md queue 1 item 7)")
         self.optimizer = optimizer
         self.compressor = compressor
         self.comm = comm
+        self.fuse_payloads = fuse_payloads
 
     def init(self, flat_params: torch.Tensor):
         return self.optimizer.init(flat_params)
+
+    # -------------------------------------------------------------- #
+    # the flat path                                                  #
+    # -------------------------------------------------------------- #
 
     def make_flat(self, params_tree):
         """The ``(ParamLayout, engine)`` pair; call again after the warm-up
@@ -43,4 +64,71 @@ class DistributedOptimizer:
         exchanged = engine.exchange(flat_grads, mems, phases, self.comm)
         upd, opt_state = self.optimizer.update(exchanged[0], opt_state,
                                                flat_params)
+        return flat_params + upd, opt_state, exchanged
+
+    # -------------------------------------------------------------- #
+    # the per-tensor path                                            #
+    # -------------------------------------------------------------- #
+
+    def init_memory(self, params_tree, device=None) -> Dict:
+        """One worker's per-name memory state over every parameter."""
+        return self.compressor.memory.init(named_flatten(params_tree).items(),
+                                           device)
+
+    def exchange(self, grads: Sequence[Dict[str, torch.Tensor]],
+                 mem_states: List[Dict], phases: Sequence[Dict[str, int]]):
+        """Compress, communicate and decompress every gradient of every
+        local worker: ``grads[w]`` maps names to worker w's gradients,
+        ``phases[w]`` names to its strided-sample phases
+        (``compressor.draw_phases``). Returns ``(outs, mem_states)``,
+        ``outs[w]`` worker w's exchanged gradients in ``grads[w]``'s
+        order (the memories update in place)."""
+        comp, comm = self.compressor, self.comm
+        names = list(grads[0])
+        local = range(len(grads))
+        compressed = [{} for _ in local]       # name -> (payload, ctx)
+        dense = [{} for _ in local]
+        for w in local:
+            for name in names:
+                payload, ctx, mem_states[w] = comp.compress(
+                    mem_states[w], name, grads[w][name],
+                    phases[w].get(name, 0))
+                (compressed if ctx.compressed else dense)[w][name] = (
+                    payload, ctx)
+        outs = [{} for _ in local]
+        for name in dense[0]:
+            ctx = dense[0][name][1]
+            gathered = comp.communicate([d[name][0] for d in dense], ctx,
+                                        comm)
+            for w in local:
+                outs[w][name], mem_states[w] = comp.decompress(
+                    gathered[w], ctx, mem_states[w], comm.world)
+        if compressed[0]:
+            fused = getattr(comp, "exchange_fused", None)
+            if self.fuse_payloads and fused is not None and len(
+                    compressed[0]) > 1:
+                fused_out, mem_states = fused(compressed, comm, comm.world,
+                                              mem_states)
+                for w in local:
+                    outs[w].update(fused_out[w])
+            else:
+                for name in compressed[0]:
+                    ctx = compressed[0][name][1]
+                    gathered = comp.communicate(
+                        [c[name][0] for c in compressed], ctx, comm)
+                    for w in local:
+                        outs[w][name], mem_states[w] = comp.decompress(
+                            gathered[w], ctx, mem_states[w], comm.world)
+        return [{n: o[n] for n in names} for o in outs], mem_states
+
+    def update(self, grads: Sequence[Dict[str, torch.Tensor]], opt_state,
+               flat_params: torch.Tensor, mem_states: List[Dict],
+               phases: Sequence[Dict[str, int]], layout: ParamLayout):
+        """The per-tensor exchange, then one optimizer step on the flat
+        parameters over ``layout`` (the first local worker's exchanged
+        gradient, which every worker shares). Returns ``(new params, opt
+        state, exchanged gradients)``."""
+        exchanged, _ = self.exchange(grads, mem_states, phases)
+        flat = layout.flatten(exchanged[0], device=flat_params.device)
+        upd, opt_state = self.optimizer.update(flat, opt_state, flat_params)
         return flat_params + upd, opt_state, exchanged

@@ -1,6 +1,12 @@
-"""The data-parallel DGC train step over flat buffers.
+"""The data-parallel DGC train steps: the flat step and the per-tensor one.
 
-Counterpart of ``dgc_tpu/training/step.py``'s flat path. Per local worker:
+Counterpart of ``dgc_tpu/training/step.py``: :func:`train_step` is its flat
+path (``flat=make_flat_setup(...)``), :func:`train_step_per_tensor` its
+``flat=None`` path. Both keep the parameters and the BatchNorm statistics
+in flat buffers (:class:`ParamLayout`); the per-tensor step uses them as
+storage only and exchanges tensor by tensor.
+
+The flat step, per local worker:
 forward/backward over ``num_batches_per_step`` micro-batches (each loss
 scaled by ``1/nbps``, gradients summed) with the parameters bound as views
 of the flat buffer, so autograd delivers the flat gradient directly and
@@ -15,6 +21,17 @@ buffer: ``kernels.opaque_view_from`` (read straight from the flat buffer)
 where the view is tile-aligned, else ``kernels.opaque_view`` of the view.
 Both pass the gradient through unchanged, so the step computes the same
 numbers either way.
+
+The per-tensor step binds the weights as the flat step does (the opaque
+copies change no number), hands each worker's gradients to the
+distributed optimizer's ``update`` as ``{name: view of the flat
+gradient}`` (the compressor's ``compress`` -> ``communicate`` ->
+``decompress`` per tensor, the memory's compensate through the
+``fused_compensate`` kernel), and steps the flat parameters with
+``dgc_sgd`` over the flattened exchanged gradient (elementwise, so the
+same numbers as per tensor). The JAX harness has no switch for it, so
+neither has the port's CLI: this function is the path's entry point, as
+``build_train_step(flat=None)`` is there.
 """
 
 from typing import List, NamedTuple, Sequence
@@ -28,14 +45,16 @@ from dgc_tpu_torch.models import param_tree, stats_tree
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.training.state import TrainState
 
-__all__ = ["FlatSetup", "make_flat_setup", "make_flat_state", "train_step",
+__all__ = ["FlatSetup", "make_flat_setup", "make_per_tensor_setup",
+           "make_flat_state", "train_step", "train_step_per_tensor",
            "worker_grad"]
 
 
 class FlatSetup(NamedTuple):
     layout: ParamLayout        # over the parameters
     stats_layout: ParamLayout  # over the BatchNorm statistics
-    engine: object             # the compressor's flat engine
+    engine: object             # the compressor's flat engine; None for
+                               # the per-tensor path
 
 
 def make_flat_setup(model, dist_opt) -> FlatSetup:
@@ -44,10 +63,21 @@ def make_flat_setup(model, dist_opt) -> FlatSetup:
     return FlatSetup(layout, ParamLayout(stats_tree(model)), engine)
 
 
+def make_per_tensor_setup(model, dist_opt) -> FlatSetup:
+    """The per-tensor path's layouts (the flat engine's, as storage) and no
+    engine: the exchange reads the compressor's attributes live, so a
+    warm-up ratio change needs no rebuild."""
+    return FlatSetup(ParamLayout.for_compressor(param_tree(model),
+                                                dist_opt.compressor),
+                     ParamLayout(stats_tree(model)), None)
+
+
 def make_flat_state(model, dist_opt, setup: FlatSetup, device,
                     flat_params=None, flat_stats=None) -> TrainState:
     """Initial state from the model's own weights, or from given flat
-    buffers (e.g. carried from the JAX package)."""
+    buffers (e.g. carried from the JAX package). The memory is the flat
+    engine's, or the per-name state of the per-tensor path when
+    ``setup`` has no engine."""
     if flat_params is None:
         flat_params = setup.layout.flatten(param_tree(model), device=device)
     if flat_stats is None:
@@ -57,7 +87,9 @@ def make_flat_state(model, dist_opt, setup: FlatSetup, device,
     return TrainState(
         step=0, params=flat_params.to(device),
         opt_state=dist_opt.init(flat_params.to(device)),
-        memory=[setup.engine.init_memory(device) for _ in range(local)],
+        memory=[setup.engine.init_memory(device) if setup.engine is not None
+                else dist_opt.init_memory(param_tree(model), device)
+                for _ in range(local)],
         batch_stats=[flat_stats.to(device).clone() for _ in range(local)])
 
 
@@ -111,6 +143,37 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
     params, opt_state, _ = dist_opt.update_flat(
         grads, state.opt_state, state.params, state.memory, phases,
         setup.engine)
+    mean_loss = comm.all_reduce(losses)[0] / comm.world
+    state.step += 1
+    state.params = params
+    state.opt_state = opt_state
+    return state, mean_loss
+
+
+def train_step_per_tensor(model, setup: FlatSetup, dist_opt,
+                          state: TrainState,
+                          images: Sequence[torch.Tensor],
+                          labels: Sequence[torch.Tensor],
+                          gens: Sequence[torch.Generator], nbps: int = 1):
+    """One per-tensor step for this process's workers (``setup`` from
+    :func:`make_per_tensor_setup`, ``state.memory`` per-name): each
+    worker's gradients as ``{name: tensor}``, the distributed optimizer's
+    per-tensor ``update`` (phases drawn from ``gens[w]``), the loss
+    all-reduce. Returns ``(state, mean loss)``; the loss stays on the
+    device."""
+    comm = dist_opt.comm
+    grads: List[dict] = []
+    losses: List[torch.Tensor] = []
+    for w in range(len(comm.ranks)):
+        g, loss = worker_grad(model, setup, state.params,
+                              state.batch_stats[w], images[w], labels[w],
+                              nbps)
+        grads.append(setup.layout.unflatten_named(g))
+        losses.append(loss)
+    phases = [dist_opt.compressor.draw_phases(gen) for gen in gens]
+    params, opt_state, _ = dist_opt.update(
+        grads, state.opt_state, state.params, state.memory, phases,
+        setup.layout)
     mean_loss = comm.all_reduce(losses)[0] / comm.world
     state.step += 1
     state.params = params

@@ -33,8 +33,10 @@ def test_port_imports_no_jax():
     out = _run(["-c", _PROBE], ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for mod in ("ops.kernels", "ops.build", "compression.flat",
-                "compression.dgc", "models.resnet_imagenet",
+    for mod in ("ops.kernels", "ops.build", "ops.sparsify",
+                "compression.flat", "compression.dgc", "compression.base",
+                "compression.memory", "optim.distributed",
+                "models.resnet_imagenet",
                 "data.datasets", "training.lr", "training.step", "configs",
                 "interop"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod

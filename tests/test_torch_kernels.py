@@ -209,11 +209,16 @@ def test_launch_counters_count_only_launches():
     tk.dgc_forward_rows(flat[:512], torch.zeros(512), torch.zeros(512),
                         torch.zeros(128, dtype=torch.int32), 0, numels, 3,
                         0.9)
+    tk.fused_compensate(flat[:100], torch.zeros(100), torch.zeros(100), 0.9)
+    tk.fused_compensate_masked(flat[:100], torch.zeros(100),
+                               torch.zeros(100), torch.zeros(100), 0.9)
+    tk.ladder_counts(flat[:512].view(2, 256), torch.ones(2), 0.8, 11)
     assert tk.LAUNCHES == {"compensate_bits": 0, "topk_rows": 0,
                            "apply_rows": 0, "compensate_bits_cands": 0,
                            "seg_top2_candidates": 0, "opaque_view": 0,
                            "opaque_view_from": 0, "select_pack_rows": 0,
-                           "dgc_forward_rows": 0}
+                           "dgc_forward_rows": 0, "fused_compensate": 0,
+                           "fused_compensate_masked": 0, "ladder_counts": 0}
 
 
 def test_apply_rows_drops_out_of_range_indices():
