@@ -16,17 +16,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    megakernel or the fused select takes at epochs 3-5 of both models
    for ``dgc_forward_rows`` and ``select_pack_rows`` (plus the gate's
    widest row, an empty row at an unaligned base, all momentum flags,
-   planted ties and a selected -0.0); ``fused_compensate`` and
-   ``fused_compensate_masked`` at n = 2,101,248 (f32 state) and 2,105,345
-   (bf16), every flag combination, infinities, NaNs and bf16 rounding
-   ties planted, and ``fused_compensate`` at ResNet-20's 22 compressed
-   tensors; ``ladder_counts`` at [17, 262144], L = 11, with values
+   planted ties and a selected -0.0); ``apply_rows`` also at planted
+   payloads through both of its routes (4,096 boundaries, a partial last
+   chunk, a hot chunk past its shared memory, W=8 on every coordinate,
+   zero, -0.0, NaN and out-of-range entries, n = 0, over 12,288 chunks,
+   divisors 3 and none), each real shape run twice and required bitwise
+   equal; ``fused_compensate`` and ``fused_compensate_masked`` at n =
+   2,101,248 (f32 state) and 2,105,345 (bf16), every flag combination,
+   infinities, NaNs and bf16 rounding ties planted, and
+   ``fused_compensate`` at ResNet-20's 22 compressed tensors;
+   ``ladder_counts`` at [17, 262144], L = 11, with values
    planted on the levels, and at ResNet-50's adaptive buckets at the
    epoch-0 and epoch-5 ratios — bitwise; and time kernel, plain
    version and the PyTorch yardstick call, L2-warm: each time is the
    device time per call, 20 calls queued behind a spin kernel so the card
    runs them back to back (``ms``, also printed as ``kernel_ms``, is the
    kernel's; the 2.1M-element compensates also get ``ms_l2_cold``).
+   Stdout gets a summary line per kernel (and per apply shape, epochs 0
+   and 5); the per-call detail goes to ``chiprun_out/chip_smoke_detail.json``.
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
    ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios, and with
@@ -82,10 +89,18 @@ TF32 is off for cuDNN and matmuls.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
+
+#: where the per-call detail of the kernel checks and the compiler's
+#: report are written (stdout keeps a summary)
+DETAIL_PATH = Path(__file__).resolve().parent / "chiprun_out" / \
+    "chip_smoke_detail.json"
+BUILD_LOG = DETAIL_PATH.with_name("chip_smoke_build.log")
 
 # H100 SXM, NVIDIA data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -167,12 +182,47 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), **flags):
     return out
 
 
+def _ptxas_summary(log):
+    """``kernel: registers, spill stores`` of each entry function in
+    ``nvcc -Xptxas -v`` output."""
+    def kernel_name(mangled):
+        # a length-prefixed identifier ending in "kernel"
+        for m in re.finditer(r"\d+", mangled):
+            for k in range(len(m.group())):
+                ident = mangled[m.end():m.end() + int(m.group()[k:])]
+                if re.fullmatch(r"[A-Za-z_]\w*kernel", ident):
+                    return ident
+        return mangled
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = kernel_name(m.group(1)), "?"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs, {spills} B spilled")
+            name = None
+    return out
+
+
 def phase_build():
+    import contextlib
+    import io
     import torch
     from dgc_tpu_torch.ops import build, kernels
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build(verbose=True)
     t_nvcc = time.perf_counter() - t0
+    BUILD_LOG.parent.mkdir(exist_ok=True)
+    BUILD_LOG.write_text(log.getvalue())
+    print(f"[build] ptxas ({BUILD_LOG.name}): "
+          + "; ".join(_ptxas_summary(log.getvalue())))
     t0 = time.perf_counter()
     n = 2 * kernels.SEG_SPAN
     g = torch.zeros(n, device=DEVICE)
@@ -314,17 +364,25 @@ def phase_kernels(geoms, geoms50):
                     "0.001", resnet20_step=step["resnet20"],
         calls=calls)
 
-    # --- K3 apply at W=4 on real gathered payloads, with duplicates, for
-    #     both models at the epoch-0 and epoch-5 ratios ---
+    entries["apply_rows"] = phase_apply_kernel(geoms, geoms50, gen)
+    return entries
+
+
+def _apply_payloads(geoms, geoms50, gen, world=4):
+    """One worker's apply inputs at W=4 on real gathered payloads, with
+    duplicates (correlated workers select overlapping coordinates), for
+    both models at the epoch-0 and epoch-5 ratios: a list of dicts with
+    ``model, epoch, eng, args`` (``args`` = values, indices, flags, T,
+    divisor)."""
+    import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
-    world, calls, errs = 4, [], []
+    dev, out = DEVICE, []
     for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
         for epoch in (0, 5):
             eng = gs[epoch][1]
             common = torch.randn(eng.layout.total, device=dev, generator=gen)
             sent = []
             for w in range(world):
-                # correlated workers: overlapping selections -> duplicates
                 grad = common + 0.3 * torch.randn(
                     eng.layout.total, device=dev, generator=gen)
                 mem = eng.init_memory(dev)
@@ -332,47 +390,179 @@ def phase_kernels(geoms, geoms50):
                 sent.append(eng.compress(grad, mem, ph))
             gv = LocalComm(world).all_gather([s[0] for s in sent])[0]
             gi = LocalComm(world).all_gather([s[1] for s in sent])[0]
-            S = eng.layout.sentinel
             flags = ((torch.arange(world, device=dev)[:, None] == 0)
-                     & (gi != S)).reshape(-1)
-            vals, idx = gv.reshape(-1), gi.reshape(-1)
-            real = idx[idx != S]
-            dups = int(real.numel() - torch.unique(real).numel())
-            errs.append(_check_equal(
-                "apply_rows",
-                K.apply_rows(vals, idx, flags, eng.T, float(world)),
-                K.apply_rows_plain(vals, idx, flags, eng.T, float(world))))
-            n, nwords = vals.numel(), K.num_sent_words(eng.T)
-            ilong = idx.long()
-            # bytes: values, indices, flags read, acc and the record
-            # written; ops: a divide and an add per entry
-            bound_ms, bound_by = _bound(9 * n + 4 * eng.T + 4 * nwords,
-                                        2 * n)
-            calls.append(dict(
-                model=model, epoch=epoch,
-                payload_per_worker=eng.payload_size, entries=n,
-                duplicate_entries=dups,
-                **_timed(
-                    ms=lambda: K.apply_rows(vals, idx, flags, eng.T,
-                                            float(world)),
-                    plain_ms=lambda: K.apply_rows_plain(
-                        vals, idx, flags, eng.T, float(world)),
-                    library_ms=lambda: torch.zeros(
-                        eng.T, device=dev).index_add_(0, ilong,
-                                                      vals / world)),
-                bound_ms=bound_ms, bound_by=bound_by))
+                     & (gi != eng.layout.sentinel)).reshape(-1)
+            out.append(dict(model=model, epoch=epoch, eng=eng, args=(
+                gv.reshape(-1), gi.reshape(-1), flags, eng.T,
+                float(world))))
+    return out
+
+
+def _apply_planted(gen):
+    """``(case, values, indices, flags, total, divisor)`` of the planted
+    apply cases: entries on both sides of a 4,096 boundary, a partial last
+    chunk, a hot chunk with more entries than a chunk block's shared
+    memory (and a run longer than a thread sorts alone), W=8 with every
+    coordinate sent by all workers, zero-valued flagged entries, selected
+    -0.0 and NaN, indices of -1, ``total`` and above, n = 0, more chunks
+    than the scatter's shared histogram takes, and a divisor that is not
+    a power of two. Flagged indices are unique, as the
+    engine's are."""
+    import torch
+    dev = DEVICE
+
+    def rnd(n):
+        return torch.randn(n, device=dev, generator=gen)
+
+    def pick(hi, n):
+        return torch.randint(0, hi, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+
+    def no_flags(n):
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+
+    cases = []
+    T = 4 * 4096
+    i = torch.tensor([4094, 4095, 4096, 4097, 4095, 4096, 8191, 8192],
+                     dtype=torch.int32, device=dev)
+    f = torch.tensor([1, 1, 1, 1, 0, 0, 1, 1], dtype=torch.bool, device=dev)
+    cases.append(("4096 boundary", rnd(8), i, f, T, 4.0))
+    T = 2 * 4096
+    i = torch.cat([pick(T, 2800), torch.full((200,), 4100, device=dev,
+                                             dtype=torch.int32)])
+    i = i[torch.randperm(i.numel(), device=dev, generator=gen)]
+    cases.append(("long run in shared memory", rnd(3000), i, no_flags(3000),
+                  T, 4.0))
+    T = 3 * 4096 + 2048
+    i = torch.cat([pick(T, 3000), torch.arange(T - 256, T, device=dev,
+                                               dtype=torch.int32)])
+    f = torch.zeros(i.numel(), dtype=torch.bool, device=dev)
+    f[-256:] = True
+    cases.append(("partial last chunk", rnd(i.numel()), i, f, T, 4.0))
+    # 40,000 entries in chunk 1 (over the largest shared capacity), 2,000
+    # of them on one coordinate; plus a thin spread elsewhere
+    T = 4 * 4096
+    i = torch.cat([4096 + pick(4096, 38_000),
+                   torch.full((2000,), 5000, dtype=torch.int32, device=dev),
+                   pick(T, 500)])
+    i = i[torch.randperm(i.numel(), device=dev, generator=gen)]
+    f = no_flags(i.numel())
+    f[:4096] = True
+    i[:4096] = torch.arange(4096, 8192, device=dev, dtype=torch.int32)
+    cases.append(("hot chunk", rnd(i.numel()), i, f, T, 4.0))
+    T, W = 2 * 4096 + 128, 8
+    i = torch.stack([torch.randperm(T, device=dev, generator=gen)
+                     for _ in range(W)]).int()
+    f = (torch.arange(W, device=dev)[:, None] == 3).expand(W, T)
+    cases.append(("W=8, every coordinate from all", rnd(W * T),
+                  i.reshape(-1), f.reshape(-1).contiguous(), T, 8.0))
+    T = 2 * 4096
+    i = torch.randperm(T, device=dev, generator=gen)[:600].int()
+    v = rnd(600)
+    v[:100] = 0.0
+    v[100:150] = -0.0
+    v[150:153] = float("nan")
+    v[153:155] = float("inf")
+    f = no_flags(600)
+    f[50:300] = True
+    cases.append(("zeros, -0.0, NaN, inf", v, i, f, T, 4.0))
+    i = pick(T, 600)
+    i[:40] = torch.tensor([-1, T, T + 4096, -4096] * 10, dtype=torch.int32)
+    cases.append(("out of range", rnd(600), i, no_flags(600) | (i < 0), T,
+                  4.0))
+    cases.append(("n = 0", rnd(0), pick(T, 0), no_flags(0), T, 4.0))
+    i = pick(T, 5000)
+    cases.append(("divisor 3", rnd(5000), i, no_flags(5000), T,
+                  3.0))
+    cases.append(("no divisor", rnd(5000), i, no_flags(5000), T, None))
+    # more chunks than the scatter's shared histogram takes (its per-warp
+    # path)
+    T = 12_289 * 4096
+    i = torch.cat([torch.randperm(T, device=dev, generator=gen)[:1500].int(),
+                   pick(T, 1000), 4096 * 12_288 + pick(4096, 500)])
+    f = no_flags(3000)
+    f[:1500] = True                         # unique indices
+    order = torch.randperm(3000, device=dev, generator=gen)
+    cases.append(("over 12,288 chunks", rnd(3000), i[order], f[order], T,
+                  4.0))
+    return cases
+
+
+def _apply_routes(n):
+    """The routes the apply kernel can take for ``n`` entries: both while
+    a scan-route block's shared memory can hold ``n`` entries."""
+    from dgc_tpu_torch.ops import kernels as K
+    fits = K.apply_plan(n, 4096, "scan").smem_bytes <= 227 * 1024
+    return ("scan", "list") if fits else ("list",)
+
+
+def phase_apply_kernel(geoms, geoms50, gen):
+    """``apply_rows`` bitwise ``apply_rows_plain`` on the card: every
+    planted case through both routes, and the real W=4 payloads of both
+    models at the epoch-0 and epoch-5 ratios through the planned route,
+    each run twice (bitwise equal); then each real shape timed against
+    the plain version and ``torch.zeros(T).index_add_(0, idx, v / W)``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    errs, planted = [], []
+    for case, *args in _apply_planted(gen):
+        want = K.apply_rows_plain(*args)
+        for route in _apply_routes(args[0].numel()):
+            plan = K.apply_plan(args[0].numel(), args[3], route)
+            errs.append(_check_equal(f"apply_rows {case} ({route})",
+                                     K._apply_rows_launch(*args, plan),
+                                     want))
+        planted.append(case)
+    print(f"[apply] {len(planted)} planted cases bitwise, both routes")
+    calls = []
+    for p in _apply_payloads(geoms, geoms50, gen):
+        vals, idx, flags, T, world = args = p["args"]
+        real = idx[idx != p["eng"].layout.sentinel]
+        dups = int(real.numel() - torch.unique(real).numel())
+        first = K.apply_rows(*args)
+        errs.append(_check_equal(f"apply_rows {p['model']} epoch "
+                                 f"{p['epoch']}", first,
+                                 K.apply_rows_plain(*args)))
+        _check_equal("apply_rows run twice", K.apply_rows(*args), first)
+        n, nwords = vals.numel(), K.num_sent_words(T)
+        plan = K.apply_plan(n, T)
+        keep = ((vals != 0) | flags) & (idx >= 0) & (idx < T)
+        per_chunk = torch.bincount(idx[keep].long() // K.APPLY_CHUNK,
+                                   minlength=plan.grid)
+        ilong = idx.long()
+        # bytes: values, indices, flags read, acc and the record written;
+        # ops: a divide and an add per entry
+        bound_ms, bound_by = _bound(9 * n + 4 * T + 4 * nwords, 2 * n)
+        calls.append(dict(
+            model=p["model"], epoch=p["epoch"],
+            payload_per_worker=p["eng"].payload_size, entries=n,
+            duplicate_entries=dups, route=plan.route, cap=plan.cap,
+            max_chunk_entries=int(per_chunk.max()),
+            chunks_over_cap=int((per_chunk > plan.cap).sum()),
+            **_timed(
+                ms=lambda: K.apply_rows(*args),
+                plain_ms=lambda: K.apply_rows_plain(*args),
+                library_ms=lambda: torch.zeros(
+                    T, device=DEVICE).index_add_(0, ilong, vals / world)),
+            bound_ms=bound_ms, bound_by=bound_by))
+    for c in calls:
+        print(f"[apply] {c['model']} epoch {c['epoch']}: n {c['entries']}, "
+              f"{c['route']} route, {c['ms']:.4f} ms (plain "
+              f"{c['plain_ms']:.4f}, index_add_ {c['library_ms']:.4f}, "
+              f"bound {c['bound_ms']:.5f}); chunk max "
+              f"{c['max_chunk_entries']} of cap {c['cap']}")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     steady = {c["model"]: c for c in calls if c["epoch"] == 5}
-    entries["apply_rows"] = dict(
+    return dict(
         name="apply_rows", route="cuda",
         source="dgc_tpu_torch/csrc/apply_rows.cu",
         replaces="dgc_tpu/ops/kernels.py:1743",
-        check="bitwise vs apply_rows_plain (payload-order sums)",
+        check="bitwise vs apply_rows_plain (payload-order sums), planted "
+              "cases through both routes, each real shape run twice",
         max_abs_err=max(errs), **{k: steady["resnet50"][k] for k in keys},
         of="one worker's apply at ResNet-50, ratio 0.001, W=4",
         resnet20_step={k: steady["resnet20"][k] for k in keys},
-        calls=calls)
-    return entries
+        planted=planted, calls=calls)
 
 
 def _plant_ties(g, m, v, start, span):
@@ -850,12 +1040,21 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
     return entries
 
 
+
+
 def _print_entries(entries):
+    """One summary line per kernel; the per-call detail goes to
+    :data:`DETAIL_PATH`."""
+    detail = {}
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
         print(f"[kernel] {e['name']}: {e['ms']:.4f} ms on the device "
-              f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f})")
-        print(json.dumps({"calls": e["name"], "detail": e.pop("calls")}))
+              f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f}, "
+              f"{len(e['calls'])} call shapes)")
+        detail[e["name"]] = e.pop("calls")
+    DETAIL_PATH.parent.mkdir(exist_ok=True)
+    DETAIL_PATH.write_text(json.dumps(detail, indent=1))
+    print(f"[kernel] per-call detail: {DETAIL_PATH}")
 
 
 def _exchange_run(eng, dev, steps):
@@ -1358,7 +1557,7 @@ def phase_profile(trainer, label, steps=3):
 
 #: the device symbols of the ported kernels, as the profiler names them
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
-                   "seg_top2_kernel", "topk_rows_kernel", "apply_rows_kernel",
+                   "seg_top2_kernel", "topk_rows_kernel", "apply_rows_",
                    "opaque_copy_kernel", "select_pack_rows_kernel",
                    "dgc_forward_rows_kernel", "fused_compensate_kernel",
                    "ladder_counts_kernel")

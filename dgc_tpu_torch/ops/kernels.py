@@ -39,7 +39,7 @@ the JAX package and are bitwise its functions.
 """
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,7 +56,8 @@ __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "TOPK_MAX_K", "select_pack_rows", "select_pack_rows_plain",
            "MR_MAX_K", "dgc_forward_rows", "dgc_forward_rows_plain",
            "apply_rows",
-           "apply_rows_plain", "stage_payload", "SEG_BLOCKS", "SEG_SPAN",
+           "apply_rows_plain", "apply_plan", "ApplyPlan", "APPLY_CHUNK",
+           "SEG_BLOCKS", "SEG_SPAN",
            "seg_top2_eligible", "seg_cols_local", "seg_top2_candidates",
            "seg_top2_candidates_plain", "compensate_bits_cands",
            "compensate_bits_cands_plain", "opaque_view", "opaque_view_from",
@@ -972,25 +973,22 @@ def _in_range(indices: torch.Tensor, total: int) -> torch.Tensor:
     return (indices >= 0) & (indices < total)
 
 
-def stage_payload(values: torch.Tensor, indices: torch.Tensor, total: int):
-    """The apply's staging (``_stage_payload``'s role): stable sort of the
-    payload by index, with zero-valued and out-of-range entries keyed
-    ``total`` so they form one trailing run that is never summed (adding 0
-    to a sum that starts at +0.0 changes nothing). Returns ``(sorted keys
-    int32, sorted values)``."""
-    key = torch.where((values != 0) & _in_range(indices, total), indices,
-                      total)
-    skey, order = torch.sort(key, stable=True)
-    return skey, values[order]
-
-
 def apply_rows_plain(values, indices, flags, total: int,
                      divisor: Optional[float] = None):
     """Plain version of :func:`apply_rows`. Sums each index's entries in
-    payload order from +0.0 — one round per duplicate rank, each round a
-    scatter with unique indices — so it is deterministic on any device."""
-    v = values / divisor if divisor is not None else values
-    skey, sval = stage_payload(v, indices, total)
+    payload order from +0.0 — a stable sort by index, then one round per
+    duplicate rank, each round a scatter with unique indices — so it is
+    deterministic on any device. Zero-valued and out-of-range entries add
+    nothing. The divide is an IEEE divide by a tensor on every device
+    (PyTorch's CUDA divide by a Python scalar multiplies by its
+    reciprocal)."""
+    v = values
+    if divisor is not None:
+        v = values / torch.full((), divisor, dtype=values.dtype,
+                                device=values.device)
+    key = torch.where((v != 0) & _in_range(indices, total), indices, total)
+    skey, order = torch.sort(key, stable=True)
+    sval = v[order]
     n = skey.shape[0]
     pos = torch.arange(n, device=skey.device)
     start = torch.ones(n, dtype=torch.bool, device=skey.device)
@@ -1005,10 +1003,84 @@ def apply_rows_plain(values, indices, flags, total: int,
     return acc, pack_sent_bits(routed, total, sentinel=total)
 
 
+#: coordinates (and 128 record words) one block of the apply kernel owns
+APPLY_CHUNK = _BITS_GROUP
+#: the scan route (every block reads the whole payload) up to this many
+#: entries and this many entries x chunks; the list route above. From
+#: ``apply_bench.py --sweep`` on an H100 (PERF.md): at ResNet-20's T
+#: (91 chunks) the scan route is faster up to n = 8,192, the most its
+#: shared memory holds (0.0086 against 0.0113 ms); at ResNet-50's (6,609
+#: chunks) up to n = 2,048 (0.038 against 0.059 ms) and slower from 4,096
+#: (0.066 against 0.060), so n x chunks stays under 16M.
+APPLY_SCAN_MAX_N = 8192
+APPLY_SCAN_MAX_WORK = 16 << 20
+#: dynamic shared memory of a chunk block: 22,784 fixed bytes (4096
+#: counters, the 128 record words, the long-run mask, scan scratch, the
+#: sparse path's 256 keys), then 12 bytes a staged entry (scan route) and 8
+#: a placed one; a list-route chunk with more entries than its ``cap`` runs
+#: in global scratch
+_APPLY_SMEM_FIXED = 22_784
+_APPLY_CAP_MIN, _APPLY_CAP_MAX = 512, 11_264
+_APPLY_TILE = 2048
+_APPLY_ROUTE_GRID_MAX = 132 * 4
+
+
+class ApplyPlan(NamedTuple):
+    """Launch geometry of :func:`apply_rows` (see ``csrc/apply_rows.cu``).
+    ``route`` is ``"scan"`` or ``"list"``; ``grid`` the chunk blocks;
+    ``cap`` the entries a chunk block keeps in shared memory (and the list
+    route's segment of each chunk); ``smem_bytes`` its dynamic shared
+    memory; ``route_grid`` the blocks of the list route's scatter (2,048
+    entries a tile); ``scratch_bytes`` the list route's scratch (0 for the
+    scan route)."""
+    route: str
+    chunk: int
+    grid: int
+    cap: int
+    smem_bytes: int
+    route_grid: int
+    scratch_bytes: int
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def apply_plan(n: int, total: int, route: Optional[str] = None
+               ) -> ApplyPlan:
+    """The apply kernel's launch plan for ``n`` payload entries into a
+    [total] buffer. The scan route when the payload is small (every block
+    reads all of it from L2; ``cap = n``, so no chunk overflows), else the
+    list route, whose chunk blocks keep 3/2 of the mean entries per chunk
+    plus 256 in shared memory (rounded up to 256, within [512, 11264]:
+    two blocks an SM at most): the engine's chunks hold up to 1.4x the
+    mean (ResNet-20 at the epoch-0 ratio, W=4). ``route`` forces one (for
+    measurements)."""
+    grid = -(-total // APPLY_CHUNK)
+    if route is None:
+        route = ("scan" if n <= APPLY_SCAN_MAX_N
+                 and n * grid <= APPLY_SCAN_MAX_WORK else "list")
+    _check(route in ("scan", "list"), f"apply_plan: unknown route {route}")
+    if route == "scan":
+        cap = max(n, 1)
+        return ApplyPlan("scan", APPLY_CHUNK, grid, cap,
+                         _APPLY_SMEM_FIXED + 20 * cap, 0, 0)
+    mean = n // max(grid, 1)
+    cap = -(-(mean + mean // 2 + 256) // 256) * 256
+    cap = min(max(cap, _APPLY_CAP_MIN), _APPLY_CAP_MAX)
+    route_grid = max(1, min(-(-n // _APPLY_TILE), _APPLY_ROUTE_GRID_MAX))
+    slots = grid * cap
+    scratch = (_align16(4 * (grid + 2)) + _align16(8 * slots)
+               + _align16(4 * slots) + _align16(8 * n) + 3 * _align16(4 * n))
+    return ApplyPlan("list", APPLY_CHUNK, grid, cap,
+                     _APPLY_SMEM_FIXED + 8 * cap, route_grid, scratch)
+
+
 _APPLY_ARGS = {"apply_rows_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
 
 
 def apply_rows(values, indices, flags, total: int,
@@ -1016,8 +1088,9 @@ def apply_rows(values, indices, flags, total: int,
     """Decompress + transmit record in one pass over the gathered payload
     (``dgc_apply_rows`` semantics; ``divisor=None`` is
     ``payload_apply_bits``): ``acc[idx] += v / divisor`` for every entry,
-    and the packed bit set for every entry whose ``flag`` is true (the local
-    worker's non-sentinel slots). Entries whose index lies outside
+    summed in payload order from +0.0, and the packed bit set for every
+    entry whose ``flag`` is true (the local worker's non-sentinel slots,
+    whose indices are unique). Entries whose index lies outside
     ``[0, total)`` are dropped (the engine routes them to its sentinel
     first). Returns ``(acc [total] f32, bits [num_sent_words(total)]
     int32)``."""
@@ -1027,19 +1100,32 @@ def apply_rows(values, indices, flags, total: int,
     _check(values.dtype == torch.float32 and indices.dtype == torch.int32
            and flags.dtype == torch.bool,
            "apply_rows: values f32, indices int32, flags bool")
-    nw = num_sent_words(total)
+    num_sent_words(total)                   # checks total % 128
     if not _on_card("apply_rows", values, indices, flags):
         return apply_rows_plain(values, indices, flags, total, divisor)
-    skey, sval = stage_payload(values, indices, total)
-    acc = torch.zeros(total, dtype=torch.float32, device=values.device)
-    bits = torch.zeros(nw, dtype=torch.int32, device=values.device)
-    if n:
+    return _apply_rows_launch(values, indices, flags, total, divisor,
+                              apply_plan(n, total))
+
+
+def _apply_rows_launch(values, indices, flags, total: int,
+                       divisor: Optional[float], plan: ApplyPlan):
+    """Launch the apply kernel on checked CUDA operands with ``plan``
+    (measurements force a route through here)."""
+    n, dev = values.shape[0], values.device
+    acc = torch.empty(total, dtype=torch.float32, device=dev)
+    bits = torch.empty(num_sent_words(total), dtype=torch.int32, device=dev)
+    if plan.grid:
+        scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                               device=dev) if plan.scratch_bytes else None)
         lib = _build.library("apply_rows.cu", _APPLY_ARGS)
         err = lib.apply_rows_launch(
-            indices.data_ptr(), flags.data_ptr(), skey.data_ptr(),
-            sval.data_ptr(), n, acc.data_ptr(), bits.data_ptr(), total,
+            indices.data_ptr(), flags.data_ptr(), values.data_ptr(), n,
+            acc.data_ptr(), bits.data_ptr(), total,
             int(divisor is not None),
             float(divisor) if divisor is not None else 1.0,
+            int(plan.route == "list"), plan.grid, plan.cap, plan.smem_bytes,
+            plan.route_grid,
+            scratch.data_ptr() if scratch is not None else None,
             *_stream_args(values))
         if err:
             raise RuntimeError(f"apply_rows launch failed: CUDA error {err}")

@@ -181,14 +181,6 @@ def test_apply_rows_matches_reference(duplicates, divisor):
                                    atol=0)
 
 
-def test_stage_payload_moves_zero_values_last():
-    v = torch.tensor([0.5, 0.0, -1.0, 2.0, 0.0], dtype=torch.float32)
-    i = torch.tensor([7, 3, 7, 1, 9], dtype=torch.int32)
-    skey, sval = tk.stage_payload(v, i, 16)
-    assert skey.tolist() == [1, 7, 7, 16, 16]
-    assert sval.tolist() == [2.0, 0.5, -1.0, 0.0, 0.0]
-
-
 def test_launch_counters_count_only_launches():
     """On CPU tensors the wrappers run their plain versions and launch
     nothing."""
