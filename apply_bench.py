@@ -30,7 +30,6 @@ behind a spin kernel, L2-warm). The summary goes to stdout, everything to
 """
 
 import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -44,20 +43,9 @@ OUT = Path(__file__).resolve().parent / "chiprun_out" / "apply_bench.json"
 def _old_library(src):
     """The earlier apply kernel built from ``src`` (``apply_rows_launch``
     with its own signature)."""
-    from dgc_tpu_torch.ops import build
-    text = Path(src).read_bytes()
-    tag = hashlib.sha1(text).hexdigest()[:12]
-    lib = build.BUILD_DIR / f"old_apply-{tag}.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if not lib.exists():
-        subprocess.run([build._nvcc(), *build._FLAGS, "-o", str(lib), src],
-                       check=True)
-    cdll = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
-    cdll.apply_rows_launch.argtypes = [p, p, p, p, i, p, p, i, i,
-                                       ctypes.c_float, i, p]
-    cdll.apply_rows_launch.restype = i
-    return cdll
+    return cs._old_library(src, "apply_rows_launch",
+                           [p, p, p, p, i, p, p, i, i, ctypes.c_float, i, p])
 
 
 def old_breakdown(payloads, src):

@@ -32,6 +32,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    device time per call, 20 calls queued behind a spin kernel so the card
    runs them back to back (``ms``, also printed as ``kernel_ms``, is the
    kernel's; the 2.1M-element compensates also get ``ms_l2_cold``).
+   ``topk_rows`` runs every path call twice (bitwise each time), with its
+   route from ``kernels.topk_plan`` and, with ``--old-src PATH`` (the
+   earlier source, e.g. ``git show fa52c64:dgc_tpu_torch/csrc/
+   topk_rows.cu``), the earlier design's time beside it (``old_ms``); and
+   planted cases on each route, twice each (ties at the slice boundaries
+   cols/8*j +- 1, k = cols, k = 1, all-equal and all-zero rows, -0.0,
+   -1/-inf sentinels, columns that are not a multiple of 4 or 128, a row
+   too wide to stage). The opaque copy is re-timed in turns with
+   ``clone`` (200 pairs at 512, 2,048 and 4,096 elements; with
+   ``--old-copy-src PATH`` the earlier kernel too).
    Stdout gets a summary line per kernel (and per apply shape, epochs 0
    and 5); the per-call detail goes to ``chiprun_out/chip_smoke_detail.json``.
 3. Check the flat engine's W=4 exchange on the card against the same
@@ -46,7 +56,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ResNet-20's epoch-0 and epoch-5 ratios (bitwise, memory included,
    apart from coordinates several workers sent: rtol 1e-6), and against
    the card's flat engine at ratio 0.05, ``sample_ratio=1.0`` (ResNet-20
-   3 steps, ResNet-50 1; rtol 1e-5, atol 1e-6).
+   3 steps, ResNet-50 1; rtol 1e-5, atol 1e-6). At W=3, where 1/W is
+   inexact, ResNet-20's flat exchange card == CPU bitwise at the epoch-0
+   and epoch-5 ratios, and its per-tensor exchange as at W=4: the divide
+   by W is an IEEE divide on both devices (``kernels.divide_exact``).
+   Then run to run: ResNet-20 (flat, default route, W=4) trained 2 steps
+   at the epoch-0 ratio twice from one seed, parameters, momentum and
+   memory bitwise equal.
 4. The ResNet-20 path: full width, batch 128 per worker, W=4 ``LocalComm``
    workers on the card — 2 steps at the epoch-0 ratio, the engine
    rebuild, 2 steps at 0.001.
@@ -83,8 +99,9 @@ prints their step times, the device time by kernel and the device's busy
 share of the same window.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. It trains in full f32:
-TF32 is off for cuDNN and matmuls.
+limit, and last ``{"ok": true, "device": {...}}``. It trains in full f32
+with cuDNN restricted to deterministic algorithms, as the port's entry
+points set it (``utils.device.set_reproducible_numerics``).
 """
 
 import json
@@ -106,6 +123,10 @@ BUILD_LOG = DETAIL_PATH.with_name("chip_smoke_build.log")
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 DEVICE = "cuda"
+#: ``--old-src PATH``: the earlier top-k source, timed beside the kernel;
+#: ``--old-copy-src PATH``: the earlier opaque copy, timed in the re-time
+OLD_TOPK_SRC = None
+OLD_COPY_SRC = None
 
 
 def _device_ms(fn, reps=20, warmup=3, hold_cycles=20_000_000):
@@ -294,6 +315,181 @@ def _topk_inputs(eng, gen, host_gen):
     return out
 
 
+def _old_library(src, fn, argtypes):
+    """An earlier kernel built from the source file ``src`` into the build
+    directory (with this checkout's ``csrc/`` on the include path, for the
+    headers it shares), ``fn``'s argtypes set and an int return."""
+    import ctypes
+    import hashlib
+    from dgc_tpu_torch.ops import build
+    text = Path(src).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(build.CSRC.glob("*.cuh")))
+    tag = hashlib.sha1(text).hexdigest()[:12]
+    lib = build.BUILD_DIR / f"old-{Path(src).stem}-{tag}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not lib.exists():
+        subprocess.run([build._nvcc(), *build._FLAGS, "-I", str(build.CSRC),
+                        "-o", str(lib), src], check=True)
+    cdll = ctypes.CDLL(str(lib))
+    getattr(cdll, fn).argtypes = argtypes
+    getattr(cdll, fn).restype = ctypes.c_int
+    return cdll
+
+
+def _old_topk_library(src):
+    """The earlier top-k kernel (``csrc/topk_rows.cu`` as of commit
+    fa52c64: ``topk_rows_launch(x, v, i, rows, cols, k, device, stream)``,
+    over ``row_select.cuh``)."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _old_library(src, "topk_rows_launch", [p, p, p, i, i, i, i, p])
+
+
+def _old_topk(lib, x, k):
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    R, cols = x.shape
+    v = torch.empty((R, k), dtype=torch.float32, device=x.device)
+    i = torch.empty((R, k), dtype=torch.int32, device=x.device)
+    err = lib.topk_rows_launch(x.data_ptr(), v.data_ptr(), i.data_ptr(), R,
+                               cols, k, *K._stream_args(x))
+    if err:
+        raise RuntimeError(f"old topk_rows launch failed: CUDA error {err}")
+    return v, i
+
+
+#: the planted top-k cases: (route forced, or None for the planner's,
+#: columns, ks); five rows each (see _topk_planted_rows). Forced routes
+#: reach the bitonic sort's chunked form (a 16,384-word sort route) and a
+#: block reading its row from global memory.
+_TOPK_PLANTED = (("sort", 95, (1, 10, 95)), ("sort", 2049, (1, 300, 2049)),
+                 ("sort", 9000, (37, 9000)), ("block", 1026, (1, 37, 300)),
+                 ("block", 4099, (1, 1000, 2048, 4099)),
+                 ("block", 9216, (2915,)), ("block", 36867, (16384,)),
+                 ("cluster", 16384, (1, 16384)),
+                 ("cluster", 36867, (1, 37, 11658, 16384)),
+                 (None, 300001, (16384,)))
+
+
+def _topk_planted_rows(cols, k, gen):
+    """Five rows: random values with the row's k-th value planted at
+    columns cols/8*j - 1, cols/8*j and cols/8*j + 1 (ties across the
+    cluster route's slice boundaries, taken in part), an all-equal row,
+    an all-zero row with -0.0 at even columns, a row of |x| with a -1
+    tail and -inf entries (the engine's sentinels), and signed values
+    with -0.0 planted."""
+    import torch
+    x = torch.randn(5, cols, device=DEVICE, generator=gen)
+    kth = torch.sort(x[0], descending=True).values[k - 1]
+    ties = [c for j in range(9) for c in (cols // 8 * j - 1, cols // 8 * j,
+                                          cols // 8 * j + 1) if 0 <= c < cols]
+    x[0, ties] = kth
+    x[1] = 0.5
+    x[2] = 0.0
+    x[2, ::2] = -0.0
+    x[3] = x[3].abs()
+    x[3, cols // 2:] = -1.0
+    x[3, ::7] = -float("inf")
+    x[4, ::5] = -0.0
+    return x
+
+
+def phase_topk_kernel(geoms, geoms50, gen):
+    """``topk_rows`` at every call of the paths (bitwise the plain version,
+    twice) with its times beside the earlier design's (``--old-src``),
+    ``torch.topk`` and the bound, and at the planted cases on each route
+    (twice, bitwise)."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    old = _old_topk_library(OLD_TOPK_SRC) if OLD_TOPK_SRC else None
+    calls, errs = [], []
+    host_gen = torch.Generator().manual_seed(1)
+    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
+        for epoch, (ratio, eng) in gs.items():
+            for role, inp, k in _topk_inputs(eng, gen, host_gen):
+                want = K.topk_rows_plain(inp, k)
+                errs.append(_check_equal("topk_rows", K.topk_rows(inp, k),
+                                         want))
+                _check_equal("topk_rows, second run", K.topk_rows(inp, k),
+                             want)
+                fns = dict(ms=lambda: K.topk_rows(inp, k),
+                           plain_ms=lambda: K.topk_rows_plain(inp, k),
+                           library_ms=lambda: torch.topk(inp, k, dim=1))
+                if old is not None:
+                    _check_equal("old topk_rows", _old_topk(old, inp, k),
+                                 want)
+                    fns["old_ms"] = lambda: _old_topk(old, inp, k)
+                R, cols = inp.shape
+                plan = K.topk_plan(R, cols, k)
+                # bytes: the rows read, k (value, column) pairs written;
+                # ops: one comparison per element
+                bound_ms, bound_by = _bound(4 * R * cols + 8 * R * k,
+                                            R * cols)
+                calls.append(dict(
+                    model=model, epoch=epoch, ratio=ratio, role=role,
+                    shape=[R, cols], k=k, route=plan.route,
+                    threads=plan.threads, cluster=plan.cluster,
+                    **{"old_ms": None, **_timed(**fns)},
+                    bound_ms=bound_ms, bound_by=bound_by))
+    planted = []
+    pgen = torch.Generator(device=DEVICE).manual_seed(2)
+    for route, cols, ks in _TOPK_PLANTED:
+        for k in ks:
+            x = _topk_planted_rows(cols, k, pgen)
+            plan = K.topk_plan(5, cols, k, route)
+            if route is not None and plan.route != route:
+                raise AssertionError(f"topk_plan: {route} forced, got {plan}")
+            want = K.topk_rows_plain(x, k)
+            for _ in range(2):
+                _check_equal(f"topk_rows planted {route} [5, {cols}] k={k}",
+                             K._topk_rows_launch(x, k, plan), want)
+            planted.append(f"{plan.route}{' radix' if plan.radix else ''}"
+                           f"{'' if plan.staged else ' unstaged'}"
+                           f" x{plan.cluster} [5, {cols}] k={k}")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    step = {m: {k: sum(c[k] for c in calls
+                       if c["model"] == m and c["epoch"] == 5)
+                for k in keys} for m in ("resnet20", "resnet50")}
+    worst = max(calls, key=lambda c: c["ms"] / c["library_ms"])
+    losing = [c for c in calls if c["ms"] > c["library_ms"]]
+    by_route = {}
+    for c in calls:
+        r = by_route.setdefault(c["route"], {"calls": 0, "ms": 0.0,
+                                             "library_ms": 0.0})
+        r["calls"] += 1
+        r["ms"] += c["ms"]
+        r["library_ms"] += c["library_ms"]
+    print(f"[topk_rows] {len(calls)} path calls, worst ratio to torch.topk "
+          f"{worst['ms'] / worst['library_ms']:.3f} at {worst['shape']} "
+          f"k={worst['k']} ({worst['route']}); slower than torch.topk at "
+          f"{len(losing)}: "
+          + ", ".join(f"{c['shape']} k={c['k']}" for c in losing)
+          + "; by route " + json.dumps(by_route))
+    if old is not None:
+        print(f"[topk_rows] sums over the {len(calls)} path calls: new "
+              f"{sum(c['ms'] for c in calls):.4f} ms, old "
+              f"{sum(c['old_ms'] for c in calls):.4f}, torch.topk "
+              f"{sum(c['library_ms'] for c in calls):.4f}")
+    print(f"[topk_rows] {len(planted)} planted cases on the "
+          f"{', '.join(sorted({p.split()[0] for p in planted}))} routes "
+          f"({sum(' radix' in p for p in planted)} radix-sorted, "
+          f"{sum(' unstaged' in p for p in planted)} unstaged), twice each, "
+          "bitwise")
+    return dict(
+        name="topk_rows", route="cuda",
+        source="dgc_tpu_torch/csrc/topk_rows.cu",
+        replaces="dgc_tpu/ops/kernels.py:739",
+        check="bitwise vs topk_rows_plain (stable sort), twice; planted "
+              "cases on every route",
+        max_abs_err=max(errs), **step["resnet50"], bound_by="bytes",
+        summed_over="the calls of one worker's ResNet-50 step at ratio "
+                    "0.001", resnet20_step=step["resnet20"],
+        worst_ratio_to_library=worst["ms"] / worst["library_ms"],
+        worst_shape=[*worst["shape"], worst["k"]],
+        shapes_slower_than_library=len(losing), planted=planted,
+        calls=calls)
+
+
 def phase_kernels(geoms, geoms50):
     """Bitwise checks and timings of ``compensate_bits``, ``topk_rows`` and
     ``apply_rows`` at the paths' shapes.
@@ -331,39 +527,7 @@ def phase_kernels(geoms, geoms50):
     # --- K2 top-k: every selection and threshold call it takes, ResNet-20
     #     across the warm-up and ResNet-50 at the epoch-0 and epoch-5
     #     ratios (selections above its k take the lax_top_k route) ---
-    calls, errs = [], []
-    host_gen = torch.Generator().manual_seed(1)
-    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
-        for epoch, (ratio, eng) in gs.items():
-            for role, inp, k in _topk_inputs(eng, gen, host_gen):
-                errs.append(_check_equal("topk_rows", K.topk_rows(inp, k),
-                                         K.topk_rows_plain(inp, k)))
-                R, cols = inp.shape
-                # bytes: the rows read, k (value, column) pairs written;
-                # ops: one comparison per element
-                bound_ms, bound_by = _bound(4 * R * cols + 8 * R * k,
-                                            R * cols)
-                calls.append(dict(
-                    model=model, epoch=epoch, ratio=ratio, role=role,
-                    shape=[R, cols], k=k, **_timed(
-                        ms=lambda: K.topk_rows(inp, k),
-                        plain_ms=lambda: K.topk_rows_plain(inp, k),
-                        library_ms=lambda: torch.topk(inp, k, dim=1)),
-                    bound_ms=bound_ms, bound_by=bound_by))
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    step = {m: {k: sum(c[k] for c in calls
-                       if c["model"] == m and c["epoch"] == 5)
-                for k in keys} for m in ("resnet20", "resnet50")}
-    entries["topk_rows"] = dict(
-        name="topk_rows", route="cuda",
-        source="dgc_tpu_torch/csrc/topk_rows.cu",
-        replaces="dgc_tpu/ops/kernels.py:739",
-        check="bitwise vs topk_rows_plain (stable sort)",
-        max_abs_err=max(errs), **step["resnet50"], bound_by="bytes",
-        summed_over="the calls of one worker's ResNet-50 step at ratio "
-                    "0.001", resnet20_step=step["resnet20"],
-        calls=calls)
-
+    entries["topk_rows"] = phase_topk_kernel(geoms, geoms50, gen)
     entries["apply_rows"] = phase_apply_kernel(geoms, geoms50, gen)
     return entries
 
@@ -731,6 +895,94 @@ def phase_opaque_kernels(geoms20, geoms50):
     return entries
 
 
+def _old_copy_library(src):
+    """The earlier opaque copy (``csrc/opaque_copy.cu`` as of commit
+    fa52c64; the same C signature as today's)."""
+    from dgc_tpu_torch.ops import kernels as K
+    return _old_library(src, "opaque_copy_launch",
+                        K._COPY_ARGS["opaque_copy_launch"])
+
+
+def phase_opaque_retime(sizes=(512, 2048, 4096), pairs=200):
+    """The opaque copy (``opaque_view_from``'s launch) and ``clone`` timed
+    in turns over the same source, a tile-aligned slice of a flat buffer:
+    each sample is the device time per call of 20 back-to-back calls
+    queued behind a ~1 ms spin; ``pairs`` pairs (kernel, clone) per size,
+    and with ``--old-copy-src`` the earlier kernel as a third member of
+    each turn. Reports the medians, the median of the pairs' differences
+    and its spread (the 5th and 95th percentiles of the differences)."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    old = _old_copy_library(OLD_COPY_SRC) if OLD_COPY_SRC else None
+    flat = torch.randn(16384, device=DEVICE)
+    out = []
+    for n in sizes:
+        src = flat[1024:1024 + n]
+        fns = {"kernel": lambda: K._copy_on_card("opaque_view_from", flat,
+                                                 1024, n),
+               "clone": src.clone}
+        if old is not None:
+            def run_old(n=n):
+                dst = torch.empty(n, device=DEVICE)
+                err = old.opaque_copy_launch(src.data_ptr(), dst.data_ptr(),
+                                             n, *K._stream_args(src))
+                if err:
+                    raise RuntimeError(f"old opaque copy: CUDA error {err}")
+                return dst
+            _check_equal("old opaque copy", [run_old()], [src.clone()])
+            fns["old_kernel"] = run_old
+        samples = {k: [] for k in fns}
+        for _ in range(pairs):
+            for k, fn in fns.items():
+                samples[k].append(_device_ms(fn, warmup=1,
+                                             hold_cycles=2_000_000))
+
+        def q(v, f):
+            v = sorted(v)
+            return v[min(len(v) - 1, int(f * len(v)))]
+        row = {"numel": n, "pairs": pairs}
+        for k, v in samples.items():
+            row[f"{k}_ms"] = q(v, 0.5)
+        for k in [k for k in fns if k != "clone"]:
+            d = [a - b for a, b in zip(samples[k], samples["clone"])]
+            row[f"{k}_minus_clone"] = {"median": q(d, 0.5), "p5": q(d, 0.05),
+                                       "p95": q(d, 0.95)}
+        out.append(row)
+        print(f"[opaque_retime] {json.dumps(row)}")
+    return out
+
+
+def _train_state(recipe, schedule):
+    """A fresh W=4 trainer on the card after ``schedule`` (``[(epoch,
+    steps)]``): the parameters, the optimizer's momentum and every
+    worker's memory, on the CPU."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    trainer = Trainer(configs.RECIPES[recipe](), comm=LocalComm(4),
+                      device=DEVICE)
+    for epoch, steps in schedule:
+        trainer.run_epoch(epoch, steps)
+    torch.cuda.synchronize()
+    st = trainer.state
+    out = [st.params] + [t for t in st.opt_state if torch.is_tensor(t)]
+    return [t.detach().cpu()
+            for t in out + [t for m in st.memory for t in m.values()]]
+
+
+def phase_run_to_run():
+    """ResNet-20 (flat engine, default route, W=4 on the card) trained 2
+    steps at the epoch-0 ratio twice from one seed: the parameters,
+    momentum and every worker's error-feedback memory bitwise equal (cuDNN
+    restricted to deterministic algorithms, as the entry points set it)."""
+    a = _train_state("resnet20_wm5", [(0, 2)])
+    b = _train_state("resnet20_wm5", [(0, 2)])
+    _check_equal("resnet20 training, run to run", a, b)
+    print(f"[run_to_run] resnet20 W=4, 2 steps at the epoch-0 ratio, twice: "
+          f"parameters, momentum and memory bitwise equal ({len(a)} tensors)")
+
+
 def _fused_ids(eng):
     """The 2-D buckets that select through ``select_pack_rows``."""
     return [bi for bi, b in enumerate(eng.buckets)
@@ -1043,8 +1295,8 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
 
 
 def _print_entries(entries):
-    """One summary line per kernel; the per-call detail goes to
-    :data:`DETAIL_PATH`."""
+    """One summary line per kernel; the per-call detail (and a kernel's
+    planted cases or re-timing) goes to :data:`DETAIL_PATH`."""
     detail = {}
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
@@ -1052,40 +1304,45 @@ def _print_entries(entries):
               f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f}, "
               f"{len(e['calls'])} call shapes)")
         detail[e["name"]] = e.pop("calls")
+        for extra in ("planted", "retime"):
+            if extra in e:
+                detail[f"{e['name']} {extra}"] = e.pop(extra)
     DETAIL_PATH.parent.mkdir(exist_ok=True)
     DETAIL_PATH.write_text(json.dumps(detail, indent=1))
     print(f"[kernel] per-call detail: {DETAIL_PATH}")
 
 
-def _exchange_run(eng, dev, steps):
-    """``steps`` W=4 exchanges of ``eng`` on ``dev`` from seeded inputs:
-    every worker's exchanged gradient and final memory, on the CPU."""
+def _exchange_run(eng, dev, steps, world=4):
+    """``steps`` exchanges of ``eng`` among ``world`` workers on ``dev``
+    from seeded inputs: every worker's exchanged gradient and final
+    memory, on the CPU."""
     import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
-    mems = [eng.init_memory(dev) for _ in range(4)]
+    mems = [eng.init_memory(dev) for _ in range(world)]
     res = []
     for step in range(steps):
         grads = [torch.randn(eng.layout.total,
                              generator=torch.Generator().manual_seed(
                                  100 * step + w)).to(dev)
-                 for w in range(4)]
+                 for w in range(world)]
         phases = [eng.draw_phases(torch.Generator().manual_seed(
-            10 * step + w)) for w in range(4)]
-        res += eng.exchange(grads, mems, phases, LocalComm(4))
+            10 * step + w)) for w in range(world)]
+        res += eng.exchange(grads, mems, phases, LocalComm(world))
     res += [t for m in mems for t in m.values()]
     return [t.cpu() for t in res]
 
 
-def phase_engine_vs_cpu(geoms, label, steps):
-    """The W=4 exchange on the card and on the CPU, same inputs: every
-    output bitwise, at the epoch-0 and epoch-5 ratios."""
+def phase_engine_vs_cpu(geoms, label, steps, world=4):
+    """The exchange among ``world`` workers on the card and on the CPU,
+    same inputs: every output bitwise, at the epoch-0 and epoch-5 ratios
+    (at W = 3 this holds the divide by W: an IEEE divide on both)."""
     for epoch in (0, 5):
         eng = geoms[epoch][1]
-        _check_equal(f"{label} engine exchange (epoch {epoch})",
-                     _exchange_run(eng, DEVICE, steps),
-                     _exchange_run(eng, "cpu", steps))
-    print(f"[engine] {label} W=4 exchange, {steps} step(s): card == CPU "
-          "bitwise at the epoch-0 and epoch-5 ratios")
+        _check_equal(f"{label} engine exchange W={world} (epoch {epoch})",
+                     _exchange_run(eng, DEVICE, steps, world),
+                     _exchange_run(eng, "cpu", steps, world))
+    print(f"[engine] {label} W={world} exchange, {steps} step(s): card == "
+          "CPU bitwise at the epoch-0 and epoch-5 ratios")
 
 
 def phase_routes_vs_cpu(recipe, label, steps, epochs=(3, 5)):
@@ -1157,9 +1414,10 @@ def _worker_grads(shapes, dev, seed):
     return out
 
 
-def _per_tensor_run(comp, shapes, dev, steps, sent=None):
-    """``steps`` W=4 per-tensor exchanges (``DistributedOptimizer.
-    exchange`` over ``LocalComm(4)``) on ``dev`` from seeded gradients and
+def _per_tensor_run(comp, shapes, dev, steps, sent=None, world=4):
+    """``steps`` per-tensor exchanges among ``world`` workers
+    (``DistributedOptimizer.exchange`` over ``LocalComm``) on ``dev`` from
+    seeded gradients and
     phases: every worker's exchanged gradients, then its memory, on the
     CPU, in name order. ``sent`` collects ``{(step, name): [(valid
     indices, their |values|) per worker]}``."""
@@ -1167,9 +1425,9 @@ def _per_tensor_run(comp, shapes, dev, steps, sent=None):
     from dgc_tpu_torch.optim.distributed import DistributedOptimizer
     from dgc_tpu_torch.optim.sgd import dgc_sgd
     from dgc_tpu_torch.parallel.comm import LocalComm
-    dist = DistributedOptimizer(dgc_sgd(0.1), comp, LocalComm(4))
+    dist = DistributedOptimizer(dgc_sgd(0.1), comp, LocalComm(world))
     zeros = {n: torch.zeros(sh) for n, sh in shapes.items()}
-    mems = [dist.init_memory(zeros, dev) for _ in range(4)]
+    mems = [dist.init_memory(zeros, dev) for _ in range(world)]
     sparsify = comp.sparsify
     step = 0
 
@@ -1184,9 +1442,9 @@ def _per_tensor_run(comp, shapes, dev, steps, sent=None):
     try:
         for step in range(steps):
             grads = [_worker_grads(shapes, dev, 100 * step + w)
-                     for w in range(4)]
+                     for w in range(world)]
             phases = [comp.draw_phases(torch.Generator().manual_seed(
-                10 * step + w)) for w in range(4)]
+                10 * step + w)) for w in range(world)]
             outs, mems = dist.exchange(grads, mems, phases)
             res.append([{n: t.cpu() for n, t in o.items()} for o in outs])
     finally:
@@ -1196,22 +1454,28 @@ def _per_tensor_run(comp, shapes, dev, steps, sent=None):
 
 
 def phase_per_tensor_vs_cpu(recipe="resnet20_wm5", label="resnet20",
-                            steps=2):
-    """The per-tensor W=4 exchange on the card and on the CPU, same inputs,
-    at the epoch-0 and epoch-5 ratios: memory bitwise; the exchanged
-    gradients bitwise apart from coordinates several workers sent, whose
-    sums ``index_add_`` takes in atomic order on the card: two orders of a
-    sum of W terms differ by at most (W - 1) eps sum|v_i| (the division by
-    W = 4 is exact), so they are held within eps sum|v_i|."""
+                            steps=2, world=4):
+    """The per-tensor exchange among ``world`` workers on the card and on
+    the CPU, same inputs, at the epoch-0 and epoch-5 ratios: memory
+    bitwise; the exchanged gradients bitwise apart from coordinates
+    several workers sent, whose sums ``index_add_`` takes in atomic order
+    on the card. Two orders of a sum of W terms differ by at most
+    (W - 1) eps sum|v_i|; the divide by W is an IEEE divide on both
+    devices (``kernels.divide_exact``), which adds at most one rounding of
+    |sum|/W to each side, so the two quotients are held within
+    eps sum|v_i| at any W."""
     import torch
     for epoch in (0, 5):
         comp, shapes = _per_tensor_compressor(recipe, epoch)
         sent = {}
-        cpu_out, cpu_mem = _per_tensor_run(comp, shapes, "cpu", steps, sent)
-        card_out, card_mem = _per_tensor_run(comp, shapes, DEVICE, steps)
+        cpu_out, cpu_mem = _per_tensor_run(comp, shapes, "cpu", steps, sent,
+                                           world)
+        card_out, card_mem = _per_tensor_run(comp, shapes, DEVICE, steps,
+                                             world=world)
         for m_card, m_cpu in zip(card_mem, cpu_mem):
             for k in m_cpu:
-                _check_equal(f"{label} per-tensor memory (epoch {epoch})",
+                _check_equal(f"{label} per-tensor memory W={world} "
+                             f"(epoch {epoch})",
                              list(m_card[k].values()),
                              list(m_cpu[k].values()))
         n_dup, eps = 0, torch.finfo(torch.float32).eps
@@ -1229,12 +1493,14 @@ def phase_per_tensor_vs_cpu(recipe="resnet20_wm5", label="resnet20",
                 n_dup += int(dup.sum())
                 for a, b in zip(o_card, o_cpu):
                     x, y = a[n].reshape(-1), b[n].reshape(-1)
-                    _check_equal(f"{label} per-tensor {n} (epoch {epoch})",
+                    _check_equal(f"{label} per-tensor {n} W={world} "
+                                 f"(epoch {epoch})",
                                  [x[~dup]], [y[~dup]])
                     if bool(((x - y).abs() > eps * mass)[dup].any()):
                         raise AssertionError(f"{label} per-tensor {n}: the "
                                              "duplicate coordinates")
-        print(f"[per-tensor] {label} W=4 exchange, {steps} step(s), epoch "
+        print(f"[per-tensor] {label} W={world} exchange, {steps} step(s), "
+              "epoch "
               f"{epoch}: card == CPU bitwise, memory included, apart from "
               f"{n_dup} coordinates several workers sent (within eps "
               "sum|v_i|)")
@@ -1597,12 +1863,20 @@ def phase_process_group():
 
 
 def main(argv):
+    global OLD_TOPK_SRC, OLD_COPY_SRC
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from dgc_tpu_torch.utils.device import set_reproducible_numerics
+    set_reproducible_numerics()
+    for flag in ("--old-src", "--old-copy-src"):
+        if flag in argv:
+            path = argv[argv.index(flag) + 1]
+            if flag == "--old-src":
+                OLD_TOPK_SRC = path
+            else:
+                OLD_COPY_SRC = path
     t_start = time.perf_counter()
     phase_build()
     geoms = _geometries()
@@ -1611,6 +1885,7 @@ def main(argv):
     entries = phase_kernels(geoms, geoms50)
     entries.update(phase_seg_kernels(geoms50))
     entries.update(phase_opaque_kernels(geoms, geoms50))
+    entries["opaque_view_from"]["retime"] = phase_opaque_retime()
     both = dict(megakernel=True, fused_select=True)
     entries.update(phase_select_kernels(
         _geometries("resnet20_wm5", (3, 4, 5), **both),
@@ -1619,11 +1894,14 @@ def main(argv):
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
+    phase_engine_vs_cpu(geoms, "resnet20", steps=2, world=3)
     phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
     phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1)
     phase_per_tensor_vs_cpu()
+    phase_per_tensor_vs_cpu(world=3)
     phase_per_tensor_vs_flat("resnet20_wm5", "resnet20", steps=3)
     phase_per_tensor_vs_flat("resnet50_wm5", "resnet50", steps=1)
+    phase_run_to_run()
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
     by_path = {}
     r20, by_path["resnet20"] = phase_train_path(

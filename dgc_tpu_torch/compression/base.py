@@ -22,6 +22,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from dgc_tpu_torch.compression.memory import Memory
+from dgc_tpu_torch.ops import kernels
 
 __all__ = ["CompressCtx", "Compressor", "NoneCompressor", "FP16Compressor",
            "Compression"]
@@ -80,7 +81,8 @@ class _DenseCompressor(Compressor):
         return comm.all_reduce(payloads)
 
     def decompress(self, gathered, ctx, mem_state, world_size):
-        out = self._unwire(gathered, ctx.dtype) / world_size
+        out = kernels.divide_exact(self._unwire(gathered, ctx.dtype),
+                                   world_size)
         return out.to(ctx.dtype), mem_state
 
 

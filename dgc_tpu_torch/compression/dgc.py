@@ -31,6 +31,7 @@ import torch
 from dgc_tpu_torch.compression.base import CompressCtx, Compressor
 from dgc_tpu_torch.compression.flat import FlatDGCEngine
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
+from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.ops import sparsify as ops
 
 __all__ = ["DGCCompressor", "TensorAttrs", "sampling_geometry",
@@ -306,13 +307,13 @@ class DGCCompressor(Compressor):
             dense = ops.scatter_add_dense(ctx.numel, indices, values,
                                           dtype=ctx.dtype)
             if avg:
-                dense = dense / world_size
+                dense = kernels.divide_exact(dense, world_size)
             return dense.reshape(ctx.shape), mem_state
         grad = gathered
         if self.fp16_values and grad.is_floating_point():
             grad = grad.to(ctx.dtype)
         if avg:
-            grad = grad / world_size
+            grad = kernels.divide_exact(grad, world_size)
         grad = grad.to(ctx.dtype)
         out, mem_state = self.memory.compensate(mem_state, ctx.name, grad,
                                                 accumulate=False)

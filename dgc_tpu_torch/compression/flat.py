@@ -915,7 +915,8 @@ class FlatDGCEngine:
             divisor=float(world))
         if self.layout.total == T:
             return acc
-        out_d = self._compensate_dense(mem, dense_sum / world)
+        out_d = self._compensate_dense(
+            mem, kernels.divide_exact(dense_sum, world))
         return torch.cat([acc, out_d])
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,

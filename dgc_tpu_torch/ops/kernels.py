@@ -53,7 +53,9 @@ __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "LADDER_MAX_LEVELS",
            "compensate_bits",
            "compensate_bits_plain", "topk_rows", "topk_rows_plain",
-           "TOPK_MAX_K", "select_pack_rows", "select_pack_rows_plain",
+           "TOPK_MAX_K", "topk_plan", "topk_geometry", "TopkPlan",
+           "TOPK_ROUTES", "divide_exact", "select_pack_rows",
+           "select_pack_rows_plain",
            "MR_MAX_K", "dgc_forward_rows", "dgc_forward_rows_plain",
            "apply_rows",
            "apply_rows_plain", "apply_plan", "ApplyPlan", "APPLY_CHUNK",
@@ -68,7 +70,8 @@ _LANE = 128
 _SUBLANE = 8
 #: flat elements covered by one 128-word row of the transmit record
 _BITS_GROUP = 32 * _LANE
-#: largest k the top-k kernel's shared-memory sort takes (128 KB of words)
+#: largest k the top-k kernel's shared-memory sort buffer takes (136 KB
+#: of words with their pads)
 TOPK_MAX_K = 16384
 #: largest k of the select-and-pack kernels (the reference's multi-round
 #: bound, ``_MR_MAX_K``)
@@ -795,15 +798,154 @@ def topk_rows_plain(x: torch.Tensor, k: int):
     return v[:, :k].contiguous(), i[:, :k].to(torch.int32)
 
 
-_TOPK_ARGS = {"topk_rows_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+#: shared memory a block may use on an H100 (227 KB)
+_SMEM_MAX = 232_448
+#: the selection core's scratch at the head of a block's shared memory
+#: (``topk::Scratch``, csrc/topk_select.cuh)
+_TOPK_SCRATCH = 4368
+#: rows of at most this many columns are sorted whole (the "sort" route)
+TOPK_SORT_MAX_COLS = 512
+#: the survivors of a selection are radix-sorted from this many sort words
+#: (next_pow2(k)) on, below it bitonic-sorted
+TOPK_RADIX_MIN_WORDS = 2048
+#: the cluster route takes rows of at least this many columns when the
+#: rows alone would leave most SMs idle
+TOPK_CLUSTER_MIN_COLS = 8192
+_TOPK_CLUSTER_MIN_SLICE = 2048
+_TOPK_SMS = 132
+#: columns a thread of a row's block scans per pass, at least
+_TOPK_COLS_PER_THREAD = 4
+#: the top-k kernel's routes (see :class:`TopkPlan`)
+TOPK_ROUTES = ("sort", "block", "cluster")
+
+
+class TopkPlan(NamedTuple):
+    """Launch geometry of :func:`topk_rows` (see ``csrc/topk_rows.cu``).
+    ``route`` is ``"sort"`` (a block of ``threads`` sorts each whole
+    row), ``"block"`` (a block of ``threads`` selects in each row) or
+    ``"cluster"`` (``cluster`` blocks split each row into slices of
+    ``slice`` columns); ``grid`` is the blocks launched; ``staged``
+    whether each block stages its slice into shared memory
+    (``stage_words`` words), else reads it from global memory; ``padded``
+    the sort buffer's words; ``radix`` whether the survivors are
+    radix-sorted (through ``R * padded`` words of global scratch), else
+    bitonic-sorted; ``smem_bytes`` a block's dynamic shared memory."""
+    route: str
+    threads: int
+    cluster: int
+    grid: int
+    slice: int
+    staged: bool
+    stage_words: int
+    padded: int
+    radix: bool
+    smem_bytes: int
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, int(x)).bit_length() - 1)
+
+
+def _topk_smem(slice_cols: int, padded: int, staged: bool,
+               radix_warps: int = 0) -> int:
+    """A block's shared memory: the selection core's scratch, the staged
+    slice (the 16-byte granules that cover it), the sort buffer (a pad
+    word after every 16, against bank conflicts) and the radix sort's 256
+    counters a warp."""
+    stage = -(-(slice_cols + 8) // 4) * 4 if staged else 0
+    return _align16(_TOPK_SCRATCH + 4 * stage + 8 * (padded + padded // 16)
+                    + 1024 * radix_warps)
+
+
+def topk_geometry(R: int, cols: int, k: int, route: str, cluster: int,
+                  threads: int, radix: Optional[bool] = None) -> TopkPlan:
+    """The :class:`TopkPlan` of a given route, cluster size and threads a
+    block (a multiple of 32, at most 1,024): the slices, the staging
+    (where the slice and the sort buffer fit one block's shared memory)
+    and the shared bytes. The survivors are radix-sorted from
+    :data:`TOPK_RADIX_MIN_WORDS` sort words on (never on the sort route),
+    unless ``radix`` says."""
+    _check(0 < k <= min(cols, TOPK_MAX_K),
+           f"topk_plan: k={k} outside [1, min({cols}, {TOPK_MAX_K})]")
+    _check(route in TOPK_ROUTES, f"topk_plan: unknown route {route}")
+    _check(threads % 32 == 0 and 32 <= threads <= 1024,
+           f"topk_plan: {threads} threads a block")
+    _check(route != "sort" or cols <= TOPK_MAX_K,
+           f"topk_plan: the sort route sorts at most {TOPK_MAX_K} columns")
+    _check((route == "cluster") == (cluster > 1),
+           f"topk_plan: {route} route with {cluster} blocks a row")
+    padded = _pow2_ceil(cols if route == "sort" else k)
+    if radix is None:
+        radix = route != "sort" and padded >= TOPK_RADIX_MIN_WORDS
+    _check(not (radix and route == "sort"),
+           "topk_plan: the sort route sorts by bitonic stages")
+    if cluster > 1:                             # slices of 4k columns
+        sl = -(-(-(-cols // cluster)) // 4) * 4
+    else:
+        sl = cols
+    warps = threads // 32 if radix else 0
+    staged = _topk_smem(sl, padded, True, warps) <= _SMEM_MAX
+    stage_words = -(-(sl + 8) // 4) * 4 if staged else 0
+    return TopkPlan(route, threads, cluster, R * cluster, sl, staged,
+                    stage_words, padded, radix,
+                    _topk_smem(sl, padded, staged, warps))
+
+
+def topk_plan(R: int, cols: int, k: int,
+              route: Optional[str] = None) -> TopkPlan:
+    """The top-k kernel's launch plan for ``k`` of ``cols`` columns in
+    each of ``R`` rows (0 < k <= min(cols, TOPK_MAX_K)), sized from
+    ``topk_bench.py`` on an H100 (PERF.md). Rows of at most
+    :data:`TOPK_SORT_MAX_COLS` columns are sorted whole, by a block of one
+    thread for every two columns (wider, the sort costs more than the
+    selection it replaces). Wider rows radix-select: rows of at least
+    :data:`TOPK_CLUSTER_MIN_COLS` columns that leave more than half the
+    132 SMs idle are split over a cluster of up to 8 blocks (at least
+    2,048 columns a block), as is a row whose slice and sort buffer do
+    not fit one block's 227 KB (a slice that fits nowhere is read from
+    global memory); the rest take a block each. A row's (or a slice's)
+    threads are the power of two that gives each at least 4 columns a
+    pass, and at least one for every 4 words of the sort, within 256 to
+    1,024. ``route`` forces one (for measurements)."""
+    _check(0 < k <= min(cols, TOPK_MAX_K),
+           f"topk_plan: k={k} outside [1, min({cols}, {TOPK_MAX_K})]")
+    _check(route is None or route in TOPK_ROUTES,
+           f"topk_plan: unknown route {route}")
+    if route == "sort" or (route is None and cols <= TOPK_SORT_MAX_COLS):
+        return topk_geometry(R, cols, k, "sort", 1,
+                             min(1024, max(32, _pow2_ceil(cols) // 2)))
+    padded = _pow2_ceil(k)
+    C = 1
+    if cols >= TOPK_CLUSTER_MIN_COLS and 2 * R <= _TOPK_SMS:
+        C = min(8, _pow2_floor(_TOPK_SMS // R),
+                _pow2_floor(cols // _TOPK_CLUSTER_MIN_SLICE))
+    if route == "cluster":
+        C = max(C, 2)
+    elif route is not None:
+        C = 1
+    while (route is None and C < 8 and not topk_geometry(
+            R, cols, k, "cluster" if C > 1 else "block", C, 1024).staged):
+        C *= 2                                  # the row does not fit a block
+    sl = -(-(-(-cols // C)) // 4) * 4 if C > 1 else cols
+    threads = min(1024, max(256, padded // 4, _pow2_floor(
+        sl // _TOPK_COLS_PER_THREAD)))
+    return topk_geometry(R, cols, k, "cluster" if C > 1 else "block", C,
+                         threads)
+
+
+_TOPK_ARGS = {"topk_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+              + [ctypes.c_void_p]}
 
 
 def topk_rows(x: torch.Tensor, k: int):
     """Per-row ``(values, int32 columns)`` of the k largest elements of a
     [R, cols] f32 tensor: values descending, ties to the smaller column,
-    exactly ``jax.lax.top_k`` for NaN-free input."""
+    exactly ``jax.lax.top_k`` for NaN-free input (the values are read back
+    from the row, so a selected -0.0 keeps its sign)."""
     _check(x.dim() == 2 and x.dtype == torch.float32,
            "topk_rows: x must be a 2-D float32 tensor")
     R, cols = x.shape
@@ -813,13 +955,25 @@ def topk_rows(x: torch.Tensor, k: int):
     _check(k <= TOPK_MAX_K,
            f"topk_rows: k={k} exceeds the kernel's shared-memory sort "
            f"(k <= {TOPK_MAX_K})")
+    return _topk_rows_launch(x, k, topk_plan(R, cols, k) if R and k else None)
+
+
+def _topk_rows_launch(x: torch.Tensor, k: int, plan: Optional[TopkPlan]):
+    """Launch the top-k kernel on a checked CUDA ``x`` with ``plan``
+    (measurements force a route through here)."""
+    R = x.shape[0]
     vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
     cols_out = torch.empty((R, k), dtype=torch.int32, device=x.device)
-    if R and k:
+    if plan is not None:
+        tmp = (torch.empty(R * plan.padded, dtype=torch.int64,
+                           device=x.device) if plan.radix else None)
         lib = _build.library("topk_rows.cu", _TOPK_ARGS)
-        err = lib.topk_rows_launch(x.data_ptr(), vals.data_ptr(),
-                                   cols_out.data_ptr(), R, cols, k,
-                                   *_stream_args(x))
+        err = lib.topk_rows_launch(
+            x.data_ptr(), vals.data_ptr(), cols_out.data_ptr(),
+            tmp.data_ptr() if tmp is not None else None, R, x.shape[1], k,
+            plan.cluster, plan.threads, plan.slice, int(plan.staged),
+            plan.stage_words, plan.padded, int(plan.route == "sort"),
+            plan.smem_bytes, *_stream_args(x))
         if err:
             raise RuntimeError(f"topk_rows launch failed: CUDA error {err}")
         LAUNCHES["topk_rows"] += 1
@@ -973,19 +1127,25 @@ def _in_range(indices: torch.Tensor, total: int) -> torch.Tensor:
     return (indices >= 0) & (indices < total)
 
 
+def divide_exact(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x / divisor`` as an IEEE divide on every device: the divisor is a
+    0-dim tensor of ``x``'s dtype and device. PyTorch's CUDA divide by a
+    Python scalar multiplies by the scalar's reciprocal, which differs
+    from the divide wherever 1/divisor is inexact (a divisor that is not a
+    power of two); its CPU divide and the JAX package's op-by-op divide
+    are IEEE."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
 def apply_rows_plain(values, indices, flags, total: int,
                      divisor: Optional[float] = None):
     """Plain version of :func:`apply_rows`. Sums each index's entries in
     payload order from +0.0 — a stable sort by index, then one round per
     duplicate rank, each round a scatter with unique indices — so it is
     deterministic on any device. Zero-valued and out-of-range entries add
-    nothing. The divide is an IEEE divide by a tensor on every device
-    (PyTorch's CUDA divide by a Python scalar multiplies by its
-    reciprocal)."""
-    v = values
-    if divisor is not None:
-        v = values / torch.full((), divisor, dtype=values.dtype,
-                                device=values.device)
+    nothing. The divide is :func:`divide_exact`, an IEEE divide on every
+    device."""
+    v = values if divisor is None else divide_exact(values, divisor)
     key = torch.where((v != 0) & _in_range(indices, total), indices, total)
     skey, order = torch.sort(key, stable=True)
     sval = v[order]

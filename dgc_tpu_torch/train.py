@@ -51,7 +51,8 @@ from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
                                        multistep_schedule)
 from dgc_tpu_torch.training.step import (make_flat_setup, make_flat_state,
                                          train_step)
-from dgc_tpu_torch.utils.device import resolve_device
+from dgc_tpu_torch.utils.device import (resolve_device,
+                                        set_reproducible_numerics)
 
 __all__ = ["Trainer", "main"]
 
@@ -201,9 +202,7 @@ def main(argv=None) -> List[float]:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    # this slice trains in full f32: no TF32 in cuDNN or matmuls
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_reproducible_numerics()
     cfg = _configs.RECIPES[args.config]()
     if args.image_size:
         cfg.dataset.image_size = args.image_size
