@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. Build every CUDA kernel from ``dgc_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and compile the Triton kernels.
+   source, in parallel), launch the candidates library once and compile
+   the Triton kernels.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the DGC paths give it — ResNet-20 across the wm5 warm-up for
    ``compensate_bits``, ``topk_rows`` and ``apply_rows``, and ResNet-50
@@ -41,9 +42,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    -1/-inf sentinels, columns that are not a multiple of 4 or 128, a row
    too wide to stage). The opaque copy is re-timed in turns with
    ``clone`` (200 pairs at 512, 2,048 and 4,096 elements; with
-   ``--old-copy-src PATH`` the earlier kernel too).
+   ``--old-copy-src PATH`` the earlier kernel too). The candidates kernels
+   (``csrc/seg_top2.cu``) run twice at ResNet-50's T (all four momentum
+   flag combinations for the fused one, its m and v also against
+   ``compensate_bits``) and buckets, and twice on planted segments (ties
+   of opposite signs straddling the record rows, at blocks 0 and 255,
+   +-inf, an all -0.0 lane, a ragged tail with sent bits); with
+   ``--old-cands-src PATH`` (an earlier ``dgc_tpu_torch/ops/kernels.py``,
+   e.g. ``git show 5427a94:dgc_tpu_torch/ops/kernels.py``) its two Triton
+   candidates kernels are held bitwise against the new ones and timed in
+   turns with them (``old_ms``).
    Stdout gets a summary line per kernel (and per apply shape, epochs 0
-   and 5); the per-call detail goes to ``chiprun_out/chip_smoke_detail.json``.
+   and 5); the per-call detail and every path's launch counts go to
+   ``chiprun_out/chip_smoke_detail.json``.
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
    ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios, and with
@@ -78,7 +89,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    Each path's launch counters are zeroed just before it and read just
    after; every kernel that the path runs must have launched. A kernel's
    ``launches`` is the count of its own path (ResNet-50, else the one
-   path named in ``_OWN_PATH``), ``launches_by_path`` has all of them.
+   path named in ``_OWN_PATH``); the detail file has every path's.
    After the ResNet-20 path, the masked check: ``fused_compensate_
    masked`` on its engine's own transmit record and state, bitwise
    ``compensate_bits``.
@@ -124,9 +135,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 DEVICE = "cuda"
 #: ``--old-src PATH``: the earlier top-k source, timed beside the kernel;
-#: ``--old-copy-src PATH``: the earlier opaque copy, timed in the re-time
+#: ``--old-copy-src PATH``: the earlier opaque copy, timed in the re-time;
+#: ``--old-cands-src PATH``: an earlier ``dgc_tpu_torch/ops/kernels.py``
+#: whose candidates kernels are timed in turns with the new ones
 OLD_TOPK_SRC = None
 OLD_COPY_SRC = None
+OLD_CANDS_SRC = None
+#: what goes to :data:`DETAIL_PATH` besides the kernels' per-call detail
+DETAIL = {}
 
 
 def _device_ms(fn, reps=20, warmup=3, hold_cycles=20_000_000):
@@ -244,16 +260,17 @@ def phase_build():
     BUILD_LOG.write_text(log.getvalue())
     print(f"[build] ptxas ({BUILD_LOG.name}): "
           + "; ".join(_ptxas_summary(log.getvalue())))
-    t0 = time.perf_counter()
     n = 2 * kernels.SEG_SPAN
     g = torch.zeros(n, device=DEVICE)
     bits = torch.zeros(kernels.num_sent_words(n), dtype=torch.int32,
                        device=DEVICE)
-    kernels.compensate_bits(g, torch.zeros_like(g), torch.zeros_like(g),
-                            bits, 0.9)
+    # the candidates library (CUDA C++): loaded and launched once
     kernels.compensate_bits_cands(g, torch.zeros_like(g),
                                   torch.zeros_like(g), bits, 0.9)
     kernels.seg_top2_candidates(g, 0, 2, kernels.SEG_SPAN)
+    t0 = time.perf_counter()
+    kernels.compensate_bits(g, torch.zeros_like(g), torch.zeros_like(g),
+                            bits, 0.9)
     for dt in (torch.float32, torch.bfloat16):
         kernels.fused_compensate(g, torch.zeros_like(g, dtype=dt),
                                  torch.zeros_like(g, dtype=dt), 0.9)
@@ -749,13 +766,155 @@ def _plant_ties(g, m, v, start, span):
         (seg + 2, 7, (3, 200), (9.0, -9.0)), (seg + 2, 9, (5, 6), (8.0, 8.0))]
 
 
-def phase_seg_kernels(geoms50):
-    """The segment-candidate kernels at ResNet-50's T and buckets (ratio
-    0.001), bitwise against their plain versions and each other, on ties
-    planted at the start of every segment bucket; times."""
+def _old_cands_module(path):
+    """An earlier ``dgc_tpu_torch/ops/kernels.py`` (``--old-cands-src``)
+    loaded as a module of its own, so its launches count apart."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("old_cands_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _in_turns(new, old):
+    """``{"ms", "old_ms"}``: device ms per call of ``new`` and ``old``, each
+    timed twice in the order new, old, old, new (``old_ms`` None without
+    an old kernel)."""
+    if old is None:
+        return {"ms": _device_ms(new), "old_ms": None}
+    t = [_device_ms(f) for f in (new, old, old, new)]
+    return {"ms": (t[0] + t[3]) / 2, "old_ms": (t[1] + t[2]) / 2}
+
+
+#: the planted candidate segments: (segment, lane, blocks, values) that
+#: the candidates must show (see _seg_planted)
+_SEG_PLANTS = ((0, 7, (31, 32), (9.0, -9.0)), (0, 8, (223, 224), (-9.0, 9.0)),
+               (1, 3, (0, 255), (-9.0, 9.0)),
+               (2, 0, (31, 32), (math.inf, -math.inf)),
+               (2, 2, (0, 1), (math.inf, math.inf)),
+               (3, 4, (0, 1), (0.0, 0.0)))
+
+
+#: the momentum flags (nesterov, momentum_masking) of the fused kernel's
+#: checks, the default ones last: the checks after the loop read its result
+_MOMENTUM_FLAGS = ((True, True), (True, False), (False, False),
+                   (False, True))
+
+
+def _check_fused_cands(label, g, m, v, bits, old=None):
+    """``compensate_bits_cands`` at each of :data:`_MOMENTUM_FLAGS`, twice,
+    bitwise its plain version, its m and v bitwise ``compensate_bits``,
+    and the earlier kernel's output bitwise it (``old``). Returns the plain
+    and the kernel's outputs under the default flags, and the largest
+    finite difference (0.0 when bitwise)."""
+    from dgc_tpu_torch.ops import kernels as K
+    errs = []
+    for flags in _MOMENTUM_FLAGS:
+        args = (0.9, *flags)
+        want = K.compensate_bits_cands_plain(g, m, v, bits, *args)
+        for run in range(2):
+            got = K.compensate_bits_cands(g, m.clone(), v.clone(), bits,
+                                          *args)
+            errs.append(_check_equal(
+                f"compensate_bits_cands {label} {args}, run {run}", got,
+                want))
+        _check_equal(f"compensate_bits {label} {args}",
+                     K.compensate_bits(g, m.clone(), v.clone(), bits, *args),
+                     want[:2])
+        if old is not None:
+            _check_equal(f"old compensate_bits_cands {label} {args}",
+                         old.compensate_bits_cands(g, m.clone(), v.clone(),
+                                                   bits, *args), want)
+    return want, got, max(errs)
+
+
+def _seg_planted(gen):
+    """Four planted segments and a ragged tail, as compensate state whose
+    stored velocity is g in the segments (m and v zero there): equal |x| of
+    opposite signs straddling the record rows (blocks 31/32 in lane 7,
+    223/224 in lane 8), a tie at blocks 0 and 255 (lane 3), +-inf (a tie at
+    blocks 31/32 in lane 0, -inf in lane 1, an all-inf lane 2), an all
+    -0.0 lane 4 (g, m and v all -0.0 there, so the stored velocity is -0.0
+    under every momentum flag); then 2,048 tail elements of random state
+    with sent bits set. Returns ``(g, m, v, bits)``."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
+    nseg, tail = 4, 2048
+    n = nseg * K.SEG_SPAN + tail
+    g, m, v = (torch.randn(n, device=DEVICE, generator=gen)
+               for _ in range(3))
+    m[:nseg * K.SEG_SPAN] = 0.0
+    v[:nseg * K.SEG_SPAN] = 0.0
+    x = g[:nseg * K.SEG_SPAN].view(nseg, 256, 128)
+    for seg, lane, blocks, vals in _SEG_PLANTS:
+        for b, val in zip(blocks, vals):
+            x[seg, b, lane] = val
+    x[2, 5, 1] = -math.inf
+    x[2, :, 2] = math.inf
+    for t in (g, m, v):
+        t[:nseg * K.SEG_SPAN].view(nseg, 256, 128)[3, :, 4] = -0.0
+    sent = torch.cat([torch.randperm(n, device=DEVICE, generator=gen)[:n // 50],
+                      nseg * K.SEG_SPAN + torch.arange(0, tail, 7,
+                                                       device=DEVICE)])
+    return g, m, v, K.pack_sent_bits(sent.unique().int(), n)
+
+
+def _check_seg_planted(gen):
+    """Both candidates kernels on the planted segments, twice each: the
+    fused one as :func:`_check_fused_cands` has it (the plants under the
+    default flags), the standalone one bitwise its plain version and the
+    fused candidates. Returns the largest finite difference."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    g, m, v, bits = _seg_planted(gen)
+    nseg = g.shape[0] // K.SEG_SPAN
+    want, got, err = _check_fused_cands("planted", g, m, v, bits)
+    for seg, lane, blocks, vals in _SEG_PLANTS:
+        if (tuple(want[3][seg, :, lane].tolist()) != blocks
+                or tuple(want[2][seg, :, lane].tolist()) != vals):
+            raise AssertionError(f"planted case at segment {seg} lane {lane}")
+    _check_negative_zero_lane("compensate_bits_cands", got[1], got[2])
+    alone = K.seg_top2_candidates_plain(got[1], 0, 1, nseg * K.SEG_SPAN)
+    _check_equal("planted: plain candidates vs the fused ones", alone, (
+        got[2].reshape(1, -1), K.seg_cols_local(got[3].view(1, nseg, 2,
+                                                             128))))
+    errs = [err] + [_check_equal(
+        f"seg_top2_candidates planted, run {run}",
+        K.seg_top2_candidates(got[1], 0, 1, nseg * K.SEG_SPAN), alone)
+        for run in range(2)]
+    for run in range(2):
+        _check_negative_zero_lane(
+            f"seg_top2_candidates, run {run}", got[1], K.seg_top2_candidates(
+                got[1], 0, 1, nseg * K.SEG_SPAN)[0].view(nseg, 2, 128))
+    return max(errs)
+
+
+def _check_negative_zero_lane(name, vec, cv):
+    """Lane 4 of planted segment 3: every stored velocity there is -0.0
+    (sign bit set, so a value read back without the + 0.0 would differ)
+    and both candidates read +0.0 (bits 0)."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    lane = vec[:4 * K.SEG_SPAN].view(4, 256, 128)[3, :, 4]
+    if not bool((lane.view(torch.int32) == -2 ** 31).all()):
+        raise AssertionError(f"{name}: the planted lane is not all -0.0")
+    if cv[3, :, 4].view(torch.int32).tolist() != [0, 0]:
+        raise AssertionError(f"{name}: a -0.0 candidate did not read +0.0")
+
+
+def phase_seg_kernels(geoms50):
+    """The segment-candidate kernels at ResNet-50's T and buckets (ratio
+    0.001), twice each, bitwise against their plain versions and each
+    other, on ties planted at the start of every segment bucket, with all
+    four momentum flag combinations for the fused kernel (m and v also
+    bitwise ``compensate_bits``); on the planted cases of
+    :func:`_seg_planted`; times, in turns with the earlier kernels under
+    ``--old-cands-src``."""
+    import torch
+    from dgc_tpu_torch.ops import build
+    from dgc_tpu_torch.ops import kernels as K
     dev = DEVICE
+    old = _old_cands_module(OLD_CANDS_SRC) if OLD_CANDS_SRC else None
     gen = torch.Generator(device=dev).manual_seed(2)
     eng = geoms50[5][1]
     T, span = eng.T, K.SEG_SPAN
@@ -767,73 +926,99 @@ def phase_seg_kernels(geoms50):
             ties += _plant_ties(g, m, v, b.base, span)
     sent = torch.randperm(T, device=dev, generator=gen)[:T // 1000].int()
     bits = K.pack_sent_bits(sent, T)
-    want = K.compensate_bits_cands_plain(g, m, v, bits, 0.9)
+    # (compensate_bits at this T is the epoch-0 ratio's compensate)
+    want, got, err = _check_fused_cands("at ResNet-50's T", g, m, v, bits,
+                                        old)
     for seg, lane, blocks, vals in ties:       # the ties reach the kernel
         if (tuple(want[3][seg, :, lane].tolist()) != blocks
                 or tuple(want[2][seg, :, lane].tolist()) != vals):
             raise AssertionError(f"planted tie at segment {seg} lane {lane}")
-    got = K.compensate_bits_cands(g, m.clone(), v.clone(), bits, 0.9)
-    err = _check_equal("compensate_bits_cands", got, want)
-    # compensate_bits at this T (the epoch-0 ratio's compensate) too
-    _check_equal("compensate_bits at ResNet-50's T",
-                 K.compensate_bits(g, m.clone(), v.clone(), bits, 0.9),
-                 want[:2])
+    err = max(err, _check_seg_planted(gen))
     mm, vv = m.clone(), v.clone()
     # bytes: g, m, v read, m, v written, the record read, 2 KB of
     # candidates per segment written; ops: ~5 per element for the
     # compensate, ~4 compares per element for the candidates
     bound_ms, bound_by = _bound(20 * T + 4 * nw + 2048 * nseg, 9 * T)
     same_t = _device_ms(lambda: K.compensate_bits(g, mm, vv, bits, 0.9))
+    turns = _in_turns(
+        lambda: K.compensate_bits_cands(g, mm, vv, bits, 0.9),
+        old and (lambda: old.compensate_bits_cands(g, mm, vv, bits, 0.9)))
     entries = {"compensate_bits_cands": dict(
-        name="compensate_bits_cands", route="triton",
-        source="dgc_tpu_torch/ops/kernels.py",
+        name="compensate_bits_cands", route="cuda",
+        source="dgc_tpu_torch/csrc/seg_top2.cu",
         replaces="dgc_tpu/ops/kernels.py:1265",
-        check="bitwise vs compensate_bits_cands_plain; m, v bitwise "
-              "compensate_bits", max_abs_err=err,
-        **_timed(ms=lambda: K.compensate_bits_cands(g, mm, vv, bits, 0.9),
-                 plain_ms=lambda: K.compensate_bits_cands_plain(
-                     g, m, v, bits, 0.9)),
+        check="bitwise vs compensate_bits_cands_plain, twice, all four "
+              "momentum flag combinations; m, v bitwise compensate_bits; "
+              "planted cases twice", max_abs_err=err, **turns,
+        plain_ms=_device_ms(lambda: K.compensate_bits_cands_plain(
+            g, m, v, bits, 0.9)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         compensate_bits_ms_same_T=same_t,
         calls=[{"shape": [T], "segments": nseg, "per_worker_step": 1}])}
 
     vec = got[1]
+    lib = build.library("seg_top2.cu", K._SEG_ARGS)
     calls, errs = [], []
     for b, seg in zip(eng.buckets, eng._seg):
         if not seg:
             continue
         R, cols, base = b.rows, b.cols, b.base
         ns = cols // span
-        a = K.seg_top2_candidates(vec, base, R, cols)
-        errs.append(_check_equal("seg_top2_candidates", a,
-                                 K.seg_top2_candidates_plain(vec, base, R,
-                                                             cols)))
+        want = K.seg_top2_candidates_plain(vec, base, R, cols)
+        for run in range(2):
+            a = K.seg_top2_candidates(vec, base, R, cols)
+            errs.append(_check_equal(f"seg_top2_candidates, run {run}", a,
+                                     want))
         s0 = base // span
         _check_equal("seg_top2_candidates vs the fused candidates", a, (
             got[2][s0:s0 + R * ns].reshape(R, -1),
             K.seg_cols_local(got[3][s0:s0 + R * ns].view(R, ns, 2, 128))))
+        if old is not None:
+            _check_equal("old seg_top2_candidates",
+                         old.seg_top2_candidates(vec, base, R, cols), want)
         region = vec[base:base + R * cols]
+        cvb, cbb = a[0].clone(), torch.empty_like(a[1])
+        # the kernel's launch alone (the wrapper also recomposes the
+        # columns, seg_cols_local: a few small elementwise launches)
+        launch = lambda: lib.seg_top2_launch(  # noqa: E731
+            vec.data_ptr() + 4 * base, R * ns, cvb.data_ptr(),
+            cbb.data_ptr(), *K._stream_args(vec))
         # bytes: the bucket read once, 2 KB of candidates per segment
         # written; ops: ~4 compares per element
         bound_ms, bound_by = _bound(4 * R * cols + 2048 * R * ns,
                                     4 * R * cols)
-        calls.append(dict(shape=[R, cols], segments=R * ns, **_timed(
-            ms=lambda: K.seg_top2_candidates(vec, base, R, cols),
-            plain_ms=lambda: K.seg_top2_candidates_plain(vec, base, R, cols),
-            # a time only: torch.topk's tie order is not the kernel's
-            library_ms=lambda: region.abs().view(R * ns, 256, 128).topk(
-                2, dim=1)), bound_ms=bound_ms, bound_by=bound_by))
+        calls.append(dict(shape=[R, cols], segments=R * ns, **_in_turns(
+            lambda: K.seg_top2_candidates(vec, base, R, cols),
+            old and (lambda: old.seg_top2_candidates(vec, base, R, cols))),
+            **_timed(
+                kernel_only_ms=launch,
+                plain_ms=lambda: K.seg_top2_candidates_plain(vec, base, R,
+                                                             cols),
+                # a time only: torch.topk's tie order is not the kernel's
+                library_ms=lambda: region.abs().view(R * ns, 256,
+                                                     128).topk(2, dim=1)),
+            bound_ms=bound_ms, bound_by=bound_by))
     entries["seg_top2_candidates"] = dict(
-        name="seg_top2_candidates", route="triton",
-        source="dgc_tpu_torch/ops/kernels.py",
+        name="seg_top2_candidates", route="cuda",
+        source="dgc_tpu_torch/csrc/seg_top2.cu",
         replaces="dgc_tpu/ops/kernels.py:1130",
-        check="bitwise vs seg_top2_candidates_plain and vs "
-              "compensate_bits_cands' candidates", max_abs_err=max(errs),
-        **{k: sum(c[k] for c in calls)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        check="bitwise vs seg_top2_candidates_plain, twice, and vs "
+              "compensate_bits_cands' candidates; planted cases twice",
+        max_abs_err=max(errs),
+        **{k: sum(c[k] for c in calls) for k in (
+            "ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")},
+        old_ms=None if old is None else sum(c["old_ms"] for c in calls),
         bound_by=calls[0]["bound_by"],
         summed_over="the six segment-path buckets of one worker's step",
         calls=calls)
+    for e in entries.values():
+        old_txt = "" if old is None else f", earlier {e['old_ms']:.4f}"
+        alone = e.get("kernel_only_ms")
+        old_txt += "" if alone is None else f", its launch alone {alone:.4f}"
+        print(f"[seg] {e['name']}: {e['ms']:.4f} ms{old_txt} (bound "
+              f"{e['bound_ms']:.4f}); bitwise twice, planted cases, "
+              + ("four flag combinations" if "cands" in e["name"]
+                 else f"{len(calls)} buckets"))
     return entries
 
 
@@ -1297,19 +1482,22 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
 def _print_entries(entries):
     """One summary line per kernel; the per-call detail (and a kernel's
     planted cases or re-timing) goes to :data:`DETAIL_PATH`."""
-    detail = {}
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
         print(f"[kernel] {e['name']}: {e['ms']:.4f} ms on the device "
               f"(plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f}, "
               f"{len(e['calls'])} call shapes)")
-        detail[e["name"]] = e.pop("calls")
+        DETAIL[e["name"]] = e.pop("calls")
         for extra in ("planted", "retime"):
             if extra in e:
-                detail[f"{e['name']} {extra}"] = e.pop(extra)
-    DETAIL_PATH.parent.mkdir(exist_ok=True)
-    DETAIL_PATH.write_text(json.dumps(detail, indent=1))
+                DETAIL[f"{e['name']} {extra}"] = e.pop(extra)
+    _write_detail()
     print(f"[kernel] per-call detail: {DETAIL_PATH}")
+
+
+def _write_detail():
+    DETAIL_PATH.parent.mkdir(exist_ok=True)
+    DETAIL_PATH.write_text(json.dumps(DETAIL, indent=1))
 
 
 def _exchange_run(eng, dev, steps, world=4):
@@ -1707,7 +1895,6 @@ def _read_counts(label, must_launch):
     missing = [k for k in must_launch if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: never launched: {missing}")
-    print(f"[{label}] launches {counts}")
     return counts
 
 
@@ -1822,6 +2009,7 @@ def phase_profile(trainer, label, steps=3):
 
 
 #: the device symbols of the ported kernels, as the profiler names them
+#: (the candidates kernels are csrc/seg_top2.cu's CUDA symbols)
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
                    "seg_top2_kernel", "topk_rows_kernel", "apply_rows_",
                    "opaque_copy_kernel", "select_pack_rows_kernel",
@@ -1863,20 +2051,18 @@ def phase_process_group():
 
 
 def main(argv):
-    global OLD_TOPK_SRC, OLD_COPY_SRC
+    global OLD_TOPK_SRC, OLD_COPY_SRC, OLD_CANDS_SRC
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from dgc_tpu_torch.utils.device import set_reproducible_numerics
     set_reproducible_numerics()
-    for flag in ("--old-src", "--old-copy-src"):
+    flags = {"--old-src": "OLD_TOPK_SRC", "--old-copy-src": "OLD_COPY_SRC",
+             "--old-cands-src": "OLD_CANDS_SRC"}
+    for flag, name in flags.items():
         if flag in argv:
-            path = argv[argv.index(flag) + 1]
-            if flag == "--old-src":
-                OLD_TOPK_SRC = path
-            else:
-                OLD_COPY_SRC = path
+            globals()[name] = argv[argv.index(flag) + 1]
     t_start = time.perf_counter()
     phase_build()
     geoms = _geometries()
@@ -1931,10 +2117,11 @@ def main(argv):
     del r20, r50
     phase_process_group()
     for name, e in entries.items():
-        e["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         # the count of the one path that is each kernel's own
         e["launches_path"] = _OWN_PATH.get(name, "resnet50")
         e["launches"] = by_path[e["launches_path"]][name]
+    DETAIL["launches_by_path"] = by_path
+    _write_detail()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

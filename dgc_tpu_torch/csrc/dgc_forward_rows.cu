@@ -19,11 +19,9 @@
 // or the gate's 131,072 columns, so phase (b) reads v' back from global
 // memory, where a row of at most 512 KB is still in the 50 MB L2.
 //
-// Numerics: the arithmetic is written with __fmul_rn / __fadd_rn, which
-// nvcc never contracts into an FMA, so m' and v' are bitwise the Triton
-// compensate_bits (launched with FMA contraction off) and the plain
-// version. The keep mask multiplies (m * 0.0f, not a select), so signed
-// zeros and NaNs follow the reference.
+// Numerics: the compensate is dgc::compensate() (compensate.cuh, shared
+// with seg_top2.cu), so m' and v' are bitwise the Triton compensate_bits
+// and the plain version.
 //
 // Bound on the card: bytes — g, m, v read and m', v' written (20 B per
 // element) plus the record's bits, and 12 B per selected slot; the
@@ -31,26 +29,13 @@
 // bucket of 6-16 rows keeps 6-16 of the 132 SMs busy, so at these shapes
 // the kernel is latency-bound.
 
+#include "compensate.cuh"
 #include "row_select.cuh"
 
 namespace {
 
+using dgc::compensate;
 using dgc::kThreads;
-
-// m', v' of one element (see the file comment); keep is 1.0f or 0.0f.
-__device__ __forceinline__ void compensate(float g, float& m, float& v,
-                                           float keep, float momentum,
-                                           bool nesterov, bool mask_momentum) {
-  const float m0 = mask_momentum ? __fmul_rn(m, keep) : m;
-  const float v0 = __fmul_rn(v, keep);
-  if (nesterov) {
-    m = __fmul_rn(__fadd_rn(m0, g), momentum);
-    v = __fadd_rn(__fadd_rn(v0, m), g);
-  } else {
-    m = __fadd_rn(__fmul_rn(momentum, m0), g);
-    v = __fadd_rn(v0, m);
-  }
-}
 
 // v is written in phase (a) and read back in phase (b), so it is neither
 // const nor __restrict__ (no read-only cache path for it).
@@ -79,7 +64,7 @@ dgc_forward_rows_kernel(const float4* __restrict__ g, float4* __restrict__ m,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int word = w + e < nwords ? bits[w + e] : 0;
-      keep[e] = ((word >> bit) & 1) ? 0.0f : 1.0f;
+      keep[e] = dgc::keep_bit(word, bit);
     }
     const float4 gg = g[q0 + j];
     float4 mm = m[q0 + j], vv = v4[q0 + j];

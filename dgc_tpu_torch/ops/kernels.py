@@ -16,8 +16,8 @@ wrapper                         route     replaces (dgc_tpu/ops/kernels.py)
 :func:`topk_rows`               CUDA C++  ``topk_rows`` (:739)
 :func:`select_pack_rows`        CUDA C++  ``select_pack_rows`` (:853) and
                                           ``_select_pack_rows_mr`` (:1001)
-:func:`seg_top2_candidates`     Triton    ``seg_top2_candidates`` (:1130)
-:func:`compensate_bits_cands`   Triton    ``fused_compensate_bits_cands``
+:func:`seg_top2_candidates`     CUDA C++  ``seg_top2_candidates`` (:1130)
+:func:`compensate_bits_cands`   CUDA C++  ``fused_compensate_bits_cands``
                                           (:1265)
 :func:`dgc_forward_rows`        CUDA C++  ``dgc_forward_rows`` (:1427)
 :func:`apply_rows`              CUDA C++  ``payload_apply_bits`` (:1643) /
@@ -200,24 +200,23 @@ def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
 # 4096-element word group; the ragged tail (T % 4096 may be 2048) is
 # masked. Multiplying by the keep mask, not a select, keeps signed zeros
 # and NaNs as the reference has them; the launch disables FMA contraction
-# so `momentum * m0 + g` rounds twice, as the plain version does. The body
-# (_compensate_tile) is shared with compensate_bits_cands (K5), and its
-# arithmetic (_momentum_correct) with fused_compensate(_masked) (K10/K11).
+# so `momentum * m0 + g` rounds twice, as the plain version does. Its
+# arithmetic (_momentum_correct) is shared with fused_compensate(_masked)
+# (K10/K11); the CUDA kernels that compensate on the fly (K5, K9) repeat it
+# op by op in csrc/compensate.cuh.
 
-# triton.language and the shared @triton.jit helpers, bound at the first
+# triton.language and the shared @triton.jit helper, bound at the first
 # build: module globals, because Triton resolves the names a kernel uses in
 # the kernel's globals
 tl = None
-_momentum_correct = _compensate_tile = None
-_top2_tile = _merge_top2 = _seg_top2_cell = None
+_momentum_correct = None
 _TRITON = {}
 
 
 def _triton_kernels():
     """Define the Triton kernels (on first use; the CPU has no Triton).
     Returns ``{name: kernel}``."""
-    global tl, _momentum_correct, _compensate_tile, _top2_tile, \
-        _merge_top2, _seg_top2_cell
+    global tl, _momentum_correct
     if _TRITON:
         return _TRITON
     import triton
@@ -236,26 +235,6 @@ def _triton_kernels():
             m = momentum * m0 + g
             ov = v0 + m
         return m, ov
-
-    @triton.jit
-    def _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, inb, momentum,
-                         NESTEROV: tl.constexpr,
-                         MASK_MOMENTUM: tl.constexpr):
-        # the bit-masked compensate of the elements at flat positions p
-        # (any shape); stores m and v, returns the stored velocity
-        g = tl.load(g_ptr + p, mask=inb, other=0.0)
-        m0 = tl.load(m_ptr + p, mask=inb, other=0.0)
-        v0 = tl.load(v_ptr + p, mask=inb, other=0.0)
-        word = tl.load(b_ptr + ((p >> 12) * 128 + (p & 127)), mask=inb,
-                       other=0)
-        keep = (((word >> ((p >> 7) & 31)) & 1) == 0).to(tl.float32)
-        if MASK_MOMENTUM:
-            m0 = m0 * keep
-        v0 = v0 * keep
-        m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
-        tl.store(m_ptr + p, m, mask=inb)
-        tl.store(v_ptr + p, ov, mask=inb)
-        return ov
 
     @triton.jit
     def fused_compensate_kernel(g_ptr, m_ptr, v_ptr, s_ptr, n, momentum,
@@ -289,117 +268,27 @@ def _triton_kernels():
             tl.store(v_ptr + p, ov, mask=inb)
 
     @triton.jit
-    def _top2_tile(x, blk):
-        # per lane (column of the [CH, 128] tile): the two largest |x|,
-        # first-occurrence ties to the lower block; the second excludes
-        # the first block by index; the signed value is read back at the
-        # block as a sum with zeros (so -0.0 reads +0.0, as the TPU cell
-        # function's masked sum does)
-        a = tl.abs(x)
-        a1 = tl.max(a, axis=0)
-        b1 = tl.min(tl.where(a >= a1[None, :], blk, 1 << 30), axis=0)
-        hit1 = blk == b1[None, :]
-        x1 = tl.sum(tl.where(hit1, x, 0.0), axis=0)
-        a_2 = tl.where(hit1, -1.0, a)
-        a2 = tl.max(a_2, axis=0)
-        b2 = tl.min(tl.where(a_2 >= a2[None, :], blk, 1 << 30), axis=0)
-        x2 = tl.sum(tl.where(blk == b2[None, :], x, 0.0), axis=0)
-        return a1, b1, x1, a2, b2, x2
-
-    @triton.jit
-    def _merge_top2(ra1, rb1, rx1, ra2, rb2, rx2, ca1, cb1, cx1, ca2, cb2,
-                    cx2):
-        # the running top-2 of the blocks so far and the top-2 of the next
-        # tile, whose blocks all come later: a tile entry ranks first only
-        # when strictly larger, so the order (|x| desc, block asc) holds
-        c_first = ca1 > ra1
-        s_c2 = c_first & (ca2 > ra1)             # second is the tile's 2nd
-        s_c1 = (ca1 > ra2) & (ca1 <= ra1)        # second is the tile's 1st
-        na1 = tl.where(c_first, ca1, ra1)
-        nb1 = tl.where(c_first, cb1, rb1)
-        nx1 = tl.where(c_first, cx1, rx1)
-        na2 = tl.where(c_first, tl.where(s_c2, ca2, ra1),
-                       tl.where(s_c1, ca1, ra2))
-        nb2 = tl.where(c_first, tl.where(s_c2, cb2, rb1),
-                       tl.where(s_c1, cb1, rb2))
-        nx2 = tl.where(c_first, tl.where(s_c2, cx2, rx1),
-                       tl.where(s_c1, cx1, rx2))
-        return na1, nb1, nx1, na2, nb2, nx2
-
-    @triton.jit
-    def _seg_top2_cell(g_ptr, m_ptr, v_ptr, b_ptr, x_ptr, start, n,
-                       momentum, COMPENSATE: tl.constexpr,
-                       NESTEROV: tl.constexpr, MASK_MOMENTUM: tl.constexpr):
-        # one 256-block x 128-lane segment at flat position `start`, in
-        # eight 32-block tiles (one transmit-record row each): with
-        # COMPENSATE, each tile is compensated (m, v stored) and its stored
-        # velocity feeds the candidates; else the tile is read from x_ptr
-        rows = tl.arange(0, 32)[:, None] + tl.zeros([32, 128], tl.int32)
-        lane = tl.arange(0, 128)[None, :]
-        ra1 = tl.full([128], -1.0, tl.float32)
-        ra2 = tl.full([128], -1.0, tl.float32)
-        rb1 = tl.zeros([128], tl.int32)
-        rb2 = tl.zeros([128], tl.int32)
-        rx1 = tl.zeros([128], tl.float32)
-        rx2 = tl.zeros([128], tl.float32)
-        for c in tl.static_range(8):
-            blk = rows + c * 32
-            p = start + blk * 128 + lane
-            inb = p < n
-            if COMPENSATE:
-                x = _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, inb,
-                                     momentum, NESTEROV, MASK_MOMENTUM)
-            else:
-                x = tl.load(x_ptr + p, mask=inb, other=0.0)
-            ca1, cb1, cx1, ca2, cb2, cx2 = _top2_tile(x, blk)
-            ra1, rb1, rx1, ra2, rb2, rx2 = _merge_top2(
-                ra1, rb1, rx1, ra2, rb2, rx2, ca1, cb1, cx1, ca2, cb2, cx2)
-        return rx1, rb1, rx2, rb2
-
-    @triton.jit
     def compensate_bits_kernel(g_ptr, m_ptr, v_ptr, b_ptr, n, momentum,
                                NESTEROV: tl.constexpr,
                                MASK_MOMENTUM: tl.constexpr,
                                BLOCK: tl.constexpr):
         p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        _compensate_tile(g_ptr, m_ptr, v_ptr, b_ptr, p, p < n, momentum,
-                         NESTEROV, MASK_MOMENTUM)
-
-    @triton.jit
-    def compensate_bits_cands_kernel(g_ptr, m_ptr, v_ptr, b_ptr, cv_ptr,
-                                     cb_ptr, n, nseg, momentum,
-                                     NESTEROV: tl.constexpr,
-                                     MASK_MOMENTUM: tl.constexpr):
-        s = tl.program_id(0)
-        x1, b1, x2, b2 = _seg_top2_cell(
-            g_ptr, m_ptr, v_ptr, b_ptr, g_ptr, s * 32768, n, momentum,
-            True, NESTEROV, MASK_MOMENTUM)
-        lane = tl.arange(0, 128)
-        ok = (lane < 128) & (s < nseg)     # the ragged tail emits nothing
-        o = s * 256 + lane
-        tl.store(cv_ptr + o, x1, mask=ok)
-        tl.store(cv_ptr + o + 128, x2, mask=ok)
-        tl.store(cb_ptr + o, b1, mask=ok)
-        tl.store(cb_ptr + o + 128, b2, mask=ok)
-
-    @triton.jit
-    def seg_top2_kernel(x_ptr, cv_ptr, cb_ptr, base, cols, nseg, n):
-        r = tl.program_id(0)
-        s = tl.program_id(1)
-        x1, b1, x2, b2 = _seg_top2_cell(
-            x_ptr, x_ptr, x_ptr, x_ptr, x_ptr, base + r * cols + s * 32768,
-            n, 0.0, False, False, False)
-        lane = tl.arange(0, 128)
-        o = (r * nseg + s) * 256 + lane
-        tl.store(cv_ptr + o, x1)
-        tl.store(cv_ptr + o + 128, x2)
-        tl.store(cb_ptr + o, b1)
-        tl.store(cb_ptr + o + 128, b2)
+        inb = p < n
+        g = tl.load(g_ptr + p, mask=inb, other=0.0)
+        m0 = tl.load(m_ptr + p, mask=inb, other=0.0)
+        v0 = tl.load(v_ptr + p, mask=inb, other=0.0)
+        word = tl.load(b_ptr + ((p >> 12) * 128 + (p & 127)), mask=inb,
+                       other=0)
+        keep = (((word >> ((p >> 7) & 31)) & 1) == 0).to(tl.float32)
+        if MASK_MOMENTUM:
+            m0 = m0 * keep
+        v0 = v0 * keep
+        m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
+        tl.store(m_ptr + p, m, mask=inb)
+        tl.store(v_ptr + p, ov, mask=inb)
 
     _TRITON.update(fused_compensate=fused_compensate_kernel,
-                   compensate_bits=compensate_bits_kernel,
-                   compensate_bits_cands=compensate_bits_cands_kernel,
-                   seg_top2_candidates=seg_top2_kernel)
+                   compensate_bits=compensate_bits_kernel)
     return _TRITON
 
 
@@ -646,7 +535,8 @@ def ladder_counts(imp_rows: torch.Tensor, thr: torch.Tensor,
 
 
 # ------------------------------------------------------------------ #
-# K4, K5: per-(lane, segment) top-2 candidates (Triton)              #
+# K4, K5: per-(lane, segment) top-2 candidates (CUDA C++,          #
+#         csrc/seg_top2.cu)                                          #
 # ------------------------------------------------------------------ #
 #
 # Replace dgc_tpu/ops/kernels.py::seg_top2_candidates and
@@ -654,13 +544,16 @@ def ladder_counts(imp_rows: torch.Tensor, thr: torch.Tensor,
 # (_seg_top2_block). A segment is 256 blocks of 128 lanes (32,768
 # elements); for each lane it yields the two largest |v| in the order
 # (|v| descending, block ascending) as (signed value, segment-local block).
-# One Triton program per segment walks it in eight [32, 128] tiles, one
-# transmit-record row each, and merges each tile's top-2 into a running
-# top-2 per lane (_seg_top2_cell); the tile walk needs no cross-program
-# reduction and keeps the tile in registers. Both kernels run that one
-# @triton.jit cell, so their candidates agree bitwise by construction, and
-# the fused kernel compensates each tile with the @triton.jit body of
-# compensate_bits, so its m and v are bitwise that kernel's.
+# One 256-thread block covers a segment: warp j owns record row j (blocks
+# 32j..32j+31), each thread four lanes, so a thread reads one int4 of
+# record words and float4s of the state. Each thread keeps a running top-2
+# per lane in registers over its 32 blocks in ascending order (strict
+# compares: ties keep the lower block); there is no reduction inside the
+# stream, and one merge of the 8 row partials per lane through shared
+# memory at the end, in row order. Both kernels run that one scan and
+# merge, so their candidates agree bitwise by construction; the fused
+# kernel compensates each element first with compensate_bits' arithmetic
+# (csrc/compensate.cuh) and scans the stored velocity.
 #
 # Bound on the card: bytes. The fused pass moves the compensate's 20 B per
 # element plus the record and 2 KB of candidates per segment (541 MB at
@@ -717,6 +610,15 @@ def seg_top2_candidates_plain(flat: torch.Tensor, base: int, rows: int,
             seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
 
 
+_SEG_ARGS = {
+    "seg_top2_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "compensate_bits_cands_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
+
+
 def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
     """Per-(row, lane, segment) top-2 candidates of the bucket [rows, cols]
     at ``base`` of the flat f32 buffer, read in place. Returns ``(signed
@@ -731,15 +633,21 @@ def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
            "segment-aligned inside the buffer")
     if not _on_card("seg_top2_candidates", flat):
         return seg_top2_candidates_plain(flat, base, rows, cols)
+    _check(flat.data_ptr() % 16 == 0,
+           "seg_top2_candidates: flat must be 16-byte aligned")
     nseg = cols // SEG_SPAN
     vals = torch.empty((rows * nseg, 2, _LANE), dtype=torch.float32,
                        device=flat.device)
     blks = torch.empty((rows * nseg, 2, _LANE), dtype=torch.int32,
                        device=flat.device)
     if rows and nseg:
-        kernel = _triton_kernels()["seg_top2_candidates"]
-        kernel[(rows, nseg)](flat, vals, blks, base, cols, nseg,
-                             flat.shape[0], num_warps=8)
+        lib = _build.library("seg_top2.cu", _SEG_ARGS)
+        err = lib.seg_top2_launch(flat.data_ptr() + 4 * base, rows * nseg,
+                                  vals.data_ptr(), blks.data_ptr(),
+                                  *_stream_args(flat))
+        if err:
+            raise RuntimeError(
+                f"seg_top2_candidates launch failed: CUDA error {err}")
         LAUNCHES["seg_top2_candidates"] += 1
     return (vals.view(rows, -1),
             seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
@@ -773,16 +681,22 @@ def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
         mmt.copy_(m)
         vec.copy_(v)
         return mmt, vec, cv, cb
+    _check(all(t.data_ptr() % 16 == 0 for t in (grad, mmt, vec, bits)),
+           "compensate_bits_cands: grad, mmt, vec, bits must be 16-byte "
+           "aligned")
     nseg = n // SEG_SPAN
     cv = torch.empty((nseg, 2, _LANE), dtype=torch.float32,
                      device=grad.device)
     cb = torch.empty((nseg, 2, _LANE), dtype=torch.int32, device=grad.device)
     if n:
-        kernel = _triton_kernels()["compensate_bits_cands"]
-        kernel[(-(-n // SEG_SPAN),)](
-            grad, mmt, vec, bits, cv, cb, n, nseg, float(momentum),
-            NESTEROV=bool(nesterov), MASK_MOMENTUM=bool(momentum_masking),
-            num_warps=8, enable_fp_fusion=False)
+        lib = _build.library("seg_top2.cu", _SEG_ARGS)
+        err = lib.compensate_bits_cands_launch(
+            grad.data_ptr(), mmt.data_ptr(), vec.data_ptr(), bits.data_ptr(),
+            n, float(momentum), int(nesterov), int(momentum_masking),
+            cv.data_ptr(), cb.data_ptr(), *_stream_args(grad))
+        if err:
+            raise RuntimeError(
+                f"compensate_bits_cands launch failed: CUDA error {err}")
         LAUNCHES["compensate_bits_cands"] += 1
     return mmt, vec, cv, cb
 
