@@ -16,8 +16,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    guarded weights for the opaque copies, and every bucket the
    megakernel or the fused select takes at epochs 3-5 of both models
    for ``dgc_forward_rows`` and ``select_pack_rows`` (plus the gate's
-   widest row, an empty row at an unaligned base, all momentum flags,
-   planted ties and a selected -0.0); ``apply_rows`` also at planted
+   widest row, an empty row at an unaligned base, k = 1 and 1,024 on a
+   cluster shape, the sort and block routes, all momentum flags, ties
+   planted around the plan's slice boundaries, a valid-column tail ending
+   inside a non-first slice and a selected -0.0, each twice; an unstaged
+   ``select_pack_rows``; with ``--old-select-src DIR``, the earlier
+   kernels' sources unpacked from ``git archive c58eb1e dgc_tpu_torch/csrc``, their
+   times in turns with the new ones, ``old_ms``); ``apply_rows`` also at planted
    payloads through both of its routes (4,096 boundaries, a partial last
    chunk, a hot chunk past its shared memory, W=8 on every coordinate,
    zero, -0.0, NaN and out-of-range entries, n = 0, over 12,288 chunks,
@@ -34,9 +39,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    runs them back to back (``ms``, also printed as ``kernel_ms``, is the
    kernel's; the 2.1M-element compensates also get ``ms_l2_cold``).
    ``topk_rows`` runs every path call twice (bitwise each time), with its
-   route from ``kernels.topk_plan`` and, with ``--old-src PATH`` (the
-   earlier source, e.g. ``git show fa52c64:dgc_tpu_torch/csrc/
-   topk_rows.cu``), the earlier design's time beside it (``old_ms``); and
+   route from ``kernels.topk_plan`` and, with ``--old-src PATH`` (an
+   earlier source with today's launch signature, beside its own headers,
+   e.g. ``topk_rows.cu`` from ``git archive c58eb1e dgc_tpu_torch/csrc``),
+   the earlier kernel's time beside it (``old_ms``); and
    planted cases on each route, twice each (ties at the slice boundaries
    cols/8*j +- 1, k = cols, k = 1, all-equal and all-zero rows, -0.0,
    -1/-inf sentinels, columns that are not a multiple of 4 or 128, a row
@@ -137,8 +143,11 @@ DEVICE = "cuda"
 #: ``--old-src PATH``: the earlier top-k source, timed beside the kernel;
 #: ``--old-copy-src PATH``: the earlier opaque copy, timed in the re-time;
 #: ``--old-cands-src PATH``: an earlier ``dgc_tpu_torch/ops/kernels.py``
-#: whose candidates kernels are timed in turns with the new ones
+#: whose candidates kernels are timed in turns with the new ones;
+#: ``--old-select-src DIR``: the earlier select-and-pack and forward
+#: kernels' sources, timed in turns with the new ones
 OLD_TOPK_SRC = None
+OLD_SELECT_SRC = None
 OLD_COPY_SRC = None
 OLD_CANDS_SRC = None
 #: what goes to :data:`DETAIL_PATH` besides the kernels' per-call detail
@@ -220,15 +229,19 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), **flags):
 
 
 def _ptxas_summary(log):
-    """``kernel: registers, spill stores`` of each entry function in
-    ``nvcc -Xptxas -v`` output."""
+    """``kernel<template flags>: registers, spill stores`` of each entry
+    function in ``nvcc -Xptxas -v`` output."""
     def kernel_name(mangled):
-        # a length-prefixed identifier ending in "kernel"
+        # a length-prefixed identifier ending in "kernel", and its bool
+        # template arguments (CLUSTER, STAGED) where it has them
         for m in re.finditer(r"\d+", mangled):
             for k in range(len(m.group())):
-                ident = mangled[m.end():m.end() + int(m.group()[k:])]
+                end = m.end() + int(m.group()[k:])
+                ident = mangled[m.end():end]
                 if re.fullmatch(r"[A-Za-z_]\w*kernel", ident):
-                    return ident
+                    t = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+                    return ident + (f"<{','.join(re.findall(r'[01]', t[1]))}>"
+                                    if t else "")
         return mangled
 
     out, name = [], None
@@ -334,19 +347,22 @@ def _topk_inputs(eng, gen, host_gen):
 
 def _old_library(src, fn, argtypes):
     """An earlier kernel built from the source file ``src`` into the build
-    directory (with this checkout's ``csrc/`` on the include path, for the
-    headers it shares), ``fn``'s argtypes set and an int return."""
+    directory (the headers beside it first, as its quoted includes find
+    them, then this checkout's ``csrc/``), ``fn``'s argtypes set and an
+    int return."""
     import ctypes
     import hashlib
     from dgc_tpu_torch.ops import build
-    text = Path(src).read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(build.CSRC.glob("*.cuh")))
+    src = Path(src)
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for d in (src.parent, build.CSRC)
+        for h in sorted(d.glob("*.cuh")))
     tag = hashlib.sha1(text).hexdigest()[:12]
-    lib = build.BUILD_DIR / f"old-{Path(src).stem}-{tag}.so"
+    lib = build.BUILD_DIR / f"old-{src.stem}-{tag}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if not lib.exists():
         subprocess.run([build._nvcc(), *build._FLAGS, "-I", str(build.CSRC),
-                        "-o", str(lib), src], check=True)
+                        "-o", str(lib), str(src)], check=True)
     cdll = ctypes.CDLL(str(lib))
     getattr(cdll, fn).argtypes = argtypes
     getattr(cdll, fn).restype = ctypes.c_int
@@ -354,22 +370,28 @@ def _old_library(src, fn, argtypes):
 
 
 def _old_topk_library(src):
-    """The earlier top-k kernel (``csrc/topk_rows.cu`` as of commit
-    fa52c64: ``topk_rows_launch(x, v, i, rows, cols, k, device, stream)``,
-    over ``row_select.cuh``)."""
-    import ctypes
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _old_library(src, "topk_rows_launch", [p, p, p, i, i, i, i, p])
+    """An earlier top-k kernel with today's C signature and planner
+    (``csrc/topk_rows.cu`` as of commit 5427a94 or c58eb1e, beside its own
+    ``topk_select.cuh``, e.g. from ``git archive c58eb1e
+    dgc_tpu_torch/csrc``)."""
+    from dgc_tpu_torch.ops import kernels as K
+    return _old_library(src, "topk_rows_launch",
+                        K._TOPK_ARGS["topk_rows_launch"])
 
 
 def _old_topk(lib, x, k):
     import torch
     from dgc_tpu_torch.ops import kernels as K
     R, cols = x.shape
+    plan = K.topk_plan(R, cols, k)
     v = torch.empty((R, k), dtype=torch.float32, device=x.device)
     i = torch.empty((R, k), dtype=torch.int32, device=x.device)
-    err = lib.topk_rows_launch(x.data_ptr(), v.data_ptr(), i.data_ptr(), R,
-                               cols, k, *K._stream_args(x))
+    tmp = (torch.empty(R * plan.padded, dtype=torch.int64, device=x.device)
+           if plan.radix else None)
+    err = lib.topk_rows_launch(
+        x.data_ptr(), v.data_ptr(), i.data_ptr(),
+        tmp.data_ptr() if tmp is not None else None, R, cols, k,
+        *K._plan_args(plan), *K._stream_args(x))
     if err:
         raise RuntimeError(f"old topk_rows launch failed: CUDA error {err}")
     return v, i
@@ -429,13 +451,14 @@ def phase_topk_kernel(geoms, geoms50, gen):
                                          want))
                 _check_equal("topk_rows, second run", K.topk_rows(inp, k),
                              want)
-                fns = dict(ms=lambda: K.topk_rows(inp, k),
-                           plain_ms=lambda: K.topk_rows_plain(inp, k),
-                           library_ms=lambda: torch.topk(inp, k, dim=1))
                 if old is not None:
                     _check_equal("old topk_rows", _old_topk(old, inp, k),
                                  want)
-                    fns["old_ms"] = lambda: _old_topk(old, inp, k)
+                times = {**_in_turns(lambda: K.topk_rows(inp, k),
+                                     old and (lambda: _old_topk(old, inp, k))),
+                         **_timed(plain_ms=lambda: K.topk_rows_plain(inp, k),
+                                  library_ms=lambda: torch.topk(inp, k,
+                                                                dim=1))}
                 R, cols = inp.shape
                 plan = K.topk_plan(R, cols, k)
                 # bytes: the rows read, k (value, column) pairs written;
@@ -446,7 +469,7 @@ def phase_topk_kernel(geoms, geoms50, gen):
                     model=model, epoch=epoch, ratio=ratio, role=role,
                     shape=[R, cols], k=k, route=plan.route,
                     threads=plan.threads, cluster=plan.cluster,
-                    **{"old_ms": None, **_timed(**fns)},
+                    **times,
                     bound_ms=bound_ms, bound_by=bound_by))
     planted = []
     pgen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -487,6 +510,11 @@ def phase_topk_kernel(geoms, geoms50, gen):
               f"{sum(c['ms'] for c in calls):.4f} ms, old "
               f"{sum(c['old_ms'] for c in calls):.4f}, torch.topk "
               f"{sum(c['library_ms'] for c in calls):.4f}")
+        for m in ("resnet20", "resnet50"):
+            step[m]["old_ms"] = sum(c["old_ms"] for c in calls
+                                    if c["model"] == m and c["epoch"] == 5)
+            print(f"[topk_rows] {m} step at ratio 0.001: new "
+                  f"{step[m]['ms']:.4f} ms, old {step[m]['old_ms']:.4f}")
     print(f"[topk_rows] {len(planted)} planted cases on the "
           f"{', '.join(sorted({p.split()[0] for p in planted}))} routes "
           f"({sum(' radix' in p for p in planted)} radix-sorted, "
@@ -1186,86 +1214,192 @@ def _select_cases(model, geoms):
     return out
 
 
-def _tie_columns(cols):
-    """The columns of row 0 where every case plants ties of the largest
-    |v'|, in column order."""
-    return [1, cols // 3, cols // 2, cols - 129]
+def _tie_columns(cols, cluster):
+    """The columns of rows 0 and R - 1 where every case plants ties of the
+    largest |v'|, in column order: four spread over the row, and
+    cols/C*j - 1, cols/C*j and cols/C*j + 1 around the boundaries of the
+    C slices of the case's cluster plan (column 5 holds the -0.0)."""
+    spread = {1, cols // 3, cols // 2, cols - 129}
+    edges = {c for j in range(cluster + 1)
+             for c in (cols // cluster * j - 1, cols // cluster * j,
+                       cols // cluster * j + 1)}
+    return sorted(c for c in spread | edges if 0 <= c < cols and c != 5)
 
 
-def _plant_select_ties(g, m, v, cols, base):
-    """In a bucket region at ``base``: ties of the largest |v'| in row 0
-    (g = +-50 with m = v = 0 gives equal |v'| under every momentum flag,
-    far above the random entries), signs mixed; and g = m = v = -0.0 at
-    column 5 of rows 0 and 1, which makes v' = -0.0 there under every
-    flag."""
-    for c, val in zip(_tie_columns(cols), (50.0, -50.0, 50.0, -50.0)):
-        g[base + c], m[base + c], v[base + c] = val, 0.0, 0.0
+def _plant_select_ties(g, m, v, R, cols, base, ties):
+    """In a bucket region at ``base``: ties of the largest |v'| at columns
+    ``ties`` of rows 0 and R - 1 (g = +-50 with m = v = 0 gives equal |v'|
+    under every momentum flag, far above the random entries), signs
+    mixed; and g = m = v = -0.0 at column 5 of rows 0 and 1, which makes
+    v' = -0.0 there under every flag."""
+    for r in {0, R - 1}:
+        for j, c in enumerate(ties):
+            p = base + r * cols + c
+            g[p], m[p], v[p] = 50.0 if j % 2 == 0 else -50.0, 0.0, 0.0
     for r in (0, 1):
         g[base + r * cols + 5] = m[base + r * cols + 5] = -0.0
         v[base + r * cols + 5] = -0.0
 
 
+def _tail_numels(numels, cols, cluster):
+    """``numels`` with its last row's valid columns ending inside the
+    second slice of the cluster plan (the middle of the row for one
+    block), not on a multiple of 4."""
+    out = list(numels)
+    out[-1] = (cols // cluster + cols // (2 * cluster) if cluster > 1
+               else cols // 2) + 3
+    return out
+
+
+def _old_select_libraries(src_dir):
+    """The earlier select-and-pack and forward kernels (a block a row, as
+    of commit c58eb1e): ``select_pack_rows.cu`` and ``dgc_forward_rows.cu``
+    beside their ``row_select.cuh`` and ``compensate.cuh`` in ``src_dir``
+    (e.g. ``git archive c58eb1e dgc_tpu_torch/csrc``), with their C
+    signatures of then."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    d = Path(src_dir)
+    return (_old_library(d / "select_pack_rows.cu", "select_pack_rows_launch",
+                         [p, p, i, i, i, p, p, p, i, p]),
+            _old_library(d / "dgc_forward_rows.cu", "dgc_forward_rows_launch",
+                         [p, p, p, p, ll, ll, p, i, i, i, f, i, i, p, p, p,
+                          i, p]))
+
+
+def _old_select(lib, x, nr, k):
+    from dgc_tpu_torch.ops import kernels as K
+    R, cols = x.shape
+    out = K._select_outputs(R, k, x.device)
+    err = lib.select_pack_rows_launch(x.data_ptr(), nr.data_ptr(), R, cols, k,
+                                      *(t.data_ptr() for t in out),
+                                      *K._stream_args(x))
+    if err:
+        raise RuntimeError(f"old select_pack_rows launch failed: {err}")
+    return out
+
+
+def _old_forward(lib, g, m, v, bits, base, nr, k, nesterov=False,
+                 momentum_masking=True):
+    from dgc_tpu_torch.ops import kernels as K
+    R = nr.shape[0]
+    out = K._select_outputs(R, k, g.device)
+    err = lib.dgc_forward_rows_launch(
+        g.data_ptr(), m.data_ptr(), v.data_ptr(), bits.data_ptr(),
+        bits.shape[0], base, nr.data_ptr(), R, g.shape[0] // R, k, 0.9,
+        int(nesterov), int(momentum_masking), *(t.data_ptr() for t in out),
+        *K._stream_args(g))
+    if err:
+        raise RuntimeError(f"old dgc_forward_rows launch failed: {err}")
+    return out
+
+
+def _check_twice(name, run, want):
+    """``run()`` twice, each bitwise ``want``; the largest difference."""
+    err = _check_equal(name, run(), want)
+    _check_equal(f"{name}, second run", run(), want)
+    return err
+
+
 def phase_select_kernels(geoms20, geoms50):
     """``select_pack_rows`` and ``dgc_forward_rows`` bitwise against their
-    plain versions at every bucket the megakernel or the fused select
-    takes in ``geoms20`` / ``geoms50`` (engines built with both flags), at
-    the gate's widest row, and on a bucket with an empty row at a base
-    that is not a multiple of 32 x 128, whose row 1 (100 valid columns,
-    k = 164) selects the planted -0.0; every momentum flag combination on
-    ResNet-20's epoch-3 [16, 9216] bucket. Times."""
+    plain versions, twice, at every bucket the megakernel or the fused
+    select takes in ``geoms20`` / ``geoms50`` (engines built with both
+    flags), at the gate's widest row, on a bucket with an empty row at a
+    base that is not a multiple of 32 x 128, whose row 1 (100 valid
+    columns, k = 164) selects the planted -0.0, at k = 1 and k = 1,024 on
+    a cluster shape, on a 512-column row (the sort route) and on 17 rows
+    of 2,048 columns (a block a row); every
+    momentum flag combination on ResNet-20's epoch-3 [16, 9216] bucket.
+    Each case plants ties of the top |v'| around its cluster plan's slice
+    boundaries and is run again with a row whose valid columns end inside
+    a non-first slice. ``select_pack_rows`` also on a row too wide to
+    stage (the block route forced). Times, beside the earlier kernels' with
+    ``--old-select-src``."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(3)
+    olds = _old_select_libraries(OLD_SELECT_SRC) if OLD_SELECT_SRC else None
     cases = (_select_cases("resnet20", geoms20)
              + _select_cases("resnet50", geoms50)
              + [("gate's widest row", 2, 131072, 640, [131072, 70000], 1024),
-                ("empty row", 3, 16384, 128 * 37, [16384, 100, 0], 164)])
+                ("empty row", 3, 16384, 128 * 37, [16384, 100, 0], 164),
+                ("cluster k=1", 6, 36864, 0, [36864] * 6, 1),
+                ("cluster k=1024", 6, 36864, 0, [36864] * 6, 1024),
+                ("sort route", 11, 512, 384, [512] * 10 + [300], 66),
+                ("block route", 17, 2048, 0, [2048] * 16 + [1000], 263)])
     flags = [dict(nesterov=n, momentum_masking=mm)
              for n in (False, True) for mm in (True, False)]
     calls = {"select_pack_rows": [], "dgc_forward_rows": []}
     errs = {k: [] for k in calls}
     for label, R, cols, base, numels, k in cases:
+        plan = K.topk_plan(R, cols, k)
+        ties = _tie_columns(cols, plan.cluster)
         n = R * cols
         total = base + n + 4096             # the record runs past the end
         g, m, v = (torch.randn(total, device=dev, generator=gen)
                    for _ in range(3))
-        _plant_select_ties(g, m, v, cols, base)
+        _plant_select_ties(g, m, v, R, cols, base, ties)
         bits = K.pack_sent_bits(torch.randperm(
             total, device=dev, generator=gen)[:total // 50].int(), total)
-        nr = torch.tensor(numels, dtype=torch.int32, device=dev)
         gs = g[base:base + n]
         all_flags = label == "resnet20 epoch 3 bucket 1"   # [16, 9216]
-        for fl in (flags if all_flags else flags[:1]):
-            want = K.dgc_forward_rows_plain(gs, m[base:base + n],
-                                            v[base:base + n], bits, base, nr,
-                                            k, 0.9, **fl)
-            ms, vs = m[base:base + n].clone(), v[base:base + n].clone()
-            sel = K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k, 0.9,
-                                     **fl)
-            errs["dgc_forward_rows"].append(_check_equal(
-                f"dgc_forward_rows {label} {fl}", (ms, vs, *sel), want))
-            top = want[2][0, :4]
-            if (want[1][5:6].view(torch.int32).item() != -2 ** 31
-                    or not bool((top == top[0]).all())
-                    or want[4][0, :4].tolist() != _tie_columns(cols)):
-                raise AssertionError(f"{label}: the planted ties or -0.0 "
-                                     "did not reach the selection")
-        if numels[1] < k:           # row 1 selects its -0.0, read +0.0
-            slot = want[4][1].tolist().index(5)
-            if want[3][1, slot:slot + 1].view(torch.int32).item() != 0:
-                raise AssertionError(f"{label}: the selected -0.0")
-        x = want[1].view(R, cols)
-        errs["select_pack_rows"].append(_check_equal(
-            f"select_pack_rows {label}", K.select_pack_rows(x, nr, k),
-            K.select_pack_rows_plain(x, nr, k)))
+        for nl in (numels, _tail_numels(numels, cols, plan.cluster)):
+            nr = torch.tensor(nl, dtype=torch.int32, device=dev)
+            for fl in (flags if all_flags else flags[:1]):
+                want = K.dgc_forward_rows_plain(
+                    gs, m[base:base + n], v[base:base + n], bits, base, nr,
+                    k, 0.9, **fl)
+
+                def forward(old=False):
+                    ms, vs = m[base:base + n].clone(), v[base:base + n].clone()
+                    sel = (_old_forward(olds[1], gs, ms, vs, bits, base, nr,
+                                        k, **fl) if old else
+                           K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k,
+                                              0.9, **fl))
+                    return (ms, vs, *sel)
+
+                tag = f"{label} numels {nl[-1]} {fl}"
+                errs["dgc_forward_rows"].append(_check_twice(
+                    f"dgc_forward_rows {tag}", forward, want))
+                if olds is not None:
+                    _check_equal(f"old dgc_forward_rows {tag}",
+                                 forward(old=True), want)
+                for row in {0, R - 1}:      # the planted ties, in order
+                    first = [c for c in ties if c < nl[row]][:k]
+                    if want[4][row, :len(first)].tolist() != first:
+                        raise AssertionError(f"{tag}: the planted ties did "
+                                             "not reach the selection")
+                if want[1][5:6].view(torch.int32).item() != -2 ** 31:
+                    raise AssertionError(f"{tag}: the planted -0.0")
+            if R > 1 and nl[1] < k:   # row 1 selects its -0.0, read +0.0
+                slot = want[4][1].tolist().index(5)
+                if want[3][1, slot:slot + 1].view(torch.int32).item() != 0:
+                    raise AssertionError(f"{label}: the selected -0.0")
+            x = want[1].view(R, cols)
+            want_sel = K.select_pack_rows_plain(x, nr, k)
+            errs["select_pack_rows"].append(_check_twice(
+                f"select_pack_rows {label} numels {nl[-1]}",
+                lambda: K.select_pack_rows(x, nr, k), want_sel))
+            if olds is not None:
+                _check_equal(f"old select_pack_rows {label}",
+                             _old_select(olds[0], x, nr, k), want_sel)
+        # the times, at the bucket's own numels
+        nr = torch.tensor(numels, dtype=torch.int32, device=dev)
+        x = K.dgc_forward_rows_plain(gs, m[base:base + n], v[base:base + n],
+                                     bits, base, nr, k, 0.9)[1].view(R, cols)
         col = torch.arange(cols, device=dev)[None, :]
         # select: x read, (score, value, column) written; a few compares
         # per element
         b_sel = _bound(4 * n + 4 * R + 12 * R * k, 2 * n)
         calls["select_pack_rows"].append(dict(
-            case=label, shape=[R, cols], k=k, **_timed(
-                ms=lambda: K.select_pack_rows(x, nr, k),
+            case=label, shape=[R, cols], k=k, route=plan.route,
+            cluster=plan.cluster, threads=plan.threads,
+            **_in_turns(lambda: K.select_pack_rows(x, nr, k),
+                        olds and (lambda: _old_select(olds[0], x, nr, k))),
+            **_timed(
                 plain_ms=lambda: K.select_pack_rows_plain(x, nr, k),
                 library_ms=lambda: x.gather(1, torch.topk(torch.where(
                     col < nr[:, None], x.abs(), -1.0), k, dim=1).indices)),
@@ -1276,29 +1410,60 @@ def phase_select_kernels(geoms20, geoms50):
         words = ((base + n - 1) // 4096 - base // 4096 + 1) * 128
         b_fwd = _bound(20 * n + 4 * words + 4 * R + 12 * R * k, 6 * n)
         win = K.realign_bits(bits, base, n)
+        ms, vs = m[base:base + n].clone(), v[base:base + n].clone()
         calls["dgc_forward_rows"].append(dict(
-            case=label, shape=[R, cols], k=k, base=base, **_timed(
-                ms=lambda: K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k,
-                                              0.9),
+            case=label, shape=[R, cols], k=k, base=base, route=plan.route,
+            cluster=plan.cluster, threads=plan.threads,
+            **_in_turns(
+                lambda: K.dgc_forward_rows(gs, ms, vs, bits, base, nr, k,
+                                           0.9),
+                olds and (lambda: _old_forward(olds[1], gs, ms, vs, bits,
+                                               base, nr, k))),
+            **_timed(
                 plain_ms=lambda: K.dgc_forward_rows_plain(
                     gs, ms, vs, bits, base, nr, k, 0.9),
                 unfused_ms=lambda: K.select_pack_rows(K.compensate_bits(
                     gs, ms, vs, win, 0.9)[1].view(R, cols), nr, k)),
             library_ms=None, bound_ms=b_fwd[0], bound_by=b_fwd[1]))
+    # a row too wide to stage: the block route forced on [3, 65536]
+    x = torch.randn(3, 65536, device=dev, generator=gen)
+    nr = torch.tensor([65536, 40000, 0], dtype=torch.int32, device=dev)
+    plan = K.topk_plan(3, 65536, 208, "block")
+    if plan.staged:
+        raise AssertionError(f"select_pack_rows: {plan} stages the row")
+    errs["select_pack_rows"].append(_check_twice(
+        "select_pack_rows unstaged [3, 65536] k=208",
+        lambda: K._select_pack_rows_launch(x, nr, 208, plan),
+        K.select_pack_rows_plain(x, nr, 208)))
+    sel = calls["select_pack_rows"]
+    losing = [c for c in sel if c["ms"] > c["library_ms"]]
+    print(f"[select_pack_rows] {len(cases)} cases x 2 numels (+ 1 unstaged),"
+          " twice each, bitwise; slower than torch.topk + gather at "
+          f"{len(losing)}: " + ", ".join(f"{c['case']} {c['shape']} "
+                                        f"k={c['k']}" for c in losing))
     entries = {}
     for name, src, line in (
             ("select_pack_rows", "select_pack_rows.cu", 853),
             ("dgc_forward_rows", "dgc_forward_rows.cu", 1427)):
         step = [c for c in calls[name]
                 if c["case"].startswith("resnet20 epoch 5")]
+        sums = {key: (None if step[0][key] is None
+                      else sum(c[key] for c in step))
+                for key in step[0] if key.endswith("_ms") or key == "ms"}
+        print(f"[{name}] ResNet-20 step at ratio 0.001 ({len(step)} calls): "
+              + ", ".join(f"{key} {val:.4f}" for key, val in sums.items()
+                          if val is not None)
+              + "; " + "; ".join(
+                  f"{c['shape']} k={c['k']} {c['route']} x{c['cluster']}: "
+                  f"{c['ms']:.4f}" + (f" (old {c['old_ms']:.4f})"
+                                      if c["old_ms"] else "")
+                  for c in calls[name] if not c["case"].startswith(
+                      "resnet20 epoch 5")))
         entries[name] = dict(
             name=name, route="cuda", source=f"dgc_tpu_torch/csrc/{src}",
             replaces=f"dgc_tpu/ops/kernels.py:{line}",
-            check=f"bitwise vs {name}_plain at every case",
-            max_abs_err=max(errs[name]),
-            **{key: (None if step[0][key] is None
-                     else sum(c[key] for c in step))
-               for key in step[0] if key.endswith("_ms") or key == "ms"},
+            check=f"bitwise vs {name}_plain at every case, twice",
+            max_abs_err=max(errs[name]), **sums,
             bound_by=step[0]["bound_by"],
             summed_over="the calls of one worker's ResNet-20 step at ratio "
                         "0.001 (both buckets)", calls=calls[name])
@@ -2051,7 +2216,7 @@ def phase_process_group():
 
 
 def main(argv):
-    global OLD_TOPK_SRC, OLD_COPY_SRC, OLD_CANDS_SRC
+    global OLD_TOPK_SRC, OLD_COPY_SRC, OLD_CANDS_SRC, OLD_SELECT_SRC
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2059,7 +2224,8 @@ def main(argv):
     from dgc_tpu_torch.utils.device import set_reproducible_numerics
     set_reproducible_numerics()
     flags = {"--old-src": "OLD_TOPK_SRC", "--old-copy-src": "OLD_COPY_SRC",
-             "--old-cands-src": "OLD_CANDS_SRC"}
+             "--old-cands-src": "OLD_CANDS_SRC",
+             "--old-select-src": "OLD_SELECT_SRC"}
     for flag, name in flags.items():
         if flag in argv:
             globals()[name] = argv[argv.index(flag) + 1]

@@ -15,50 +15,86 @@
 // as x + 0.0f, so a selected -0.0 is written +0.0, as the Pallas kernels'
 // one-hot masked sum reads it.
 //
-// Design, one thread block per row: select_pack_row() (row_select.cuh) —
-// a four-pass radix select of the k-th importance key, an index-ordered
-// collect, a bitonic sort of the k <= 1024 survivors in 8 KB of shared
-// memory — then the three outputs.
-//
 // Bound on the card: bytes (the row read once, 12 B per selected slot
-// written); the selection is a few compares per element. The row is read
-// six times (four radix passes, two collect passes), five of them from L2.
-// With one block per row, a bucket of 6-16 rows keeps 6-16 of the 132 SMs
-// busy: latency-bound at ResNet-20's shapes. NaN input is unspecified, as
-// it is for the TPU kernels.
+// written); the selection is a few compares per element. At the paths'
+// shapes (6-17 rows of 512-131,072 columns) the bound is 0.2-4 us, so
+// what costs is latency. The kernel is the top-k kernel's (topk_rows.cu)
+// with another row policy: the body topk::select_rows() (topk_select.cuh)
+// on the route and geometry of kernels.topk_plan: a row of at most 512
+// columns sorted whole by one block; a wider row staged once into a
+// block's shared memory and radix-selected there; a wide row of a bucket
+// that would leave most SMs idle split over a cluster of 2-8 blocks (its
+// blocks sum their histograms and place their survivors in block 0's
+// buffer through distributed shared memory, and block 0 sorts them and
+// reads the values of other slices back from x, which is read-only). The
+// k <= 1024 survivors are bitonic-sorted in registers and shared memory.
+// A slice too wide to stage is read from global memory. The policy keys
+// column c by the masked |x| (the tail's -1 included) and writes the
+// three outputs. NaN input is unspecified, as it is for the TPU kernels.
 
-#include "row_select.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
-using dgc::kThreads;
+// The select-and-pack row policy over x (see topk::select_rows).
+struct SelectRows : topk::ReadRows, topk::PackRows {
+  __device__ __forceinline__ void begin(int r, int cols) {
+    ReadRows::begin(r, cols);
+    begin_row(r);
+  }
+};
 
-__global__ void __launch_bounds__(kThreads)
-select_pack_rows_kernel(const float* __restrict__ x,
-                        const int* __restrict__ numels, int cols, int k,
-                        int padded, float* __restrict__ out_s,
-                        float* __restrict__ out_v, int* __restrict__ out_i) {
-  __shared__ unsigned long long buf[1024];
-  __shared__ dgc::SelectScratch scratch;
-  const size_t r = blockIdx.x;
-  dgc::select_pack_row(x + r * cols, numels[r], cols, k, padded, buf, scratch,
-                       out_s + r * k, out_v + r * k, out_i + r * k);
+template <bool CLUSTER, bool STAGED>
+__global__ void __launch_bounds__(1024)
+select_pack_rows_kernel(SelectRows p, topk::Rows geo) {
+  topk::select_rows<CLUSTER, STAGED>(p, nullptr, geo);
+}
+
+// the dynamic shared memory each variant may use on each device
+int g_smem_set[4][topk::kMaxDevices];
+
+template <bool CLUSTER, bool STAGED>
+cudaError_t launch(const SelectRows& p, const topk::Rows& geo, int grid,
+                   int threads, int cluster, int smem, int device,
+                   cudaStream_t stream) {
+  return topk::launch_rows(select_pack_rows_kernel<CLUSTER, STAGED>,
+                           g_smem_set[2 * CLUSTER + STAGED][device], grid,
+                           threads, cluster, smem, stream, p, geo);
 }
 
 }  // namespace
 
 // x: [rows, cols] f32 contiguous; numels: [rows] int32; 0 < k <= min(cols,
-// 1024); out_s, out_v: [rows, k] f32; out_i: [rows, k] int32. Returns the
-// CUDA error code of the launch (0 = launched).
+// 1024); out_s, out_v: [rows, k] f32; out_i: [rows, k] int32; the geometry
+// is kernels.topk_plan's, bitonic-sorted (padded <= 1,024 words, or the
+// whole row on the sort route). Returns the CUDA error code of the launch
+// (0 = launched).
 extern "C" int select_pack_rows_launch(const float* x, const int* numels,
-                                       int rows, int cols, int k, float* out_s,
-                                       float* out_v, int* out_i, int device,
-                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                       float* out_s, float* out_v,
+                                       int* out_i, int rows, int cols, int k,
+                                       int cluster, int threads, int slice,
+                                       int staged, int stage_words,
+                                       int padded, int sort_all, int smem,
+                                       int device, void* stream) {
+  cudaError_t err = topk::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (rows == 0) return 0;
   if (k < 1 || k > 1024 || k > cols) return (int)cudaErrorInvalidValue;
-  select_pack_rows_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      x, numels, cols, k, dgc::next_pow2(k), out_s, out_v, out_i);
-  return (int)cudaGetLastError();
+  SelectRows p{};
+  p.numels = numels;
+  p.out_s = out_s;
+  p.out_v = out_v;
+  p.out_i = out_i;
+  p.x = x;
+  const topk::Rows geo{cols, k, slice, stage_words, padded, sort_all};
+  auto run = [&](auto kernel_launch) {
+    return kernel_launch(p, geo, rows * cluster, threads, cluster, smem,
+                         device, (cudaStream_t)stream);
+  };
+  if (cluster > 1) {
+    err = staged ? run(launch<true, true>) : run(launch<true, false>);
+  } else {
+    err = staged ? run(launch<false, true>) : run(launch<false, false>);
+  }
+  return (int)err;
 }

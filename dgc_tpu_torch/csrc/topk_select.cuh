@@ -1,5 +1,7 @@
-// The selection core of the top-k kernel (topk_rows.cu): the k largest
-// order keys of a row, in lax.top_k order, for Hopper (sm_90a).
+// The selection core of the row kernels (topk_rows.cu, select_pack_rows.cu,
+// dgc_forward_rows.cu): the k largest order keys of a row, in lax.top_k
+// order, for Hopper (sm_90a), and select_rows(), the body the three kernels
+// share, over a row policy (see there).
 //
 // A block owns a row, or, in a thread-block cluster, each block owns a
 // slice of one row. Its keys are read from shared memory where the row was
@@ -500,6 +502,231 @@ __device__ void sort_words(unsigned long long* buf, int k, int padded,
   } else {
     sort_registers<8>(buf, padded, g);
   }
+}
+
+// ---------------------------------------------------------------------
+// The row kernels' body, and what the kernels share around it.
+
+// A row kernel's geometry, from kernels.topk_plan: each row of `cols`
+// columns gives k (0 < k <= cols) outputs; on the cluster route a block
+// takes `slice` columns (a multiple of 4); a staged block holds
+// `stage_words` words of its slice; the sort buffer holds `padded` words;
+// `sort_all`: every column's word is sorted (the "sort" route).
+struct Rows {
+  int cols, k, slice, stage_words, padded, sort_all;
+};
+
+// Stages n floats from src (a row's slice in global memory, read through
+// the read-only path) into stage: the 16-byte granules that cover them,
+// so that a granule partly outside the row cannot fault. Returns where
+// src[0] lands in stage (0-3 words).
+__device__ __forceinline__ int stage_granules(const float* src, int n,
+                                              uint32_t* stage,
+                                              const Group& g) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int off = (int)((a & 15u) >> 2);
+  const float4* s4 = reinterpret_cast<const float4*>(a - 4u * off);
+  float4* dst = reinterpret_cast<float4*>(stage);
+  const int nvec = (off + n + 3) >> 2;
+  for (int i = g.rank; i < nvec; i += g.size) dst[i] = __ldg(s4 + i);
+  return off;
+}
+
+// The body of a row kernel (a block a row, or a cluster of blocks a row
+// on the cluster route): the k largest keys of row blockIdx.x (over the
+// cluster's blocks, row blockIdx.x / cluster size), each handed to the
+// policy in lax.top_k order. Shared memory: the Scratch, the stage, the
+// sort buffer, then the radix sort's counters (kernels.topk_geometry
+// sizes it). tmp: this launch's radix-sort scratch, or null for the
+// bitonic sort.
+//
+// The row policy P says four things:
+//   - how a block prepares its slice: P::stage(col0, n, stage, g) puts the
+//     bits of row columns [col0, col0 + n) into shared memory and returns
+//     where column col0 lands (called on the staged routes only);
+//   - the order key of row column c, from the bits of its float:
+//     P::key(bits, c);
+//   - what is written for a selected column: P::emit(o, c, v, key),
+//     output slot o (row r's j-th is r * k + j), row column c, its float
+//     v and its order key;
+//   - whether the values may be read through __ldg (P::kLdg, with
+//     P::values() the row in global memory). A policy that writes the
+//     values in this launch may not: it is always staged at offset 0 (its
+//     slices are 16-byte aligned), and on the cluster route the sorting
+//     block reads other blocks' values from their stages through
+//     distributed shared memory, so every block stays until a last
+//     cluster barrier.
+// P::begin(r, cols) first points the policy at row r.
+template <bool CLUSTER, bool STAGED, typename P>
+__device__ __forceinline__ void select_rows(P p, unsigned long long* tmp,
+                                            Rows geo) {
+  static_assert(STAGED || P::kLdg, "an unstaged row is read through __ldg");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Group g{(int)threadIdx.x, (int)blockDim.x};
+  const int cols = geo.cols, k = geo.k, padded = geo.padded;
+  int row = blockIdx.x, col0 = 0, n = cols;
+  if constexpr (CLUSTER) {
+    cg::cluster_group cl = cg::this_cluster();
+    row = blockIdx.x / cl.num_blocks();
+    col0 = (int)cl.block_rank() * geo.slice;
+    n = max(0, min(geo.slice, cols - col0));
+  }
+  Scratch& s = *reinterpret_cast<Scratch*>(smem);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + sizeof(Scratch));
+  unsigned long long* buf = reinterpret_cast<unsigned long long*>(
+      smem + sizeof(Scratch) + 4 * (size_t)geo.stage_words);
+  // the radix sort's per-warp digit counters follow the sort buffer
+  uint32_t* hist = reinterpret_cast<uint32_t*>(buf + padded + padded / 16);
+  if (tmp != nullptr) tmp += (size_t)row * padded;
+  p.begin(row, cols);
+
+  clear_first_histogram(s, g);
+  const uint32_t* keys;  // the bits of the slice's column c at keys[c]
+  if constexpr (STAGED) {
+    keys = stage + p.stage(col0, n, stage, g);
+  } else {
+    keys = reinterpret_cast<const uint32_t*>(p.values() + col0);
+  }
+  g.sync();
+  auto key_at = [&p, keys, col0](int c) {
+    if constexpr (STAGED) {
+      return p.key(keys[c], col0 + c);
+    } else {
+      return p.key(__ldg(keys + c), col0 + c);
+    }
+  };
+
+  if (CLUSTER || !geo.sort_all) {
+    uint32_t prefix, remaining;
+    radix_select<CLUSTER>(key_at, n, (uint32_t)k, s, g, prefix, remaining);
+    unsigned long long* dst = buf;
+    if constexpr (CLUSTER) dst = cg::this_cluster().map_shared_rank(buf, 0);
+    collect<CLUSTER>(key_at, n, col0, (uint32_t)k, prefix, remaining, dst, s,
+                     g);
+    if constexpr (CLUSTER) {
+      // the survivors are in block 0's buffer, and no block reads another's
+      // scratch or buffer after this
+      cg::this_cluster().sync();
+      if (cg::this_cluster().block_rank() != 0) {
+        // block 0 reads the values from this block's stage
+        if constexpr (!P::kLdg) cg::this_cluster().sync();
+        return;
+      }
+    } else {
+      g.sync();
+    }
+    sort_words(buf, k, padded, g, tmp, hist, s.total);
+  } else {  // a narrow row: every column's word, sorted
+    for (int c = g.rank; c < n; c += g.size)
+      buf[slot(c)] = make_word(key_at(c), c);
+    sort_words(buf, n, padded, g);
+  }
+
+  const size_t o = (size_t)row * k;
+  for (int j = g.rank; j < k; j += g.size) {
+    const unsigned long long word = buf[slot(j)];
+    const int c = (int)(uint32_t)word;
+    float v;
+    if constexpr (STAGED && !CLUSTER) {
+      v = __uint_as_float(keys[c]);
+    } else if constexpr (P::kLdg) {
+      v = __ldg(p.values() + c);
+    } else {  // from the owner block's stage
+      const int owner = c / geo.slice;
+      v = __uint_as_float(cg::this_cluster().map_shared_rank(
+          stage, owner)[c - owner * geo.slice]);
+    }
+    p.emit(o + j, c, v, ~(uint32_t)(word >> 32));
+  }
+  if constexpr (CLUSTER && !P::kLdg) cg::this_cluster().sync();
+}
+
+// The part of a row policy over a read-only [rows, cols] input x: the
+// values may be read through __ldg, and a block stages its slice as it is.
+struct ReadRows {
+  static constexpr bool kLdg = true;
+  const float* x;
+  const float* row;  // the current row of x
+  __device__ __forceinline__ void begin(int r, int cols) {
+    row = x + (size_t)r * cols;
+  }
+  __device__ __forceinline__ const float* values() const { return row; }
+  __device__ __forceinline__ int stage(int col0, int n, uint32_t* st,
+                                       const Group& g) const {
+    return stage_granules(row + col0, n, st, g);
+  }
+};
+
+// The order key of the importance -1.0f (order_key(0xBF800000)), which the
+// select-and-pack rows give the columns past a row's numel.
+constexpr uint32_t kTailKey = ~0xBF800000u;
+
+// The select-and-pack rows' keys and outputs (select_pack_rows.cu,
+// dgc_forward_rows.cu): the importance of row column c is |x| for c below
+// the row's numels[r], else -1; a selected column is written as its
+// importance (the score), its value + 0.0f (a selected -0.0 is written
+// +0.0, as the Pallas kernels' one-hot masked sum reads it) and its
+// column. The score comes from the key (the key of |x| has its top bit
+// set, the tail's not), so numel is dead once the keys are taken.
+struct PackRows {
+  const int* numels;
+  float* out_s;
+  float* out_v;
+  int* out_i;
+  int numel;  // of the current row
+  __device__ __forceinline__ void begin_row(int r) { numel = numels[r]; }
+  __device__ __forceinline__ uint32_t key(uint32_t bits, int c) const {
+    return c < numel ? order_key(bits & 0x7fffffffu) : kTailKey;
+  }
+  __device__ __forceinline__ void emit(size_t o, int c, float v,
+                                       uint32_t key) const {
+    out_s[o] = (key & 0x80000000u) ? fabsf(v) : -1.0f;
+    out_v[o] = __fadd_rn(v, 0.0f);
+    out_i[o] = c;
+  }
+};
+
+constexpr int kMaxDevices = 64;
+
+// Makes `device` the current device (the launch functions' first step).
+inline cudaError_t use_device(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// Launches kernel(args...) over `grid` blocks of `threads` with `smem`
+// bytes of dynamic shared memory, in clusters of `cluster` blocks where
+// cluster > 1. smem_set is the dynamic shared memory the kernel may use on
+// this device so far, raised only where it is short (cudaFuncSetAttribute
+// is not free). Returns the launch's error code.
+template <typename... Params, typename... Args>
+cudaError_t launch_rows(void (*kernel)(Params...), int& smem_set, int grid,
+                        int threads, int cluster, int smem,
+                        cudaStream_t stream, Args... args) {
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace topk

@@ -851,8 +851,18 @@ def topk_plan(R: int, cols: int, k: int,
                          threads)
 
 
-_TOPK_ARGS = {"topk_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
-              + [ctypes.c_void_p]}
+#: the geometry arguments of a row kernel's launch (a :class:`TopkPlan`)
+_PLAN_ARGS = [ctypes.c_int] * 8
+
+
+def _plan_args(plan: TopkPlan):
+    return (plan.cluster, plan.threads, plan.slice, int(plan.staged),
+            plan.stage_words, plan.padded, int(plan.route == "sort"),
+            plan.smem_bytes)
+
+
+_TOPK_ARGS = {"topk_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+              + _PLAN_ARGS + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def topk_rows(x: torch.Tensor, k: int):
@@ -885,9 +895,7 @@ def _topk_rows_launch(x: torch.Tensor, k: int, plan: Optional[TopkPlan]):
         err = lib.topk_rows_launch(
             x.data_ptr(), vals.data_ptr(), cols_out.data_ptr(),
             tmp.data_ptr() if tmp is not None else None, R, x.shape[1], k,
-            plan.cluster, plan.threads, plan.slice, int(plan.staged),
-            plan.stage_words, plan.padded, int(plan.route == "sort"),
-            plan.smem_bytes, *_stream_args(x))
+            *_plan_args(plan), *_stream_args(x))
         if err:
             raise RuntimeError(f"topk_rows launch failed: CUDA error {err}")
         LAUNCHES["topk_rows"] += 1
@@ -924,10 +932,9 @@ def _select_outputs(R: int, k: int, device):
             torch.empty((R, k), dtype=torch.int32, device=device))
 
 
-_SELECT_ARGS = {"select_pack_rows_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p]}
+_SELECT_ARGS = {"select_pack_rows_launch": [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 3 + _PLAN_ARGS
+                + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def select_pack_rows(x: torch.Tensor, numels: torch.Tensor, k: int):
@@ -936,19 +943,30 @@ def select_pack_rows(x: torch.Tensor, numels: torch.Tensor, k: int):
     the k most important entries, importance ``|x|`` over the first
     ``numels[r]`` columns and -1 past them, in ``lax.top_k`` order. ``0 <
     k <= MR_MAX_K``; a selected -0.0 is written +0.0 (see
-    :func:`select_pack_rows_plain`)."""
+    :func:`select_pack_rows_plain`). The kernel runs on the top-k kernel's
+    route and geometry (:func:`topk_plan`)."""
     _check(x.dim() == 2 and x.dtype == torch.float32,
            "select_pack_rows: x must be a 2-D float32 tensor")
     R, cols = x.shape
     _check_select("select_pack_rows", R, cols, numels, k)
     if not _on_card("select_pack_rows", x, numels):
         return select_pack_rows_plain(x, numels, k)
+    return _select_pack_rows_launch(x, numels, k, topk_plan(R, cols, k))
+
+
+def _select_pack_rows_launch(x: torch.Tensor, numels: torch.Tensor, k: int,
+                             plan: TopkPlan):
+    """Launch the select-and-pack kernel on checked CUDA operands with
+    ``plan`` (measurements force a route through here)."""
+    _check(not plan.radix, "select_pack_rows: the survivors are bitonic-"
+           f"sorted (k <= {MR_MAX_K})")
+    R = x.shape[0]
     out = _select_outputs(R, k, x.device)
     if R:
         lib = _build.library("select_pack_rows.cu", _SELECT_ARGS)
         err = lib.select_pack_rows_launch(
-            x.data_ptr(), numels.data_ptr(), R, cols, k,
-            *(t.data_ptr() for t in out), *_stream_args(x))
+            x.data_ptr(), numels.data_ptr(), *(t.data_ptr() for t in out), R,
+            x.shape[1], k, *_plan_args(plan), *_stream_args(x))
         if err:
             raise RuntimeError(
                 f"select_pack_rows launch failed: CUDA error {err}")
@@ -978,10 +996,9 @@ def dgc_forward_rows_plain(grad, mmt, vec, bits, base: int,
 
 _FORWARD_ARGS = {"dgc_forward_rows_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p]}
+    ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+    + _PLAN_ARGS + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def dgc_forward_rows(grad, mmt, vec, bits, base: int, numels: torch.Tensor,
@@ -1020,12 +1037,17 @@ def dgc_forward_rows(grad, mmt, vec, bits, base: int, numels: torch.Tensor,
         return tuple(sel)
     _check(all(t.data_ptr() % 16 == 0 for t in (grad, mmt, vec)),
            "dgc_forward_rows: grad, mmt, vec must be 16-byte aligned")
+    plan = topk_plan(R, cols, k)
+    _check(plan.staged and not plan.radix,
+           f"dgc_forward_rows: rows of {cols} columns do not fit the "
+           "kernel's shared memory")
     out = _select_outputs(R, k, grad.device)
     lib = _build.library("dgc_forward_rows.cu", _FORWARD_ARGS)
     err = lib.dgc_forward_rows_launch(
         grad.data_ptr(), mmt.data_ptr(), vec.data_ptr(), bits.data_ptr(),
-        bits.shape[0], base, numels.data_ptr(), R, cols, k, float(momentum),
-        int(nesterov), int(momentum_masking), *(t.data_ptr() for t in out),
+        bits.shape[0], base, numels.data_ptr(),
+        *(t.data_ptr() for t in out), R, cols, k, float(momentum),
+        int(nesterov), int(momentum_masking), *_plan_args(plan),
         *_stream_args(grad))
     if err:
         raise RuntimeError(f"dgc_forward_rows launch failed: CUDA error {err}")
