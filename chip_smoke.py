@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. Build every CUDA kernel from ``dgc_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel), launch the candidates library once and compile
-   the Triton kernels.
+   source, in parallel), launch the candidates and compensate libraries
+   once and compile the Triton kernel (``compensate_bits``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the DGC paths give it — ResNet-20 across the wm5 warm-up for
    ``compensate_bits``, ``topk_rows`` and ``apply_rows``, and ResNet-50
@@ -27,17 +27,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    chunk, a hot chunk past its shared memory, W=8 on every coordinate,
    zero, -0.0, NaN and out-of-range entries, n = 0, over 12,288 chunks,
    divisors 3 and none), each real shape run twice and required bitwise
-   equal; ``fused_compensate`` and ``fused_compensate_masked`` at n =
-   2,101,248 (f32 state) and 2,105,345 (bf16), every flag combination,
-   infinities, NaNs and bf16 rounding ties planted, and
-   ``fused_compensate`` at ResNet-20's 22 compressed tensors;
+   equal; the compensate kernel (``csrc/compensate.cu``, many tensors a
+   launch) over one ResNet-20 worker's 22 compressed tensors, the 88 of a
+   W=4 step, ResNet-50's 216 (over one launch's capacity), views at odd
+   offsets of one flat buffer and n = 0..5 entries, f32 and bf16 state,
+   every flag, and ``fused_compensate`` / ``fused_compensate_masked`` at
+   one tensor of 4,096 and of 65,536 elements and at n = 2,101,248 (f32
+   state) and 2,105,345 (bf16), every flag
+   combination, infinities, NaNs and bf16 rounding ties planted (with
+   ``--old-compensate-src PATH``, an earlier ``ops/kernels.py`` such as
+   ``git show 2bc9984:dgc_tpu_torch/ops/kernels.py``, its Triton kernels
+   held bitwise and timed in turns, ``old_ms``);
    ``ladder_counts`` at [17, 262144], L = 11, with values
-   planted on the levels, and at ResNet-50's adaptive buckets at the
-   epoch-0 and epoch-5 ratios — bitwise; and time kernel, plain
+   planted on the levels, at L = 128 with cols % 4 != 0, at unaligned row
+   bases, and at ResNet-50's adaptive buckets at the
+   epoch-0 and epoch-5 ratios, one launch each, each also timed at a block
+   a row and, where its plan splits the levels, at one split (with
+   ``--old-ladder-src DIR``, the earlier sources
+   from ``git archive 2bc9984 dgc_tpu_torch/csrc``, the earlier kernel in
+   turns) — bitwise; and time kernel, plain
    version and the PyTorch yardstick call, L2-warm: each time is the
    device time per call, 20 calls queued behind a spin kernel so the card
    runs them back to back (``ms``, also printed as ``kernel_ms``, is the
-   kernel's; the 2.1M-element compensates also get ``ms_l2_cold``).
+   kernel's; the 2.1M-element compensates also get ``ms_l2_cold``; the
+   compensate tables are timed behind a 0.1 s hold, as they queue many
+   launches).
    ``topk_rows`` runs every path call twice (bitwise each time), with its
    route from ``kernels.topk_plan`` and, with ``--old-src PATH`` (an
    earlier source with today's launch signature, beside its own headers,
@@ -102,8 +116,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 4e. The per-tensor path ``resnet20_per_tensor``: ``train_step_per_tensor``
    at full width, batch 128 per worker, W=4 ``LocalComm`` on the card, 2
    steps at the epoch-0 ratio, the compressor's re-initialisation, 2 at
-   0.001: 22 ``fused_compensate`` launches per worker and step, no
-   ``compensate_bits``.
+   0.001: one ``fused_compensate`` launch a step (the 88 compressed
+   tensors of the 4 workers), no ``compensate_bits``.
 4f. The ladder check: on the flat engine's own velocity at each wm5
    ratio of ResNet-20 and ResNet-50, every bucket whose selection is an
    exact top-k of the row and that adapts: ``_ladder_adapt`` (through
@@ -121,6 +135,7 @@ with cuDNN restricted to deterministic algorithms, as the port's entry
 points set it (``utils.device.set_reproducible_numerics``).
 """
 
+import functools
 import json
 import math
 import re
@@ -150,6 +165,12 @@ OLD_TOPK_SRC = None
 OLD_SELECT_SRC = None
 OLD_COPY_SRC = None
 OLD_CANDS_SRC = None
+#: ``--old-compensate-src PATH``: an earlier ``dgc_tpu_torch/ops/kernels.py``
+#: whose Triton compensates are timed in turns with the new kernel;
+#: ``--old-ladder-src DIR``: the earlier sources, whose ``ladder_counts.cu``
+#: is timed in turns with the new one
+OLD_COMPENSATE_SRC = None
+OLD_LADDER_SRC = None
 #: what goes to :data:`DETAIL_PATH` besides the kernels' per-call detail
 DETAIL = {}
 
@@ -277,19 +298,16 @@ def phase_build():
     g = torch.zeros(n, device=DEVICE)
     bits = torch.zeros(kernels.num_sent_words(n), dtype=torch.int32,
                        device=DEVICE)
-    # the candidates library (CUDA C++): loaded and launched once
+    # the candidates and compensate libraries (CUDA C++): loaded and
+    # launched once
     kernels.compensate_bits_cands(g, torch.zeros_like(g),
                                   torch.zeros_like(g), bits, 0.9)
     kernels.seg_top2_candidates(g, 0, 2, kernels.SEG_SPAN)
+    kernels.fused_compensate(g, torch.zeros_like(g), torch.zeros_like(g),
+                             0.9)
     t0 = time.perf_counter()
     kernels.compensate_bits(g, torch.zeros_like(g), torch.zeros_like(g),
                             bits, 0.9)
-    for dt in (torch.float32, torch.bfloat16):
-        kernels.fused_compensate(g, torch.zeros_like(g, dtype=dt),
-                                 torch.zeros_like(g, dtype=dt), 0.9)
-        kernels.fused_compensate_masked(g, torch.zeros_like(g, dtype=dt),
-                                        torch.zeros_like(g, dtype=dt),
-                                        torch.zeros_like(g), 0.9)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     print(f"[build] nvcc {t_nvcc:.1f} s (parallel), triton {t_triton:.1f} s")
@@ -804,13 +822,16 @@ def _old_cands_module(path):
     return mod
 
 
-def _in_turns(new, old):
+def _in_turns(new, old, timer=None, rounds=1, **timing):
     """``{"ms", "old_ms"}``: device ms per call of ``new`` and ``old``, each
-    timed twice in the order new, old, old, new (``old_ms`` None without
-    an old kernel)."""
+    timed twice a round in the order new, old, old, new (``old_ms`` None
+    without an old kernel) by ``timer`` (:func:`_device_ms`, given
+    ``timing``), averaged over ``rounds``."""
+    timer = timer or (lambda f: _device_ms(f, **timing))
     if old is None:
-        return {"ms": _device_ms(new), "old_ms": None}
-    t = [_device_ms(f) for f in (new, old, old, new)]
+        return {"ms": timer(new), "old_ms": None}
+    t = [sum(timer(f) for _ in range(rounds)) / rounds
+         for f in (new, old, old, new)]
     return {"ms": (t[0] + t[3]) / 2, "old_ms": (t[1] + t[2]) / 2}
 
 
@@ -1502,39 +1523,122 @@ def _compensate_state(n, dtype, gen, sent_frac=0.25):
     return g, m.to(dtype), v.to(dtype), sent, ties
 
 
+#: holds the stream while a call of many launches is queued (~0.1 s)
+_LONG_HOLD = 200_000_000
+
+
+def _old_ladder_library(src_dir):
+    """The earlier ``ladder_counts.cu`` from a directory of earlier sources
+    (``git archive 2bc9984 dgc_tpu_torch/csrc``): its C launch takes a
+    zero-filled output that it adds into."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _old_library(Path(src_dir) / "ladder_counts.cu",
+                        "ladder_counts_launch",
+                        [p, p, p, i, ctypes.c_longlong, i, p, i, p])
+
+
+def _old_ladder(lib, x, t, lower, levels):
+    """The earlier ladder kernel as its wrapper ran it: a zero fill of the
+    [R, L] output, then the launch that adds into it."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    R, cols = x.shape
+    out = torch.zeros((R, levels), dtype=torch.int32, device=x.device)
+    f = K.ladder_factors(lower, levels).numpy()
+    err = lib.ladder_counts_launch(x.data_ptr(), t.data_ptr(), f.ctypes.data,
+                                   R, cols, levels, out.data_ptr(),
+                                   *K._stream_args(x))
+    if err:
+        raise RuntimeError(f"old ladder_counts launch: CUDA error {err}")
+    return out
+
+
+def _library_compensate(gs, ms, vs):
+    """One PyTorch call that computes ``m = 0.9 m + g; v = v + m`` over the
+    tensors, as a time yardstick only (it may round through an FMA; the
+    port never calls it): ``torch._fused_sgd_`` with lr = -1 on (v, g, m),
+    else three ``torch._foreach_`` calls. Returns ``(fn, name)``."""
+    import torch
+    if hasattr(torch, "_fused_sgd_"):
+        return (lambda: torch._fused_sgd_(
+            vs, gs, ms, weight_decay=0.0, momentum=0.9, lr=-1.0,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), "torch._fused_sgd_")
+    return (lambda: (torch._foreach_mul_(ms, 0.9), torch._foreach_add_(ms, gs),
+                     torch._foreach_add_(vs, ms)),
+            "three torch._foreach_ calls")
+
+
+def _odd_views(sizes, dtype, gen):
+    """Views at odd offsets of one flat buffer each (g, m, v, sent): every
+    entry starts 1-7 elements past the previous one's end, and the state's
+    views are shifted by one element from g's at every other entry (so
+    those entries' streams share no alignment and run scalar)."""
+    import torch
+    dev = DEVICE
+    total = sum(sizes) + 8 * len(sizes) + 8
+    G, M, V = (torch.randn(total, device=dev, generator=gen)
+               for _ in range(3))
+    M, V = M.to(dtype), V.to(dtype)
+    S = (torch.rand(total, device=dev, generator=gen) < 0.3).float()
+    out, p = ([], [], [], []), 0
+    for i, n in enumerate(sizes):
+        p += 1 + (2 * i) % 7
+        sh = i % 2
+        for lst, buf, o in zip(out, (G, M, V, S), (0, sh, sh, 0)):
+            lst.append(buf[p + o:p + o + n])
+        p += n + 1
+    return out
+
+
 def phase_compensate_ladder_kernels(geoms20, geoms50):
-    """``fused_compensate`` and ``fused_compensate_masked`` bitwise against
-    their plain versions at the on-chip check's sizes of the reference
-    (n = 2,101,248 with f32 state, 2,105,345 with bf16), with every flag
-    combination, infinities, NaNs and bf16 rounding ties planted, and
-    ``fused_compensate`` at each of ResNet-20's compressed tensor sizes;
-    ``ladder_counts`` bitwise against its plain version at [17, 262144],
-    L = 11, with values planted on the levels, and at ResNet-50's adaptive
-    buckets at the epoch-0 and epoch-5 ratios. Times."""
+    """The compensate kernel (``csrc/compensate.cu``, many tensors a
+    launch) bitwise against ``fused_compensate_multi_plain`` at the
+    per-tensor path's tables, one worker's 22 ResNet-20 tensors and the 88
+    of a W=4 step, ResNet-50's 216 (over one launch's capacity), views at
+    odd offsets of one flat buffer, n = 0 and n < 4 entries, with f32 and
+    bf16 state and every flag; ``fused_compensate`` and
+    ``fused_compensate_masked`` at one small tensor (4,096 and 65,536
+    elements) and at the reference's check sizes (n =
+    2,101,248 with f32 state, 2,105,345 with bf16), every flag
+    combination, infinities, NaNs and bf16 rounding ties planted;
+    ``ladder_counts`` bitwise against its plain version at [17, 262144], L
+    = 11, with values planted on the levels, at L = 128 with cols % 4 != 0
+    (one block a row and, at 262,147 columns, levels split), at unaligned
+    row bases, and at ResNet-50's adaptive buckets at the epoch-0 and
+    epoch-5 ratios, one launch each.
+    Times; with ``--old-compensate-src`` / ``--old-ladder-src`` the PR-8
+    kernels are held bitwise too and timed in turns with the new ones."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     dev = DEVICE
+    old = _old_cands_module(OLD_COMPENSATE_SRC) if OLD_COMPENSATE_SRC else None
+    old_lad = _old_ladder_library(OLD_LADDER_SRC) if OLD_LADDER_SRC else None
     gen = torch.Generator(device=dev).manual_seed(4)
     calls = {"fused_compensate": [], "fused_compensate_masked": [],
              "ladder_counts": []}
     errs = {k: [] for k in calls}
+    flag_sets = [dict(nesterov=n, momentum_masking=mm)
+                 for n in (False, True) for mm in (True, False)]
+    # the reference's check sizes, every flag, specials planted
     for n, dtype in ((2_101_248, torch.float32), (2_105_345, torch.bfloat16)):
         g, m, v, sent, ties = _compensate_state(n, dtype, gen)
-        for name, flag_sets in (
-                ("fused_compensate", [dict(nesterov=f) for f in (0, 1)]),
-                ("fused_compensate_masked",
-                 [dict(nesterov=f, momentum_masking=mm)
-                  for f in (0, 1) for mm in (1, 0)])):
+        for name in ("fused_compensate", "fused_compensate_masked"):
             masked = name == "fused_compensate_masked"
             extra = (sent,) if masked else ()
-            kern = getattr(K, name)
-            plain = getattr(K, name + "_plain")
-            for fl in flag_sets:
-                fl = {k: bool(x) for k, x in fl.items()}
+            kern, plain = getattr(K, name), getattr(K, name + "_plain")
+            olds = getattr(old, name) if old else None
+            for fl in flag_sets if masked else flag_sets[::2]:
+                fl = fl if masked else {"nesterov": fl["nesterov"]}
                 want = plain(g, m, v, *extra, 0.9, **fl)
                 got = kern(g, m.clone(), v.clone(), *extra, 0.9, **fl)
                 errs[name].append(_check_equal(
                     f"{name} n={n} {dtype} {fl}", got, want))
+                if olds is not None:
+                    _check_equal(f"old {name} n={n} {dtype} {fl}",
+                                 olds(g, m.clone(), v.clone(), *extra, 0.9,
+                                      **fl), want)
                 if dtype == torch.bfloat16 and not fl["nesterov"]:
                     for i, val in ties:
                         if float(want[1][i]) != val:
@@ -1543,43 +1647,165 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
             mm, vv = m.clone(), v.clone()
             per = 4 * dtype.itemsize + 4 + 4 * masked   # bytes per element
             bound_ms, bound_by = _bound(per * n, 5 * n)
+            new_fn = lambda: kern(g, mm, vv, *extra, 0.9)  # noqa: E731
+            old_fn = olds and (lambda: olds(g, mm, vv, *extra, 0.9))
+            # the two kernels differ by a few percent here: three rounds
+            cold = _in_turns(new_fn, old_fn, timer=_cold_ms, rounds=3)
             calls[name].append(dict(
-                shape=[n], state=str(dtype).split(".")[-1], **_timed(
-                    ms=lambda: kern(g, mm, vv, *extra, 0.9),
-                    plain_ms=lambda: plain(g, m, v, *extra, 0.9)),
-                ms_l2_cold=_cold_ms(lambda: kern(g, mm, vv, *extra, 0.9)),
+                shape=[n], state=str(dtype).split(".")[-1],
+                **_in_turns(new_fn, old_fn, rounds=3),
+                plain_ms=_device_ms(lambda: plain(g, m, v, *extra, 0.9)),
+                ms_l2_cold=cold["ms"], old_ms_l2_cold=cold["old_ms"],
                 bound_ms=bound_ms, bound_by=bound_by))
-    # fused_compensate at ResNet-20's compressed tensors: one worker step
-    lay = geoms20[5][1].layout
-    for nm in lay.compressed_names:
-        n = lay.sizes[nm]
-        g, m, v = (torch.randn(n, device=dev, generator=gen)
-                   for _ in range(3))
-        errs["fused_compensate"].append(_check_equal(
-            f"fused_compensate {nm}",
-            K.fused_compensate(g, m.clone(), v.clone(), 0.9),
-            K.fused_compensate_plain(g, m, v, 0.9)))
-        mm, vv = m.clone(), v.clone()
-        bound_ms, bound_by = _bound(20 * n, 5 * n)
-        calls["fused_compensate"].append(dict(
-            tensor=nm, shape=[n], state="float32", **_timed(
-                ms=lambda: K.fused_compensate(g, mm, vv, 0.9),
-                plain_ms=lambda: K.fused_compensate_plain(g, m, v, 0.9)),
-            bound_ms=bound_ms, bound_by=bound_by))
-    # ladder_counts at the reference's check shape, levels planted
-    levels, lower = 11, 0.8
-    imp = torch.rand(17, 262144, device=dev, generator=gen) * 3.0
-    thr = torch.rand(17, device=dev, generator=gen) + 0.5
-    thr[3] = 0.0
-    imp[2, 7] = float("nan")
-    imp[:, -100:] = -1.0
-    fac = K.ladder_factors(lower, levels).to(dev)
-    for i in range(levels):
-        lv = fac[i] * thr
-        imp[:, 1000 + 3 * i] = lv
-        imp[:, 1001 + 3 * i] = torch.nextafter(lv, torch.full_like(lv, 9.0))
-        imp[:, 1002 + 3 * i] = torch.nextafter(lv, torch.full_like(lv, -9.0))
-    cases = [("[17, 262144] planted", imp, thr)]
+    # one small tensor a call (fused_compensate's own one-entry launch)
+    for n in (4096, 65536):
+        g, m, v, sent, _ = _compensate_state(n, torch.float32, gen)
+        for name in ("fused_compensate", "fused_compensate_masked"):
+            extra = (sent,) if name == "fused_compensate_masked" else ()
+            kern, plain = getattr(K, name), getattr(K, name + "_plain")
+            olds = getattr(old, name) if old else None
+            errs[name].append(_check_equal(
+                f"{name} n={n}", kern(g, m.clone(), v.clone(), *extra, 0.9),
+                plain(g, m, v, *extra, 0.9)))
+            mm, vv = m.clone(), v.clone()
+            calls[name].append(dict(
+                table=f"one tensor n={n}", shape=[n], state="float32",
+                **_in_turns(lambda: kern(g, mm, vv, *extra, 0.9),
+                            olds and (lambda: olds(g, mm, vv, *extra, 0.9)),
+                            rounds=3),
+                plain_ms=_device_ms(lambda: plain(g, m, v, *extra, 0.9)),
+                bound_ms=_bound((20 + 4 * len(extra)) * n, 5 * n)[0]))
+    # the per-tensor path's tables, bitwise, and their times
+    lay20, lay50 = geoms20[5][1].layout, geoms50[5][1].layout
+    sizes20 = [lay20.sizes[nm] for nm in lay20.compressed_names]
+    sizes50 = [lay50.sizes[nm] for nm in lay50.compressed_names]
+    tables = [("resnet20 worker", sizes20, (torch.float32, torch.bfloat16)),
+              ("resnet20 W=4 step", sizes20 * 4, (torch.float32,
+                                                  torch.bfloat16)),
+              ("resnet50 W=4 step", sizes50 * 4, (torch.float32,)),
+              ("odd views", [5, 4099, 36864, 3, 1000, 17, 1, 2, 4096, 7],
+               (torch.float32, torch.bfloat16)),
+              ("n = 0 and n < 4", [0, 1, 3, 0, 2, 4, 5],
+               (torch.float32, torch.bfloat16))]
+    n_launches = {}
+    for label, sizes, dtypes in tables:
+        for dtype in dtypes:
+            if label == "odd views":
+                gs, ms, vs, ss = _odd_views(sizes, dtype, gen)
+            else:
+                gs, ms, vs = ([torch.randn(n, device=dev, generator=gen)
+                               .to(dt) for n in sizes]
+                              for dt in (torch.float32, dtype, dtype))
+                ss = [(torch.rand(n, device=dev, generator=gen) < 0.3).float()
+                      for n in sizes]
+            plan = K.compensate_plan(
+                sizes, [(x.data_ptr(), y.data_ptr(), z.data_ptr(), None)
+                        for x, y, z in zip(gs, ms, vs)], dtype.itemsize)
+            n_launches[label] = len(plan)
+            if label == "odd views" and not (
+                    any(h == -1 for h in plan[0].head)
+                    and any(h > 0 for h in plan[0].head)):
+                raise AssertionError(f"odd views: heads {plan[0].head}")
+            for fl in flag_sets:
+                for sents in (None, ss):
+                    if sents is None and not fl["momentum_masking"]:
+                        continue
+                    name = ("fused_compensate" if sents is None
+                            else "fused_compensate_masked")
+                    want = K.fused_compensate_multi_plain(gs, ms, vs, 0.9,
+                                                          sents=sents, **fl)
+                    m2, v2 = [x.clone() for x in ms], [x.clone() for x in vs]
+                    K.reset_launches()
+                    K.fused_compensate_multi(gs, m2, v2, 0.9, sents=sents,
+                                             **fl)
+                    if K.LAUNCHES[name] != len(plan):
+                        raise AssertionError(f"{label}: {K.LAUNCHES[name]} "
+                                             f"launches, planned {len(plan)}")
+                    errs[name].append(_check_equal(
+                        f"fused_compensate_multi {label} {dtype} {fl} "
+                        f"masked={sents is not None}", m2 + v2,
+                        want[0] + want[1]))
+                    if old is not None and dtype == torch.float32 and (
+                            fl == flag_sets[0]):
+                        m3, v3 = [x.clone() for x in ms], [x.clone()
+                                                          for x in vs]
+                        for i in range(len(gs)):
+                            if sents is None:
+                                old.fused_compensate(gs[i], m3[i], v3[i], 0.9)
+                            else:
+                                old.fused_compensate_masked(
+                                    gs[i], m3[i], v3[i], sents[i], 0.9)
+                        _check_equal(f"old compensate {label}", m3 + v3,
+                                     want[0] + want[1])
+            if dtype != torch.float32 or label not in (
+                    "resnet20 worker", "resnet20 W=4 step"):
+                continue
+            mm, vv = [x.clone() for x in ms], [x.clone() for x in vs]
+            lib_fn, lib_name = _library_compensate(gs, mm, vv)
+            # the old kernels queue a launch a tensor: at most ~440 a timing
+            reps = max(2, min(20, 440 // len(sizes)))
+            calls["fused_compensate"].append(dict(
+                table=label, tensors=len(sizes), elements=sum(sizes),
+                launches=len(plan), **_in_turns(
+                    lambda: K.fused_compensate_multi(gs, mm, vv, 0.9),
+                    old and (lambda: [old.fused_compensate(x, y, z, 0.9)
+                                      for x, y, z in zip(gs, mm, vv)]),
+                    reps=reps, hold_cycles=_LONG_HOLD),
+                plain_ms=_device_ms(lambda: K.fused_compensate_multi_plain(
+                    gs, ms, vs, 0.9), hold_cycles=_LONG_HOLD),
+                library_ms=_device_ms(lib_fn, hold_cycles=_LONG_HOLD),
+                library=lib_name,
+                bound_ms=_bound(20 * sum(sizes), 5 * sum(sizes))[0]))
+    # ResNet-50's 54 tensors of one worker, timed (one launch)
+    gs, ms, vs = ([torch.randn(n, device=dev, generator=gen) for n in sizes50]
+                  for _ in range(3))
+    lib_fn, lib_name = _library_compensate(gs, ms, vs)
+    calls["fused_compensate"].append(dict(
+        table="resnet50 worker", tensors=len(sizes50),
+        elements=sum(sizes50), launches=1, **_in_turns(
+            lambda: K.fused_compensate_multi(gs, ms, vs, 0.9),
+            old and (lambda: [old.fused_compensate(x, y, z, 0.9)
+                              for x, y, z in zip(gs, ms, vs)]),
+            reps=8, hold_cycles=_LONG_HOLD),
+        library_ms=_device_ms(lib_fn, hold_cycles=_LONG_HOLD),
+        library=lib_name, bound_ms=_bound(20 * sum(sizes50), 0)[0]))
+    del gs, ms, vs
+    if n_launches["resnet50 W=4 step"] < 2:
+        raise AssertionError("the 216-tensor table fit one launch")
+    DETAIL["compensate_launches_by_table"] = n_launches
+
+    # ladder_counts: planted levels at the reference's check shape, L = 128
+    # with cols % 4 != 0, an unaligned row base, ResNet-50's buckets
+    lower = 0.8
+    card = functools.partial(K._ladder_max_clusters,
+                             torch.cuda.current_device())
+    cases = []
+    for label, R, cols, levels, base in (
+            ("[17, 262144] planted", 17, 262144, 11, 0),
+            ("[5, 3001] L=128 planted", 5, 3001, 128, 0),
+            ("[9, 1027] L=17 unaligned base planted", 9, 1027, 17, 1),
+            ("[6, 70001] L=16 unaligned base planted", 6, 70001, 16, 3),
+            ("[4, 300001] L=17 unaligned base planted", 4, 300001, 17, 1),
+            ("[4, 262147] L=128 planted", 4, 262147, 128, 0)):
+        flat = torch.rand(R * cols + base, device=dev, generator=gen) * 3.0
+        imp = flat[base:].view(R, cols)
+        thr = torch.rand(R, device=dev, generator=gen) + 0.5
+        thr[3] = 0.0
+        if R > 5:
+            thr[4] = float("nan")
+        imp[2, 7] = float("nan")
+        imp[0, 1:4] = torch.tensor([-0.0, float("inf"), -float("inf")])
+        imp[:, -100:] = -1.0
+        fac = K.ladder_factors(lower, levels).to(dev)
+        for i in range(levels):
+            c = 10 + 3 * i
+            if c + 2 >= cols - 100:
+                break
+            lv = fac[i] * thr
+            imp[:, c] = lv
+            imp[:, c + 1] = torch.nextafter(lv, torch.full_like(lv, 9.0))
+            imp[:, c + 2] = torch.nextafter(lv, torch.full_like(lv, -9.0))
+        cases.append((label, imp, thr, levels))
     for epoch in (0, 5):
         eng = geoms50[epoch][1]
         consts = eng._bucket_consts(torch.device(dev))
@@ -1591,57 +1817,85 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
             x = torch.where(c["in_row"], block.abs(), -1.0)
             k = min(b.max_sel, b.cols)
             cases.append((f"resnet50 epoch {epoch} [{b.rows}, {b.cols}]", x,
-                          torch.topk(x, k, dim=1).values[:, -1].contiguous()))
-    for label, x, t in cases:
+                          torch.topk(x, k, dim=1).values[:, -1].contiguous(),
+                          11))
+    for label, x, t, levels in cases:
         want = K.ladder_counts_plain(x, t, lower, levels)
         if "planted" in label and not bool((want[3] == want[3, 0]).all()):
             raise AssertionError("ladder_counts: thr = 0 counts every "
                                  "level alike")
+        K.reset_launches()
         errs["ladder_counts"].append(_check_equal(
             f"ladder_counts {label}", [K.ladder_counts(x, t, lower, levels)],
             [want]))
+        if K.LAUNCHES["ladder_counts"] != 1:
+            raise AssertionError(f"ladder_counts {label}: not one launch")
+        if old_lad is not None:
+            _check_equal(f"old ladder_counts {label}",
+                         [_old_ladder(old_lad, x, t, lower, levels)], [want])
         R, cols = x.shape
         # bytes: the rows read once, the [R, L] counts written; ops: L
         # compares per element
         bound_ms, bound_by = _bound(4 * R * cols + 4 * R * levels,
                                     levels * R * cols)
+        plan = K.ladder_plan(R, cols, levels, card)
+        # the same kernel at a block a row, and, where the plan splits the
+        # levels, at one split: what the cluster and the splits each buy
+        row = K.LadderPlan("row", 1, 1, plan.threads, R)
+        one = plan._replace(splits=1, grid=R * plan.cluster)
         calls["ladder_counts"].append(dict(
-            case=label, shape=[R, cols], levels=levels, **_timed(
-                ms=lambda: K.ladder_counts(x, t, lower, levels),
-                plain_ms=lambda: K.ladder_counts_plain(x, t, lower, levels)),
+            case=label, shape=[R, cols], levels=levels,
+            plan=plan._asdict(), **_in_turns(
+                lambda: K.ladder_counts(x, t, lower, levels),
+                old_lad and (lambda: _old_ladder(old_lad, x, t, lower,
+                                                 levels))),
+            row_ms=_device_ms(lambda: K._ladder_counts_launch(
+                x, t, lower, levels, row)),
+            one_split_ms=(_device_ms(lambda: K._ladder_counts_launch(
+                x, t, lower, levels, one)) if plan.splits > 1 else None),
+            plain_ms=_device_ms(lambda: K.ladder_counts_plain(x, t, lower,
+                                                              levels)),
             bound_ms=bound_ms, bound_by=bound_by))
+    if not any(c["plan"]["splits"] > 1 for c in calls["ladder_counts"]):
+        raise AssertionError("ladder_counts: no case split its levels")
+    DETAIL["ladder_max_clusters"] = {
+        th: [card(th, c) for c in range(1, K.LADDER_MAX_CLUSTER + 1)]
+        for th in (512, 1024)}
     entries = {}
-    step = [c for c in calls["fused_compensate"] if "tensor" in c]
+    step = next(c for c in calls["fused_compensate"]
+                if c.get("table") == "resnet20 worker")
     entries["fused_compensate"] = dict(
-        name="fused_compensate", route="triton",
-        source="dgc_tpu_torch/ops/kernels.py",
+        name="fused_compensate", route="cuda",
+        source="dgc_tpu_torch/csrc/compensate.cu",
         replaces="dgc_tpu/ops/kernels.py:171",
-        check="bitwise vs fused_compensate_plain (f32 and bf16 state, "
-              "infinities, NaNs, bf16 ties)",
+        check="bitwise vs fused_compensate_multi_plain at every table (f32 "
+              "and bf16 state, every flag, odd-offset views, n = 0..5, 216 "
+              "tensors over three launches) and vs fused_compensate_plain "
+              "at 2.1M elements (infinities, NaNs, bf16 ties)",
         max_abs_err=max(errs["fused_compensate"]),
-        **{k: sum(c[k] for c in step)
-           for k in ("ms", "plain_ms", "bound_ms")},
-        bound_by="bytes", library_ms=None,
-        summed_over=f"the {len(step)} calls of one worker's ResNet-20 "
-                    "per-tensor step (f32 state)",
+        **{k: step[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms",
+                                "library_ms", "library")},
+        bound_by="bytes",
+        summed_over=f"one launch over the {step['tensors']} compressed "
+                    "tensors of one worker's ResNet-20 per-tensor step (f32 "
+                    "state); old_ms: the earlier kernel's launch a tensor",
         calls=calls["fused_compensate"])
-    for name, line, key in (("fused_compensate_masked", 275, 0),
-                            ("ladder_counts", 652, 0)):
-        c = calls[name][key]
+    for name, line in (("fused_compensate_masked", 275),
+                       ("ladder_counts", 652)):
+        c = calls[name][0]
         entries[name] = dict(
-            name=name, route="cuda" if name == "ladder_counts" else "triton",
+            name=name, route="cuda",
             source=("dgc_tpu_torch/csrc/ladder_counts.cu"
                     if name == "ladder_counts"
-                    else "dgc_tpu_torch/ops/kernels.py"),
+                    else "dgc_tpu_torch/csrc/compensate.cu"),
             replaces=f"dgc_tpu/ops/kernels.py:{line}",
             check=f"bitwise vs {name}_plain at every case",
             max_abs_err=max(errs[name]),
-            **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: c[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
             library_ms=None, of=str(c.get("case", c["shape"])),
             calls=calls[name])
     return entries
-
-
 
 
 def _print_entries(entries):
@@ -1932,12 +2186,15 @@ def phase_per_tensor_path(label="resnet20_per_tensor", recipe="resnet20_wm5",
     """The per-tensor path: ``train_step_per_tensor`` at full width, the
     recipe's batch per worker, W=4 ``LocalComm`` on the card; ``schedule``
     is ``[(epoch, steps)]``, the compressor re-initialised at each epoch's
-    ratio. Counts zeroed just before the steps and read just after: every
-    compressed tensor's compensate launches ``fused_compensate`` once per
-    worker and step, and nothing launches ``compensate_bits``."""
+    ratio. Counts zeroed just before the steps and read just after: the
+    exchange compensates every compressed tensor of the 4 workers in one
+    ``fused_compensate`` launch a step (one per
+    ``COMPENSATE_MAX_ENTRIES`` tensors), and nothing launches
+    ``compensate_bits``."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.data.sampler import epoch_batches
+    from dgc_tpu_torch.ops import kernels as K
     from dgc_tpu_torch.parallel.comm import LocalComm
     from dgc_tpu_torch.train import Trainer
     from dgc_tpu_torch.training.step import (make_flat_state,
@@ -1968,7 +2225,8 @@ def phase_per_tensor_path(label="resnet20_per_tensor", recipe="resnet20_wm5",
             times[epoch].append(time.perf_counter() - t0)
             losses[epoch].append(float(loss))
     counts = _read_counts(label, ["fused_compensate"])
-    want = n_comp * 4 * sum(st for _, st in schedule)
+    per_step = -(-n_comp * 4 // K.COMPENSATE_MAX_ENTRIES)
+    want = per_step * sum(st for _, st in schedule)
     if counts["fused_compensate"] != want or counts["compensate_bits"]:
         raise AssertionError(f"{label}: fused_compensate launched "
                              f"{counts['fused_compensate']} times (want "
@@ -2178,7 +2436,7 @@ def phase_profile(trainer, label, steps=3):
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
                    "seg_top2_kernel", "topk_rows_kernel", "apply_rows_",
                    "opaque_copy_kernel", "select_pack_rows_kernel",
-                   "dgc_forward_rows_kernel", "fused_compensate_kernel",
+                   "dgc_forward_rows_kernel", "compensate_multi_kernel",
                    "ladder_counts_kernel")
 
 #: the path whose count is a kernel's ``launches`` where it is not the
@@ -2217,6 +2475,7 @@ def phase_process_group():
 
 def main(argv):
     global OLD_TOPK_SRC, OLD_COPY_SRC, OLD_CANDS_SRC, OLD_SELECT_SRC
+    global OLD_COMPENSATE_SRC, OLD_LADDER_SRC
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2225,7 +2484,9 @@ def main(argv):
     set_reproducible_numerics()
     flags = {"--old-src": "OLD_TOPK_SRC", "--old-copy-src": "OLD_COPY_SRC",
              "--old-cands-src": "OLD_CANDS_SRC",
-             "--old-select-src": "OLD_SELECT_SRC"}
+             "--old-select-src": "OLD_SELECT_SRC",
+             "--old-compensate-src": "OLD_COMPENSATE_SRC",
+             "--old-ladder-src": "OLD_LADDER_SRC"}
     for flag, name in flags.items():
         if flag in argv:
             globals()[name] = argv[argv.index(flag) + 1]

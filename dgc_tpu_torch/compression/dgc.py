@@ -6,8 +6,9 @@ both paths:
 
 * the per-tensor path, the reference DGC's own API and the oracle the flat
   engine is held against: ``compress`` (the memory's compensate — the
-  ``fused_compensate`` kernel — then :meth:`DGCCompressor.sparsify` and the
-  memory's update), ``communicate``, ``exchange_fused`` and ``decompress``,
+  ``fused_compensate`` kernel, batched over every tensor of every local
+  worker by ``compensate_all`` — then :meth:`DGCCompressor.sparsify` and
+  the memory's update), ``communicate``, ``exchange_fused`` and ``decompress``,
   tensor by tensor, with the f32, fp16 (``fp16_values``) or int8
   (``int8_values``, with or without ``int8_error_feedback``) wire;
 * the flat engine (:mod:`dgc_tpu_torch.compression.flat`,
@@ -209,17 +210,39 @@ class DGCCompressor(Compressor):
         return ops.select_by_threshold(flat, importance, threshold,
                                        attrs.num_selects)
 
+    def compensate_all(self, mem_states, grads):
+        """The memory's accumulating compensate of every compressed tensor
+        of every local worker in one batched call (``grads[w]`` maps names
+        to worker w's gradients; the memories update in place). Returns
+        ``[{name: compensated velocity}]`` per worker, to be handed to
+        :meth:`compress`, or None where the memory has no batched
+        compensate (:meth:`compress` then compensates tensor by tensor).
+        Each compensate reads and writes only its own name's state, so
+        doing them all first changes no result."""
+        batched = getattr(self.memory, "compensate_all", None)
+        if batched is None:
+            return None
+        names = [n for n in grads[0]
+                 if self.compress_ratio < 1.0 and n in self.attributes]
+        vecs = iter(batched([(mem, n, g[n]) for mem, g in zip(mem_states,
+                                                               grads)
+                             for n in names]))
+        return [{n: next(vecs) for n in names} for _ in grads]
+
     def compress(self, mem_state, name: str, grad: torch.Tensor,
-                 phase: int = 0):
+                 phase: int = 0, compensated=None):
         """Momentum-corrected sparsification of a compressed tensor (the
         memory updates in place; the payload's values are gathered before
         the memory's update zeroes them), or the dense payload of any other.
+        ``compensated``: the velocity :meth:`compensate_all` already
+        compensated from ``grad``, else the memory compensates it here.
         Returns ``(payload, ctx, mem_state)``: ``(values, indices)``,
         ``(q, indices, scale)`` under ``int8_values``, or the gradient."""
         if self.compress_ratio < 1.0 and name in self.attributes:
             attrs = self.attributes[name]
-            compensated, mem_state = self.memory.compensate(
-                mem_state, name, grad, accumulate=True)
+            if compensated is None:
+                compensated, mem_state = self.memory.compensate(
+                    mem_state, name, grad, accumulate=True)
             values, indices, valid = self.sparsify(compensated, name, phase)
             mem_state = self.memory.update(mem_state, name, indices, valid)
             ctx = CompressCtx(name=name, numel=attrs.numel, shape=attrs.shape,

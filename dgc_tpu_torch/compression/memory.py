@@ -5,14 +5,16 @@ configuration; its state is a dict ``{"momentums": {name: 1-D tensor},
 "velocities": {name: 1-D tensor}}`` that the caller keeps, one per worker.
 The per-tensor path (``DGCCompressor.compress`` / ``decompress``) runs the
 methods below over that state; they update its tensors IN PLACE (the
-reference returns new arrays) and return the state.
+reference returns new arrays) and return the state. The per-tensor
+exchange compensates every compressed tensor of every local worker first,
+in one batched call (:meth:`DGCSGDMemory.compensate_all`).
 
 The flat engine (:mod:`dgc_tpu_torch.compression.flat`) keeps its own flat
 buffers and reads only ``momentum``, ``nesterov`` and ``momentum_masking``
 from here; it takes f32 state only and raises on ``dtype=bfloat16``.
 """
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -112,6 +114,20 @@ class DGCSGDMemory(Memory):
             out = m
         mmt.copy_(m)
         return out, state
+
+    def compensate_all(self, items) -> List[torch.Tensor]:
+        """The accumulating :meth:`compensate` of many tensors in one
+        :func:`kernels.fused_compensate_multi` call (one kernel launch for
+        up to ``kernels.COMPENSATE_MAX_ENTRIES`` tensors): ``items`` is
+        ``[(state, name, grad)]``, any workers' states and names, each name
+        of a state at most once. Returns the velocities, in order (each the
+        stored velocity itself, updated in place)."""
+        grads = [grad.reshape(-1) for _, _, grad in items]
+        mmts = [state["momentums"][name] for state, name, _ in items]
+        vecs = [state["velocities"][name] for state, name, _ in items]
+        kernels.fused_compensate_multi(grads, mmts, vecs, self.momentum,
+                                       self.nesterov)
+        return vecs
 
     def update(self, state: Dict, name: str, indices, valid) -> Dict:
         """Zero the transmitted coordinates: the velocity always, the

@@ -1,6 +1,7 @@
-// The bit-masked momentum compensate of one element, shared by the kernels
-// that compensate on the fly (dgc_forward_rows.cu, seg_top2.cu), so their m'
-// and v' stay bitwise the Triton compensate_bits and the plain version.
+// The momentum compensate of one element, shared by the kernels that
+// compensate (compensate.cu; dgc_forward_rows.cu and seg_top2.cu on the
+// fly), so their m' and v' stay bitwise the Triton compensate_bits and the
+// plain versions.
 //
 // _compensate_math (dgc_tpu/ops/kernels.py:471), op by op: the arithmetic is
 // written with __fmul_rn / __fadd_rn, which nvcc never contracts into an
@@ -20,19 +21,27 @@ __device__ __forceinline__ float keep_bit(int word, int bit) {
   return ((word >> bit) & 1) ? 0.0f : 1.0f;
 }
 
+// The momentum correction of one element: m', v' from g and the (masked)
+// state m, v, updated in place.
+__device__ __forceinline__ void momentum_correct(float g, float& m, float& v,
+                                                 float momentum,
+                                                 bool nesterov) {
+  if (nesterov) {
+    m = __fmul_rn(__fadd_rn(m, g), momentum);
+    v = __fadd_rn(__fadd_rn(v, m), g);
+  } else {
+    m = __fadd_rn(__fmul_rn(momentum, m), g);
+    v = __fadd_rn(v, m);
+  }
+}
+
 // m', v' of one element from g and the stored m, v; keep is 1.0f or 0.0f.
 __device__ __forceinline__ void compensate(float g, float& m, float& v,
                                            float keep, float momentum,
                                            bool nesterov, bool mask_momentum) {
-  const float m0 = mask_momentum ? __fmul_rn(m, keep) : m;
-  const float v0 = __fmul_rn(v, keep);
-  if (nesterov) {
-    m = __fmul_rn(__fadd_rn(m0, g), momentum);
-    v = __fadd_rn(__fadd_rn(v0, m), g);
-  } else {
-    m = __fadd_rn(__fmul_rn(momentum, m0), g);
-    v = __fadd_rn(v0, m);
-  }
+  if (mask_momentum) m = __fmul_rn(m, keep);
+  v = __fmul_rn(v, keep);
+  momentum_correct(g, m, v, momentum, nesterov);
 }
 
 }  // namespace dgc

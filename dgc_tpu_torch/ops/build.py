@@ -28,7 +28,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: one shared library per source file
 SOURCES = ("topk_rows.cu", "apply_rows.cu", "opaque_copy.cu",
            "select_pack_rows.cu", "dgc_forward_rows.cu", "ladder_counts.cu",
-           "seg_top2.cu")
+           "seg_top2.cu", "compensate.cu")
 # no --use_fast_math: the apply kernel's divide must stay IEEE
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

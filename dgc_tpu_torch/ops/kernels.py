@@ -8,8 +8,8 @@ this module and a launch counter (:data:`LAUNCHES`):
 ==============================  ========  =================================
 wrapper                         route     replaces (dgc_tpu/ops/kernels.py)
 ==============================  ========  =================================
-:func:`fused_compensate`        Triton    ``fused_compensate`` (:171)
-:func:`fused_compensate_masked` Triton    ``fused_compensate_masked``
+:func:`fused_compensate`        CUDA C++  ``fused_compensate`` (:171)
+:func:`fused_compensate_masked` CUDA C++  ``fused_compensate_masked``
                                           (:275)
 :func:`compensate_bits`         Triton    ``fused_compensate_bits`` (:527)
 :func:`ladder_counts`           CUDA C++  ``ladder_counts`` (:652)
@@ -29,9 +29,11 @@ wrapper                         route     replaces (dgc_tpu/ops/kernels.py)
 A wrapper runs the plain version only for tensors that lie on the CPU; for
 a CUDA tensor it launches its kernel or raises. It checks device, dtype,
 shape and contiguity first. The CUDA C++ sources are in
-``dgc_tpu_torch/csrc`` (built by :mod:`dgc_tpu_torch.ops.build`); the
-Triton kernels are defined and compiled on their first launch. Kernels
-launch on PyTorch's current stream and never synchronise.
+``dgc_tpu_torch/csrc`` (built by :mod:`dgc_tpu_torch.ops.build`); the one
+Triton kernel is defined and compiled on its first launch. Kernels
+launch on PyTorch's current stream and never synchronise. The two
+compensates are one-entry calls of :func:`fused_compensate_multi`, which
+compensates many tensors in one launch.
 
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
 :func:`keep_from_bits`, :func:`realign_bits`) define a format shared with
@@ -39,8 +41,11 @@ the JAX package and are bitwise its functions.
 """
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import functools
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dgc_tpu_torch.ops import build as _build
@@ -49,8 +54,11 @@ __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "keep_from_bits", "realign_bits", "keep_from_sent",
            "fused_compensate", "fused_compensate_plain",
            "fused_compensate_masked", "fused_compensate_masked_plain",
+           "fused_compensate_multi", "fused_compensate_multi_plain",
+           "compensate_plan", "compensate_head", "CompensateLaunch",
+           "COMPENSATE_MAX_ENTRIES", "COMPENSATE_TILE",
            "ladder_counts", "ladder_counts_plain", "ladder_factors",
-           "LADDER_MAX_LEVELS",
+           "ladder_plan", "LadderPlan", "LADDER_MAX_LEVELS",
            "compensate_bits",
            "compensate_bits_plain", "topk_rows", "topk_rows_plain",
            "TOPK_MAX_K", "topk_plan", "topk_geometry", "TopkPlan",
@@ -200,14 +208,13 @@ def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
 # 4096-element word group; the ragged tail (T % 4096 may be 2048) is
 # masked. Multiplying by the keep mask, not a select, keeps signed zeros
 # and NaNs as the reference has them; the launch disables FMA contraction
-# so `momentum * m0 + g` rounds twice, as the plain version does. Its
-# arithmetic (_momentum_correct) is shared with fused_compensate(_masked)
-# (K10/K11); the CUDA kernels that compensate on the fly (K5, K9) repeat it
-# op by op in csrc/compensate.cuh.
+# so `momentum * m0 + g` rounds twice, as the plain version does. The CUDA
+# kernels that compensate (K10/K11, and K5, K9 on the fly) repeat its
+# arithmetic (_momentum_correct) op by op in csrc/compensate.cuh.
 
-# triton.language and the shared @triton.jit helper, bound at the first
-# build: module globals, because Triton resolves the names a kernel uses in
-# the kernel's globals
+# triton.language and the @triton.jit helper, bound at the first build:
+# module globals, because Triton resolves the names a kernel uses in the
+# kernel's globals
 tl = None
 _momentum_correct = None
 _TRITON = {}
@@ -225,9 +232,9 @@ def _triton_kernels():
 
     @triton.jit
     def _momentum_correct(g, m0, v0, momentum, NESTEROV: tl.constexpr):
-        # the momentum correction of every compensate kernel, in f32 on
-        # masked state: returns (m', v'); the launches disable FMA
-        # contraction, so each product and sum rounds on its own
+        # the momentum correction in f32 on masked state: returns (m',
+        # v'); the launch disables FMA contraction, so each product and sum
+        # rounds on its own
         if NESTEROV:
             m = (m0 + g) * momentum
             ov = v0 + m + g
@@ -235,37 +242,6 @@ def _triton_kernels():
             m = momentum * m0 + g
             ov = v0 + m
         return m, ov
-
-    @triton.jit
-    def fused_compensate_kernel(g_ptr, m_ptr, v_ptr, s_ptr, n, momentum,
-                                NESTEROV: tl.constexpr,
-                                MASKED: tl.constexpr,
-                                MASK_MOMENTUM: tl.constexpr,
-                                BF16: tl.constexpr, BLOCK: tl.constexpr):
-        # K10 (MASKED false) and K11 (MASKED: keep = (sent == 0) as 0.0 /
-        # 1.0, multiplied after the up-cast); state f32, or bf16 with the
-        # math in f32 and one round-to-nearest-even per stored value
-        p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        inb = p < n
-        g = tl.load(g_ptr + p, mask=inb, other=0.0)
-        m0 = tl.load(m_ptr + p, mask=inb, other=0.0).to(tl.float32)
-        v0 = tl.load(v_ptr + p, mask=inb, other=0.0).to(tl.float32)
-        if MASKED:
-            sent = tl.load(s_ptr + p, mask=inb, other=0.0)
-            keep = (sent == 0).to(tl.float32)
-            if MASK_MOMENTUM:
-                m0 = m0 * keep
-            v0 = v0 * keep
-        m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
-        if BF16:
-            tl.store(m_ptr + p, m.to(tl.bfloat16, fp_downcast_rounding="rtne"),
-                     mask=inb)
-            tl.store(v_ptr + p,
-                     ov.to(tl.bfloat16, fp_downcast_rounding="rtne"),
-                     mask=inb)
-        else:
-            tl.store(m_ptr + p, m, mask=inb)
-            tl.store(v_ptr + p, ov, mask=inb)
 
     @triton.jit
     def compensate_bits_kernel(g_ptr, m_ptr, v_ptr, b_ptr, n, momentum,
@@ -287,8 +263,7 @@ def _triton_kernels():
         tl.store(m_ptr + p, m, mask=inb)
         tl.store(v_ptr + p, ov, mask=inb)
 
-    _TRITON.update(fused_compensate=fused_compensate_kernel,
-                   compensate_bits=compensate_bits_kernel)
+    _TRITON.update(compensate_bits=compensate_bits_kernel)
     return _TRITON
 
 
@@ -344,24 +319,29 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
 
 
 # ------------------------------------------------------------------ #
-# K10, K11: record-less and count-masked compensate (Triton)         #
+# K10, K11: record-less and count-masked compensate, many tensors a   #
+#           launch (CUDA C++, csrc/compensate.cu)                     #
 # ------------------------------------------------------------------ #
 #
 # Replace dgc_tpu/ops/kernels.py::fused_compensate (_compensate_kernel),
 # the per-tensor memory's accumulating compensate, and
 # ::fused_compensate_masked (_compensate_masked_kernel), the same with the
-# previous step's transmit COUNT vector applied on read. One Triton kernel,
-# specialised on MASKED; its arithmetic is compensate_bits' own
-# (_momentum_correct), so the three compensates agree bitwise. The TPU
-# pads to 16 x 128 tiles; here one program covers BLOCK elements and the
-# ragged tail is masked, so any length runs copy-free. State is f32 or
-# bf16 (the bf16 error-feedback memory): loaded in its dtype, up-cast, the
-# math in f32, one round-to-nearest-even per stored value (`fp_downcast_
-# rounding="rtne"`, as `.to(torch.bfloat16)` rounds). FMA contraction is
-# off at launch. Bound on the card: bytes, 20 B per element with f32
-# state, 12 with bf16, plus 4 for the count vector of the masked form.
+# previous step's transmit COUNT vector applied on read. One CUDA kernel
+# takes a table of up to COMPENSATE_MAX_ENTRIES tensors in its launch
+# parameters (the per-tensor exchange compensates every compressed tensor
+# of every local worker in one launch); :func:`compensate_plan` gives each
+# entry whole blocks of 4,096 elements and the scalar head before its
+# vector body. State is f32 or bf16 (the bf16 error-feedback memory):
+# loaded in its dtype, up-cast, the math in f32 (compensate_bits'
+# arithmetic, op by op, csrc/compensate.cuh), one round-to-nearest-even per
+# stored value. Bound on the card: bytes, 20 B per element with f32 state,
+# 12 with bf16, plus 4 for the count vector of the masked form.
 
-_COMPENSATE_BLOCK = 4096
+#: most tensors one compensate launch takes (its table stays under the
+#: classic 4 KB of kernel parameters)
+COMPENSATE_MAX_ENTRIES = 96
+#: elements of one tensor a block of the compensate kernel covers
+COMPENSATE_TILE = 4096
 
 
 def keep_from_sent(sent: torch.Tensor) -> torch.Tensor:
@@ -403,6 +383,23 @@ def fused_compensate_masked_plain(grad, mmt, vec, sent, momentum: float,
     return m.to(mmt.dtype), v.to(mmt.dtype)
 
 
+def fused_compensate_multi_plain(grads, mmts, vecs, momentum: float,
+                                 nesterov: bool = False, sents=None,
+                                 momentum_masking: bool = True):
+    """Plain version of :func:`fused_compensate_multi`: a loop of
+    :func:`fused_compensate_plain` (or, with ``sents``,
+    :func:`fused_compensate_masked_plain`). Returns the new ``(mmts',
+    vecs')`` lists."""
+    if sents is None:
+        out = [fused_compensate_plain(g, m, v, momentum, nesterov)
+               for g, m, v in zip(grads, mmts, vecs)]
+    else:
+        out = [fused_compensate_masked_plain(g, m, v, s, momentum, nesterov,
+                                             momentum_masking)
+               for g, m, v, s in zip(grads, mmts, vecs, sents)]
+    return [m for m, _ in out], [v for _, v in out]
+
+
 def _check_state(name, grad, mmt, vec, sent=None) -> None:
     n = grad.shape[0]
     _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,)
@@ -419,18 +416,139 @@ def _check_state(name, grad, mmt, vec, sent=None) -> None:
            f"{mmt.dtype}/{vec.dtype}")
 
 
-def _launch_compensate(name, grad, mmt, vec, sent, momentum, nesterov,
-                       momentum_masking) -> None:
-    n = grad.shape[0]
-    if n:
-        kernel = _triton_kernels()["fused_compensate"]
-        kernel[(-(-n // _COMPENSATE_BLOCK),)](
-            grad, mmt, vec, grad if sent is None else sent, n,
-            float(momentum), NESTEROV=bool(nesterov),
-            MASKED=sent is not None, MASK_MOMENTUM=bool(momentum_masking),
-            BF16=mmt.dtype == torch.bfloat16, BLOCK=_COMPENSATE_BLOCK,
-            num_warps=8, enable_fp_fusion=False)
+def _check_no_alias(name, written, read) -> None:
+    """Raises where a written tensor (an m or v) shares a byte with any
+    other tensor of the call, written or read (a g or sent): the kernel
+    updates m and v in place, entry by entry in no order."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(),
+                    w) for ts, w in ((written, True), (read, False))
+                   for t in ts if t.numel())
+    w_end = a_end = 0
+    for start, end, w in spans:
+        _check(start >= w_end and not (w and start < a_end),
+               f"{name}: an m or v shares memory with another tensor of the "
+               "call")
+        a_end = max(a_end, end)
+        if w:
+            w_end = max(w_end, end)
+
+
+class CompensateLaunch(NamedTuple):
+    """One launch of the compensate kernel (see ``csrc/compensate.cu``):
+    ``entries`` indexes the caller's lists; entry ``entries[j]`` owns
+    blocks ``[block0[j], block0[j + 1])`` (``block0[-1]`` blocks in all);
+    ``head[j]`` is its scalar head, the elements before the vector body
+    (each stream aligned there: 16 bytes for f32, 8 for bf16 state), or -1
+    where no such start exists (the entry runs scalar). A block covers
+    :data:`COMPENSATE_TILE` elements of its entry's body (``[head, head +
+    4 * ((n - head) // 4))``, or ``[0, n)`` when scalar); block 0 of the
+    entry also does the head and the tail past the body."""
+    entries: Tuple[int, ...]
+    block0: Tuple[int, ...]
+    head: Tuple[int, ...]
+
+
+def compensate_head(n: int, addrs, state_bytes: int) -> int:
+    """The scalar head of one entry: the least ``h`` (0-3, at most ``n``)
+    at which its f32 streams (g, and sent where given) are 16-byte and
+    its state streams (m, v) ``4 * state_bytes``-byte aligned; -1 if none.
+    ``addrs`` is ``(g, m, v, sent or None)``, byte addresses."""
+    g, m, v, s = addrs
+    h = (-g % 16) // 4
+    ok = (g % 4 == 0 and (s is None or (s + 4 * h) % 16 == 0)
+          and all((a + state_bytes * h) % (4 * state_bytes) == 0
+                  for a in (m, v)))
+    return min(h, n) if ok else -1
+
+
+def _compensate_blocks(n: int, head: int) -> int:
+    body = n if head < 0 else 4 * ((n - head) // 4)
+    return max(1, -(-body // COMPENSATE_TILE))
+
+
+def compensate_plan(ns, addrs, state_bytes: int = 4
+                    ) -> Tuple[CompensateLaunch, ...]:
+    """The compensate kernel's launches for entries of ``ns[i]`` elements
+    at byte addresses ``addrs[i] = (g, m, v, sent or None)``, state of
+    ``state_bytes`` (4 or 2) per element: the non-empty entries in order,
+    :data:`COMPENSATE_MAX_ENTRIES` a launch, each with its whole blocks
+    and its scalar head (:class:`CompensateLaunch`)."""
+    live = [i for i, n in enumerate(ns) if n]
+    out = []
+    cap = COMPENSATE_MAX_ENTRIES
+    for c in range(0, len(live), cap):
+        entries = tuple(live[c:c + cap])
+        head = tuple(compensate_head(ns[i], addrs[i], state_bytes)
+                     for i in entries)
+        block0 = [0]
+        for i, h in zip(entries, head):
+            block0.append(block0[-1] + _compensate_blocks(ns[i], h))
+        out.append(CompensateLaunch(entries, tuple(block0), head))
+    return tuple(out)
+
+
+_COMPENSATE_ARGS = {"compensate_multi_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+
+
+def fused_compensate_multi(grads, mmts, vecs, momentum: float,
+                           nesterov: bool = False, sents=None,
+                           momentum_masking: bool = True):
+    """Momentum correction and local accumulation of many tensors at once:
+    for each i, :func:`fused_compensate` of ``(grads[i], mmts[i],
+    vecs[i])``, or with ``sents`` :func:`fused_compensate_masked` with
+    ``sents[i]``; ``mmts`` and ``vecs`` are updated IN PLACE and returned.
+    On the card: one launch per :data:`COMPENSATE_MAX_ENTRIES` non-empty
+    tensors (:func:`compensate_plan`). All states share one dtype (f32 or
+    bf16); no m or v may share memory with another tensor of the call."""
+    name = ("fused_compensate_masked" if sents is not None
+            else "fused_compensate")
+    k = len(grads)
+    _check(len(mmts) == k and len(vecs) == k
+           and (sents is None or len(sents) == k),
+           f"{name}: grads, mmts, vecs{', sents' if sents else ''} must be "
+           "lists of one length")
+    sl = [None] * k if sents is None else list(sents)
+    for g, m, v, s in zip(grads, mmts, vecs, sl):
+        _check_state(name, g, m, v, s)
+    _check(len({m.dtype for m in mmts}) <= 1,
+           f"{name}: every state must share one dtype")
+    _check_no_alias(name, [*mmts, *vecs],
+                    [*grads, *(s for s in sl if s is not None)])
+    if not k:
+        return mmts, vecs
+    if not _on_card(name, *grads, *mmts, *vecs,
+                    *(s for s in sl if s is not None)):
+        new_m, new_v = fused_compensate_multi_plain(
+            grads, mmts, vecs, momentum, nesterov, sents, momentum_masking)
+        for t, x in zip([*mmts, *vecs], [*new_m, *new_v]):
+            t.copy_(x)
+        return mmts, vecs
+    ns = [g.shape[0] for g in grads]
+    _check(max(ns) <= 2 ** 31 - 2 * COMPENSATE_TILE,
+           f"{name}: a tensor of {max(ns)} elements is too long")
+    addrs = [(g.data_ptr(), m.data_ptr(), v.data_ptr(),
+              s.data_ptr() if s is not None else None)
+             for g, m, v, s in zip(grads, mmts, vecs, sl)]
+    bf16 = mmts[0].dtype == torch.bfloat16
+    lib = _build.library("compensate.cu", _COMPENSATE_ARGS)
+    for launch in compensate_plan(ns, addrs, 2 if bf16 else 4):
+        ptrs = np.array([[a or 0 for a in addrs[i]] for i in launch.entries],
+                        dtype=np.int64)
+        n_arr = np.array([ns[i] for i in launch.entries], dtype=np.int32)
+        block0 = np.array(launch.block0, dtype=np.int32)
+        head = np.array(launch.head, dtype=np.int8)
+        err = lib.compensate_multi_launch(
+            ptrs.ctypes.data, n_arr.ctypes.data, block0.ctypes.data,
+            head.ctypes.data, len(launch.entries), int(bf16),
+            int(sents is not None), float(momentum), int(nesterov),
+            int(momentum_masking), *_stream_args(grads[0]))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
+    return mmts, vecs
 
 
 def fused_compensate(grad, mmt, vec, momentum: float,
@@ -438,15 +556,8 @@ def fused_compensate(grad, mmt, vec, momentum: float,
     """Momentum correction and local accumulation in one pass, updating
     ``mmt`` and ``vec`` IN PLACE (the TPU kernel aliases them to its
     outputs); returns them. ``grad`` is f32 [n]; ``mmt``, ``vec`` are f32
-    or bf16 [n]."""
-    _check_state("fused_compensate", grad, mmt, vec)
-    if not _on_card("fused_compensate", grad, mmt, vec):
-        m, v = fused_compensate_plain(grad, mmt, vec, momentum, nesterov)
-        mmt.copy_(m)
-        vec.copy_(v)
-        return mmt, vec
-    _launch_compensate("fused_compensate", grad, mmt, vec, None, momentum,
-                       nesterov, True)
+    or bf16 [n]. A one-entry :func:`fused_compensate_multi`."""
+    fused_compensate_multi([grad], [mmt], [vec], momentum, nesterov)
     return mmt, vec
 
 
@@ -457,16 +568,9 @@ def fused_compensate_masked(grad, mmt, vec, sent, momentum: float,
     ``sent`` (f32 [n], 0 = keep) applied on read: ``keep = (sent == 0)``
     multiplies the up-cast velocity, and the momentum under
     ``momentum_masking``. Updates ``mmt`` and ``vec`` IN PLACE; returns
-    them."""
-    _check_state("fused_compensate_masked", grad, mmt, vec, sent)
-    if not _on_card("fused_compensate_masked", grad, mmt, vec, sent):
-        m, v = fused_compensate_masked_plain(grad, mmt, vec, sent, momentum,
-                                             nesterov, momentum_masking)
-        mmt.copy_(m)
-        vec.copy_(v)
-        return mmt, vec
-    _launch_compensate("fused_compensate_masked", grad, mmt, vec, sent,
-                       momentum, nesterov, momentum_masking)
+    them. A one-entry :func:`fused_compensate_multi`."""
+    fused_compensate_multi([grad], [mmt], [vec], momentum, nesterov, [sent],
+                           momentum_masking)
     return mmt, vec
 
 
@@ -476,6 +580,21 @@ def fused_compensate_masked(grad, mmt, vec, sent, momentum: float,
 
 #: most levels the ladder kernel takes (the reference's lane bound)
 LADDER_MAX_LEVELS = _LANE
+#: the most blocks of a ladder cluster (Hopper's non-portable limit; rows
+#: narrower than LADDER_WIDE_COLS keep to the portable 8)
+LADDER_MAX_CLUSTER = 16
+#: rows of at least this many columns are bound by their counting: they
+#: take 1,024-thread blocks (one an SM) and may split their levels
+LADDER_WIDE_COLS = 262144
+#: what reading an element costs a block next to counting it at one level
+#: (about two instructions), fitted to split sweeps on an H100 (PERF.md)
+LADDER_READ_COST = 3.5
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_factor_array(lower_bound: float, levels: int) -> np.ndarray:
+    return np.array([float(lower_bound) ** i for i in range(levels)],
+                    dtype=np.float32)
 
 
 def ladder_factors(lower_bound: float, levels: int) -> torch.Tensor:
@@ -484,8 +603,7 @@ def ladder_factors(lower_bound: float, levels: int) -> torch.Tensor:
     kernel and ``ladder_counts_reference`` form them (the engine's
     from-top-k ladder rounds ``float32(lower_bound)`` first and differs
     at some levels)."""
-    return torch.tensor([float(lower_bound) ** i for i in range(levels)],
-                        dtype=torch.float32)
+    return torch.from_numpy(_ladder_factor_array(lower_bound, levels).copy())
 
 
 def ladder_counts_plain(imp_rows: torch.Tensor, thr: torch.Tensor,
@@ -498,10 +616,69 @@ def ladder_counts_plain(imp_rows: torch.Tensor, thr: torch.Tensor,
     return torch.stack(cols, dim=1)
 
 
-_LADDER_ARGS = {"ladder_counts_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p]}
+class LadderPlan(NamedTuple):
+    """Launch geometry of :func:`ladder_counts` (see
+    ``csrc/ladder_counts.cu``): each row's levels in ``splits`` splits of
+    ``ceil(L / splits)`` levels, each split counted over the whole row by
+    ``cluster`` blocks (``route`` ``"row"``: one block; ``"cluster"``: a
+    cluster, each block a contiguous share of the row's 16-byte quads) of
+    ``threads``; ``grid`` the blocks."""
+    route: str
+    cluster: int
+    splits: int
+    threads: int
+    grid: int
+
+
+def ladder_plan(R: int, cols: int, levels: int,
+                max_clusters: Callable[[int, int], int]) -> LadderPlan:
+    """The ladder kernel's plan for [R, cols] and ``levels`` (0 < levels
+    <= 128), given ``max_clusters(threads, cluster)``: the most clusters of
+    ``cluster`` blocks of ``threads`` the card runs at once (the library's
+    ``ladder_max_clusters``). Among the geometries whose R x splits
+    clusters run in one wave, the least work a block, ``cols / cluster x
+    (levels / splits + LADDER_READ_COST)`` (fewest blocks on a tie). A row
+    of :data:`LADDER_WIDE_COLS` or more columns takes 1,024-thread blocks
+    (one an SM), up to 16 a cluster, and may split its levels (none
+    empty); a narrower row takes one split over up to 8 blocks of 512
+    threads. Every block gets at least a quad a thread. With no such
+    geometry (more rows than a wave holds), a block a row."""
+    _check(0 < levels <= LADDER_MAX_LEVELS,
+           f"ladder_plan: levels={levels} outside (0, {LADDER_MAX_LEVELS}]")
+    wide = cols >= LADDER_WIDE_COLS
+    threads = 1024 if wide else 512
+    best = (math.inf, 0, 1, 1)
+    for c in range(2, (LADDER_MAX_CLUSTER if wide else 8) + 1):
+        if cols // c < 4 * threads:
+            break
+        for s in range(1, (levels if wide else 1) + 1):
+            per = -(-levels // s)
+            if -(-levels // per) == s and 0 < R * s <= max_clusters(threads,
+                                                                    c):
+                best = min(best, (-(-cols // c) * (per + LADDER_READ_COST),
+                                  c * s, c, s))
+    _, _, cluster, splits = best
+    return LadderPlan("cluster" if cluster > 1 else "row", cluster, splits,
+                      threads, R * splits * cluster)
+
+
+_LADDER_ARGS = {
+    "ladder_counts_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "ladder_max_clusters": [ctypes.c_int] * 3}
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_max_clusters(device: int, threads: int, cluster: int) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for the ladder kernel,
+    asked once per device and geometry."""
+    lib = _build.library("ladder_counts.cu", _LADDER_ARGS)
+    n = lib.ladder_max_clusters(cluster, threads, device)
+    if n < 0:
+        raise RuntimeError(f"ladder_max_clusters failed: CUDA error {-n}")
+    return n
 
 
 def ladder_counts(imp_rows: torch.Tensor, thr: torch.Tensor,
@@ -521,13 +698,26 @@ def ladder_counts(imp_rows: torch.Tensor, thr: torch.Tensor,
            f"{LADDER_MAX_LEVELS}]")
     if not _on_card("ladder_counts", imp_rows, thr):
         return ladder_counts_plain(imp_rows, thr, lower_bound, levels)
-    out = torch.zeros((R, levels), dtype=torch.int32, device=imp_rows.device)
-    if R and cols:
-        factors = ladder_factors(lower_bound, levels).numpy()
+    dev = _stream_args(imp_rows)[0]
+    plan = ladder_plan(R, cols, levels,
+                       functools.partial(_ladder_max_clusters, dev))
+    return _ladder_counts_launch(imp_rows, thr, lower_bound, levels, plan)
+
+
+def _ladder_counts_launch(imp_rows, thr, lower_bound: float, levels: int,
+                          plan: LadderPlan) -> torch.Tensor:
+    """Launch the ladder kernel on checked CUDA operands with ``plan``
+    (measurements time other geometries through here): one launch, which
+    writes every count once."""
+    R, cols = imp_rows.shape
+    out = torch.empty((R, levels), dtype=torch.int32, device=imp_rows.device)
+    if R:
+        factors = _ladder_factor_array(float(lower_bound), levels)
         lib = _build.library("ladder_counts.cu", _LADDER_ARGS)
         err = lib.ladder_counts_launch(
             imp_rows.data_ptr(), thr.data_ptr(), factors.ctypes.data, R, cols,
-            levels, out.data_ptr(), *_stream_args(imp_rows))
+            levels, plan.cluster, plan.splits, plan.threads, out.data_ptr(),
+            *_stream_args(imp_rows))
         if err:
             raise RuntimeError(f"ladder_counts launch failed: CUDA error {err}")
         LAUNCHES["ladder_counts"] += 1

@@ -6,7 +6,8 @@ serves this process's workers (``comm.ranks``) in one call:
 * the flat path (``make_flat`` / ``update_flat``): the compressor's flat
   engine exchanges each worker's flat [P] gradient;
 * the per-tensor path (``init_memory`` / ``exchange`` / ``update``): the
-  compressor's ``compress`` -> ``communicate`` -> ``decompress`` tensor by
+  compressor's batched compensate (``compensate_all``, where it has one),
+  then ``compress`` -> ``communicate`` -> ``decompress`` tensor by
   tensor, with every sparse payload in two all-gathers under
   ``fuse_payloads`` (``exchange_fused``), dense ones through the
   all-reduce.
@@ -88,11 +89,17 @@ class DistributedOptimizer:
         local = range(len(grads))
         compressed = [{} for _ in local]       # name -> (payload, ctx)
         dense = [{} for _ in local]
+        # every local worker's compensates first, in one batched call where
+        # the compressor has one (one kernel launch on the card)
+        batched = getattr(comp, "compensate_all", None)
+        pre = batched(mem_states, grads) if batched is not None else None
         for w in local:
             for name in names:
+                done = {} if pre is None or name not in pre[w] else {
+                    "compensated": pre[w][name]}
                 payload, ctx, mem_states[w] = comp.compress(
                     mem_states[w], name, grads[w][name],
-                    phases[w].get(name, 0))
+                    phases[w].get(name, 0), **done)
                 (compressed if ctx.compressed else dense)[w][name] = (
                     payload, ctx)
         outs = [{} for _ in local]

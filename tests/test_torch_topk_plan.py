@@ -206,7 +206,8 @@ def _c_params(src, fn):
     ("topk_rows.cu", "_TOPK_ARGS"), ("apply_rows.cu", "_APPLY_ARGS"),
     ("opaque_copy.cu", "_COPY_ARGS"), ("ladder_counts.cu", "_LADDER_ARGS"),
     ("select_pack_rows.cu", "_SELECT_ARGS"),
-    ("dgc_forward_rows.cu", "_FORWARD_ARGS"), ("seg_top2.cu", "_SEG_ARGS")])
+    ("dgc_forward_rows.cu", "_FORWARD_ARGS"), ("seg_top2.cu", "_SEG_ARGS"),
+    ("compensate.cu", "_COMPENSATE_ARGS")])
 def test_launch_argtypes_match_the_c_signatures(src, table):
     """Each wrapper's ctypes table against its kernel's C launch function
     (a count or type that differs only shows on the card)."""
