@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    once and compile the Triton kernel (``compensate_bits``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the DGC paths give it — ResNet-20 across the wm5 warm-up for
-   ``compensate_bits``, ``topk_rows`` and ``apply_rows``, and ResNet-50
-   at the epoch-0 and epoch-5 ratios for those and the segment
+   ``compensate_bits``, ``topk_rows`` and ``apply_rows``, ResNet-110 at
+   the epoch-0 and epoch-5 ratios for those three (the
+   ``resnet110_wm5o`` path's shapes), and ResNet-50 at the epoch-0 and
+   epoch-5 ratios for ``topk_rows``, ``apply_rows`` and the segment
    candidates (with ties planted in every segment bucket), both models'
    guarded weights for the opaque copies, and every bucket the
    megakernel or the fused select takes at epochs 3-5 of both models
@@ -40,8 +42,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    held bitwise and timed in turns, ``old_ms``);
    ``ladder_counts`` at [17, 262144], L = 11, with values
    planted on the levels, at L = 128 with cols % 4 != 0, at unaligned row
-   bases, and at ResNet-50's adaptive buckets at the
-   epoch-0 and epoch-5 ratios, one launch each, each also timed at a block
+   bases, at ResNet-50's adaptive buckets at the
+   epoch-0 and epoch-5 ratios, and at L = 1 at ResNet-20's and
+   ResNet-110's adaptive buckets (the non-resample adaptation's count; the
+   kernel's line reports the first of these), one launch each, each also timed at a block
    a row and, where its plan splits the levels, at one split (with
    ``--old-ladder-src DIR``, the earlier sources
    from ``git archive 2bc9984 dgc_tpu_torch/csrc``, the earlier kernel in
@@ -77,7 +81,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``chiprun_out/chip_smoke_detail.json``.
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
-   ResNet-20 and ResNet-50 at the epoch-0 and epoch-5 ratios, and with
+   ResNet-20, ResNet-50 and ResNet-110 at the epoch-0 and epoch-5
+   ratios, and with
    ``megakernel=True`` and ``fused_select=True`` at the epoch-3 and
    epoch-5 ratios (the card's megakernel engine also against the card's
    default engine); and ``engine.sparsify(vec, phases)`` without
@@ -91,6 +96,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    inexact, ResNet-20's flat exchange card == CPU bitwise at the epoch-0
    and epoch-5 ratios, and its per-tensor exchange as at W=4: the divide
    by W is an IEEE divide on both devices (``kernels.divide_exact``).
+   The all-dense branch (``resnet20_wm5o`` at epoch 4) card == CPU bitwise
+   at W=4 and W=3 over a compressed step, two dense steps (the pending
+   record folded) and a compressed step; the engine with ``resample=False,
+   strided_sample=False`` card == CPU bitwise at epochs 0 and 5; the
+   engine with the memory's ``gradient_clipping`` (a norm clip, and the
+   global one) at W=3, epochs 4 and 5, within rtol 1e-6, records equal.
    Then run to run: ResNet-20 (flat, default route, W=4) trained 2 steps
    at the epoch-0 ratio twice from one seed, parameters, momentum and
    memory bitwise equal.
@@ -118,6 +129,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    steps at the epoch-0 ratio, the compressor's re-initialisation, 2 at
    0.001: one ``fused_compensate`` launch a step (the 88 compressed
    tensors of the 4 workers), no ``compensate_bits``.
+4g. The slice of the reference's remaining recipes, W=4 on the card, each
+   path's counts zeroed just before each epoch and read just after:
+   ``resnet110_wm5o`` (ResNet-110, batch 128 per worker) 2 steps at epoch
+   4 (ratio 1, the all-dense exchange: none of ``compensate_bits``,
+   ``topk_rows``, ``apply_rows``) and 2 at epoch 5 (0.001: all three), then
+   ``Trainer.evaluate("test")`` (top-1 and top-5 finite, in [0, 100]); the
+   dense baseline ``resnet20`` (stock SGD, ``FlatDenseExchange``) 2 steps,
+   no DGC kernel; ``resnet20_nonresample`` (``resnet20_wm5`` with
+   ``resample=False, strided_sample=False``) 2 steps at epoch 5, which
+   launch ``ladder_counts`` (one level, each adaptation round).
 4f. The ladder check: on the flat engine's own velocity at each wm5
    ratio of ResNet-20 and ResNet-50, every bucket whose selection is an
    exact top-k of the row and that adapts: ``_ladder_adapt`` (through
@@ -219,10 +240,13 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _geometries(recipe="resnet20_wm5", epochs=range(6), **flags):
-    """The flat engine's bucket geometry for a recipe's model at the wm5
-    ratios of ``epochs``, with the compressor's ``flags`` (``megakernel``,
-    ``fused_select``): {epoch: (compress ratio, engine)}."""
+def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
+                **flags):
+    """The flat engine's bucket geometry for a recipe's model at the
+    warm-up ratios of ``epochs``, with the compressor's ``flags``
+    (``megakernel``, ``fused_select``, ``resample``, ``strided_sample``)
+    and the memory's ``gradient_clipping`` ``clip``: {epoch: (compress
+    ratio, engine)}."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.compression.dgc import DGCCompressor
@@ -232,9 +256,12 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), **flags):
     cfg = configs.RECIPES[recipe]()
     cc = cfg.train.compression
     comp = DGCCompressor(
-        cc.compress_ratio, memory=DGCSGDMemory(cc.memory.momentum),
+        cc.compress_ratio, memory=DGCSGDMemory(
+            cc.memory.momentum, nesterov=cc.memory.nesterov,
+            momentum_masking=cc.memory.momentum_masking,
+            gradient_clipping=clip),
         sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs,
-        **flags)
+        warmup_coeff=cc.warmup_coeff, **flags)
     model = create(cfg.model.name, cfg.model.num_classes,
                    torch.Generator())                   # shapes only
     tree = param_tree(model)
@@ -451,17 +478,17 @@ def _topk_planted_rows(cols, k, gen):
     return x
 
 
-def phase_topk_kernel(geoms, geoms50, gen):
-    """``topk_rows`` at every call of the paths (bitwise the plain version,
-    twice) with its times beside the earlier design's (``--old-src``),
-    ``torch.topk`` and the bound, and at the planted cases on each route
-    (twice, bitwise)."""
+def phase_topk_kernel(models, gen):
+    """``topk_rows`` at every call of the paths (``models``: {model:
+    geometries}; bitwise the plain version, twice) with its times beside
+    the earlier design's (``--old-src``), ``torch.topk`` and the bound,
+    and at the planted cases on each route (twice, bitwise)."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     old = _old_topk_library(OLD_TOPK_SRC) if OLD_TOPK_SRC else None
     calls, errs = [], []
     host_gen = torch.Generator().manual_seed(1)
-    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
+    for model, gs in models.items():
         for epoch, (ratio, eng) in gs.items():
             for role, inp, k in _topk_inputs(eng, gen, host_gen):
                 want = K.topk_rows_plain(inp, k)
@@ -507,7 +534,7 @@ def phase_topk_kernel(geoms, geoms50, gen):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     step = {m: {k: sum(c[k] for c in calls
                        if c["model"] == m and c["epoch"] == 5)
-                for k in keys} for m in ("resnet20", "resnet50")}
+                for k in keys} for m in models}
     worst = max(calls, key=lambda c: c["ms"] / c["library_ms"])
     losing = [c for c in calls if c["ms"] > c["library_ms"]]
     by_route = {}
@@ -528,7 +555,7 @@ def phase_topk_kernel(geoms, geoms50, gen):
               f"{sum(c['ms'] for c in calls):.4f} ms, old "
               f"{sum(c['old_ms'] for c in calls):.4f}, torch.topk "
               f"{sum(c['library_ms'] for c in calls):.4f}")
-        for m in ("resnet20", "resnet50"):
+        for m in models:
             step[m]["old_ms"] = sum(c["old_ms"] for c in calls
                                     if c["model"] == m and c["epoch"] == 5)
             print(f"[topk_rows] {m} step at ratio 0.001: new "
@@ -547,15 +574,18 @@ def phase_topk_kernel(geoms, geoms50, gen):
         max_abs_err=max(errs), **step["resnet50"], bound_by="bytes",
         summed_over="the calls of one worker's ResNet-50 step at ratio "
                     "0.001", resnet20_step=step["resnet20"],
+        resnet110_step=step["resnet110"],
         worst_ratio_to_library=worst["ms"] / worst["library_ms"],
         worst_shape=[*worst["shape"], worst["k"]],
         shapes_slower_than_library=len(losing), planted=planted,
         calls=calls)
 
 
-def phase_kernels(geoms, geoms50):
+def phase_kernels(models):
     """Bitwise checks and timings of ``compensate_bits``, ``topk_rows`` and
-    ``apply_rows`` at the paths' shapes.
+    ``apply_rows`` at the paths' shapes: ``models`` {model: geometries}
+    (ResNet-20 across the warm-up, ResNet-50 and ResNet-110 at the epoch-0
+    and epoch-5 ratios).
     Returns {kernel: entry} with per-call details under "calls"."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
@@ -563,48 +593,65 @@ def phase_kernels(geoms, geoms50):
     gen = torch.Generator(device=dev).manual_seed(0)
     entries = {}
 
-    # --- K1 compensate at T ---
-    engine = geoms[5][1]
-    T = engine.T
-    nw = K.num_sent_words(T)
-    g, m, v = (torch.randn(T, device=dev, generator=gen) for _ in range(3))
-    sent = torch.randperm(T, device=dev, generator=gen)[:T // 4].int()
-    bits = K.pack_sent_bits(sent, T)
-    want = K.compensate_bits_plain(g, m, v, bits, 0.9, False, True)
-    got = K.compensate_bits(g, m.clone(), v.clone(), bits, 0.9, False, True)
-    err = _check_equal("compensate_bits", got, want)
-    mm, vv = m.clone(), v.clone()
-    # bytes: g, m, v read, m, v written, the record read; ops: ~5 per element
-    bound_ms, bound_by = _bound(20 * T + 4 * nw, 5 * T)
+    # --- K1 compensate at T of the 2-D paths (ResNet-50's compensates
+    #     through compensate_bits_cands) ---
+    calls = []
+    for model in ("resnet20", "resnet110"):
+        T = models[model][5][1].T
+        nw = K.num_sent_words(T)
+        g, m, v = (torch.randn(T, device=dev, generator=gen)
+                   for _ in range(3))
+        sent = torch.randperm(T, device=dev, generator=gen)[:T // 4].int()
+        bits = K.pack_sent_bits(sent, T)
+        want = K.compensate_bits_plain(g, m, v, bits, 0.9, False, True)
+        got = K.compensate_bits(g, m.clone(), v.clone(), bits, 0.9, False,
+                                True)
+        err = _check_equal(f"compensate_bits {model}", got, want)
+        mm, vv = m.clone(), v.clone()
+        # bytes: g, m, v read, m, v written, the record read; ops: ~5 per
+        # element
+        bound_ms, bound_by = _bound(20 * T + 4 * nw, 5 * T)
+        # cold_ms: from HBM (ResNet-110's 41 MB of state fit the 50 MB L2,
+        # so the L2-warm time can undercut the byte bound)
+        calls.append(dict(
+            model=model, shape=[T], per_worker_step=1, max_abs_err=err,
+            **_timed(ms=lambda: K.compensate_bits(g, mm, vv, bits, 0.9),
+                     plain_ms=lambda: K.compensate_bits_plain(
+                         g, m, v, bits, 0.9)),
+            cold_ms=_cold_ms(lambda: K.compensate_bits(g, mm, vv, bits,
+                                                       0.9)),
+            bound_ms=bound_ms, bound_by=bound_by))
+        c = calls[-1]
+        print(f"[compensate_bits] {model} T={T}: bitwise, {c['ms']:.5f} ms "
+              f"(cold {c['cold_ms']:.5f}, plain {c['plain_ms']:.5f}, bound "
+              f"{bound_ms:.5f})")
+    head = calls[0]
     entries["compensate_bits"] = dict(
         name="compensate_bits", route="triton",
         source="dgc_tpu_torch/ops/kernels.py",
         replaces="dgc_tpu/ops/kernels.py:527",
-        check="bitwise vs compensate_bits_plain", max_abs_err=err,
-        **_timed(ms=lambda: K.compensate_bits(g, mm, vv, bits, 0.9),
-                 plain_ms=lambda: K.compensate_bits_plain(
-                     g, m, v, bits, 0.9)),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        calls=[{"shape": [T], "per_worker_step": 1}])
+        check="bitwise vs compensate_bits_plain",
+        max_abs_err=max(c["max_abs_err"] for c in calls),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, of="ResNet-20's T", calls=calls)
 
-    # --- K2 top-k: every selection and threshold call it takes, ResNet-20
-    #     across the warm-up and ResNet-50 at the epoch-0 and epoch-5
-    #     ratios (selections above its k take the lax_top_k route) ---
-    entries["topk_rows"] = phase_topk_kernel(geoms, geoms50, gen)
-    entries["apply_rows"] = phase_apply_kernel(geoms, geoms50, gen)
+    # --- K2 top-k: every selection and threshold call it takes
+    #     (ResNet-50's selections above its k take the lax_top_k route) ---
+    entries["topk_rows"] = phase_topk_kernel(models, gen)
+    entries["apply_rows"] = phase_apply_kernel(models, gen)
     return entries
 
 
-def _apply_payloads(geoms, geoms50, gen, world=4):
+def _apply_payloads(models, gen, world=4):
     """One worker's apply inputs at W=4 on real gathered payloads, with
     duplicates (correlated workers select overlapping coordinates), for
-    both models at the epoch-0 and epoch-5 ratios: a list of dicts with
-    ``model, epoch, eng, args`` (``args`` = values, indices, flags, T,
-    divisor)."""
+    each of ``models`` ({model: geometries}) at the epoch-0 and epoch-5
+    ratios: a list of dicts with ``model, epoch, eng, args`` (``args`` =
+    values, indices, flags, T, divisor)."""
     import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
     dev, out = DEVICE, []
-    for model, gs in (("resnet20", geoms), ("resnet50", geoms50)):
+    for model, gs in models.items():
         for epoch in (0, 5):
             eng = gs[epoch][1]
             common = torch.randn(eng.layout.total, device=dev, generator=gen)
@@ -723,12 +770,12 @@ def _apply_routes(n):
     return ("scan", "list") if fits else ("list",)
 
 
-def phase_apply_kernel(geoms, geoms50, gen):
+def phase_apply_kernel(models, gen):
     """``apply_rows`` bitwise ``apply_rows_plain`` on the card: every
-    planted case through both routes, and the real W=4 payloads of both
-    models at the epoch-0 and epoch-5 ratios through the planned route,
-    each run twice (bitwise equal); then each real shape timed against
-    the plain version and ``torch.zeros(T).index_add_(0, idx, v / W)``."""
+    planted case through both routes, and the real W=4 payloads of each
+    of ``models`` at the epoch-0 and epoch-5 ratios through the planned
+    route, each run twice (bitwise equal); then each real shape timed
+    against the plain version and ``torch.zeros(T).index_add_(0, idx, v / W)``."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     errs, planted = [], []
@@ -742,7 +789,7 @@ def phase_apply_kernel(geoms, geoms50, gen):
         planted.append(case)
     print(f"[apply] {len(planted)} planted cases bitwise, both routes")
     calls = []
-    for p in _apply_payloads(geoms, geoms50, gen):
+    for p in _apply_payloads(models, gen):
         vals, idx, flags, T, world = args = p["args"]
         real = idx[idx != p["eng"].layout.sentinel]
         dups = int(real.numel() - torch.unique(real).numel())
@@ -789,6 +836,7 @@ def phase_apply_kernel(geoms, geoms50, gen):
         max_abs_err=max(errs), **{k: steady["resnet50"][k] for k in keys},
         of="one worker's apply at ResNet-50, ratio 0.001, W=4",
         resnet20_step={k: steady["resnet20"][k] for k in keys},
+        resnet110_step={k: steady["resnet110"][k] for k in keys},
         planted=planted, calls=calls)
 
 
@@ -1592,7 +1640,7 @@ def _odd_views(sizes, dtype, gen):
     return out
 
 
-def phase_compensate_ladder_kernels(geoms20, geoms50):
+def phase_compensate_ladder_kernels(geoms20, geoms50, l1_engines=()):
     """The compensate kernel (``csrc/compensate.cu``, many tensors a
     launch) bitwise against ``fused_compensate_multi_plain`` at the
     per-tensor path's tables, one worker's 22 ResNet-20 tensors and the 88
@@ -1606,8 +1654,10 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
     ``ladder_counts`` bitwise against its plain version at [17, 262144], L
     = 11, with values planted on the levels, at L = 128 with cols % 4 != 0
     (one block a row and, at 262,147 columns, levels split), at unaligned
-    row bases, and at ResNet-50's adaptive buckets at the epoch-0 and
-    epoch-5 ratios, one launch each.
+    row bases, at ResNet-50's adaptive buckets at the epoch-0 and
+    epoch-5 ratios, and at L = 1 (the non-resample adaptation's count) at
+    the adaptive buckets of ``l1_engines`` ``[(label, engine)]``, one
+    launch each.
     Times; with ``--old-compensate-src`` / ``--old-ladder-src`` the PR-8
     kernels are held bitwise too and timed in turns with the new ones."""
     import torch
@@ -1819,6 +1869,18 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
             cases.append((f"resnet50 epoch {epoch} [{b.rows}, {b.cols}]", x,
                           torch.topk(x, k, dim=1).values[:, -1].contiguous(),
                           11))
+    for label, eng in l1_engines:
+        consts = eng._bucket_consts(torch.device(dev))
+        vec = torch.randn(eng.T, device=dev, generator=gen)
+        for b, c in zip(eng.buckets, consts):
+            if b.exact or not b.adapt.any():
+                continue
+            block = vec[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+            x = torch.where(c["in_row"], block.abs(), -1.0)
+            cases.append((
+                f"{label} [{b.rows}, {b.cols}] L=1", x,
+                torch.topk(x, b.max_sel, dim=1).values[:, -1].contiguous(),
+                1))
     for label, x, t, levels in cases:
         want = K.ladder_counts_plain(x, t, lower, levels)
         if "planted" in label and not bool((want[3] == want[3, 0]).all()):
@@ -1858,6 +1920,9 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
             bound_ms=bound_ms, bound_by=bound_by))
     if not any(c["plan"]["splits"] > 1 for c in calls["ladder_counts"]):
         raise AssertionError("ladder_counts: no case split its levels")
+    if any(c["plan"]["splits"] > 1 for c in calls["ladder_counts"]
+           if c["levels"] == 1):
+        raise AssertionError("ladder_counts: a one-level case split")
     DETAIL["ladder_max_clusters"] = {
         th: [card(th, c) for c in range(1, K.LADDER_MAX_CLUSTER + 1)]
         for th in (512, 1024)}
@@ -1882,7 +1947,10 @@ def phase_compensate_ladder_kernels(geoms20, geoms50):
         calls=calls["fused_compensate"])
     for name, line in (("fused_compensate_masked", 275),
                        ("ladder_counts", 652)):
-        c = calls[name][0]
+        # the ladder's headline: the first one-level case, a shape of its
+        # training path (the non-resample adaptation), where there is one
+        c = next((c for c in calls[name] if c.get("levels") == 1),
+                 calls[name][0])
         entries[name] = dict(
             name=name, route="cuda",
             source=("dgc_tpu_torch/csrc/ladder_counts.cu"
@@ -1923,11 +1991,19 @@ def _exchange_run(eng, dev, steps, world=4):
     """``steps`` exchanges of ``eng`` among ``world`` workers on ``dev``
     from seeded inputs: every worker's exchanged gradient and final
     memory, on the CPU."""
+    return _exchange_seq([eng] * steps, dev, world)
+
+
+def _exchange_seq(engines, dev, world=4):
+    """One exchange of each engine in ``engines`` in turn (e.g. across a
+    ratio change; the memory carries) among ``world`` workers on ``dev``
+    from seeded inputs: every worker's exchanged gradient and final
+    memory, on the CPU."""
     import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
-    mems = [eng.init_memory(dev) for _ in range(world)]
+    mems = [engines[0].init_memory(dev) for _ in range(world)]
     res = []
-    for step in range(steps):
+    for step, eng in enumerate(engines):
         grads = [torch.randn(eng.layout.total,
                              generator=torch.Generator().manual_seed(
                                  100 * step + w)).to(dev)
@@ -1950,6 +2026,85 @@ def phase_engine_vs_cpu(geoms, label, steps, world=4):
                      _exchange_run(eng, "cpu", steps, world))
     print(f"[engine] {label} W={world} exchange, {steps} step(s): card == "
           "CPU bitwise at the epoch-0 and epoch-5 ratios")
+
+
+def _check_close(name, got, want, rtol, atol):
+    """Each pair within ``rtol`` / ``atol`` (integer tensors, the transmit
+    records, equal); returns the largest absolute difference."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: integer outputs differ")
+            continue
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"{name}: beyond rtol {rtol}, atol {atol}")
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+    return worst
+
+
+def phase_dense_vs_cpu(world):
+    """The all-dense branch (``resnet20_wm5o`` at epoch 4, ratio 1) among
+    ``world`` workers, card against CPU, bitwise: a compressed step (the
+    epoch-5 engine), which leaves a pending transmit record, two dense
+    steps, which fold it into the memory, and a compressed step again,
+    which reads the dense steps' momentum and an empty record."""
+    geoms = _geometries("resnet20_wm5o", (4, 5))
+    dense, comp = geoms[4][1], geoms[5][1]
+    if not dense.dense or comp.dense:
+        raise AssertionError("resnet20_wm5o: epoch 4 must be dense, 5 not")
+    seq = [comp, dense, dense, comp]
+    _check_equal(f"dense branch W={world}", _exchange_seq(seq, DEVICE, world),
+                 _exchange_seq(seq, "cpu", world))
+    print(f"[dense] resnet20_wm5o W={world}, steps "
+          f"{['dense' if e.dense else 'compressed' for e in seq]}: card == "
+          "CPU bitwise (the pending record folded, then the handover)")
+
+
+def phase_nonresample_vs_cpu():
+    """The W=4 exchange with ``resample=False, strided_sample=False``
+    (uniform samples, the raise-or-lower adaptation through the ladder
+    kernel at one level), card against CPU, bitwise, at the epoch-0 and
+    epoch-5 ratios of ResNet-20."""
+    geoms = _geometries("resnet20_wm5", (0, 5), resample=False,
+                        strided_sample=False)
+    for epoch, (ratio, eng) in geoms.items():
+        _check_equal(f"non-resample exchange (epoch {epoch})",
+                     _exchange_run(eng, DEVICE, 2),
+                     _exchange_run(eng, "cpu", 2))
+    print("[nonresample] resnet20 W=4 exchange, 2 steps, uniform samples "
+          "and the raise-or-lower adaptation: card == CPU bitwise at the "
+          "epoch-0 and epoch-5 ratios")
+
+
+def phase_clip_vs_cpu(world=3):
+    """The exchange with the memory's ``gradient_clipping`` (a per-tensor
+    norm clip, and the global one reducing over the workers), card
+    against CPU at ``resnet20_wm5o``'s epochs 4 (dense: the clip on the
+    average) and 5 (the clip on each worker's compressed block and on the
+    averaged dense tail): the tolerance of ``tests/test_torch_clip.py``
+    (rtol 1e-6, atol 1e-7: the clip factors' sums of squares run in
+    another order on the card), the transmit records equal."""
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.utils import clip_grad
+    clips = {"norm": functools.partial(clip_grad.clip_grad_norm,
+                                       max_norm=0.5),
+             "global": clip_grad.global_norm_clipper(0.5, LocalComm(world))}
+    worst = 0.0
+    for label, clip in clips.items():
+        geoms = _geometries("resnet20_wm5o", (4, 5), clip=clip)
+        for epoch, (_, eng) in geoms.items():
+            worst = max(worst, _check_close(
+                f"{label} clip exchange (epoch {epoch})",
+                _exchange_run(eng, DEVICE, 2, world),
+                _exchange_run(eng, "cpu", 2, world), rtol=1e-6, atol=1e-7))
+    print(f"[clip] resnet20_wm5o W={world}, norm and global clips, epochs 4 "
+          f"and 5: card == CPU within rtol 1e-6 (largest difference "
+          f"{worst:.3g}), records equal")
 
 
 def phase_routes_vs_cpu(recipe, label, steps, epochs=(3, 5)):
@@ -2321,11 +2476,21 @@ def _read_counts(label, must_launch):
     return counts
 
 
-def phase_train_path(label, recipe, schedule, must_launch, **compression):
+#: the kernels of the DGC exchange: all but the opaque copies, which bind
+#: guarded weights on any path (and the ``lax_top_k`` route)
+_DGC_KERNELS = ("compensate_bits", "compensate_bits_cands",
+                "seg_top2_candidates", "topk_rows", "apply_rows",
+                "select_pack_rows", "dgc_forward_rows", "fused_compensate",
+                "fused_compensate_masked", "ladder_counts", "lax_top_k")
+
+
+def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
+                     **compression):
     """A ``Trainer`` over W=4 ``LocalComm`` workers on the card, with the
     recipe's compression settings overridden by ``compression``:
-    ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before the
-    steps and read just after."""
+    ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before each
+    epoch's steps and read just after (the path's counts are their sums).
+    ``epoch_rules`` maps an epoch to ``(must launch, must not launch)``."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.parallel.comm import LocalComm
@@ -2333,15 +2498,28 @@ def phase_train_path(label, recipe, schedule, must_launch, **compression):
     cfg = configs.RECIPES[recipe]()
     cfg.train.compression.update(compression)
     trainer = Trainer(cfg, comm=LocalComm(4), device=DEVICE)
-    _zero_counts()
-    times, losses, ratios = {}, {}, {}
+    times, losses, ratios, per_epoch = {}, {}, {}, {}
     for epoch, steps in schedule:
         t = []
+        torch.cuda.synchronize()
+        _zero_counts()
         losses[epoch] = [float(x) for x in trainer.run_epoch(epoch, steps,
                                                              t)]
+        torch.cuda.synchronize()
+        must, must_not = (epoch_rules or {}).get(epoch, ((), ()))
+        per_epoch[epoch] = _read_counts(f"{label} epoch {epoch}", must)
+        launched = [k for k in must_not if per_epoch[epoch][k]]
+        if launched:
+            raise AssertionError(f"{label} epoch {epoch} launched "
+                                 f"{launched}")
         times[epoch] = t
         ratios[epoch] = trainer.compression.compress_ratio
-    counts = _read_counts(label, must_launch)
+    counts = {k: sum(c[k] for c in per_epoch.values())
+              for k in per_epoch[schedule[0][0]]}
+    DETAIL[f"launches {label} by epoch"] = per_epoch
+    missing = [k for k in must_launch if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: never launched: {missing}")
     for epoch, ls in losses.items():
         if len(ls) != dict(schedule)[epoch] or not all(
                 math.isfinite(x) for x in ls):
@@ -2349,9 +2527,26 @@ def phase_train_path(label, recipe, schedule, must_launch, **compression):
     if not bool(torch.isfinite(trainer.state.params).all()):
         raise AssertionError(f"{label}: non-finite parameters")
     for epoch, _ in schedule:
-        print(f"[{label}] epoch {epoch} ratio {ratios[epoch]:.4g} loss "
+        ratio = "dense" if ratios[epoch] is None else f"{ratios[epoch]:.4g}"
+        print(f"[{label}] epoch {epoch} ratio {ratio} loss "
               f"{losses[epoch]} step_s {times[epoch]}")
     return trainer, counts
+
+
+def phase_evaluate(trainer, label):
+    """``Trainer.evaluate("test")`` on the card: top-1 and top-5 finite and
+    in [0, 100]."""
+    t0 = time.perf_counter()
+    meters = trainer.evaluate("test")
+    secs = time.perf_counter() - t0
+    if not meters or not all(math.isfinite(v) and 0.0 <= v <= 100.0
+                             for v in meters.values()):
+        raise AssertionError(f"{label} evaluation: {meters}")
+    print(f"[{label}] eval on {len(trainer.dataset['test'])} test images "
+          f"({secs:.2f} s): " + ", ".join(f"[{k}] = {v:.2f}"
+                                         for k, v in meters.items()))
+    DETAIL[f"eval {label}"] = dict(meters, seconds=secs)
+    return meters
 
 
 def phase_standalone_candidates(geoms50):
@@ -2441,17 +2636,17 @@ _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
 
 #: the path whose count is a kernel's ``launches`` where it is not the
 #: ResNet-50 default path (which binds no ``opaque_view`` and launches
-#: neither the standalone candidates, the fused routes' kernels nor the
-#: per-tensor path's compensate; no training path launches the
-#: count-masked compensate or the ladder counts, which the reference
-#: keeps as tested building blocks: their checks are their paths)
+#: neither the standalone candidates, the fused routes' kernels, the
+#: per-tensor path's compensate nor the non-resample adaptation's ladder
+#: counts; no training path launches the count-masked compensate, which
+#: the reference keeps as a tested building block: its check is its path)
 _OWN_PATH = {"opaque_view": "resnet20",
              "seg_top2_candidates": "resnet50_megakernel",
              "select_pack_rows": "resnet20_fused_select",
              "dgc_forward_rows": "resnet20_megakernel",
              "fused_compensate": "resnet20_per_tensor",
              "fused_compensate_masked": "masked_check",
-             "ladder_counts": "ladder_check"}
+             "ladder_counts": "resnet20_nonresample"}
 
 
 def phase_process_group():
@@ -2495,7 +2690,9 @@ def main(argv):
     geoms = _geometries()
     geoms50_all = _geometries("resnet50_wm5")
     geoms50 = {e: geoms50_all[e] for e in (0, 5)}
-    entries = phase_kernels(geoms, geoms50)
+    geoms110 = _geometries("resnet110_wm5", (0, 5))
+    entries = phase_kernels({"resnet20": geoms, "resnet50": geoms50,
+                             "resnet110": geoms110})
     entries.update(phase_seg_kernels(geoms50))
     entries.update(phase_opaque_kernels(geoms, geoms50))
     entries["opaque_view_from"]["retime"] = phase_opaque_retime()
@@ -2503,17 +2700,26 @@ def main(argv):
     entries.update(phase_select_kernels(
         _geometries("resnet20_wm5", (3, 4, 5), **both),
         _geometries("resnet50_wm5", (3, 4, 5), **both)))
-    entries.update(phase_compensate_ladder_kernels(geoms, geoms50))
+    entries.update(phase_compensate_ladder_kernels(
+        geoms, geoms50, [(f"{m} epoch {e}", g[e][1])
+                         for m, g in (("resnet20", geoms),
+                                      ("resnet110", geoms110))
+                         for e in (5, 0)]))
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2, world=3)
+    phase_engine_vs_cpu(geoms110, "resnet110", steps=1)
     phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
     phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1)
     phase_per_tensor_vs_cpu()
     phase_per_tensor_vs_cpu(world=3)
     phase_per_tensor_vs_flat("resnet20_wm5", "resnet20", steps=3)
     phase_per_tensor_vs_flat("resnet50_wm5", "resnet50", steps=1)
+    phase_dense_vs_cpu(world=4)
+    phase_dense_vs_cpu(world=3)
+    phase_nonresample_vs_cpu()
+    phase_clip_vs_cpu()
     phase_run_to_run()
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
     by_path = {}
@@ -2535,6 +2741,19 @@ def main(argv):
         "resnet50_megakernel", "resnet50_wm5_megakernel", [(3, 1), (5, 2)],
         ["dgc_forward_rows", "seg_top2_candidates", "apply_rows"])[1]
     by_path["resnet20_per_tensor"] = phase_per_tensor_path()
+    exchange = ["compensate_bits", "topk_rows", "apply_rows"]
+    r110, by_path["resnet110_wm5o"] = phase_train_path(
+        "resnet110_wm5o", "resnet110_wm5o", [(4, 2), (5, 2)], exchange,
+        epoch_rules={4: ((), exchange), 5: (exchange, ())})
+    phase_evaluate(r110, "resnet110_wm5o")
+    del r110
+    by_path["resnet20_dense"] = phase_train_path(
+        "resnet20_dense", "resnet20", [(0, 2)], [],
+        epoch_rules={0: ((), _DGC_KERNELS)})[1]
+    by_path["resnet20_nonresample"] = phase_train_path(
+        "resnet20_nonresample", "resnet20_wm5", [(5, 2)],
+        exchange + ["ladder_counts"], resample=False,
+        strided_sample=False)[1]
     by_path["ladder_check"] = phase_ladder_check(
         [(f"resnet20 epoch {e}", g[1]) for e, g in geoms.items()]
         + [(f"resnet50 epoch {e}", g[1]) for e, g in geoms50_all.items()])

@@ -17,7 +17,7 @@ tensor by tensor by the per-tensor exchange
 a PRNG key; the dense compressors ignore it.
 """
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,9 +42,22 @@ class Compressor:
 
     #: memory plugin; the identity no-op by default
     memory: Memory = Memory()
+    #: the sparsifying compressors' ratio and per-tensor attributes; a
+    #: dense compressor sends everything and has neither
+    compress_ratio: Optional[float] = None
+    attributes: Dict[str, Any] = {}
 
     def initialize(self, named_params) -> None:
         """Precompute static per-tensor attributes (no-op for dense)."""
+
+    def warmup_compress_ratio(self, epoch: int) -> bool:
+        """Set ``epoch``'s warm-up ratio; True if it changed (never for
+        dense)."""
+        return False
+
+    def draw_phases(self, gen) -> Dict[str, int]:
+        """The per-tensor sampling phases of one step (none for dense)."""
+        return {}
 
     def compress(self, mem_state, name, grad, phase):
         raise NotImplementedError
@@ -55,6 +68,15 @@ class Compressor:
     def decompress(self, gathered, ctx: CompressCtx, mem_state,
                    world_size: int):
         raise NotImplementedError
+
+    def decompress_all(self, gathered, ctx: CompressCtx, mem_states,
+                       world_size: int):
+        """:meth:`decompress` of one tensor for every local worker
+        (``gathered[w]``, ``mem_states[w]``). Returns ``(outs,
+        mem_states)``."""
+        res = [self.decompress(g, ctx, m, world_size)
+               for g, m in zip(gathered, mem_states)]
+        return [r[0] for r in res], [r[1] for r in res]
 
 
 class _DenseCompressor(Compressor):
@@ -68,8 +90,9 @@ class _DenseCompressor(Compressor):
         return grad
 
     def make_flat_exchange(self, layout):
-        raise ValueError("the flat dense exchange (FlatDenseExchange) is not "
-                         "ported yet (ROADMAP.md queue 1 item 2)")
+        """The flat path's engine: one all-reduce of the whole buffer."""
+        from dgc_tpu_torch.compression.flat import FlatDenseExchange
+        return FlatDenseExchange(self, layout)
 
     def compress(self, mem_state, name, grad, phase):
         ctx = CompressCtx(name=name, numel=grad.numel(),

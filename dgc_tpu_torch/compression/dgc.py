@@ -94,18 +94,10 @@ class DGCCompressor(Compressor):
                  compress_lower_bound: float = 0.8,
                  max_adaptation_iters: int = 10, resample: bool = True,
                  fp16_values: bool = False, warmup_epochs: int = -1,
+                 warmup_coeff=None,
                  fused_select: bool = False, megakernel: bool = False,
                  int8_values: bool = False,
                  int8_error_feedback: bool = True, verbose: bool = False):
-        if not strided_sample:
-            raise ValueError("the port samples strided lane blocks only "
-                             "(strided_sample=True); the uniform sampler is "
-                             "ROADMAP.md queue 1 item 2")
-        if not resample:
-            raise ValueError("the port adapts thresholds by the resample "
-                             "ladder only (resample=True): the flat engine "
-                             "has no batched non-resample adaptation "
-                             "(ROADMAP.md queue 1 item 2)")
         if int8_values and fp16_values:
             raise ValueError("int8_values and fp16_values are mutually "
                              "exclusive wire formats")
@@ -119,14 +111,30 @@ class DGCCompressor(Compressor):
             compress_ratio if compress_ratio <= 1.0 else 1.0 / compress_ratio)
         self.memory = DGCSGDMemory() if memory is None else memory
         self.warmup_epochs = warmup_epochs
-        # the reference's default coefficient: ratio ** (1 / (epochs + 1))
-        self.warmup_coeff = (self.base_compress_ratio
-                             ** (1.0 / (warmup_epochs + 1))
-                             if warmup_epochs > 0 else 1)
+        #: the warm-up: a scalar coefficient c gives epoch e the ratio
+        #: ``max(c ** (e + 1), compress_ratio)`` (by default c = ratio **
+        #: (1 / (epochs + 1))); a list gives epoch e ``warmup_coeff[e]``
+        #: (``[1] * 5`` trains the first five epochs dense)
+        if warmup_epochs <= 0:
+            self.warmup_coeff = 1
+        elif warmup_coeff is None:
+            self.warmup_coeff = self.base_compress_ratio ** (
+                1.0 / (warmup_epochs + 1))
+        else:
+            coeffs = (warmup_coeff if isinstance(warmup_coeff, (tuple, list))
+                      else [warmup_coeff] * warmup_epochs)
+            if len(coeffs) < warmup_epochs or not all(0 < c <= 1
+                                                      for c in coeffs):
+                raise ValueError(f"warmup_coeff {warmup_coeff}: values in "
+                                 f"(0, 1], {warmup_epochs} of them in a "
+                                 "list")
+            self.warmup_coeff = warmup_coeff
         self.sample_ratio = min(max(sample_ratio, 0.01), 1.0)
+        #: strided lane-block samples (True) or uniform positions drawn
+        #: with replacement (False)
         self.strided_sample = strided_sample
-        # read only by the non-resample adaptation (ops.adapt_threshold),
-        # which the compressor does not take yet (resample=False raises)
+        #: without ``resample`` the adaptation also raises the threshold
+        #: (x ``compress_upper_bound``) while too many elements pass
         self.compress_upper_bound = compress_upper_bound
         self.compress_lower_bound = compress_lower_bound
         self.max_adaptation_iters = max_adaptation_iters
@@ -165,8 +173,11 @@ class DGCCompressor(Compressor):
         """Epoch hook; True when the ratio changed, and the engine must then
         be rebuilt (its geometry is ratio-derived)."""
         if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
-            compress_ratio = max(self.warmup_coeff ** (epoch + 1),
-                                 self.base_compress_ratio)
+            if isinstance(self.warmup_coeff, (tuple, list)):
+                compress_ratio = self.warmup_coeff[epoch]
+            else:
+                compress_ratio = max(self.warmup_coeff ** (epoch + 1),
+                                     self.base_compress_ratio)
         else:
             compress_ratio = self.base_compress_ratio
         if compress_ratio != self.compress_ratio:
@@ -175,10 +186,16 @@ class DGCCompressor(Compressor):
             return True
         return False
 
-    def draw_phases(self, gen: torch.Generator) -> Dict[str, int]:
-        """The per-tensor path's strided-sample phases, drawn on the host
-        from ``gen``: ``{name: start in [0, stride)}`` for every tensor
-        that samples (numel above its sample count), in attribute order."""
+    def draw_phases(self, gen: torch.Generator):
+        """The per-tensor path's samples, drawn on the host from ``gen``
+        for every tensor that samples (numel above its sample count), in
+        attribute order: ``{name: start in [0, stride)}`` of the strided
+        sample, or ``{name: [num_samples] positions}`` of the uniform one
+        (``strided_sample=False``)."""
+        if not self.strided_sample:
+            return {n: ops.draw_positions(gen, a.num_samples, a.numel)
+                    for n, a in self.attributes.items()
+                    if a.numel > a.num_samples}
         return {n: ops.draw_phase(gen, a.sample_stride)
                 for n, a in self.attributes.items()
                 if a.numel > a.num_samples}
@@ -187,10 +204,11 @@ class DGCCompressor(Compressor):
     # the per-tensor path                                            #
     # -------------------------------------------------------------- #
 
-    def sparsify(self, grad: torch.Tensor, name: str, phase: int = 0):
+    def sparsify(self, grad: torch.Tensor, name: str, phase=0):
         """Fixed-size sampled top-k of one tensor: the threshold is the
         ``top_k_samples``-th largest |sample|, adapted over the whole
         tensor where it samples, then :func:`ops.select_by_threshold`.
+        ``phase`` is what :meth:`draw_phases` drew for the tensor.
         Returns ``(values, int32 indices, valid)`` of ``num_selects``
         slots, in the gradient's dtype (bf16 under the bf16 memory)."""
         attrs = self.attributes[name]
@@ -198,9 +216,11 @@ class DGCCompressor(Compressor):
         importance = flat.abs()
         if attrs.numel == attrs.num_samples:
             samples = importance
-        else:
+        elif self.strided_sample:
             samples = ops.strided_sample(importance, attrs.num_samples,
                                          attrs.sample_stride, phase)
+        else:
+            samples = ops.uniform_sample(importance, phase)
         threshold = ops.topk_threshold(samples, attrs.top_k_samples)
         if attrs.numel > attrs.num_samples:
             threshold = ops.adapt_threshold(
@@ -230,7 +250,7 @@ class DGCCompressor(Compressor):
         return [{n: next(vecs) for n in names} for _ in grads]
 
     def compress(self, mem_state, name: str, grad: torch.Tensor,
-                 phase: int = 0, compensated=None):
+                 phase=0, compensated=None):
         """Momentum-corrected sparsification of a compressed tensor (the
         memory updates in place; the payload's values are gathered before
         the memory's update zeroes them), or the dense payload of any other.
@@ -332,15 +352,39 @@ class DGCCompressor(Compressor):
             if avg:
                 dense = kernels.divide_exact(dense, world_size)
             return dense.reshape(ctx.shape), mem_state
-        grad = gathered
+        out, mem_state = self.memory.compensate(
+            mem_state, ctx.name,
+            self._dense_average(gathered, ctx, world_size, avg),
+            accumulate=False)
+        return out.reshape(ctx.shape), mem_state
+
+    def _dense_average(self, grad, ctx: CompressCtx, world_size: int,
+                       avg: bool = True):
+        """A dense tensor's gathered sum off the wire, divided by the
+        workers under ``avg``, in its own dtype."""
         if self.fp16_values and grad.is_floating_point():
             grad = grad.to(ctx.dtype)
         if avg:
             grad = kernels.divide_exact(grad, world_size)
-        grad = grad.to(ctx.dtype)
-        out, mem_state = self.memory.compensate(mem_state, ctx.name, grad,
-                                                accumulate=False)
-        return out.reshape(ctx.shape), mem_state
+        return grad.to(ctx.dtype)
+
+    def decompress_all(self, gathered, ctx: CompressCtx, mem_states,
+                       world_size: int):
+        """:meth:`decompress` of one tensor for every local worker
+        (``gathered[w]``, ``mem_states[w]``); a dense tensor's averages
+        are clipped together, so the memory's global clipping reduces
+        across the workers. Returns ``(outs, mem_states)``."""
+        if ctx.compressed or self.memory.gradient_clipping is None:
+            return super().decompress_all(gathered, ctx, mem_states,
+                                          world_size)
+        outs = []
+        for i, g in enumerate(self.memory.clip(
+                [self._dense_average(g, ctx, world_size).reshape(-1)
+                 for g in gathered])):
+            out, mem_states[i] = self.memory.compensate(
+                mem_states[i], ctx.name, g, accumulate=False, clipped=True)
+            outs.append(out.reshape(ctx.shape))
+        return outs, mem_states
 
     def make_flat_exchange(self, layout):
         """The flat-buffer engine over ``layout``; call again after every

@@ -62,11 +62,27 @@ bitwise, except that a selected -0.0 travels as +0.0 (as in the
 reference's Pallas kernels), which changes no sum.
 
 Random phases: strided sampling draws one uniform per (bucket, stride
-group). The JAX engine draws them from ``fold_in(fold_in(key, bucket),
-group)``; the port draws them on the host from an explicit
-``torch.Generator`` (:meth:`FlatDGCEngine.draw_phases`) — host numbers
-slice the buffers without a device sync — and :meth:`sparsify` takes them
-as an argument, so a test can pass in the JAX-drawn values.
+group), the uniform sampler (``strided_sample=False``) one per (row,
+sample slot). The JAX engine draws them from ``fold_in(fold_in(key,
+bucket), group)`` and ``fold_in(key, bucket)``; the port draws them on
+the host from an explicit ``torch.Generator`` (:meth:`FlatDGCEngine.
+draw_phases`) — host numbers slice the buffers without a device sync —
+and :meth:`sparsify` takes them as an argument, so a test can pass in the
+JAX-drawn values.
+
+Threshold adaptation: with ``resample=True`` (the default) the ladder
+choice is derived from the selection's own top-k; with ``resample=False``
+:func:`_batched_adapt` runs the reference's bounded raise-or-lower loop,
+each round's per-row count on the ladder-counts kernel at one level.
+
+At ``compress_ratio >= 1`` (a dense warm-up epoch) or with nothing
+compressed, :meth:`FlatDGCEngine.exchange` is all dense: one all-reduce,
+the average, and the non-accumulating correction of the whole buffer
+(:meth:`FlatDGCEngine._exchange_dense`), which first folds a pending
+transmit record into the memory. The memory's ``gradient_clipping``
+clips the local compressed block before the compensate and the averaged
+dense part before its correction (:meth:`FlatDGCEngine._clip_block`).
+:class:`FlatDenseExchange` is the dense baseline compressors' engine.
 
 The engine's threshold ladder is also kept as a full scan,
 :func:`_ladder_adapt` (the ladder-counts kernel, :func:`kernels.
@@ -79,8 +95,7 @@ send fraction, checksums, the int8/int4/fp16 and packed-index wires and
 the bf16 error-feedback state (the per-tensor path has the int8 and fp16
 wires and the bf16 state), the segment split of rows wider than 8M and
 the 3-D selection of wide buckets that are not segment-aligned (VGG-16),
-gradient clipping, telemetry, and the all-dense exchange at
-``compress_ratio >= 1``.
+Adasum, the two-tier exchange and telemetry.
 """
 
 import math
@@ -93,8 +108,8 @@ import torch
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.utils.pytree import named_flatten
 
-__all__ = ["ParamLayout", "FlatDGCEngine", "ladder_cols", "lax_top_k",
-           "select_topk", "ROUTES"]
+__all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
+           "ladder_cols", "lax_top_k", "select_topk", "ROUTES"]
 
 #: block alignment of the compressed-block boundary and the buffer tail
 _ALIGN = 16 * 128
@@ -210,7 +225,8 @@ class ParamLayout:
         self.total = _round_up(off, _ALIGN) if off else 0
         if self.total >= 2 ** 31:
             raise ValueError("layouts of 2**31 slots or more need the int64 "
-                             "index wire, which is not ported")
+                             "index wire, which is not ported "
+                             "(ROADMAP.md queue 1 item 7)")
 
     def _group_by_size(self, compressed: Sequence[str]) -> List[List[str]]:
         """Partition the size-sorted tensors into contiguous buckets by the
@@ -242,7 +258,7 @@ class ParamLayout:
     @classmethod
     def for_compressor(cls, tree, compressor) -> "ParamLayout":
         """The layout whose compressed names are the compressor's
-        initialised attributes."""
+        initialised attributes (none for a dense compressor)."""
         return cls(tree, list(compressor.attributes))
 
     def flatten(self, tree, device=None) -> torch.Tensor:
@@ -324,7 +340,7 @@ def _build_buckets(attributes, layout: ParamLayout) -> List[_Bucket]:
         if len(g.names) == 1 and g.cols > _SPLIT_COLS:
             raise ValueError(f"{g.names[0]}: rows wider than {_SPLIT_COLS} "
                              "need the segment split, which is not ported "
-                             "(ROADMAP.md)")
+                             "(ROADMAP.md queue 1 item 6)")
         rows = [(layout.offsets[n], a.numel, a.sample_stride,
                  a.num_samples, a.top_k_samples, a.num_selects)
                 for n, a in ((n, attributes[n]) for n in g.names)]
@@ -439,19 +455,45 @@ def _ladder_adapt_from_topk(top_scores, thr, num_selects, adapt_mask,
                         num_selects, adapt_mask, lower, max_iters)
 
 
+def _batched_adapt(imp_rows, thr, lo, hi, adapt, lower: float,
+                   upper: float, max_iters: int):
+    """Threshold adaptation of every row of a bucket at once without
+    ``resample`` (the reference's ``_batched_adapt``, the per-row semantics
+    of :func:`dgc_tpu_torch.ops.sparsify.adapt_threshold`): while a row
+    that ``adapt`` marks passes fewer than ``lo`` elements its threshold
+    is multiplied by ``lower``, and while it passes more than ``hi`` by
+    ``upper``; at most ``max_iters`` rounds. Each round's
+    count ``#{imp_rows[r] >= thr[r]}`` is the ladder-counts kernel at one
+    level (its level 0 factor is exactly 1.0, so it is the reference's
+    count bitwise). The reference's ``while_loop`` stops once no row needs
+    adapting; this runs all ``max_iters`` rounds with the need mask and no
+    host sync: a row that no longer needs adapting keeps its threshold,
+    hence its count and its need, so the result is the loop's."""
+    lower_t = torch.full((), lower, dtype=thr.dtype, device=thr.device)
+    upper_t = torch.full((), upper, dtype=thr.dtype, device=thr.device)
+    for _ in range(max_iters):
+        c = kernels.ladder_counts(imp_rows, thr, lower, 1)[:, 0].to(
+            torch.float32)
+        need = (c < lo) | (c > hi)
+        nt = torch.where(c < lo, thr * lower_t,
+                         torch.where(c > hi, thr * upper_t, thr))
+        thr = torch.where(need & adapt, nt, thr)
+    return thr
+
+
 class FlatDGCEngine:
     """The flat DGC pipeline for one compressor + layout pair; rebuilt
     (host-side, cheaply) whenever the warm-up schedule changes the ratio.
-    Memory buffers stay valid across rebuilds."""
+    Memory buffers stay valid across rebuilds, also across the change from
+    a dense ratio (>= 1) to a compressed one and back."""
 
     def __init__(self, compressor, layout: ParamLayout):
         self.c = compressor
         self.layout = layout
         self.T = layout.t_compressed
-        if self.T == 0 or compressor.compress_ratio >= 1.0:
-            raise ValueError("the all-dense exchange (nothing compressed, or "
-                             "compress_ratio >= 1) is not ported")
-        mdt = getattr(compressor.memory, "dtype", None)
+        #: nothing compressed, or a ratio of 1: the all-dense exchange
+        self.dense = self.T == 0 or compressor.compress_ratio >= 1.0
+        mdt = compressor.memory.dtype
         if mdt not in (None, torch.float32):
             raise ValueError(
                 f"the flat engine keeps f32 error-feedback state only, not "
@@ -463,7 +505,8 @@ class FlatDGCEngine:
                     f"the flat engine carries the plain f32 wire only: "
                     f"{flag} is ROADMAP.md queue 1 item 7 (the per-tensor "
                     "path, DistributedOptimizer.exchange, takes it)")
-        self.buckets = _build_buckets(compressor.attributes, layout)
+        self.buckets = ([] if self.dense
+                        else _build_buckets(compressor.attributes, layout))
         #: per bucket: selects through the segment candidates
         self._seg = [self._use_seg_kernel(b) for b in self.buckets]
         for b, seg in zip(self.buckets, self._seg):
@@ -471,7 +514,8 @@ class FlatDGCEngine:
                 raise ValueError(
                     f"bucket [{b.rows}, {b.cols}] at {b.base} needs the 3-D "
                     "selection of wide buckets that are not segment-"
-                    "aligned, which is not ported (ROADMAP.md)")
+                    "aligned, which is not ported (ROADMAP.md queue 1 "
+                    "item 6)")
         #: any bucket takes the segment path: the compensate pass then
         #: emits the candidates itself (the reference's ``_seg_fused``)
         self._seg_fused = any(self._seg)
@@ -567,27 +611,68 @@ class FlatDGCEngine:
         kernels.compensate_bits(*args)
         return mem["velocities_c"], None
 
-    def _compensate_dense(self, mem, grad: torch.Tensor) -> torch.Tensor:
-        """Non-accumulating correction of the averaged dense tail."""
+    def _compensate_dense(self, mmt: torch.Tensor, grad: torch.Tensor):
+        """Non-accumulating correction of an averaged dense block: returns
+        ``(corrected gradient, new momentum)``."""
         m = self.c.memory
-        mmt = mem["momentums_d"]
         if m.nesterov:
             mmt = (mmt + grad) * m.momentum
-            mem["momentums_d"] = mmt
-            return mmt + grad
+            return mmt + grad, mmt
         mmt = m.momentum * mmt + grad
-        mem["momentums_d"] = mmt
-        return mmt
+        return mmt, mmt
+
+    def _clip_block(self, blocks: Sequence[torch.Tensor],
+                    names: Sequence[str], base: int) -> List[torch.Tensor]:
+        """The memory's ``gradient_clipping`` of every named tensor in each
+        local worker's flat block (``blocks[w]`` starts at flat offset
+        ``base``), on copies. A bucket whose tensors are all named clips
+        as its [R, cols] row view (row tails are structural zeros, and the
+        clip functions are padding-invariant, so per row == per tensor);
+        the other names (the dense tail) as a zero-padded [R, C] gather of
+        their elements. Each call gets one view per worker, so the global
+        clip variants reduce across workers."""
+        clip = self.c.memory.gradient_clipping
+        lay = self.layout
+        blocks = [b.clone() for b in blocks]
+        name_set, done = set(names), set()
+        for g in lay.buckets:
+            if not all(n in name_set for n in g.names):
+                continue
+            s, n = g.base - base, g.rows * g.cols
+            views = [b[s:s + n].view(g.rows, g.cols) for b in blocks]
+            for b, c in zip(blocks, clip(views)):
+                b[s:s + n] = c.reshape(-1)
+            done.update(g.names)
+        rest = [n for n in names if n not in done]
+        if rest:
+            dev = blocks[0].device
+            C = max(lay.sizes[n] for n in rest)
+            offs = torch.tensor([lay.offsets[n] - base for n in rest],
+                                device=dev)[:, None]
+            sizes = torch.tensor([lay.sizes[n] for n in rest],
+                                 device=dev)[:, None]
+            col = torch.arange(C, device=dev)[None, :]
+            valid = col < sizes
+            pos = torch.where(valid, offs + col, 0)
+            rows = clip([torch.where(valid, b[pos], 0.0) for b in blocks])
+            for b, r in zip(blocks, rows):
+                b[pos[valid]] = r[valid]
+        return blocks
 
     # -------------------------------------------------------------- #
     # sparsify                                                       #
     # -------------------------------------------------------------- #
 
-    def draw_phases(self, gen: torch.Generator) -> List[List[float]]:
-        """One uniform per (bucket, stride group) of every sampled bucket,
-        drawn on the host from ``gen``."""
+    def draw_phases(self, gen: torch.Generator) -> list:
+        """The sampling draws of every sampled bucket, on the host from
+        ``gen``: one uniform per stride group (a list of floats), or for
+        the uniform sampler a [rows, max samples] f32 tensor of uniforms;
+        nothing for a bucket that samples every element."""
         out = []
         for b in self.buckets:
+            if not self.c.strided_sample and not b.exact:
+                out.append(torch.rand((b.rows, b.max_s), generator=gen))
+                continue
             n = 0 if b.exact else len(b.stride_groups)
             out.append(torch.rand(n, generator=gen).tolist())
         return out
@@ -616,10 +701,16 @@ class FlatDGCEngine:
                 "lo": t(np.float32(self.c.compress_lower_bound)
                         * b.num_selects.astype(np.float32),
                         torch.float32)[:, None],
+                "hi": t(np.float32(self.c.compress_upper_bound)
+                        * b.num_selects.astype(np.float32), torch.float32),
                 "adapt": t(b.adapt, torch.bool),
                 "steps": [torch.arange(n, device=device) * stride
                           for (_, _, stride, n) in b.stride_groups],
                 "numels_r": t(b.numels, torch.int32),
+                "s_idx": torch.arange(b.max_s, device=device)[None, :],
+                "s_valid": (torch.arange(b.max_s, device=device)[None, :]
+                            < t(b.num_samples, torch.int64)[:, None]),
+                "s_exact": t(b.num_samples >= b.numels, torch.bool)[:, None],
                 "blocks3d": ([self._sample_blocks_3d(b, gi, device)
                               for gi in range(len(b.stride_groups))]
                              if seg else None),
@@ -749,10 +840,21 @@ class FlatDGCEngine:
         return torch.where(valid, sel_vals, 0.0), gidx
 
     def _sample_rows(self, b: _Bucket, c, imp_rows: torch.Tensor,
-                     phases: Sequence[float]) -> torch.Tensor:
+                     phases) -> torch.Tensor:
         """Per-row threshold samples of one bucket: 128-lane blocks at the
         tensor's sampling rate with one random phase per stride group (the
-        reference's lane-block strided sampling); pad slots read -1."""
+        reference's lane-block strided sampling), or without
+        ``strided_sample`` the uniform positions ``floor(u * numel)``
+        (``phases`` the [R, max samples] uniforms; a row that samples its
+        whole tensor takes every element once); pad slots read -1."""
+        if not self.c.strided_sample:
+            u = phases.to(imp_rows.device)
+            numels = c["numels"]
+            pos = torch.floor(u * numels.to(torch.float32)).to(torch.int64)
+            pos = torch.where(c["s_exact"],
+                              torch.minimum(c["s_idx"], numels - 1), pos)
+            smp = imp_rows.gather(1, torch.clamp(pos, max=b.cols - 1))
+            return torch.where(c["s_valid"], smp, -1.0)
         L = _LANE
         widths = [n if (stride == 1 or n < L) else -(-n // L) * L
                   for (_, _, stride, n) in b.stride_groups]
@@ -845,7 +947,14 @@ class FlatDGCEngine:
             sorted_s = select_topk(samples.contiguous(), b.max_k)[0]
             thr = sorted_s.gather(1, c["k_idx"])[:, 0]
             if self.c.max_adaptation_iters > 0 and b.adapt.any():
-                thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+                if self.c.resample:
+                    thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+                else:
+                    thr = _batched_adapt(
+                        imp_rows, thr, c["lo"][:, 0], c["hi"], c["adapt"],
+                        self.c.compress_lower_bound,
+                        self.c.compress_upper_bound,
+                        self.c.max_adaptation_iters)
             valid = (top_scores >= thr[:, None]) & c["slot_ok"]
         gidx = torch.where(valid, c["row_off"] + cols, self.layout.sentinel)
         return torch.where(valid, sel_vals, 0.0), gidx
@@ -885,12 +994,12 @@ class FlatDGCEngine:
         span(pos, self.T)
         return vec, fwd_sel
 
-    def compress(self, flat_grad: torch.Tensor, mem,
-                 phases: Sequence[Sequence[float]]):
+    def compress(self, flat_grad: torch.Tensor, mem, phases):
         """One worker's send side: compensate (in place on ``mem``), then
         sparsify. Returns the ``(values, indices)`` payload. With buckets
         on the forward megakernel the segment-path buckets get no fused
-        candidates and compute their own, as in the reference."""
+        candidates and compute their own, as in the reference. Does not
+        clip: :meth:`exchange` clips every worker's block first."""
         if self._mk_fwd_ids:
             vec, fwd_sel = self._compensate_megakernel(mem,
                                                        flat_grad[:self.T])
@@ -899,11 +1008,12 @@ class FlatDGCEngine:
         return self.sparsify(comp, phases, seg_cands=cands)
 
     def apply(self, g_values: torch.Tensor, g_indices: torch.Tensor,
-              dense_sum: torch.Tensor, mem, rank: int,
+              dense_avg: torch.Tensor, mem, rank: int,
               world: int) -> torch.Tensor:
         """One worker's receive side, from the gathered [W, payload]
-        values/indices and the summed dense tail: the averaged flat [P]
-        gradient. Replaces ``mem``'s transmit record and dense momentum."""
+        values/indices and the averaged (and clipped) dense tail: the
+        averaged flat [P] gradient. Replaces ``mem``'s transmit record and
+        dense momentum."""
         T, S = self.T, self.layout.sentinel
         # out-of-range indices route to the structural-zero sentinel
         g_indices = torch.where((g_indices >= 0) & (g_indices < T),
@@ -915,21 +1025,96 @@ class FlatDGCEngine:
             divisor=float(world))
         if self.layout.total == T:
             return acc
-        out_d = self._compensate_dense(
-            mem, kernels.divide_exact(dense_sum, world))
+        out_d, mem["momentums_d"] = self._compensate_dense(
+            mem["momentums_d"], dense_avg)
         return torch.cat([acc, out_d])
+
+    def _clipping(self) -> bool:
+        return self.c.memory.gradient_clipping is not None
+
+    def _exchange_dense(self, flat_grads: Sequence[torch.Tensor], mems,
+                        comm) -> List[torch.Tensor]:
+        """The all-dense exchange (ratio >= 1, or nothing compressed): the
+        average of the whole flat gradient, clipped, then the
+        non-accumulating correction of all of it. A transmit record still
+        pending from a compressed step is folded into the memory first
+        (the velocity, and the momentum under ``momentum_masking``, zeroed
+        where it was sent) and reset, so the next compressed step reads
+        the dense steps' momentum and an empty record."""
+        T, world = self.T, comm.world
+        avgs = [kernels.divide_exact(s, world)
+                for s in comm.all_reduce(list(flat_grads))]
+        if self._clipping():
+            avgs = self._clip_block(avgs, self.layout.names, 0)
+        outs = []
+        for avg, mem in zip(avgs, mems):
+            if T:
+                keep = kernels.keep_from_bits(mem["sent_bits"], T)
+                mem["velocities_c"] = mem["velocities_c"] * keep
+                mc = mem["momentums_c"]
+                if self.c.memory.momentum_masking:
+                    mc = mc * keep
+                out_c, mem["momentums_c"] = self._compensate_dense(
+                    mc, avg[:T])
+                mem["sent_bits"] = torch.zeros_like(mem["sent_bits"])
+            out_d, mem["momentums_d"] = self._compensate_dense(
+                mem["momentums_d"], avg[T:])
+            outs.append(torch.cat([out_c, out_d]) if T else out_d)
+        return outs
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
                  phases, comm) -> List[torch.Tensor]:
         """compress -> all_gather -> apply for this process's workers
-        (``comm.ranks``), plus the dense-tail all-reduce. Returns each
-        worker's averaged flat gradient; the memories update in place."""
-        T = self.T
+        (``comm.ranks``), plus the dense-tail all-reduce; at a dense ratio
+        :meth:`_exchange_dense`. Under the memory's ``gradient_clipping``
+        every worker's local compressed block is clipped before the
+        compensate, and the averaged dense tail before its correction.
+        Returns each worker's averaged flat gradient; the memories update
+        in place."""
+        if self.dense:
+            return self._exchange_dense(flat_grads, mems, comm)
+        T, world = self.T, comm.world
+        blocks = [g[:T] for g in flat_grads]
+        if self._clipping():
+            blocks = self._clip_block(blocks, self.layout.compressed_names,
+                                      0)
         sent = [self.compress(g, m, ph)
-                for g, m, ph in zip(flat_grads, mems, phases)]
+                for g, m, ph in zip(blocks, mems, phases)]
         g_vals = comm.all_gather([v for v, _ in sent])
         g_idx = comm.all_gather([i for _, i in sent])
-        dense = comm.all_reduce([g[T:] for g in flat_grads])
-        return [self.apply(gv, gi, d, m, r, comm.world)
-                for gv, gi, d, m, r in zip(g_vals, g_idx, dense, mems,
+        avgs = [kernels.divide_exact(d, world)
+                for d in comm.all_reduce([g[T:] for g in flat_grads])]
+        if self._clipping() and self.layout.total > T:
+            avgs = self._clip_block(avgs, self.layout.dense_names, T)
+        return [self.apply(gv, gi, d, m, r, world)
+                for gv, gi, d, m, r in zip(g_vals, g_idx, avgs, mems,
                                            comm.ranks)]
+
+
+class FlatDenseExchange:
+    """The dense baseline compressors' flat exchange (``NoneCompressor``,
+    ``FP16Compressor``): one all-reduce of the whole flat gradient on the
+    compressor's wire, then the average. No memory, no sampling."""
+
+    payload_size = 0
+
+    def __init__(self, compressor, layout: ParamLayout):
+        self.c = compressor
+        self.layout = layout
+
+    def init_memory(self, device=None) -> Dict:
+        return {}
+
+    def draw_phases(self, gen: torch.Generator) -> None:
+        """Nothing is sampled."""
+        return None
+
+    def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
+                 phases, comm) -> List[torch.Tensor]:
+        """Each local worker's averaged flat gradient: the compressor's
+        own compress (to the wire) and decompress (the average) around
+        the all-reduce (``mems`` and ``phases`` are unused)."""
+        sent = [self.c.compress(None, None, g, None)[:2] for g in flat_grads]
+        totals = comm.all_reduce([wire for wire, _ in sent])
+        return [self.c.decompress(t, ctx, None, comm.world)[0]
+                for t, (_, ctx) in zip(totals, sent)]

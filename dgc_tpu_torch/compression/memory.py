@@ -10,11 +10,18 @@ exchange compensates every compressed tensor of every local worker first,
 in one batched call (:meth:`DGCSGDMemory.compensate_all`).
 
 The flat engine (:mod:`dgc_tpu_torch.compression.flat`) keeps its own flat
-buffers and reads only ``momentum``, ``nesterov`` and ``momentum_masking``
-from here; it takes f32 state only and raises on ``dtype=bfloat16``.
+buffers and reads only ``momentum``, ``nesterov``, ``momentum_masking``
+and ``gradient_clipping`` from here; it takes f32 state only and raises
+on ``dtype=bfloat16``.
+
+``gradient_clipping`` (:mod:`dgc_tpu_torch.utils.clip_grad`) is called
+with one tensor per local worker (:meth:`DGCSGDMemory.clip`), so its
+global variants can reduce across workers; it must be padding-invariant
+(appended zeros change no norm and clip back to zero), because the flat
+engine clips whole buckets as [R, cols] row views.
 """
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,12 +36,13 @@ class Memory:
     """No-op memory: the identity plugin (no state, nothing to correct)."""
 
     dtype = None
+    gradient_clipping: Optional[Callable] = None
 
     def init(self, named_params, device=None) -> Dict:
         return {}
 
     def compensate(self, state: Dict, name: str, grad,
-                   accumulate: bool = True):
+                   accumulate: bool = True, clipped: bool = False):
         return grad, state
 
     def update(self, state: Dict, name: str, indices, valid) -> Dict:
@@ -62,15 +70,13 @@ class DGCSGDMemory(Memory):
     ``momentum_masking`` (zero the momentum as well as the velocity at
     transmitted coordinates) and ``dtype``, the state's dtype (``None``:
     the parameter's; ``"bfloat16"``: the bf16 error-feedback state, math
-    in the gradient's dtype with one rounding per stored value). A
-    ``gradient_clipping`` callable is not ported yet and raises."""
+    in the gradient's dtype with one rounding per stored value), and
+    ``gradient_clipping``, a callable applied to the gradient before each
+    correction (see the module docstring)."""
 
     def __init__(self, momentum: float = 0.9, nesterov: bool = False,
                  gradient_clipping: Optional[Callable] = None,
                  momentum_masking: bool = True, dtype=None):
-        if gradient_clipping is not None:
-            raise ValueError("gradient clipping is not ported yet "
-                             "(ROADMAP.md queue 1 item 2)")
         self.momentum = momentum
         self.nesterov = nesterov
         self.gradient_clipping = gradient_clipping
@@ -91,14 +97,25 @@ class DGCSGDMemory(Memory):
             velocities[name] = torch.zeros(p.numel(), dtype=dt, device=dev)
         return {"momentums": momentums, "velocities": velocities}
 
+    def clip(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``gradient_clipping`` over one gradient per local worker (the
+        same tensor's), or the gradients themselves without one."""
+        if self.gradient_clipping is None:
+            return list(grads)
+        return list(self.gradient_clipping(list(grads)))
+
     def compensate(self, state: Dict, name: str, grad,
-                   accumulate: bool = True):
+                   accumulate: bool = True, clipped: bool = False):
         """``accumulate``: momentum correction and local accumulation
         (:func:`kernels.fused_compensate`, in place); returns the velocity
         itself (the compensated gradient IS the stored velocity). Else the
         dense fallback's correction: updates the momentum only and returns
-        the corrected gradient in the gradient's dtype."""
+        the corrected gradient in the gradient's dtype. The gradient is
+        clipped first (one worker's alone), unless ``clipped`` says the
+        caller did that across its workers."""
         grad = grad.reshape(-1)
+        if not clipped:
+            grad = self.clip([grad])[0]
         mmt = state["momentums"][name]
         if accumulate:
             vec = state["velocities"][name]
@@ -121,8 +138,17 @@ class DGCSGDMemory(Memory):
         up to ``kernels.COMPENSATE_MAX_ENTRIES`` tensors): ``items`` is
         ``[(state, name, grad)]``, any workers' states and names, each name
         of a state at most once. Returns the velocities, in order (each the
-        stored velocity itself, updated in place)."""
+        stored velocity itself, updated in place). Under clipping, each
+        name's gradients are clipped together, in item order (one a
+        worker)."""
         grads = [grad.reshape(-1) for _, _, grad in items]
+        if self.gradient_clipping is not None:
+            by_name: Dict[str, List[int]] = {}
+            for i, (_, name, _) in enumerate(items):
+                by_name.setdefault(name, []).append(i)
+            for idx in by_name.values():
+                for i, g in zip(idx, self.clip([grads[i] for i in idx])):
+                    grads[i] = g
         mmts = [state["momentums"][name] for state, name, _ in items]
         vecs = [state["velocities"][name] for state, name, _ in items]
         kernels.fused_compensate_multi(grads, mmts, vecs, self.momentum,

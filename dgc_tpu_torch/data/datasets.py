@@ -171,4 +171,5 @@ def ImageNet(root: str, num_classes: int = 1000, image_size: int = 224,
                          mean=IMAGENET_MEAN, std=IMAGENET_STD, seed=seed)
     raise NotImplementedError(
         f"{root} holds ImageNet image folders, whose reader is not ported "
-        "yet (ROADMAP.md); move them away to train on the synthetic split")
+        "yet (ROADMAP.md queue 1 item 6); move them away to train on the "
+        "synthetic split")

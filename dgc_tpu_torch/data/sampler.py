@@ -1,5 +1,6 @@
 """Per-epoch batch order (counterpart of ``dgc_tpu/data/sampler.py``): a
-deterministic shuffle seeded by ``seed + epoch``, the last partial batch
+deterministic shuffle seeded by ``seed + epoch`` (or the natural order,
+without ``shuffle``, as the evaluation reads a split), the last partial batch
 wrap-padded unless ``drop_last``; worker w takes the w-th contiguous block
 of each global batch."""
 
@@ -11,10 +12,11 @@ __all__ = ["epoch_batches", "num_steps_per_epoch"]
 
 
 def epoch_batches(n: int, global_batch: int, epoch: int, seed: int = 0,
-                  drop_last: bool = False) -> Iterator[np.ndarray]:
+                  shuffle: bool = True, drop_last: bool = False
+                  ) -> Iterator[np.ndarray]:
     """Yield index arrays of exactly ``global_batch`` per step."""
     rng = np.random.RandomState(seed + epoch)
-    order = rng.permutation(n)
+    order = rng.permutation(n) if shuffle else np.arange(n)
     n_full = n // global_batch
     for b in range(n_full):
         yield order[b * global_batch:(b + 1) * global_batch]

@@ -17,6 +17,9 @@ bf16 state, ml_dtypes' ``bfloat16`` in numpy, arrives as ``torch.bfloat16``
 bit for bit); :func:`export_memory` writes a bf16 state as float32, which
 holds every bf16 value exactly (numpy has no bf16 of its own, and the
 reference's ``load_state_dict`` casts to the live state's dtype).
+
+The optimizers' state (``SGDState``: the step count and the momentum
+buffer, or none) carries across with :func:`carry_opt_state`.
 """
 
 from typing import Dict, Tuple
@@ -25,10 +28,11 @@ import numpy as np
 import torch
 
 from dgc_tpu_torch.compression.flat import ParamLayout
+from dgc_tpu_torch.optim.sgd import SGDState
 from dgc_tpu_torch.utils.pytree import named_flatten, nest
 
 __all__ = ["carry_variables", "export_variables", "carry_memory",
-           "export_memory"]
+           "export_memory", "carry_opt_state"]
 
 _MEMORY_KEYS = ("momentums", "velocities")
 
@@ -87,3 +91,14 @@ def export_memory(state) -> Dict:
         return t.cpu().numpy().copy()
     return {k: {n: array(t) for n, t in state[k].items()}
             for k in _MEMORY_KEYS}
+
+
+def carry_opt_state(state, device=None) -> SGDState:
+    """The JAX package's ``SGDState`` of ``sgd`` or ``dgc_sgd`` over the
+    flat parameters (numpy arrays, e.g. from ``jax.device_get``) -> the
+    port's: the count as an int, the momentum buffer, where it has one, as
+    a tensor on ``device``."""
+    buf = state.momentum_buffer
+    if buf is not None:
+        buf = torch.from_numpy(np.array(buf, np.float32)).to(device)
+    return SGDState(int(state.count), buf)

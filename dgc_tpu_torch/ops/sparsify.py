@@ -8,10 +8,11 @@ runs them as XLA ops).
 
 Two choices of the port, each giving the reference's numbers:
 
-* The strided sample's random phase is an argument, drawn on the host
-  (:func:`draw_phase`, from a ``torch.Generator``) where the reference
-  draws ``jax.random.randint(key, (), 0, stride)``; the tests pass in the
-  JAX-drawn phase.
+* The strided sample's random phase, and the uniform sample's positions,
+  are arguments, drawn on the host (:func:`draw_phase`,
+  :func:`draw_positions`, from a ``torch.Generator``) where the reference
+  draws them with ``jax.random.randint``; the tests pass in the JAX-drawn
+  ones.
 * :func:`adapt_threshold` runs a fixed ``max_iters`` masked steps instead
   of the reference's ``while_loop``: once the loop's condition is false
   the threshold and its count stop changing, so the result is the same,
@@ -27,7 +28,8 @@ import torch
 
 from dgc_tpu_torch.compression.flat import lax_top_k
 
-__all__ = ["draw_phase", "strided_sample", "topk_threshold",
+__all__ = ["draw_phase", "draw_positions", "strided_sample",
+           "uniform_sample", "topk_threshold",
            "adapt_threshold", "select_by_threshold", "scatter_add_dense",
            "transmitted_mask"]
 
@@ -37,12 +39,26 @@ def draw_phase(gen: torch.Generator, stride: int) -> int:
     return int(torch.randint(0, stride, (), generator=gen))
 
 
+def draw_positions(gen: torch.Generator, num_samples: int,
+                   numel: int) -> torch.Tensor:
+    """A uniform sample's ``num_samples`` positions, each uniform in
+    ``[0, numel)`` (with replacement), int64 on the host."""
+    return torch.randint(0, numel, (num_samples,), generator=gen)
+
+
 def strided_sample(importance: torch.Tensor, num_samples: int, stride: int,
                    phase: int) -> torch.Tensor:
     """Every ``stride``-th element from ``phase`` on, ``num_samples`` of
     them (reference compression.py:117-119)."""
     offsets = torch.arange(num_samples, device=importance.device) * stride
     return importance[phase + offsets]
+
+
+def uniform_sample(importance: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """The elements at ``positions`` (:func:`draw_positions`; reference
+    compression.py:121)."""
+    return importance[positions.to(importance.device, torch.int64)]
 
 
 def topk_threshold(samples: torch.Tensor, k: int) -> torch.Tensor:

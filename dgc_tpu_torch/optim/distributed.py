@@ -107,9 +107,11 @@ class DistributedOptimizer:
             ctx = dense[0][name][1]
             gathered = comp.communicate([d[name][0] for d in dense], ctx,
                                         comm)
+            # every local worker's at once (clipping reduces across them)
+            res, mem_states = comp.decompress_all(gathered, ctx, mem_states,
+                                                  comm.world)
             for w in local:
-                outs[w][name], mem_states[w] = comp.decompress(
-                    gathered[w], ctx, mem_states[w], comm.world)
+                outs[w][name] = res[w]
         if compressed[0]:
             fused = getattr(comp, "exchange_fused", None)
             if self.fuse_payloads and fused is not None and len(

@@ -1,6 +1,6 @@
-"""DGC-split SGD over the flat parameter buffer.
+"""SGD over the flat parameter buffer: the DGC split and the stock one.
 
-Counterpart of ``dgc_tpu/optim/sgd.py``'s ``dgc_sgd`` (reference
+Counterpart of ``dgc_tpu/optim/sgd.py``. ``dgc_sgd`` (reference
 ``DGCSGD``): gradient momentum was already applied inside the DGC memory
 before compression, so the optimizer runs momentum (and nesterov) over the
 weight-decay term only, then adds the exchanged gradient raw:
@@ -8,6 +8,11 @@ weight-decay term only, then adds the exchanged gradient raw:
 d_p``); ``d_p = d_p + m·buf`` (nesterov) or ``buf``; ``p <- p - lr·(d_p +
 g)``. ``weight_decay_mask`` (a flat 0/1 tensor) gives masked coordinates
 no weight decay and leaves their buffer untouched.
+
+``sgd`` is stock ``torch.optim.SGD`` arithmetic for the dense baseline:
+``d_p = g + wd·p`` (the mask gates only the wd term); ``buf = m·buf +
+(1-dampening)·d_p`` (first step ``buf = d_p``) over every coordinate;
+``d_p = d_p + m·buf`` (nesterov) or ``buf``; ``p <- p - lr·d_p``.
 
 ``lr`` is a float or a ``step -> float`` schedule evaluated on the host, so
 an update launches no host sync.
@@ -17,7 +22,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
-__all__ = ["DGCSGD", "SGDState", "dgc_sgd"]
+__all__ = ["DGCSGD", "SGD", "SGDState", "dgc_sgd", "sgd"]
 
 
 class SGDState(NamedTuple):
@@ -83,3 +88,52 @@ def dgc_sgd(lr, momentum: float = 0.9, dampening: float = 0.0,
     """The reference's constructor name for :class:`DGCSGD`."""
     return DGCSGD(lr, momentum, dampening, weight_decay, nesterov,
                   weight_decay_mask)
+
+
+class SGD:
+    """Stock SGD (see the module docstring), with :class:`DGCSGD`'s
+    interface and state."""
+
+    def __init__(self, lr: Union[float, Callable[[int], float]],
+                 momentum: float = 0.0, dampening: float = 0.0,
+                 weight_decay: float = 0.0, nesterov: bool = False,
+                 weight_decay_mask: Optional[torch.Tensor] = None):
+        if nesterov and (momentum <= 0 or dampening != 0):
+            raise ValueError("Nesterov momentum requires a momentum and zero "
+                             "dampening")
+        self.lr = lr
+        self.momentum = momentum
+        self.dampening = dampening
+        self.weight_decay = weight_decay
+        self.nesterov = nesterov
+        self.weight_decay_mask = weight_decay_mask
+
+    def init(self, params: torch.Tensor) -> SGDState:
+        return SGDState(0, torch.zeros_like(params) if self.momentum != 0
+                        else None)
+
+    def update(self, grad: torch.Tensor, state: SGDState,
+               params: torch.Tensor):
+        """``(updates, new state)``; the caller adds ``updates`` to the
+        parameters."""
+        lr = self.lr(state.count) if callable(self.lr) else self.lr
+        m, wd, buf = self.momentum, self.weight_decay, state.momentum_buffer
+        mv = self.weight_decay_mask
+        if mv is not None:
+            d_p = grad + wd * mv * params
+        else:
+            # + 0.0 as the reference adds it (a -0.0 gradient becomes +0.0)
+            d_p = grad + (wd * params if wd != 0 else 0.0)
+        if m != 0:
+            buf = d_p if state.count == 0 else (
+                m * buf + (1 - self.dampening) * d_p)
+            d_p = d_p + m * buf if self.nesterov else buf
+        return -lr * d_p, SGDState(state.count + 1, buf)
+
+
+def sgd(lr, momentum: float = 0.0, dampening: float = 0.0,
+        weight_decay: float = 0.0, nesterov: bool = False,
+        weight_decay_mask: Optional[torch.Tensor] = None) -> SGD:
+    """The reference's constructor name for :class:`SGD`."""
+    return SGD(lr, momentum, dampening, weight_decay, nesterov,
+               weight_decay_mask)

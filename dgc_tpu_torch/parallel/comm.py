@@ -45,11 +45,18 @@ class LocalComm(Comm):
         self.world = world
         self.ranks = tuple(range(world))
 
+    def _check(self, xs):
+        if len(xs) != self.world:
+            raise ValueError(f"LocalComm({self.world}) takes one tensor per "
+                             f"worker, got {len(xs)}")
+
     def all_gather(self, xs):
+        self._check(xs)
         g = torch.stack(list(xs))
         return [g] * self.world
 
     def all_reduce(self, xs):
+        self._check(xs)
         s = xs[0]
         for x in xs[1:]:
             s = s + x

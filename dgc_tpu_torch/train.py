@@ -1,14 +1,20 @@
-"""Training harness: a DGC recipe of :mod:`dgc_tpu_torch.configs` —
-ResNet-20 on CIFAR-10 (the default), ResNet-50 or ResNet-18 on ImageNet,
-all with the wm5 warm-up.
+"""Training harness: a recipe of :mod:`dgc_tpu_torch.configs` —
+ResNet-20 or ResNet-110 on CIFAR-10 (``resnet20_wm5`` is the default),
+ResNet-50 or ResNet-18 on ImageNet; with DGC and its warm-up, or the
+dense baseline.
 
 Counterpart of the repository's ``train.py`` for the port. ``Trainer``
 builds the config's dataset (synthetic when no data root exists), model,
-compressor, learning-rate schedule, ``dgc_sgd`` (nesterov and the
+compressor (``train.dgc``: ``DGCCompressor`` over ``DGCSGDMemory``, else
+the dense ``Compression.none``), learning-rate schedule, optimizer
+(``dgc_sgd``, or stock ``sgd`` for the dense baseline; nesterov and the
 BatchNorm weight-decay split as the config says) behind the distributed
 optimizer, and the flat state; :meth:`Trainer.run_epoch` applies the
 warm-up schedule (rebuilding the engine when the ratio changes) and runs
-the epoch's steps.
+the epoch's steps; :meth:`Trainer.evaluate` runs the config's top-k
+meters over a split. The CLI evaluates before training and after each
+epoch, printing ``[acc/test_top1] = ...`` lines as the JAX harness does
+and keeping the best top-1; ``--evaluate`` only evaluates.
 
 Workers: ``--world W`` simulates W workers on one device in lockstep
 (``LocalComm``). With ``--init-method`` each process is one worker of a
@@ -20,6 +26,8 @@ Workers: ``--world W`` simulates W workers on one device in lockstep
     python -m dgc_tpu_torch.train --config resnet50_wm5 --device cpu \\
         --world 2 --epochs 1 --steps 1 --batch-size 2 --image-size 32 \\
         --synthetic-size 16
+    python -m dgc_tpu_torch.train --config resnet20 --device cpu \\
+        --evaluate --batch-size 8 --synthetic-size 64
 
 ``--image-size`` only shrinks the synthetic images (for CPU runs), as the
 JAX harness's ``--dataset.image_size`` override does. ``--megakernel`` and
@@ -32,12 +40,13 @@ are their base recipes with ``--megakernel``).
 import argparse
 import json
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from dgc_tpu_torch import configs as _configs
+from dgc_tpu_torch.compression.base import Compression
 from dgc_tpu_torch.compression.dgc import DGCCompressor
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
@@ -45,14 +54,15 @@ from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
 from dgc_tpu_torch.models import create, param_tree
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
-from dgc_tpu_torch.optim.sgd import dgc_sgd
+from dgc_tpu_torch.optim.sgd import dgc_sgd, sgd
 from dgc_tpu_torch.parallel.comm import Comm, LocalComm, ProcessGroupComm
 from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
                                        multistep_schedule)
-from dgc_tpu_torch.training.step import (make_flat_setup, make_flat_state,
-                                         train_step)
+from dgc_tpu_torch.training.step import (eval_step, make_flat_setup,
+                                         make_flat_state, train_step)
 from dgc_tpu_torch.utils.device import (resolve_device,
                                         set_reproducible_numerics)
+from dgc_tpu_torch.utils.meters import TopKClassMeter
 
 __all__ = ["Trainer", "main"]
 
@@ -82,18 +92,26 @@ class Trainer:
                             cfg.model.zero_init_residual).to(self.device)
 
         cc = tc.compression
-        self.compression = DGCCompressor(
-            cc.compress_ratio, memory=DGCSGDMemory(cc.memory.momentum),
-            sample_ratio=cc.sample_ratio, strided_sample=cc.strided_sample,
-            compress_upper_bound=cc.compress_upper_bound,
-            compress_lower_bound=cc.compress_lower_bound,
-            max_adaptation_iters=cc.max_adaptation_iters,
-            resample=cc.resample, warmup_epochs=cc.warmup_epochs,
-            fused_select=cc.fused_select, megakernel=cc.megakernel,
-            verbose=verbose)
-        self.compression.initialize(
-            (n.replace(".", "/"), tuple(p.shape))
-            for n, p in self.model.named_parameters() if p.dim() > 1)
+        if tc.dgc:
+            mc = cc.memory
+            self.compression = DGCCompressor(
+                cc.compress_ratio,
+                memory=DGCSGDMemory(mc.momentum, nesterov=mc.nesterov,
+                                    momentum_masking=mc.momentum_masking),
+                sample_ratio=cc.sample_ratio,
+                strided_sample=cc.strided_sample,
+                compress_upper_bound=cc.compress_upper_bound,
+                compress_lower_bound=cc.compress_lower_bound,
+                max_adaptation_iters=cc.max_adaptation_iters,
+                resample=cc.resample, warmup_epochs=cc.warmup_epochs,
+                warmup_coeff=cc.warmup_coeff,
+                fused_select=cc.fused_select, megakernel=cc.megakernel,
+                verbose=verbose)
+            self.compression.initialize(
+                (n.replace(".", "/"), tuple(p.shape))
+                for n, p in self.model.named_parameters() if p.dim() > 1)
+        else:
+            self.compression = getattr(Compression, cc.name)()
 
         self.steps_per_epoch = num_steps_per_epoch(
             len(self.dataset["train"]), self.global_batch,
@@ -113,8 +131,9 @@ class Trainer:
                 param_tree(self.model), self.compression).mask_vector(
                     lambda n: "BatchNorm" not in n, device=self.device)
         self.dist = DistributedOptimizer(
-            dgc_sgd(lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
-                    nesterov=oc.nesterov, weight_decay_mask=wd_mask),
+            (dgc_sgd if tc.dgc else sgd)(
+                lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
+                nesterov=oc.nesterov, weight_decay_mask=wd_mask),
             self.compression, comm)
         self.setup = make_flat_setup(self.model, self.dist)
         self.state = make_flat_state(self.model, self.dist, self.setup,
@@ -131,9 +150,13 @@ class Trainer:
         self.state = make_flat_state(self.model, self.dist, self.setup,
                                      self.device, flat_params, flat_stats)
 
-    def _batches(self, idx: np.ndarray):
-        images, labels = self.dataset["train"].get_batch(idx)
-        per = self.nbps * self.bs
+    def _batches(self, idx: np.ndarray, split: str = "train",
+                 per: Optional[int] = None):
+        """This process's workers' blocks of one global batch, on the
+        device (``per`` examples a worker; a training step's by
+        default)."""
+        images, labels = self.dataset[split].get_batch(idx)
+        per = per or self.nbps * self.bs
         xs, ys = [], []
         for r in self.comm.ranks:
             x = torch.from_numpy(images[r * per:(r + 1) * per])
@@ -149,11 +172,12 @@ class Trainer:
         losses, still on the device. With ``step_times``, each step is
         synchronised and its wall time appended (seconds)."""
         self.compression.warmup_compress_ratio(epoch)
-        if self.compression.compress_ratio != self._built_ratio:
+        ratio = self.compression.compress_ratio
+        if ratio != self._built_ratio:
             # new ratio -> new engine geometry; layouts and memory carry over
             self.setup = make_flat_setup(self.model, self.dist)
-            self._built_ratio = self.compression.compress_ratio
-            if self.verbose:
+            self._built_ratio = ratio
+            if self.verbose and ratio is not None:
                 print(f"[epoch {epoch}] ratio {self._built_ratio:.4g}: "
                       f"payload {self.setup.engine.payload_size}/worker")
         losses = []
@@ -173,6 +197,39 @@ class Trainer:
                 step_times.append(time.perf_counter() - t0)
             losses.append(loss)
         return losses
+
+    def evaluate(self, split: str = "test") -> Dict[str, float]:
+        """The config's meters over ``split`` (``{"acc/test_top1": %,
+        ...}``): batches of ``world x batch_size`` in order, each worker
+        its block of each batch with its own BatchNorm statistics, the
+        last batch wrap-padded as the reference's sampler pads it."""
+        ds = self.dataset[split]
+        meters = {key.format(split): TopKClassMeter(m.k)
+                  for key, m in self.cfg.train.meters.items()}
+        topk = tuple(sorted({m.k for m in meters.values()}))
+        totals = None
+        for idx in epoch_batches(len(ds), self.comm.world * self.bs, 0,
+                                 shuffle=False):
+            xs, ys = self._batches(idx, split, self.bs)
+            counts = eval_step(self.model, self.setup, self.state.params,
+                               self.state.batch_stats, xs, ys, self.comm,
+                               topk)
+            # summed on the device: one host sync after the last batch
+            totals = counts if totals is None else {
+                k: totals[k] + v for k, v in counts.items()}
+        if totals is not None:
+            n = int(totals["count"])
+            for meter in meters.values():
+                meter.update_counts(int(totals[f"top{meter.k}"]), n)
+        return {k: m.compute() for k, m in meters.items()}
+
+
+def _print_meters(meters: Dict[str, float]) -> None:
+    """Only the first process prints, as the reference's ``printr``."""
+    if not torch.distributed.is_initialized() or (
+            torch.distributed.get_rank() == 0):
+        for k, v in meters.items():
+            print(f"[{k}] = {v:.2f}")
 
 
 def main(argv=None) -> List[float]:
@@ -199,6 +256,9 @@ def main(argv=None) -> List[float]:
     p.add_argument("--fused-select", action="store_true",
                    help="select through the select-and-pack kernel where "
                         "it applies")
+    p.add_argument("--evaluate", action="store_true",
+                   help="only evaluate the initial weights on the test "
+                        "split")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -227,7 +287,11 @@ def main(argv=None) -> List[float]:
         comm = LocalComm(args.world)
     try:
         trainer = Trainer(cfg, comm, device, verbose=True)
-        out = []
+        # the sanity eval before training, as the reference runs it
+        _print_meters(trainer.evaluate())
+        if args.evaluate:
+            return []
+        out, metric, best = [], cfg.train.metric, None
         epochs = (args.epochs if args.epochs is not None
                   else cfg.train.num_epochs)
         for epoch in range(epochs):
@@ -235,9 +299,15 @@ def main(argv=None) -> List[float]:
             losses = [float(x) for x in trainer.run_epoch(epoch, args.steps,
                                                           times)]
             out += losses
-            print(json.dumps({"epoch": epoch,
-                              "ratio": trainer.compression.compress_ratio,
-                              "loss": losses, "step_s": times}))
+            meters = trainer.evaluate()
+            if best is None or best < meters[metric]:
+                best = meters[metric]
+            meters[metric + "_best"] = best
+            _print_meters(meters)
+            # the epoch's summary last
+            print(json.dumps({
+                "epoch": epoch, "ratio": trainer.compression.compress_ratio,
+                "loss": losses, "step_s": times, "eval": meters}))
         return out
     finally:
         if args.init_method:

@@ -32,9 +32,15 @@ gradient}`` (the compressor's ``compress`` -> ``communicate`` ->
 same numbers as per tensor). The JAX harness has no switch for it, so
 neither has the port's CLI: this function is the path's entry point, as
 ``build_train_step(flat=None)`` is there.
+
+The flat step also runs the dense baseline's engine
+(:class:`~dgc_tpu_torch.compression.flat.FlatDenseExchange`), which
+samples nothing and keeps no memory. :func:`eval_step` is the
+reference's ``build_eval_step``: each worker's top-k hit counts with its
+own BatchNorm statistics, summed over the workers.
 """
 
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +53,7 @@ from dgc_tpu_torch.training.state import TrainState
 
 __all__ = ["FlatSetup", "make_flat_setup", "make_per_tensor_setup",
            "make_flat_state", "train_step", "train_step_per_tensor",
-           "worker_grad"]
+           "worker_grad", "eval_step", "topk_hits"]
 
 
 class FlatSetup(NamedTuple):
@@ -179,3 +185,39 @@ def train_step_per_tensor(model, setup: FlatSetup, dist_opt,
     state.params = params
     state.opt_state = opt_state
     return state, mean_loss
+
+
+def topk_hits(logits: torch.Tensor, labels: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """Per example, whether the label is among the ``k`` largest logits
+    with ties to the lower class, as ``lax.top_k`` orders them, counted
+    without a sort: ``#{j : l_j > l_y} + #{j < y : l_j == l_y} < k``."""
+    ly = logits.gather(1, labels[:, None])
+    cls = torch.arange(logits.shape[1], device=logits.device)[None, :]
+    ahead = (logits > ly) | ((logits == ly) & (cls < labels[:, None]))
+    return ahead.sum(dim=1) < min(k, logits.shape[1])
+
+
+def eval_step(model, setup: FlatSetup, params: torch.Tensor,
+              batch_stats: Sequence[torch.Tensor],
+              images: Sequence[torch.Tensor], labels: Sequence[torch.Tensor],
+              comm, topk: Tuple[int, ...] = (1, 5)
+              ) -> Dict[str, torch.Tensor]:
+    """Inference of each local worker's batch (``images[w]`` NCHW,
+    ``labels[w]`` int64) with its own BatchNorm statistics
+    (``batch_stats[w]``): ``{"top{k}": hits, "count": examples}``, int64
+    tensors summed over every worker with ``comm.all_reduce``."""
+    counts: Dict[str, List[torch.Tensor]] = {f"top{k}": [] for k in topk}
+    counts["count"] = []
+    with torch.no_grad():
+        for stats, x, y in zip(batch_stats, images, labels):
+            binding = {**_binding(setup.layout, params),
+                       **_binding(setup.stats_layout, stats)}
+            logits = functional_call(model, binding, (x,),
+                                     {"train": False}).float()
+            for k in topk:
+                counts[f"top{k}"].append(
+                    topk_hits(logits, y, k).sum(dtype=torch.int64))
+            counts["count"].append(torch.tensor(y.shape[0],
+                                                device=y.device))
+    return {key: comm.all_reduce(v)[0] for key, v in counts.items()}

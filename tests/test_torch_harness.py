@@ -1,8 +1,10 @@
-"""The port's harness pieces against the JAX package: the recipe's values,
-the learning-rate schedule, ``dgc_sgd`` (with and without the
+"""The port's harness pieces against the JAX package: the recipes'
+values, the learning-rate schedule, ``dgc_sgd`` (with and without the
 per-coordinate weight-decay mask), the synthetic CIFAR data and the batch
 order. All bitwise; the JAX optimizer runs op by op (no ``jax.jit``, whose
-XLA-CPU FMA contraction the port does not reproduce)."""
+XLA-CPU FMA contraction the port does not reproduce). Also the CLI: the
+evaluation lines and the recipes' flags reaching the trainer, and the
+flat engine's refusal of the wires this port does not carry yet."""
 
 import os
 
@@ -17,7 +19,9 @@ from dgc_tpu.optim import dgc_sgd as jax_dgc_sgd
 from dgc_tpu.training import lr as jlr
 from dgc_tpu.utils.config import Config, configs
 from dgc_tpu_torch import configs as tconfigs
+from dgc_tpu_torch import train as ttrain
 from dgc_tpu_torch.compression.dgc import DGCCompressor
+from dgc_tpu_torch.compression.flat import FlatDGCEngine, ParamLayout
 from dgc_tpu_torch.data import datasets as tdata
 from dgc_tpu_torch.data import sampler as tsampler
 from dgc_tpu_torch.optim.sgd import dgc_sgd
@@ -38,6 +42,11 @@ def jax_recipe(monkeypatch):
 
 def test_recipe_values_match_the_config_files(jax_recipe):
     c, t = jax_recipe, tconfigs.resnet20_wm5()
+    _check_recipe(c, t)
+
+
+def _check_recipe(c, t):
+    """The port's recipe ``t`` holds the stacked config files' ``c``."""
     assert t.seed == c.seed
     assert t.dataset.root == c.dataset.root
     assert t.dataset.num_classes == c.dataset.num_classes
@@ -60,6 +69,117 @@ def test_recipe_values_match_the_config_files(jax_recipe):
         assert t.train.compression[k] == c.train.compression[k], k
     assert (t.train.compression.memory.momentum
             == c.train.compression.memory.momentum)
+
+
+#: the recipes of the reference's stacks: the port's name, then the
+#: config files stacked on ``configs/__init__.py`` (each file's package
+#: ``__init__.py`` loads first)
+STACKS = {
+    "resnet20": ("configs/cifar/resnet20.py",),
+    "resnet110": ("configs/cifar/resnet110.py",),
+    "resnet20_wm0": ("configs/cifar/resnet20.py", "configs/dgc/wm0.py"),
+    "resnet20_wm5o": ("configs/cifar/resnet20.py", "configs/dgc/wm5o.py"),
+    "resnet20_wm5_nm": ("configs/cifar/resnet20.py", "configs/dgc/wm5.py",
+                        "configs/dgc/nm.py"),
+    "resnet110_wm5": ("configs/cifar/resnet110.py", "configs/dgc/wm5.py"),
+    "resnet110_wm5o": ("configs/cifar/resnet110.py", "configs/dgc/wm5o.py"),
+    "resnet50_wm5_cosine": ("configs/imagenet/resnet50.py",
+                            "configs/dgc/wm5.py",
+                            "configs/imagenet/cosine.py"),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(STACKS))
+def test_stacked_recipes_match_the_config_files(recipe, monkeypatch):
+    """Every value the port reads, for each of the reference's other
+    recipes: the dense baselines (stock ``sgd``, no compression) and the
+    DGC variants (warm-up, its coefficients, momentum masking, the
+    schedule)."""
+    monkeypatch.chdir(REPO)
+    Config.reset()
+    try:
+        Config.update_from_modules(*STACKS[recipe])
+        c, t = configs, tconfigs.RECIPES[recipe]()
+        tr, ctr = t.train, c.train
+        assert t.seed == c.seed and tr.dgc == ctr.dgc
+        for k in ("root", "num_classes", "image_size"):
+            assert t.dataset[k] == c.dataset[k], k
+        assert t.model.name == c.model.callable.__name__
+        assert t.model.num_classes == c.model.num_classes
+        assert t.model.zero_init_residual == c.model.get(
+            "zero_init_residual", False)
+        for k in ("num_epochs", "batch_size", "warmup_lr_epochs",
+                  "schedule_lr_per_epoch"):
+            assert tr[k] == ctr[k], k
+        assert tr.optimize_bn_separately == ctr.get(
+            "optimize_bn_separately", False)
+        assert tr.num_batches_per_step == ctr.get("num_batches_per_step", 1)
+        sched = ctr.scheduler.callable.__name__
+        assert sched == f"{tr.scheduler.name}_schedule"
+        for k in tr.scheduler:
+            if k != "name":
+                assert tr.scheduler[k] == ctr.scheduler[k], k
+        assert ctr.optimizer.callable.__name__ == (
+            "dgc_sgd" if tr.dgc else "sgd")
+        for k in ("lr", "momentum", "weight_decay"):
+            assert tr.optimizer[k] == ctr.optimizer[k], k
+        assert tr.optimizer.nesterov == ctr.optimizer.get("nesterov", False)
+        assert tr.metric == ctr.metric
+        assert {k: m.k for k, m in tr.meters.items()} == {
+            k: m.k for k, m in ctr.meters.items()}
+        assert all(m.callable.__name__ == "TopKClassMeter"
+                   for m in ctr.meters.values())
+        cc, tc = ctr.compression, tr.compression
+        if not tr.dgc:
+            assert cc.callable.__name__ == "NoneCompressor"
+            assert tc.name == "none"
+            return
+        assert cc.callable.__name__ == "DGCCompressor"
+        for k in ("compress_ratio", "sample_ratio", "strided_sample",
+                  "compress_upper_bound", "compress_lower_bound",
+                  "max_adaptation_iters", "resample", "warmup_epochs"):
+            assert tc[k] == cc[k], k
+        assert tc.warmup_coeff == cc.get("warmup_coeff", None)
+        assert tc.memory.momentum == cc.memory.momentum
+        assert tc.memory.nesterov == cc.memory.get("nesterov", False)
+        assert tc.memory.momentum_masking == cc.memory.get(
+            "momentum_masking", True)
+    finally:
+        Config.reset()
+
+
+def test_recipes_reach_the_trainer_and_the_cli_evaluates(monkeypatch,
+                                                         capsys):
+    """``momentum_masking=False`` (nm), the warm-up coefficients (wm5o)
+    and the dense baseline's optimizer reach the trainer; the CLI prints
+    the evaluation before training and after each epoch, with the best
+    top-1, and ``--evaluate`` only evaluates."""
+    seen = []
+
+    class Spy(ttrain.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self)
+    monkeypatch.setattr(ttrain, "Trainer", Spy)
+    common = ["--device", "cpu", "--world", "2", "--batch-size", "4",
+              "--synthetic-size", "64"]
+    assert ttrain.main(common + ["--config", "resnet20_wm5_nm",
+                                 "--evaluate"]) == []
+    out = capsys.readouterr().out
+    assert "[acc/test_top1] = " in out and "[acc/test_top5] = " in out
+    assert ttrain.main(common + ["--config", "resnet20", "--epochs", "1",
+                                 "--steps", "1"])
+    out = capsys.readouterr().out
+    assert out.count("[acc/test_top1] = ") == 2
+    assert "[acc/test_top1_best] = " in out
+    ttrain.main(common + ["--config", "resnet20_wm5o", "--epochs", "0"])
+    nm, dense, wm5o = seen
+    assert nm.compression.memory.momentum_masking is False
+    assert nm.dist.optimizer.__class__.__name__ == "DGCSGD"
+    assert dense.dist.optimizer.__class__.__name__ == "SGD"
+    assert dense.setup.engine.payload_size == 0
+    assert dense.state.memory == [{}, {}]
+    assert wm5o.compression.warmup_coeff == [1, 1, 1, 1, 1]
 
 
 @pytest.mark.parametrize("world,per_epoch", [(1, 391), (4, 4)])
@@ -120,13 +240,20 @@ def test_synthetic_cifar_and_batch_order_match_jax(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(strided_sample=False),
-                                dict(resample=False)])
+@pytest.mark.parametrize("kw", [dict(fp16_values=True),
+                                dict(int8_values=True)])
 def test_unported_compressor_options_raise(kw):
-    """Options whose code paths this slice does not port are refused, not
-    silently run as the default path."""
-    with pytest.raises(ValueError):
-        DGCCompressor(0.001, **kw)
+    """Options whose code paths the flat engine does not port (its fp16
+    and int8 wires, ROADMAP.md queue 1 item 7) are refused, not silently
+    run as the default path, at a compressed ratio and at a dense one."""
+    for coeff in (None, [1, 1, 1, 1, 1]):
+        comp = DGCCompressor(0.001, warmup_epochs=5, warmup_coeff=coeff,
+                             **kw)
+        comp.initialize([("w", (64, 64))])
+        comp.warmup_compress_ratio(0)
+        layout = ParamLayout({"w": (64, 64), "b": (64,)}, ["w"])
+        with pytest.raises(ValueError, match="item 7"):
+            FlatDGCEngine(comp, layout)
 
 
 def test_cifar_pickles_and_augmentation_match_jax(tmp_path, monkeypatch):

@@ -260,8 +260,14 @@ def test_flat_engine_refuses_what_it_does_not_carry(kw):
 
 
 def test_unported_options_still_raise():
-    with pytest.raises(ValueError):
-        tmemory.DGCSGDMemory(gradient_clipping=lambda g: g)
+    # the flat engine's bf16 error-feedback state (ROADMAP.md queue 1 item
+    # 7; gradient clipping, refused here before, is ported)
+    comp = tdgc.DGCCompressor(0.05, memory=tmemory.DGCSGDMemory(
+        dtype="bfloat16"))
+    comp.initialize([("w", (64, 64))])
+    with pytest.raises(ValueError, match="item 7"):
+        tflat.FlatDGCEngine(comp, tflat.ParamLayout(
+            {"w": (64, 64), "b": (64,)}, ["w"]))
     with pytest.raises(ValueError):
         TDist(t_dgc_sgd(0.1), tdgc.DGCCompressor(0.05), LocalComm(2),
               local_axis_name="local")
