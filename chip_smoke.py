@@ -143,12 +143,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ratio of ResNet-20 and ResNet-50, every bucket whose selection is an
    exact top-k of the row and that adapts: ``_ladder_adapt`` (through
    ``ladder_counts``) bitwise ``_ladder_adapt_from_topk``.
-5. One step through ``ProcessGroupComm`` on a one-rank NCCL group.
+4h. The run lifecycle. Resume is bitwise at full width, W=4 on the card:
+   ``resnet20_wm5`` (epochs 4 and 5, 2 steps each), ``resnet110_wm5o``
+   (across its dense -> compressed handover: epoch 4 at ratio 1, epoch 5
+   at 0.001) and ``resnet50_wm5`` (1 step each, the segment path) run
+   uninterrupted, then again as epoch 4, a checkpoint save, a fresh
+   ``Trainer`` that restores, and epoch 5: the losses, parameters,
+   optimizer state, every worker's memory and transmit record, BatchNorm
+   statistics and sampling generators bitwise, epoch 5's launch counts
+   equal; the checkpoint's bytes and its save and restore seconds printed.
+   The input path on ResNet-50 (W=4, epoch 5, 2 steps): batches from the
+   prefetch thread in pinned memory, uploaded on a side stream one step
+   ahead, bitwise the inline pageable batches (losses and state); 3 more
+   steps under the profiler give the host-to-device copies by memory
+   kind and the device's busy share (the inline path's too with
+   ``--profile``). The host crop kernel (``csrc/crop_flip_normalize.c``,
+   gcc) bitwise its numpy version on 512 CIFAR images, both host times
+   printed.
+5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
+   the CLI in subprocesses from a scratch directory: ``torchrun
+   --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
+   rank through ``parallel.multihost.initialize_multihost``, 2 epochs of
+   2 steps saved, its losses bitwise those of
+   ``LocalComm(1)`` with the same flags; ``--evaluate`` in a second
+   process restores ``best`` and prints the best epoch's top-1 and top-5.
 
 With ``--profile``, ``torch.profiler`` (device activity only) also records
 three more steps of each model at ratio 0.001 between phases 4c and 5 and
 prints their step times, the device time by kernel and the device's busy
-share of the same window.
+share of the same window; and 4h also traces the inline input path.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It trains in full f32
@@ -2585,16 +2608,221 @@ def phase_profile(trainer, label, steps=3):
     slow the host): the step times, the device time by kernel, and the
     device's busy share (the union of kernel intervals) of the host wall
     time of that same window."""
+    epoch = 5
+    trainer.run_epoch(epoch, 1)            # warm, outside the window
+    step_s = []
+    wall_ms, busy_ms, by_name = _device_window(
+        lambda: trainer.run_epoch(epoch, steps, step_s))
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    ours = {k: v for k, v in by_name.items()
+            if any(n in k for n in _KERNEL_SYMBOLS)}
+    print(json.dumps({"profile": {
+        "model": label, "steps": steps, "step_s": step_s,
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / wall_ms,
+        "device_kernel_ms": sum(v[0] for v in by_name.values()),
+        "ported_kernels": {k[:60]: {"ms": v[0], "count": v[1]}
+                           for k, v in ours.items()},
+        "top": [{"kernel": k[:90], "ms": v[0], "count": v[1]}
+                for k, v in rows[:20]]}}))
+
+
+def _share_datasets():
+    """Build each synthetic dataset once for the whole run: every
+    ``Trainer`` of a recipe shares its splits (the synthetic ImageNet's
+    512 images at 224x224 take seconds to draw on the host). A synthetic
+    split is a pure function of its size, classes and seed, so a shared
+    one hands every trainer the same batches a fresh one would."""
+    from dgc_tpu_torch import train
+    for name in ("CIFAR", "ImageNet"):
+        setattr(train, name, functools.lru_cache(maxsize=None)(
+            getattr(train, name)))
+
+
+def _snapshot(trainer):
+    """Everything a ``Trainer`` carries from step to step, on the CPU: the
+    parameters, the optimizer state, every worker's memory (its transmit
+    record included) and BatchNorm statistics, the sampling generators'
+    states, and the step counts."""
+    import torch
+    st = trainer.state
+    out = [st.params] + [v for v in st.opt_state if torch.is_tensor(v)]
+    for mem, stats in zip(st.memory, st.batch_stats):
+        out += [mem[k] for k in sorted(mem)] + [stats]
+    return ([t.detach().cpu() for t in out]
+            + [g.get_state() for g in trainer.gens]
+            + [torch.tensor([st.step, st.opt_state.count])])
+
+
+def _check_same_state(label, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} tensors, {len(want)}")
+    _check_equal(label, got, want)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_resume(label, recipe, schedule, must_launch):
+    """Resume is bitwise, at full width (W=4 ``LocalComm`` on the card):
+    ``schedule`` ``[(epoch a, steps), (epoch b, steps)]`` run
+    uninterrupted, then again as epoch a, a save, a fresh ``Trainer``
+    that restores, and epoch b. After epoch b the losses and everything
+    ``_snapshot`` holds are bitwise equal, and epoch b's launches (counts
+    zeroed just before it, read just after) are equal in both runs."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    from dgc_tpu_torch.training.checkpoint import CheckpointManager
+    (ea, sa), (eb, sb) = schedule
+    t_phase = time.perf_counter()
+
+    def trainer():
+        return Trainer(configs.RECIPES[recipe](), comm=LocalComm(4),
+                       device=DEVICE)
+
+    def second_epoch(t):
+        torch.cuda.synchronize()
+        _zero_counts()
+        losses = [float(x) for x in t.run_epoch(eb, sb)]
+        torch.cuda.synchronize()
+        return losses, dict(_read_counts(f"{label} epoch {eb}",
+                                         must_launch))
+
+    a = trainer()
+    a.run_epoch(ea, sa)
+    want_losses, want_counts = second_epoch(a)
+    want = _snapshot(a)
+    del a
+    b = trainer()
+    b.run_epoch(ea, sa)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.save_checkpoint(ckpt, ea, {"acc/test_top1": 0.0})
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(Path(tmp) / f"e{ea}")
+        del b
+        c = trainer()
+        t0 = time.perf_counter()
+        restored = c.restore_checkpoint(ckpt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if restored is None or restored[0] != ea:
+        raise AssertionError(f"{label}: restored {restored}")
+    got_losses, got_counts = second_epoch(c)
+    got = _snapshot(c)
+    if got_losses != want_losses:
+        raise AssertionError(f"{label}: resumed losses {got_losses}, "
+                             f"uninterrupted {want_losses}")
+    _check_same_state(f"{label} resumed state", got, want)
+    if got_counts != want_counts:
+        raise AssertionError(f"{label}: resumed launches {got_counts}, "
+                             f"uninterrupted {want_counts}")
+    launched = {k: v for k, v in got_counts.items() if v}
+    DETAIL[f"resume {label}"] = {
+        "schedule": schedule, "losses": got_losses, "launches": launched,
+        "checkpoint_bytes": nbytes, "save_s": save_s,
+        "restore_s": restore_s, "tensors": len(got),
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"[resume {label}] epochs {ea} -> {eb} ({sa} + {sb} steps, W=4): "
+          f"losses {got_losses} and {len(got)} state tensors bitwise the "
+          f"uninterrupted run's; epoch {eb} launches equal {launched}; "
+          f"checkpoint {nbytes / 1e6:.1f} MB, save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s (phase "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+    return got_counts
+
+
+def _cli(args, cwd, timeout=600):
+    """``python -m <args>`` from ``cwd`` with this checkout on the path;
+    its stdout. Fails on a non-zero exit."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    out = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode:
+        raise AssertionError(f"{' '.join(args[:4])} exited "
+                             f"{out.returncode}:\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def _summaries(stdout):
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith('{"epoch"')]
+
+
+def phase_cli():
+    """The CLI on the card, in subprocesses from a scratch directory.
+    ``torchrun --standalone --nproc_per_node=1`` runs ``resnet20_wm5`` as
+    one NCCL rank through ``parallel.multihost.initialize_multihost``: 2
+    epochs of 2 steps, each saved; its losses are bitwise those of the
+    in-process ``LocalComm(1)`` run with the same flags. Then
+    ``--evaluate`` in a second process (no launcher: ``LocalComm(1)``,
+    the same topology) restores ``best`` and prints the best epoch's
+    top-1 and top-5."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    flags = ["dgc_tpu_torch.train", "--config", "resnet20_wm5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = _cli(["torch.distributed.run", "--standalone",
+                    "--nproc_per_node=1", "-m", *flags, "--epochs", "2",
+                    "--steps", "2"], tmp)
+        t_run = time.perf_counter() - t0
+        if "[multihost] 1 processes over nccl" not in out:
+            raise AssertionError(f"torchrun: no NCCL group ({out[-800:]})")
+        t0 = time.perf_counter()
+        evaluated = _cli(flags + ["--evaluate"], tmp)
+        t_eval = time.perf_counter() - t0
+    epochs = _summaries(out)
+    got = [x for e in epochs for x in e["loss"]]
+    trainer = Trainer(configs.resnet20_wm5(), comm=LocalComm(1),
+                      device=DEVICE)
+    want = [float(x) for e in (0, 1) for x in trainer.run_epoch(e, 2)]
+    torch.cuda.synchronize()
+    if got != want:
+        raise AssertionError(f"torchrun losses {got}, LocalComm(1) {want}")
+    tops = [e["eval"]["acc/test_top1"] for e in epochs]
+    best = epochs[tops.index(max(tops))]
+    printed = re.findall(r"^\[(acc/test_top[15])\] = (\S+)$", evaluated,
+                         re.M)
+    want_meters = [(k, f"{best['eval'][k]:.2f}")
+                   for k in ("acc/test_top1", "acc/test_top5")]
+    if (printed != want_meters
+            or f"[resumed] epoch {best['epoch']}," not in evaluated):
+        raise AssertionError(f"--evaluate printed {printed} "
+                             f"({evaluated[-500:]}); the best epoch "
+                             f"{want_meters}")
+    DETAIL["cli"] = {"torchrun_loss": got, "epochs": epochs,
+                     "evaluate": printed, "torchrun_s": t_run,
+                     "evaluate_s": t_eval}
+    print(f"[torchrun] one NCCL rank through initialize_multihost, 2 "
+          f"epochs saved: losses {got} bitwise LocalComm(1)'s "
+          f"({t_run:.1f} s)")
+    print(f"[evaluate_cli] --evaluate restored best = epoch "
+          f"{best['epoch']} and printed "
+          + ", ".join(f"[{k}] = {v}" for k, v in printed)
+          + f" ({t_eval:.1f} s)")
+
+
+def _device_window(run):
+    """``run()`` under ``torch.profiler`` (device activity only): the
+    wall ms of the window, the device's busy ms (the union of its
+    activity intervals) and ``{name: (ms, count)}``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    epoch = 5
-    trainer.run_epoch(epoch, 1)            # warm, outside the window
     torch.cuda.synchronize()
-    step_s = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_epoch(epoch, steps, step_s)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -2612,18 +2840,106 @@ def phase_profile(trainer, label, steps=3):
         if t1_us > end:
             busy_us += t1_us - max(t0_us, end)
             end = t1_us
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    ours = {k: v for k, v in by_name.items()
-            if any(n in k for n in _KERNEL_SYMBOLS)}
-    print(json.dumps({"profile": {
-        "model": label, "steps": steps, "step_s": step_s,
-        "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-        "busy_share": busy_us / 1e3 / wall_ms,
-        "device_kernel_ms": sum(v[0] for v in by_name.values()),
-        "ported_kernels": {k[:60]: {"ms": v[0], "count": v[1]}
-                           for k, v in ours.items()},
-        "top": [{"kernel": k[:90], "ms": v[0], "count": v[1]}
-                for k, v in rows[:20]]}}))
+    return wall_ms, busy_us / 1e3, by_name
+
+
+def phase_input_path(trace_inline, steps=2, traced=3):
+    """The ``Trainer``'s input path on ResNet-50 (224x224, batch 32 per
+    worker, W=4, epoch 5): batches from the prefetch thread, copied into
+    pinned memory and uploaded on a side stream one step ahead, against
+    batches made inline and uploaded from pageable memory (the earlier
+    path): ``steps`` steps' losses and the whole state bitwise. Then
+    ``traced`` more steps under the profiler (the inline path's too with
+    ``trace_inline``): the host-to-device copies by memory kind and the
+    device's busy share of the window."""
+    import itertools
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.data.sampler import epoch_batches
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    t_phase = time.perf_counter()
+
+    class Inline(Trainer):
+        def epoch_inputs(self, epoch, steps=None):
+            it = epoch_batches(len(self.dataset["train"]), self.global_batch,
+                               epoch, seed=self.seed,
+                               drop_last=self.nbps > 1)
+            for idx in itertools.islice(it, steps):
+                yield self._batches(idx)
+
+    out = {}
+    for name, cls in (("prefetch_pinned", Trainer), ("inline_pageable",
+                                                     Inline)):
+        t = cls(configs.resnet50_wm5(), comm=LocalComm(4), device=DEVICE)
+        losses = [float(x) for x in t.run_epoch(5, steps)]
+        torch.cuda.synchronize()
+        out[name] = {"losses": losses, "state": _snapshot(t)}
+        if cls is Trainer or trace_inline:
+            step_s = []
+            wall_ms, busy_ms, by_name = _device_window(
+                lambda: t.run_epoch(5, traced, step_s))
+            out[name].update(
+                step_s=step_s, wall_ms=wall_ms, busy_share=busy_ms / wall_ms,
+                h2d={k: {"ms": v[0], "count": v[1]}
+                     for k, v in by_name.items()
+                     if k.startswith("Memcpy HtoD")})
+        del t
+    a, b = out["prefetch_pinned"], out["inline_pageable"]
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"input path: losses {a['losses']} prefetched, "
+                             f"{b['losses']} inline")
+    _check_same_state("input path: prefetched vs inline state", a["state"],
+                      b["state"])
+    if not any("Pinned" in k for k in a["h2d"]):
+        raise AssertionError(f"input path: no pinned upload in {a['h2d']}")
+    for v in out.values():
+        del v["state"]
+    DETAIL["input_path resnet50"] = out
+    print(f"[input_path] resnet50 W=4, {steps} steps: prefetched + pinned "
+          f"losses {a['losses']} and state bitwise the inline batches' "
+          f"(phase {time.perf_counter() - t_phase:.1f} s)")
+    for name, v in out.items():
+        if "h2d" not in v:
+            continue
+        print(f"[input_path] {name}: {traced} steps {v['step_s']} s, device "
+              f"busy {v['busy_share']:.1%} of {v['wall_ms']:.1f} ms; "
+              "H2D " + "; ".join(f"{k} {c['ms']:.2f} ms x{c['count']}"
+                                 for k, c in v["h2d"].items()))
+
+
+def phase_crop_kernel(n=512, reps=20):
+    """The input pipeline's host kernel (``csrc/crop_flip_normalize.c``,
+    built with gcc) on a CIFAR batch of ``n`` images, bitwise its numpy
+    version; both host times (median of ``reps`` calls)."""
+    import statistics
+    import numpy as np
+    from dgc_tpu_torch.data import native
+    from dgc_tpu_torch.data.datasets import CIFAR_MEAN, CIFAR_STD
+    rng = np.random.RandomState(0)
+    args = (rng.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8),
+            rng.randint(0, 9, n), rng.randint(0, 9, n),
+            rng.randint(0, 2, n).astype(np.uint8), 4, CIFAR_MEAN, CIFAR_STD)
+    t0 = time.perf_counter()
+    got = native.crop_flip_normalize(*args)
+    first_s = time.perf_counter() - t0
+    want = native.crop_flip_normalize_plain(*args)
+    if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("crop kernel and its numpy version differ")
+    ms = {}
+    for name, fn in (("c", native.crop_flip_normalize),
+                     ("numpy", native.crop_flip_normalize_plain)):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(ts)
+    DETAIL["crop_kernel"] = {"images": n, "first_call_s": first_s, **ms}
+    print(f"[crop_kernel] {n} CIFAR images: C kernel bitwise its numpy "
+          f"version; host {ms['c']:.3f} ms (C, OpenMP) against "
+          f"{ms['numpy']:.3f} ms (numpy), median of {reps}; first call "
+          f"with the gcc build {first_s:.2f} s")
 
 
 #: the device symbols of the ported kernels, as the profiler names them
@@ -2686,6 +3002,7 @@ def main(argv):
         if flag in argv:
             globals()[name] = argv[argv.index(flag) + 1]
     t_start = time.perf_counter()
+    _share_datasets()
     phase_build()
     geoms = _geometries()
     geoms50_all = _geometries("resnet50_wm5")
@@ -2761,7 +3078,18 @@ def main(argv):
         phase_profile(r20, "resnet20")
         phase_profile(r50, "resnet50")
     del r20, r50
+    resume = ["topk_rows", "apply_rows", "opaque_view_from"]
+    cifar = resume + ["compensate_bits", "opaque_view"]
+    phase_resume("resnet20_wm5", "resnet20_wm5", [(4, 2), (5, 2)], cifar)
+    phase_resume("resnet110_wm5o", "resnet110_wm5o", [(4, 2), (5, 2)],
+                 cifar)
+    # at epoch 5 every ResNet-50 compensate emits the segment candidates
+    phase_resume("resnet50_wm5", "resnet50_wm5", [(4, 1), (5, 1)],
+                 resume + ["compensate_bits_cands"])
+    phase_input_path(trace_inline="--profile" in argv)
+    phase_crop_kernel()
     phase_process_group()
+    phase_cli()
     for name, e in entries.items():
         # the count of the one path that is each kernel's own
         e["launches_path"] = _OWN_PATH.get(name, "resnet50")

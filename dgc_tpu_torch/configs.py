@@ -22,7 +22,10 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   with ``configs/dgc/megakernel.py`` stacked last.
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
-``sgd``), as in the reference.
+``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
+stack as the JAX harness's ``--configs`` takes it (each file's package
+``__init__.py`` loads first), from which the harness names the
+experiment directory.
 """
 
 from dgc_tpu_torch.utils.config import Config
@@ -31,7 +34,7 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet20_wm5o", "resnet20_wm5_nm", "resnet110_wm5",
            "resnet110_wm5o", "resnet50_wm5", "resnet50_wm5_cosine",
            "resnet18_wm5", "resnet20_wm5_megakernel",
-           "resnet50_wm5_megakernel", "RECIPES"]
+           "resnet50_wm5_megakernel", "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -211,3 +214,24 @@ RECIPES = {f.__name__: f for f in (
     resnet20_wm5_nm, resnet110_wm5, resnet110_wm5o, resnet50_wm5,
     resnet50_wm5_cosine, resnet18_wm5, resnet20_wm5_megakernel,
     resnet50_wm5_megakernel)}
+
+_R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
+_R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
+_WM5, _MK = "configs/dgc/wm5.py", "configs/dgc/megakernel.py"
+
+#: each recipe's config files, in the JAX harness's ``--configs`` order
+CONFIG_FILES = {
+    "resnet20": (_R20,),
+    "resnet110": (_R110,),
+    "resnet20_wm5": (_R20, _WM5),
+    "resnet20_wm0": (_R20, "configs/dgc/wm0.py"),
+    "resnet20_wm5o": (_R20, "configs/dgc/wm5o.py"),
+    "resnet20_wm5_nm": (_R20, _WM5, "configs/dgc/nm.py"),
+    "resnet110_wm5": (_R110, _WM5),
+    "resnet110_wm5o": (_R110, "configs/dgc/wm5o.py"),
+    "resnet50_wm5": (_R50, _WM5),
+    "resnet50_wm5_cosine": (_R50, _WM5, "configs/imagenet/cosine.py"),
+    "resnet18_wm5": (_R18, _WM5),
+    "resnet20_wm5_megakernel": (_R20, _WM5, _MK),
+    "resnet50_wm5_megakernel": (_R50, _WM5, _MK),
+}

@@ -15,6 +15,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from dgc_tpu_torch.data.native import crop_flip_normalize
+
 __all__ = ["ArraySplit", "SyntheticSplit", "CIFAR", "ImageNet", "Synthetic",
            "CIFAR_MEAN", "CIFAR_STD", "IMAGENET_MEAN", "IMAGENET_STD"]
 
@@ -29,29 +31,11 @@ def _normalize(images_u8: np.ndarray, mean: np.ndarray,
     return (images_u8.astype(np.float32) / 255.0 - mean) / std
 
 
-def _crop_flip_normalize(images_u8: np.ndarray, ys: np.ndarray,
-                         xs: np.ndarray, flips: np.ndarray, pad: int,
-                         mean: np.ndarray, std: np.ndarray) -> np.ndarray:
-    """Crop at ``(ys, xs)`` of the zero-padded images, mirror where
-    ``flips``, and normalise as ``u8 * 1/(255 std) - mean/std`` (the
-    reference's training-path arithmetic)."""
-    scale = (1.0 / (255.0 * std)).astype(np.float32)
-    bias = (-mean / std).astype(np.float32)
-    n, h, w, c = images_u8.shape
-    padded = np.zeros((n, h + 2 * pad, w + 2 * pad, c), images_u8.dtype)
-    padded[:, pad:pad + h, pad:pad + w] = images_u8
-    iy = ys[:, None] + np.arange(h)[None, :]
-    ix = xs[:, None] + np.arange(w)[None, :]
-    out = padded[np.arange(n)[:, None, None], iy[:, :, None],
-                 ix[:, None, :]]
-    fl = flips.astype(bool)
-    out[fl] = out[fl][:, :, ::-1]
-    return out.astype(np.float32) * scale + bias
-
-
 class ArraySplit:
     """In-memory split over uint8 NHWC images; the train split augments
-    with a zero-padded random crop and a random horizontal flip."""
+    with a zero-padded random crop and a random horizontal flip, through
+    the C kernel :func:`~dgc_tpu_torch.data.native.crop_flip_normalize`,
+    drawing the offsets and flips in the JAX package's order."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  mean: np.ndarray, std: np.ndarray, train: bool,
@@ -72,8 +56,8 @@ class ArraySplit:
             n = len(imgs)
             ys = self._rng.randint(0, 2 * self.pad + 1, size=n)
             xs = self._rng.randint(0, 2 * self.pad + 1, size=n)
-            flips = self._rng.randint(0, 2, size=n)
-            return (_crop_flip_normalize(imgs, ys, xs, flips, self.pad,
+            flips = self._rng.randint(0, 2, size=n).astype(np.uint8)
+            return (crop_flip_normalize(imgs, ys, xs, flips, self.pad,
                                          self.mean, self.std),
                     self.labels[indices])
         return _normalize(imgs, self.mean, self.std), self.labels[indices]

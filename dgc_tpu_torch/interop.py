@@ -19,7 +19,11 @@ holds every bf16 value exactly (numpy has no bf16 of its own, and the
 reference's ``load_state_dict`` casts to the live state's dtype).
 
 The optimizers' state (``SGDState``: the step count and the momentum
-buffer, or none) carries across with :func:`carry_opt_state`.
+buffer, or none) carries across with :func:`carry_opt_state`, and a whole
+flat train state (e.g. one the JAX ``CheckpointManager`` restored: the
+flat parameters and optimizer state, and the memory and BatchNorm
+statistics with their leading ``[world]`` axis) with
+:func:`carry_train_state`.
 """
 
 from typing import Dict, Tuple
@@ -29,10 +33,11 @@ import torch
 
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.optim.sgd import SGDState
+from dgc_tpu_torch.training.state import TrainState
 from dgc_tpu_torch.utils.pytree import named_flatten, nest
 
 __all__ = ["carry_variables", "export_variables", "carry_memory",
-           "export_memory", "carry_opt_state"]
+           "export_memory", "carry_opt_state", "carry_train_state"]
 
 _MEMORY_KEYS = ("momentums", "velocities")
 
@@ -102,3 +107,20 @@ def carry_opt_state(state, device=None) -> SGDState:
     if buf is not None:
         buf = torch.from_numpy(np.array(buf, np.float32)).to(device)
     return SGDState(int(state.count), buf)
+
+
+def carry_train_state(state, device=None) -> TrainState:
+    """The JAX package's flat ``TrainState`` (numpy arrays, e.g. from
+    ``jax.device_get``: ``params`` and ``batch_stats`` the flat buffers,
+    the memory a dict of ``[world, ...]`` arrays) -> the port's, one
+    memory dict and statistics buffer per worker, bit for bit."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(device)
+    stats = np.asarray(state.batch_stats)
+    mem = {k: np.asarray(v) for k, v in state.memory.items()}
+    return TrainState(
+        step=int(state.step), params=tensor(state.params),
+        opt_state=carry_opt_state(state.opt_state, device),
+        memory=[{k: tensor(v[w]) for k, v in mem.items()}
+                for w in range(stats.shape[0])],
+        batch_stats=[tensor(s) for s in stats])

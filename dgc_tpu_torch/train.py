@@ -17,9 +17,32 @@ epoch, printing ``[acc/test_top1] = ...`` lines as the JAX harness does
 and keeping the best top-1; ``--evaluate`` only evaluates.
 
 Workers: ``--world W`` simulates W workers on one device in lockstep
-(``LocalComm``). With ``--init-method`` each process is one worker of a
-``torch.distributed`` group (NCCL on the card, gloo on the CPU), and
-``--world`` is the group size.
+(``LocalComm``). Under ``torchrun`` or Slurm, or with the launch scripts'
+``JAX_COORDINATOR_ADDRESS`` triple, each process is one worker of a
+``torch.distributed`` group (:func:`~dgc_tpu_torch.parallel.multihost.
+initialize_multihost`: NCCL on the card, gloo when ``--device cpu``); so
+it is with ``--init-method`` and ``--rank``, and ``--world`` is then the
+group size.
+
+The run lifecycle is the JAX harness's: the experiment directory is
+:func:`get_save_path` over the recipe's config files
+(``configs.CONFIG_FILES``) plus ``--suffix`` and ``.np<world>``, under
+``runs/`` in the working directory. Every epoch is saved to its
+``checkpoints`` (:class:`~dgc_tpu_torch.training.checkpoint.
+CheckpointManager`: parameters, optimizer state, every worker's memory,
+BatchNorm statistics and sampling generator; ``best`` when the metric
+improved); a restarted run resumes after the newest saved epoch with the
+best metric restored, and continues as the uninterrupted run would,
+bitwise. ``--evaluate`` restores ``best`` and only evaluates (the initial
+weights when nothing was saved). ``metrics.jsonl`` gets ``loss/train``
+every 50 steps and at an epoch's last, and the epoch's meters, at x =
+samples seen; ``--profile`` writes a ``torch.profiler`` trace of the first
+8 steps of the first epoch trained to ``<save_path>/profile``.
+
+Input: a background thread prepares each batch (:class:`~dgc_tpu_torch.
+data.native.Prefetcher`) into pinned host memory on the card, and each
+worker's block is uploaded on a side stream one step ahead of the step
+that reads it (:meth:`Trainer.epoch_inputs`).
 
     python -m dgc_tpu_torch.train --device cpu --world 2 --steps 2 \\
         --epochs 1 --batch-size 8 --synthetic-size 64
@@ -28,6 +51,8 @@ Workers: ``--world W`` simulates W workers on one device in lockstep
         --synthetic-size 16
     python -m dgc_tpu_torch.train --config resnet20 --device cpu \\
         --evaluate --batch-size 8 --synthetic-size 64
+    torchrun --standalone --nproc_per_node=2 -m dgc_tpu_torch.train \\
+        --config resnet20_wm5 --epochs 1 --steps 2
 
 ``--image-size`` only shrinks the synthetic images (for CPU runs), as the
 JAX harness's ``--dataset.image_size`` override does. ``--megakernel`` and
@@ -38,12 +63,16 @@ are their base recipes with ``--megakernel``).
 """
 
 import argparse
+import contextlib
+import itertools
 import json
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dgc_tpu_torch import configs as _configs
 from dgc_tpu_torch.compression.base import Compression
@@ -51,20 +80,62 @@ from dgc_tpu_torch.compression.dgc import DGCCompressor
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
 from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
+from dgc_tpu_torch.data.native import Prefetcher, stage_ahead
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
 from dgc_tpu_torch.models import create, param_tree
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
 from dgc_tpu_torch.optim.sgd import dgc_sgd, sgd
 from dgc_tpu_torch.parallel.comm import Comm, LocalComm, ProcessGroupComm
+from dgc_tpu_torch.parallel.multihost import initialize_multihost
+from dgc_tpu_torch.training import checkpoint
+from dgc_tpu_torch.training.checkpoint import CheckpointManager
 from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
                                        multistep_schedule)
 from dgc_tpu_torch.training.step import (eval_step, make_flat_setup,
                                          make_flat_state, train_step)
+from dgc_tpu_torch.utils import profiling
 from dgc_tpu_torch.utils.device import (resolve_device,
                                         set_reproducible_numerics)
+from dgc_tpu_torch.utils.logging import MetricWriter, printr
 from dgc_tpu_torch.utils.meters import TopKClassMeter
 
-__all__ = ["Trainer", "main"]
+__all__ = ["Trainer", "main", "get_save_path"]
+
+#: steps of the first trained epoch that ``--profile`` traces
+PROFILE_STEPS = 8
+
+
+def get_save_path(*config_paths, prefix="runs"):
+    """The experiment directory of a set of config files, as the JAX
+    harness names it: ``configs/cifar/resnet20.py`` +
+    ``configs/dgc/wm5.py`` -> ``runs/cifar.resnet20+dgc.wm5`` (siblings
+    joined by ``+``, without the reference's brackets)."""
+    memo = {}
+    for c in config_paths:
+        node = memo
+        for m in c.replace("configs/", "").replace(".py", "").split("/"):
+            node = node.setdefault(m, {})
+
+    def fmt(m):
+        return "+".join(k + ("." + fmt(v) if v else "")
+                        for k, v in m.items())
+
+    return os.path.join(prefix, fmt(memo))
+
+
+class _HostBatches:
+    """``split``'s batches as tensors, copied into pinned host memory when
+    ``pin`` (run on the prefetch thread)."""
+
+    def __init__(self, split, pin: bool):
+        self.split, self.pin = split, pin
+
+    def get_batch(self, idx):
+        images, labels = self.split.get_batch(idx)
+        images, labels = torch.from_numpy(images), torch.from_numpy(labels)
+        if self.pin:
+            images, labels = images.pin_memory(), labels.pin_memory()
+        return images, labels
 
 
 class Trainer:
@@ -142,6 +213,41 @@ class Trainer:
         self.gens = [torch.Generator().manual_seed(self.seed * 7919 + 1 + r)
                      for r in comm.ranks]
         self._built_ratio = None
+        self._upload_stream = None
+
+    @property
+    def topology(self) -> Dict[str, int]:
+        """What a checkpoint must have been written under to restore
+        here: processes, workers, the two-tier group size (1: the port
+        has no two-tier exchange)."""
+        return {"process_count": (dist.get_world_size()
+                                  if dist.is_initialized() else 1),
+                "world": self.comm.world, "num_local_workers": 1}
+
+    def save_checkpoint(self, ckpt: CheckpointManager, epoch: int,
+                        meters: Dict[str, float], best: bool = False) -> str:
+        """Save this process's part of the state after ``epoch`` (every
+        process of a group calls this)."""
+        rep, workers = checkpoint.state_tensors(self.state, self.gens,
+                                                self.comm.ranks)
+        return ckpt.save(epoch, rep, workers, meters, best=best,
+                         topology=self.topology)
+
+    def restore_checkpoint(self, ckpt: CheckpointManager,
+                           best: bool = False
+                           ) -> Optional[Tuple[int, Dict[str, float]]]:
+        """Restore the newest loadable epoch (``best``: the best one) into
+        the state and the generators; ``(epoch, meters)``, or None when
+        there is nothing to restore."""
+        rep, workers = checkpoint.state_tensors(
+            self.state, self.gens, self.comm.ranks, host=False)
+        out = ckpt.restore(rep, workers, best=best, topology=self.topology)
+        if out is None:
+            return None
+        rep, workers, epoch, meters = out
+        self.state = checkpoint.load_state_tensors(
+            self.state, self.gens, self.comm.ranks, rep, workers)
+        return epoch, meters
 
     def load_flat(self, flat_params: torch.Tensor,
                   flat_stats: torch.Tensor) -> None:
@@ -165,12 +271,63 @@ class Trainer:
             ys.append(y.to(self.device, torch.int64))
         return xs, ys
 
+    def _stage(self, batch):
+        """One global batch's blocks of this process's workers, ``(xs,
+        ys, ready)``: on the card uploaded on the side stream, non-blocking
+        from pinned memory, with ``ready`` the event that ends the upload
+        (the caching host allocator keeps a pinned block from reuse until
+        its copy is done); on the CPU the tensors themselves and no
+        event."""
+        images, labels = batch
+        per = self.nbps * self.bs
+        blocks = [(images[r * per:(r + 1) * per],
+                   labels[r * per:(r + 1) * per]) for r in self.comm.ranks]
+        if self.device.type != "cuda":
+            return ([x.permute(0, 3, 1, 2) for x, _ in blocks],
+                    [y.to(torch.int64) for _, y in blocks], None)
+        if self._upload_stream is None:
+            self._upload_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._upload_stream):
+            xs = [x.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
+                  for x, _ in blocks]
+            ys = [y.to(self.device, non_blocking=True).to(torch.int64)
+                  for _, y in blocks]
+            ready = torch.cuda.Event()
+            ready.record()
+        return xs, ys, ready
+
+    def epoch_inputs(self, epoch: int, steps: Optional[int] = None):
+        """The inputs of ``epoch``'s steps (at most ``steps``) for this
+        process's workers, ``(images, labels)`` lists on the device: the
+        batches of ``epoch_batches``, prepared on a background thread and
+        uploaded one step ahead (:func:`stage_ahead`, depth 1), each
+        ordered before the step that reads it by its upload's event (and
+        its device memory held for that step's stream). Only the batches
+        of those steps are prepared, so a split's augmentation draws as
+        many as inline batches would."""
+        split = self.dataset["train"]
+        it = epoch_batches(len(split), self.global_batch, epoch,
+                           seed=self.seed, drop_last=self.nbps > 1)
+        if steps is not None:
+            it = itertools.islice(it, steps)
+        host = _HostBatches(split, pin=self.device.type == "cuda")
+        with Prefetcher(host, it) as batches:
+            for xs, ys, ready in stage_ahead(batches, self._stage):
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    for t in xs + ys:
+                        t.record_stream(stream)
+                yield xs, ys
+
     def run_epoch(self, epoch: int, steps: Optional[int] = None,
-                  step_times: Optional[List[float]] = None
-                  ) -> List[torch.Tensor]:
+                  step_times: Optional[List[float]] = None,
+                  profile_dir: Optional[str] = None) -> List[torch.Tensor]:
         """Train ``epoch`` (at most ``steps`` steps). Returns the mean
         losses, still on the device. With ``step_times``, each step is
-        synchronised and its wall time appended (seconds)."""
+        synchronised and its wall time appended (seconds). With
+        ``profile_dir``, the first :data:`PROFILE_STEPS` steps are traced
+        there (:func:`~dgc_tpu_torch.utils.profiling.trace`)."""
         self.compression.warmup_compress_ratio(epoch)
         ratio = self.compression.compress_ratio
         if ratio != self._built_ratio:
@@ -181,21 +338,22 @@ class Trainer:
                 print(f"[epoch {epoch}] ratio {self._built_ratio:.4g}: "
                       f"payload {self.setup.engine.payload_size}/worker")
         losses = []
-        it = epoch_batches(len(self.dataset["train"]), self.global_batch,
-                           epoch, seed=self.seed, drop_last=self.nbps > 1)
-        for s, idx in enumerate(it):
-            if steps is not None and s >= steps:
-                break
-            xs, ys = self._batches(idx)
-            t0 = time.perf_counter()
-            self.state, loss = train_step(self.model, self.setup, self.dist,
-                                          self.state, xs, ys, self.gens,
-                                          self.nbps)
-            if step_times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                step_times.append(time.perf_counter() - t0)
-            losses.append(loss)
+        inputs = self.epoch_inputs(epoch, steps)
+        with contextlib.closing(inputs), contextlib.ExitStack() as prof:
+            if profile_dir is not None:
+                prof.enter_context(profiling.trace(profile_dir))
+            for s, (xs, ys) in enumerate(inputs):
+                t0 = time.perf_counter()
+                self.state, loss = train_step(
+                    self.model, self.setup, self.dist, self.state, xs, ys,
+                    self.gens, self.nbps)
+                if step_times is not None:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    step_times.append(time.perf_counter() - t0)
+                losses.append(loss)
+                if s + 1 == PROFILE_STEPS:
+                    prof.close()
         return losses
 
     def evaluate(self, split: str = "test") -> Dict[str, float]:
@@ -225,11 +383,8 @@ class Trainer:
 
 
 def _print_meters(meters: Dict[str, float]) -> None:
-    """Only the first process prints, as the reference's ``printr``."""
-    if not torch.distributed.is_initialized() or (
-            torch.distributed.get_rank() == 0):
-        for k, v in meters.items():
-            print(f"[{k}] = {v:.2f}")
+    for k, v in meters.items():
+        printr(f"[{k}] = {v:.2f}")
 
 
 def main(argv=None) -> List[float]:
@@ -257,8 +412,13 @@ def main(argv=None) -> List[float]:
                    help="select through the select-and-pack kernel where "
                         "it applies")
     p.add_argument("--evaluate", action="store_true",
-                   help="only evaluate the initial weights on the test "
-                        "split")
+                   help="restore the best checkpoint and only evaluate it "
+                        "on the test split")
+    p.add_argument("--suffix", default="",
+                   help="appended to the experiment directory's name")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the first steps of the first epoch trained "
+                        "to <save_path>/profile")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -275,43 +435,88 @@ def main(argv=None) -> List[float]:
     if args.fused_select:
         cfg.train.compression.fused_select = True
     if args.init_method:
-        import torch.distributed as dist
         if device.type == "cuda":
             torch.cuda.set_device(args.rank % torch.cuda.device_count())
-            device = torch.device("cuda", torch.cuda.current_device())
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 init_method=args.init_method,
                                 world_size=args.world, rank=args.rank)
+        grouped = True
+    else:
+        # torchrun, Slurm or the launch scripts' triple; none: one process
+        grouped = initialize_multihost(device)
+    if grouped:
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
         comm = ProcessGroupComm()
+        if args.world not in (1, comm.world):
+            raise SystemExit(f"--world {args.world} but the process group "
+                             f"has {comm.world} processes")
+        printr(f"[multihost] {comm.world} processes over "
+               f"{dist.get_backend()}")
     else:
         comm = LocalComm(args.world)
     try:
         trainer = Trainer(cfg, comm, device, verbose=True)
+        save_path = (get_save_path(*_configs.CONFIG_FILES[args.config])
+                     + f"{args.suffix}.np{comm.world}")
+        printr(f"[train.save_path] = {save_path}")
+        ckpt = CheckpointManager(os.path.join(save_path, "checkpoints"))
+        metric = cfg.train.metric
+        last_epoch, best = -1, None
+        restored = (trainer.restore_checkpoint(ckpt, best=args.evaluate)
+                    if args.evaluate or ckpt.latest_epoch() is not None
+                    else None)
+        if restored is not None:
+            last_epoch, saved = restored
+            best = saved.get(metric + "_best")
+            printr(f"\n[resumed] epoch {last_epoch}, best {best}")
+        else:
+            printr("\n==> train from scratch")
         # the sanity eval before training, as the reference runs it
         _print_meters(trainer.evaluate())
         if args.evaluate:
             return []
-        out, metric, best = [], cfg.train.metric, None
+        out: List[float] = []
         epochs = (args.epochs if args.epochs is not None
                   else cfg.train.num_epochs)
-        for epoch in range(epochs):
-            times: List[float] = []
-            losses = [float(x) for x in trainer.run_epoch(epoch, args.steps,
-                                                          times)]
-            out += losses
-            meters = trainer.evaluate()
-            if best is None or best < meters[metric]:
-                best = meters[metric]
-            meters[metric + "_best"] = best
-            _print_meters(meters)
-            # the epoch's summary last
-            print(json.dumps({
-                "epoch": epoch, "ratio": trainer.compression.compress_ratio,
-                "loss": losses, "step_s": times, "eval": meters}))
+        writer = MetricWriter(save_path)
+        try:
+            for epoch in range(last_epoch + 1, epochs):
+                times: List[float] = []
+                profile_dir = (os.path.join(save_path, "profile")
+                               if args.profile and epoch == last_epoch + 1
+                               else None)
+                losses = [float(x) for x in trainer.run_epoch(
+                    epoch, args.steps, times, profile_dir=profile_dir)]
+                # x = samples seen, counting every earlier epoch whole
+                seen = epoch * trainer.steps_per_epoch * trainer.global_batch
+                for s, loss in enumerate(losses):
+                    seen += trainer.global_batch
+                    if s % 50 == 0 or s == len(losses) - 1:
+                        writer.add_scalar("loss/train", loss, seen)
+                out += losses
+                meters = trainer.evaluate()
+                is_best = best is None or best < meters[metric]
+                if is_best:
+                    best = meters[metric]
+                meters[metric + "_best"] = best
+                _print_meters(meters)
+                for k, v in meters.items():
+                    writer.add_scalar(k, v, seen)
+                path = trainer.save_checkpoint(ckpt, epoch, meters,
+                                               best=is_best)
+                printr(f"[save_path] = {path}")
+                # the epoch's summary last, on every process
+                print(json.dumps({
+                    "epoch": epoch,
+                    "ratio": trainer.compression.compress_ratio,
+                    "loss": losses, "step_s": times, "eval": meters}))
+        finally:
+            writer.close()
         return out
     finally:
-        if args.init_method:
-            torch.distributed.destroy_process_group()
+        if grouped:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

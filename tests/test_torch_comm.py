@@ -33,13 +33,15 @@ def test_local_comm_collectives():
     assert comm.all_reduce(xs)[2].tolist() == [3.0, 3.0]
 
 
-def test_process_group_matches_local_comm():
+def test_process_group_matches_local_comm(tmp_path):
     url = f"tcp://localhost:{_free_port()}"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # in a fresh working directory: the CLI keeps its checkpoints there
+    env["PYTHONPATH"] = ROOT
     procs = [subprocess.Popen(
         [sys.executable, "-m", "dgc_tpu_torch.train", *ARGS,
          "--init-method", url, "--world", "2", "--rank", str(r)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(2)]
     outs = [p.communicate(timeout=240) for p in procs]
     for p, (out, err) in zip(procs, outs):

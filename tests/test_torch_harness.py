@@ -30,6 +30,20 @@ from dgc_tpu_torch.training import lr as tlr
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, restored afterwards: these are many small CPU
+    ops, no faster on several threads, and the files run beside other
+    test workers, where several threads a worker oversubscribe the cores
+    and slow every op by orders of magnitude. (A convolution's backward
+    sums in another order at another thread count: each comparison here
+    stays within one process, or sets one thread in its subprocesses.)"""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jax_recipe(monkeypatch):
     monkeypatch.chdir(REPO)
@@ -149,11 +163,13 @@ def test_stacked_recipes_match_the_config_files(recipe, monkeypatch):
 
 
 def test_recipes_reach_the_trainer_and_the_cli_evaluates(monkeypatch,
-                                                         capsys):
+                                                         capsys, tmp_path):
     """``momentum_masking=False`` (nm), the warm-up coefficients (wm5o)
     and the dense baseline's optimizer reach the trainer; the CLI prints
     the evaluation before training and after each epoch, with the best
-    top-1, and ``--evaluate`` only evaluates."""
+    top-1, and ``--evaluate`` only evaluates. (The CLI keeps its
+    checkpoints under ``runs/`` in the working directory.)"""
+    monkeypatch.chdir(tmp_path)
     seen = []
 
     class Spy(ttrain.Trainer):

@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
                 "compression.memory", "optim.distributed",
                 "models.resnet_imagenet",
                 "data.datasets", "training.lr", "training.step", "configs",
-                "interop"):
+                "interop", "training.checkpoint", "data.native",
+                "parallel.multihost", "utils.logging", "utils.profiling",
+                "accuracy_parity"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 

@@ -483,7 +483,8 @@ def test_megakernel_recipes_match_the_config_files(recipe, model_file,
     assert t == base
 
 
-def test_cli_flags_reach_the_compressor(monkeypatch):
+def test_cli_flags_reach_the_compressor(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)     # the CLI's runs/ directory
     seen = []
 
     class Spy(ttrain.Trainer):
