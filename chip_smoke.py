@@ -76,6 +76,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    e.g. ``git show 5427a94:dgc_tpu_torch/ops/kernels.py``) its two Triton
    candidates kernels are held bitwise against the new ones and timed in
    turns with them (``old_ms``).
+   VGG-16 (the engines at epochs 0, 1, 4 and 5) is one more model of the
+   same holds: ``topk_rows`` at every call of one worker's step that it
+   takes (the 3-D fallback's per-(row, lane) candidates over the [R *
+   128, nb] view, up to [2048, 50176], their top-k, the thresholds, epoch
+   5's segment selections), and on a planted tie column, where the lower
+   block comes first; ``apply_rows`` on real W=4 payloads at epochs 0
+   (n = 175.0M) and 5; ``compensate_bits`` and ``compensate_bits_cands``
+   (all four momentum flags, ties planted in its segment buckets) at
+   VGG's T = 139,028,480, twice each. Each kernel's VGG summary is its
+   line's ``vgg16_bn`` entry.
    Stdout gets a summary line per kernel (and per apply shape, epochs 0
    and 5); the per-call detail and every path's launch counts go to
    ``chiprun_out/chip_smoke_detail.json``.
@@ -102,6 +112,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    strided_sample=False`` card == CPU bitwise at epochs 0 and 5; the
    engine with the memory's ``gradient_clipping`` (a norm clip, and the
    global one) at W=3, epochs 4 and 5, within rtol 1e-6, records equal.
+   VGG-16's W=4 exchange card == CPU at the epoch-0 ratio (the 3-D
+   fallback on the split fc buckets, n = 175.0M entries applied a worker)
+   and the epoch-5 ratio (the segment path), one step each, bitwise.
    Then run to run: ResNet-20 (flat, default route, W=4) trained 2 steps
    at the epoch-0 ratio twice from one seed, parameters, momentum and
    memory bitwise equal.
@@ -160,6 +173,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``--profile``). The host crop kernel (``csrc/crop_flip_normalize.c``,
    gcc) bitwise its numpy version on 512 CIFAR images, both host times
    printed.
+4i. The VGG-16 path (``vgg16_bn_wm5``: full width, 224x224 synthetic
+   ImageNet, batch 32 a worker, W=4 on the card, dropout from each
+   worker's generator): one step at each of epochs 0, 1 and 4 (the 3-D
+   fallback: ``sel3d`` counted, no candidates kernel) and two at epoch 5
+   (the segment path: ``compensate_bits_cands``, no ``sel3d``), every
+   epoch launching ``topk_rows`` and ``apply_rows``, then the evaluation;
+   its bf16 twin (``vgg16_bn_wm5_bf16``) one step at epochs 0 and 5, no
+   opaque copy, its first loss within 2% of the f32 path's; resume
+   bitwise across the 3-D -> segment handover (epochs 4 -> 5, the
+   dropout generators included).
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -169,9 +192,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    process restores ``best`` and prints the best epoch's top-1 and top-5.
 
 With ``--profile``, ``torch.profiler`` (device activity only) also records
-three more steps of each model at ratio 0.001 between phases 4c and 5 and
-prints their step times, the device time by kernel and the device's busy
-share of the same window; and 4h also traces the inline input path.
+three more steps of each model (VGG-16 in 4i) at ratio 0.001 and prints
+their step times, the device time by kernel and the device's busy share
+of the same window; then three more traced with host ops and their
+shapes, for the share of the device time in autograd's per-view [P]
+gradient sums (the kernels of [P]-sized fills and adds inside the
+backward); and 4h also traces the inline input path.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It trains in full f32
@@ -275,7 +301,7 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
     from dgc_tpu_torch.compression.dgc import DGCCompressor
     from dgc_tpu_torch.compression.flat import FlatDGCEngine, ParamLayout
     from dgc_tpu_torch.compression.memory import DGCSGDMemory
-    from dgc_tpu_torch.models import create, param_tree
+    from dgc_tpu_torch.models import from_config, param_tree
     cfg = configs.RECIPES[recipe]()
     cc = cfg.train.compression
     comp = DGCCompressor(
@@ -285,8 +311,7 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
             gradient_clipping=clip),
         sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs,
         warmup_coeff=cc.warmup_coeff, **flags)
-    model = create(cfg.model.name, cfg.model.num_classes,
-                   torch.Generator())                   # shapes only
+    model = from_config(cfg.model, torch.Generator())  # shapes only
     tree = param_tree(model)
     comp.initialize((n.replace(".", "/"), tuple(p.shape))
                     for n, p in model.named_parameters() if p.dim() > 1)
@@ -388,18 +413,31 @@ def _check_equal(name, got, want):
 def _topk_inputs(eng, gen, host_gen):
     """``(role, input, k)`` of every top-k kernel call one worker's step
     makes with this engine, on random data: each bucket's selection and
-    sampled threshold, over the [R, cols] importance (2-D path) or the
-    candidates and the raw-view samples (segment path)."""
+    sampled threshold, over the [R, cols] importance (2-D path), the
+    candidates and the raw-view samples (segment path), or the per-(row,
+    lane) candidates' [R * 128, nb] view, their [R, kp * 128] layout and
+    the raw-view samples (3-D fallback)."""
     import torch
+    from dgc_tpu_torch.compression import flat
     from dgc_tpu_torch.ops import kernels as K
     consts = eng._bucket_consts(torch.device(DEVICE))
     vec = torch.randn(eng.T, device=DEVICE, generator=gen)
     out = []
-    for b, c, seg in zip(eng.buckets, consts, eng._seg):
+    for b, c, seg, sel3d in zip(eng.buckets, consts, eng._seg, eng._sel3d):
         phases = torch.rand(len(b.stride_groups), generator=host_gen).tolist()
         if seg:
             sel = K.seg_top2_candidates(vec, b.base, b.rows,
                                         b.cols)[0].abs()
+            smp = eng._sample_rows_3d(b, c, vec.view(-1, 128), phases)
+        elif sel3d:
+            R, nb = b.rows, b.cols // 128
+            block = vec[b.base:b.base + R * b.cols].view(R, b.cols)
+            kp = flat.lane_quota(b.cols, b.max_sel)
+            lanes = block.view(R, nb, 128).abs().transpose(1, 2).reshape(
+                R * 128, nb).contiguous()
+            if kp <= K.TOPK_MAX_K:
+                out.append(("candidates", lanes, kp))
+            sel = flat.lane_candidates(block, kp)[0]
             smp = eng._sample_rows_3d(b, c, vec.view(-1, 128), phases)
         else:
             block = vec[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
@@ -501,11 +539,64 @@ def _topk_planted_rows(cols, k, gen):
     return x
 
 
+def _topk_call(label, inp, k, errs, old=None):
+    """``topk_rows`` on one input: bitwise its plain version, twice (and
+    the earlier kernel ``old``, timed in turns with it); its time, the
+    plain version's, ``torch.topk``'s and the bound."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    want = K.topk_rows_plain(inp, k)
+    errs.append(_check_twice(f"topk_rows {label}",
+                             lambda: K.topk_rows(inp, k), want))
+    if old is not None:
+        _check_equal(f"old topk_rows {label}", _old_topk(old, inp, k), want)
+    R, cols = inp.shape
+    plan = K.topk_plan(R, cols, k)
+    # bytes: the rows read, k (value, column) pairs written; ops: one
+    # comparison per element
+    bound_ms, bound_by = _bound(4 * R * cols + 8 * R * k, R * cols)
+    return dict(shape=[R, cols], k=k, route=plan.route,
+                threads=plan.threads, cluster=plan.cluster,
+                staged=plan.staged, radix=plan.radix,
+                **_in_turns(lambda: K.topk_rows(inp, k),
+                            old and (lambda: _old_topk(old, inp, k))),
+                **_timed(plain_ms=lambda: K.topk_rows_plain(inp, k),
+                         library_ms=lambda: torch.topk(inp, k, dim=1)),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _check_tie_column(eng, gen):
+    """A planted tie column on the 3-D fallback's candidates view of
+    ``eng``'s first bucket: equal magnitudes, above every other, in
+    blocks 3, 40 and 41 of (row 0, lane 5). ``topk_rows`` must put them
+    first, lower block first (the port's tie rule), bitwise its plain
+    version, twice. Returns the largest difference and the case's
+    description."""
+    import torch
+    from dgc_tpu_torch.compression import flat
+    from dgc_tpu_torch.ops import kernels as K
+    b = eng.buckets[0]
+    nb, kp = b.cols // 128, flat.lane_quota(b.cols, b.max_sel)
+    lanes = torch.rand(b.rows * 128, nb, device=DEVICE, generator=gen)
+    lanes[5, [3, 40, 41]] = 2.0
+    err = _check_twice("topk_rows planted tie column",
+                       lambda: K.topk_rows(lanes, kp),
+                       K.topk_rows_plain(lanes, kp))
+    vals, blocks = K.topk_rows(lanes, kp)
+    if blocks[5, :3].tolist() != [3, 40, 41] or vals[5, :3].tolist() != [
+            2.0] * 3:
+        raise AssertionError(f"tie column: blocks {blocks[5, :4].tolist()}")
+    plan = K.topk_plan(*lanes.shape, kp)
+    return err, (f"{plan.route} x{plan.cluster} [{b.rows * 128}, {nb}] "
+                 f"k={kp} tie column, lower block first")
+
+
 def phase_topk_kernel(models, gen):
     """``topk_rows`` at every call of the paths (``models``: {model:
     geometries}; bitwise the plain version, twice) with its times beside
     the earlier design's (``--old-src``), ``torch.topk`` and the bound,
-    and at the planted cases on each route (twice, bitwise)."""
+    at the planted cases on each route (twice, bitwise), and at a planted
+    tie column of VGG-16's 3-D fallback."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     old = _old_topk_library(OLD_TOPK_SRC) if OLD_TOPK_SRC else None
@@ -514,31 +605,11 @@ def phase_topk_kernel(models, gen):
     for model, gs in models.items():
         for epoch, (ratio, eng) in gs.items():
             for role, inp, k in _topk_inputs(eng, gen, host_gen):
-                want = K.topk_rows_plain(inp, k)
-                errs.append(_check_equal("topk_rows", K.topk_rows(inp, k),
-                                         want))
-                _check_equal("topk_rows, second run", K.topk_rows(inp, k),
-                             want)
-                if old is not None:
-                    _check_equal("old topk_rows", _old_topk(old, inp, k),
-                                 want)
-                times = {**_in_turns(lambda: K.topk_rows(inp, k),
-                                     old and (lambda: _old_topk(old, inp, k))),
-                         **_timed(plain_ms=lambda: K.topk_rows_plain(inp, k),
-                                  library_ms=lambda: torch.topk(inp, k,
-                                                                dim=1))}
-                R, cols = inp.shape
-                plan = K.topk_plan(R, cols, k)
-                # bytes: the rows read, k (value, column) pairs written;
-                # ops: one comparison per element
-                bound_ms, bound_by = _bound(4 * R * cols + 8 * R * k,
-                                            R * cols)
                 calls.append(dict(
                     model=model, epoch=epoch, ratio=ratio, role=role,
-                    shape=[R, cols], k=k, route=plan.route,
-                    threads=plan.threads, cluster=plan.cluster,
-                    **times,
-                    bound_ms=bound_ms, bound_by=bound_by))
+                    **_topk_call(f"{model} epoch {epoch} {role}", inp, k,
+                                 errs, old)))
+        torch.cuda.empty_cache()
     planted = []
     pgen = torch.Generator(device=DEVICE).manual_seed(2)
     for route, cols, ks in _TOPK_PLANTED:
@@ -554,10 +625,17 @@ def phase_topk_kernel(models, gen):
             planted.append(f"{plan.route}{' radix' if plan.radix else ''}"
                            f"{'' if plan.staged else ' unstaged'}"
                            f" x{plan.cluster} [5, {cols}] k={k}")
+    err, case = _check_tie_column(models["vgg16_bn"][1][1], pgen)
+    errs.append(err)
+    planted.append(case)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    step = {m: {k: sum(c[k] for c in calls
-                       if c["model"] == m and c["epoch"] == 5)
-                for k in keys} for m in models}
+    by_epoch = {m: {e: {k: sum(c[k] for c in calls
+                               if c["model"] == m and c["epoch"] == e)
+                        for k in keys} for e in gs}
+                for m, gs in models.items()}
+    step = {m: dict(by_epoch[m][5]) for m in models}
+    vgg = [c for c in calls if c["model"] == "vgg16_bn"]
+    vgg_worst = max(vgg, key=lambda c: c["ms"] / c["library_ms"])
     worst = max(calls, key=lambda c: c["ms"] / c["library_ms"])
     losing = [c for c in calls if c["ms"] > c["library_ms"]]
     by_route = {}
@@ -588,6 +666,13 @@ def phase_topk_kernel(models, gen):
           f"({sum(' radix' in p for p in planted)} radix-sorted, "
           f"{sum(' unstaged' in p for p in planted)} unstaged), twice each, "
           "bitwise")
+    print(f"[topk_rows] vgg16_bn: {len(vgg)} path calls; per worker step ms "
+          + json.dumps({e: round(v["ms"], 4)
+                        for e, v in by_epoch["vgg16_bn"].items()})
+          + "; 3-D candidates " + json.dumps({
+              f"{c['shape']} k={c['k']}": [round(c["ms"], 4),
+                                           round(c["library_ms"], 4)]
+              for c in vgg if c["role"] == "candidates"}))
     return dict(
         name="topk_rows", route="cuda",
         source="dgc_tpu_torch/csrc/topk_rows.cu",
@@ -598,6 +683,15 @@ def phase_topk_kernel(models, gen):
         summed_over="the calls of one worker's ResNet-50 step at ratio "
                     "0.001", resnet20_step=step["resnet20"],
         resnet110_step=step["resnet110"],
+        vgg16_bn=dict(
+            calls=len(vgg), by_epoch=by_epoch["vgg16_bn"],
+            worst_ratio_to_library=vgg_worst["ms"] / vgg_worst["library_ms"],
+            worst_shape=[*vgg_worst["shape"], vgg_worst["k"]],
+            slower_than_library=sum(c["ms"] > c["library_ms"] for c in vgg),
+            candidates={f"{c['shape']} k={c['k']}": {
+                key: c[key] for key in ("ms", "library_ms", "bound_ms",
+                                        "route", "cluster", "staged")}
+                for c in vgg if c["role"] == "candidates"}),
         worst_ratio_to_library=worst["ms"] / worst["library_ms"],
         worst_shape=[*worst["shape"], worst["k"]],
         shapes_slower_than_library=len(losing), planted=planted,
@@ -608,7 +702,7 @@ def phase_kernels(models):
     """Bitwise checks and timings of ``compensate_bits``, ``topk_rows`` and
     ``apply_rows`` at the paths' shapes: ``models`` {model: geometries}
     (ResNet-20 across the warm-up, ResNet-50 and ResNet-110 at the epoch-0
-    and epoch-5 ratios).
+    and epoch-5 ratios, VGG-16 at epochs 0, 1, 4 and 5).
     Returns {kernel: entry} with per-call details under "calls"."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
@@ -616,10 +710,10 @@ def phase_kernels(models):
     gen = torch.Generator(device=dev).manual_seed(0)
     entries = {}
 
-    # --- K1 compensate at T of the 2-D paths (ResNet-50's compensates
-    #     through compensate_bits_cands) ---
+    # --- K1 compensate at T of the 2-D paths and of VGG-16's warm-up
+    #     (ResNet-50's compensates through compensate_bits_cands) ---
     calls = []
-    for model in ("resnet20", "resnet110"):
+    for model in ("resnet20", "resnet110", "vgg16_bn"):
         T = models[model][5][1].T
         nw = K.num_sent_words(T)
         g, m, v = (torch.randn(T, device=dev, generator=gen)
@@ -627,9 +721,11 @@ def phase_kernels(models):
         sent = torch.randperm(T, device=dev, generator=gen)[:T // 4].int()
         bits = K.pack_sent_bits(sent, T)
         want = K.compensate_bits_plain(g, m, v, bits, 0.9, False, True)
-        got = K.compensate_bits(g, m.clone(), v.clone(), bits, 0.9, False,
-                                True)
-        err = _check_equal(f"compensate_bits {model}", got, want)
+        err = _check_twice(f"compensate_bits {model}",
+                           lambda: K.compensate_bits(g, m.clone(), v.clone(),
+                                                     bits, 0.9, False, True),
+                           want)
+        del want
         mm, vv = m.clone(), v.clone()
         # bytes: g, m, v read, m, v written, the record read; ops: ~5 per
         # element
@@ -645,9 +741,11 @@ def phase_kernels(models):
                                                        0.9)),
             bound_ms=bound_ms, bound_by=bound_by))
         c = calls[-1]
-        print(f"[compensate_bits] {model} T={T}: bitwise, {c['ms']:.5f} ms "
-              f"(cold {c['cold_ms']:.5f}, plain {c['plain_ms']:.5f}, bound "
-              f"{bound_ms:.5f})")
+        print(f"[compensate_bits] {model} T={T}: bitwise twice, "
+              f"{c['ms']:.5f} ms (cold {c['cold_ms']:.5f}, plain "
+              f"{c['plain_ms']:.5f}, bound {bound_ms:.5f})")
+        del g, m, v, mm, vv, sent, bits
+    torch.cuda.empty_cache()
     head = calls[0]
     entries["compensate_bits"] = dict(
         name="compensate_bits", route="triton",
@@ -656,7 +754,9 @@ def phase_kernels(models):
         check="bitwise vs compensate_bits_plain",
         max_abs_err=max(c["max_abs_err"] for c in calls),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        library_ms=None, of="ResNet-20's T", calls=calls)
+        library_ms=None, of="ResNet-20's T", vgg16_bn={
+            k: calls[-1][k] for k in ("shape", "ms", "cold_ms", "plain_ms",
+                                      "bound_ms")}, calls=calls)
 
     # --- K2 top-k: every selection and threshold call it takes
     #     (ResNet-50's selections above its k take the lax_top_k route) ---
@@ -669,11 +769,12 @@ def _apply_payloads(models, gen, world=4):
     """One worker's apply inputs at W=4 on real gathered payloads, with
     duplicates (correlated workers select overlapping coordinates), for
     each of ``models`` ({model: geometries}) at the epoch-0 and epoch-5
-    ratios: a list of dicts with ``model, epoch, eng, args`` (``args`` =
-    values, indices, flags, T, divisor)."""
+    ratios: yields dicts with ``model, epoch, eng, args`` (``args`` =
+    values, indices, flags, T, divisor), one at a time (VGG-16's epoch-0
+    payload holds 175.0M entries)."""
     import torch
     from dgc_tpu_torch.parallel.comm import LocalComm
-    dev, out = DEVICE, []
+    dev = DEVICE
     for model, gs in models.items():
         for epoch in (0, 5):
             eng = gs[epoch][1]
@@ -689,10 +790,10 @@ def _apply_payloads(models, gen, world=4):
             gi = LocalComm(world).all_gather([s[1] for s in sent])[0]
             flags = ((torch.arange(world, device=dev)[:, None] == 0)
                      & (gi != eng.layout.sentinel)).reshape(-1)
-            out.append(dict(model=model, epoch=epoch, eng=eng, args=(
-                gv.reshape(-1), gi.reshape(-1), flags, eng.T,
-                float(world))))
-    return out
+            del sent, common, grad, mem
+            yield dict(model=model, epoch=epoch, eng=eng, args=(
+                gv.reshape(-1), gi.reshape(-1), flags, eng.T, float(world)))
+            del gv, gi, flags
 
 
 def _apply_planted(gen):
@@ -793,6 +894,51 @@ def _apply_routes(n):
     return ("scan", "list") if fits else ("list",)
 
 
+def _apply_call(p, errs):
+    """One real apply payload ``p`` (of :func:`_apply_payloads`) through
+    ``apply_rows``: bitwise ``apply_rows_plain``, run twice, then timed
+    against the plain version and ``torch.zeros(T).index_add_(0, idx, v /
+    W)``; its detail dict (printed), its error appended to ``errs``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    vals, idx, flags, T, world = args = p["args"]
+    real = idx[idx != p["eng"].layout.sentinel]
+    dups = int(real.numel() - torch.unique(real).numel())
+    del real
+    first = K.apply_rows(*args)
+    errs.append(_check_equal(f"apply_rows {p['model']} epoch {p['epoch']}",
+                             first, K.apply_rows_plain(*args)))
+    _check_equal("apply_rows run twice", K.apply_rows(*args), first)
+    del first
+    n, nwords = vals.numel(), K.num_sent_words(T)
+    plan = K.apply_plan(n, T)
+    keep = ((vals != 0) | flags) & (idx >= 0) & (idx < T)
+    per_chunk = torch.bincount(idx[keep].long() // K.APPLY_CHUNK,
+                               minlength=plan.grid)
+    ilong = idx.long()
+    # bytes: values, indices, flags read, acc and the record written;
+    # ops: a divide and an add per entry
+    bound_ms, bound_by = _bound(9 * n + 4 * T + 4 * nwords, 2 * n)
+    c = dict(
+        model=p["model"], epoch=p["epoch"],
+        payload_per_worker=p["eng"].payload_size, entries=n,
+        duplicate_entries=dups, route=plan.route, cap=plan.cap,
+        max_chunk_entries=int(per_chunk.max()),
+        chunks_over_cap=int((per_chunk > plan.cap).sum()),
+        **_timed(
+            ms=lambda: K.apply_rows(*args),
+            plain_ms=lambda: K.apply_rows_plain(*args),
+            library_ms=lambda: torch.zeros(
+                T, device=DEVICE).index_add_(0, ilong, vals / world)),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[apply] {c['model']} epoch {c['epoch']}: n {c['entries']}, "
+          f"{c['route']} route, {c['ms']:.4f} ms (plain "
+          f"{c['plain_ms']:.4f}, index_add_ {c['library_ms']:.4f}, "
+          f"bound {c['bound_ms']:.5f}); chunk max "
+          f"{c['max_chunk_entries']} of cap {c['cap']}")
+    return c
+
+
 def phase_apply_kernel(models, gen):
     """``apply_rows`` bitwise ``apply_rows_plain`` on the card: every
     planted case through both routes, and the real W=4 payloads of each
@@ -813,41 +959,9 @@ def phase_apply_kernel(models, gen):
     print(f"[apply] {len(planted)} planted cases bitwise, both routes")
     calls = []
     for p in _apply_payloads(models, gen):
-        vals, idx, flags, T, world = args = p["args"]
-        real = idx[idx != p["eng"].layout.sentinel]
-        dups = int(real.numel() - torch.unique(real).numel())
-        first = K.apply_rows(*args)
-        errs.append(_check_equal(f"apply_rows {p['model']} epoch "
-                                 f"{p['epoch']}", first,
-                                 K.apply_rows_plain(*args)))
-        _check_equal("apply_rows run twice", K.apply_rows(*args), first)
-        n, nwords = vals.numel(), K.num_sent_words(T)
-        plan = K.apply_plan(n, T)
-        keep = ((vals != 0) | flags) & (idx >= 0) & (idx < T)
-        per_chunk = torch.bincount(idx[keep].long() // K.APPLY_CHUNK,
-                                   minlength=plan.grid)
-        ilong = idx.long()
-        # bytes: values, indices, flags read, acc and the record written;
-        # ops: a divide and an add per entry
-        bound_ms, bound_by = _bound(9 * n + 4 * T + 4 * nwords, 2 * n)
-        calls.append(dict(
-            model=p["model"], epoch=p["epoch"],
-            payload_per_worker=p["eng"].payload_size, entries=n,
-            duplicate_entries=dups, route=plan.route, cap=plan.cap,
-            max_chunk_entries=int(per_chunk.max()),
-            chunks_over_cap=int((per_chunk > plan.cap).sum()),
-            **_timed(
-                ms=lambda: K.apply_rows(*args),
-                plain_ms=lambda: K.apply_rows_plain(*args),
-                library_ms=lambda: torch.zeros(
-                    T, device=DEVICE).index_add_(0, ilong, vals / world)),
-            bound_ms=bound_ms, bound_by=bound_by))
-    for c in calls:
-        print(f"[apply] {c['model']} epoch {c['epoch']}: n {c['entries']}, "
-              f"{c['route']} route, {c['ms']:.4f} ms (plain "
-              f"{c['plain_ms']:.4f}, index_add_ {c['library_ms']:.4f}, "
-              f"bound {c['bound_ms']:.5f}); chunk max "
-              f"{c['max_chunk_entries']} of cap {c['cap']}")
+        calls.append(_apply_call(p, errs))
+        del p
+        torch.cuda.empty_cache()
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     steady = {c["model"]: c for c in calls if c["epoch"] == 5}
     return dict(
@@ -860,6 +974,10 @@ def phase_apply_kernel(models, gen):
         of="one worker's apply at ResNet-50, ratio 0.001, W=4",
         resnet20_step={k: steady["resnet20"][k] for k in keys},
         resnet110_step={k: steady["resnet110"][k] for k in keys},
+        vgg16_bn={f"epoch {c['epoch']}": {k: c[k] for k in (
+            "entries", "route", "cap", "ms", "plain_ms", "library_ms",
+            "bound_ms", "max_chunk_entries", "chunks_over_cap")}
+            for c in calls if c["model"] == "vgg16_bn"},
         planted=planted, calls=calls)
 
 
@@ -1022,14 +1140,62 @@ def _check_negative_zero_lane(name, vec, cv):
         raise AssertionError(f"{name}: a -0.0 candidate did not read +0.0")
 
 
-def phase_seg_kernels(geoms50):
+def _fused_cands_at(label, eng, gen, old):
+    """``compensate_bits_cands`` at ``eng``'s T (its epoch-5 buckets),
+    ties planted at the start of every segment bucket: held by
+    :func:`_check_fused_cands`, the ties checked in the candidates, then
+    timed (in turns with ``old``) beside ``compensate_bits`` at the same
+    T and the plain version. Returns the call's dict and the kernel's
+    outputs under the default flags."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    T, span = eng.T, K.SEG_SPAN
+    nw, nseg = K.num_sent_words(T), T // span
+    g, m, v = (torch.randn(T, device=DEVICE, generator=gen)
+               for _ in range(3))
+    ties = []
+    for b, seg in zip(eng.buckets, eng._seg):
+        if seg:
+            ties += _plant_ties(g, m, v, b.base, span)
+    sent = torch.randperm(T, device=DEVICE, generator=gen)[:T // 1000].int()
+    bits = K.pack_sent_bits(sent, T)
+    del sent
+    # (compensate_bits at this T is the warm-up ratios' compensate)
+    want, got, err = _check_fused_cands(f"at {label}'s T", g, m, v, bits,
+                                        old)
+    for seg, lane, blocks, vals in ties:       # the ties reach the kernel
+        if (tuple(want[3][seg, :, lane].tolist()) != blocks
+                or tuple(want[2][seg, :, lane].tolist()) != vals):
+            raise AssertionError(f"planted tie at {label} segment {seg} "
+                                 f"lane {lane}")
+    del want
+    mm, vv = m.clone(), v.clone()
+    # bytes: g, m, v read, m, v written, the record read, 2 KB of
+    # candidates per segment written; ops: ~5 per element for the
+    # compensate, ~4 compares per element for the candidates
+    bound_ms, bound_by = _bound(20 * T + 4 * nw + 2048 * nseg, 9 * T)
+    call = dict(
+        model=label, shape=[T], segments=nseg, per_worker_step=1,
+        max_abs_err=err, **_in_turns(
+            lambda: K.compensate_bits_cands(g, mm, vv, bits, 0.9),
+            old and (lambda: old.compensate_bits_cands(g, mm, vv, bits,
+                                                       0.9))),
+        plain_ms=_device_ms(lambda: K.compensate_bits_cands_plain(
+            g, m, v, bits, 0.9)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        compensate_bits_ms_same_T=_device_ms(
+            lambda: K.compensate_bits(g, mm, vv, bits, 0.9)))
+    return call, got
+
+
+def phase_seg_kernels(geoms50, geoms_vgg):
     """The segment-candidate kernels at ResNet-50's T and buckets (ratio
     0.001), twice each, bitwise against their plain versions and each
     other, on ties planted at the start of every segment bucket, with all
     four momentum flag combinations for the fused kernel (m and v also
-    bitwise ``compensate_bits``); on the planted cases of
-    :func:`_seg_planted`; times, in turns with the earlier kernels under
-    ``--old-cands-src``."""
+    bitwise ``compensate_bits``), the fused kernel so also at VGG-16's T
+    and buckets; on the planted cases of :func:`_seg_planted`; times, in
+    turns with the earlier kernels under ``--old-cands-src``."""
     import torch
     from dgc_tpu_torch.ops import build
     from dgc_tpu_torch.ops import kernels as K
@@ -1037,44 +1203,26 @@ def phase_seg_kernels(geoms50):
     old = _old_cands_module(OLD_CANDS_SRC) if OLD_CANDS_SRC else None
     gen = torch.Generator(device=dev).manual_seed(2)
     eng = geoms50[5][1]
-    T, span = eng.T, K.SEG_SPAN
-    nw, nseg = K.num_sent_words(T), T // span
-    g, m, v = (torch.randn(T, device=dev, generator=gen) for _ in range(3))
-    ties = []
-    for b, seg in zip(eng.buckets, eng._seg):
-        if seg:
-            ties += _plant_ties(g, m, v, b.base, span)
-    sent = torch.randperm(T, device=dev, generator=gen)[:T // 1000].int()
-    bits = K.pack_sent_bits(sent, T)
-    # (compensate_bits at this T is the epoch-0 ratio's compensate)
-    want, got, err = _check_fused_cands("at ResNet-50's T", g, m, v, bits,
-                                        old)
-    for seg, lane, blocks, vals in ties:       # the ties reach the kernel
-        if (tuple(want[3][seg, :, lane].tolist()) != blocks
-                or tuple(want[2][seg, :, lane].tolist()) != vals):
-            raise AssertionError(f"planted tie at segment {seg} lane {lane}")
-    err = max(err, _check_seg_planted(gen))
-    mm, vv = m.clone(), v.clone()
-    # bytes: g, m, v read, m, v written, the record read, 2 KB of
-    # candidates per segment written; ops: ~5 per element for the
-    # compensate, ~4 compares per element for the candidates
-    bound_ms, bound_by = _bound(20 * T + 4 * nw + 2048 * nseg, 9 * T)
-    same_t = _device_ms(lambda: K.compensate_bits(g, mm, vv, bits, 0.9))
-    turns = _in_turns(
-        lambda: K.compensate_bits_cands(g, mm, vv, bits, 0.9),
-        old and (lambda: old.compensate_bits_cands(g, mm, vv, bits, 0.9)))
+    span = K.SEG_SPAN
+    head, got = _fused_cands_at("resnet50", eng, gen, old)
+    vgg = _fused_cands_at("vgg16_bn", geoms_vgg[5][1], gen, old)[0]
+    torch.cuda.empty_cache()
+    err = max(head["max_abs_err"], vgg["max_abs_err"],
+              _check_seg_planted(gen))
     entries = {"compensate_bits_cands": dict(
         name="compensate_bits_cands", route="cuda",
         source="dgc_tpu_torch/csrc/seg_top2.cu",
         replaces="dgc_tpu/ops/kernels.py:1265",
         check="bitwise vs compensate_bits_cands_plain, twice, all four "
               "momentum flag combinations; m, v bitwise compensate_bits; "
-              "planted cases twice", max_abs_err=err, **turns,
-        plain_ms=_device_ms(lambda: K.compensate_bits_cands_plain(
-            g, m, v, bits, 0.9)),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        compensate_bits_ms_same_T=same_t,
-        calls=[{"shape": [T], "segments": nseg, "per_worker_step": 1}])}
+              "planted cases twice", max_abs_err=err,
+        **{k: head[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms",
+                                "bound_by", "compensate_bits_ms_same_T")},
+        library_ms=None, of="ResNet-50's T",
+        vgg16_bn={k: vgg[k] for k in ("shape", "segments", "ms", "plain_ms",
+                                      "bound_ms",
+                                      "compensate_bits_ms_same_T")},
+        calls=[head, vgg])}
 
     vec = got[1]
     lib = build.library("seg_top2.cu", K._SEG_ARGS)
@@ -1139,6 +1287,11 @@ def phase_seg_kernels(geoms50):
               f"{e['bound_ms']:.4f}); bitwise twice, planted cases, "
               + ("four flag combinations" if "cands" in e["name"]
                  else f"{len(calls)} buckets"))
+    print(f"[seg] compensate_bits_cands at vgg16_bn's T={vgg['shape'][0]}: "
+          f"{vgg['ms']:.4f} ms (plain {vgg['plain_ms']:.4f}, bound "
+          f"{vgg['bound_ms']:.4f}, compensate_bits "
+          f"{vgg['compensate_bits_ms_same_T']:.4f}); bitwise twice, four "
+          "flag combinations, ties planted in its segment buckets")
     return entries
 
 
@@ -2484,7 +2637,8 @@ def _zero_counts():
     from dgc_tpu_torch.compression import flat
     from dgc_tpu_torch.ops import kernels as K
     K.reset_launches()
-    flat.ROUTES["lax_top_k"] = 0
+    for route in flat.ROUTES:
+        flat.ROUTES[route] = 0
 
 
 def _read_counts(label, must_launch):
@@ -2504,7 +2658,8 @@ def _read_counts(label, must_launch):
 _DGC_KERNELS = ("compensate_bits", "compensate_bits_cands",
                 "seg_top2_candidates", "topk_rows", "apply_rows",
                 "select_pack_rows", "dgc_forward_rows", "fused_compensate",
-                "fused_compensate_masked", "ladder_counts", "lax_top_k")
+                "fused_compensate_masked", "ladder_counts", "lax_top_k",
+                "sel3d")
 
 
 def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
@@ -2540,6 +2695,7 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
     counts = {k: sum(c[k] for c in per_epoch.values())
               for k in per_epoch[schedule[0][0]]}
     DETAIL[f"launches {label} by epoch"] = per_epoch
+    DETAIL[f"losses {label}"] = losses
     missing = [k for k in must_launch if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: never launched: {missing}")
@@ -2554,6 +2710,68 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
         print(f"[{label}] epoch {epoch} ratio {ratio} loss "
               f"{losses[epoch]} step_s {times[epoch]}")
     return trainer, counts
+
+
+#: the VGG-16 path's rules: the warm-up epochs select wide buckets on the
+#: 3-D fallback and compensate alone, epoch 5 takes the segment path,
+#: whose compensate emits the candidates
+_VGG_WARMUP = (("topk_rows", "apply_rows", "compensate_bits", "sel3d"),
+               ("compensate_bits_cands", "seg_top2_candidates"))
+_VGG_SEG = (("topk_rows", "apply_rows", "compensate_bits_cands"),
+            ("sel3d", "compensate_bits"))
+
+
+def phase_vgg_paths(profile=False):
+    """VGG-16-BN on synthetic ImageNet, full width (224x224, batch 32 a
+    worker, W=4 on the card, dropout from each worker's generator): one
+    step at each of epochs 0, 1 and 4 (the 3-D fallback), two at epoch 5
+    (the segment path), each epoch's launch rules held, then the
+    evaluation; the bf16 twin one step at epochs 0 and 5, no opaque copy,
+    its first loss within 2% of the f32 path's (the same weights, batch
+    and dropout masks); resume bitwise across the 3-D -> segment handover
+    (epochs 4 -> 5); under ``profile`` a traced window of 3 steps at epoch
+    5. Each part's peak of allocated device memory is printed. Returns
+    ``{path: counts}``."""
+    import torch
+    by_path, peaks = {}, {}
+
+    def peak(part):
+        peaks[part] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    peak("before")
+    rules = {e: _VGG_WARMUP for e in (0, 1, 4)}
+    rules[5] = _VGG_SEG
+    trainer, by_path["vgg16_bn"] = phase_train_path(
+        "vgg16_bn", "vgg16_bn_wm5", [(0, 1), (1, 1), (4, 1), (5, 2)],
+        ["topk_rows", "apply_rows", "compensate_bits",
+         "compensate_bits_cands", "sel3d"], epoch_rules=rules)
+    phase_evaluate(trainer, "vgg16_bn")
+    if profile:
+        phase_profile(trainer, "vgg16_bn")
+    del trainer
+    peak("vgg16_bn")
+    copies = ("opaque_view", "opaque_view_from")
+    _, by_path["vgg16_bn_bf16"] = phase_train_path(
+        "vgg16_bn_bf16", "vgg16_bn_wm5_bf16", [(0, 1), (5, 1)],
+        ["topk_rows", "apply_rows", "sel3d", "compensate_bits_cands"],
+        epoch_rules={0: (_VGG_WARMUP[0], _VGG_WARMUP[1] + copies),
+                     5: (_VGG_SEG[0], _VGG_SEG[1] + copies)})
+    peak("vgg16_bn_bf16")
+    f32 = DETAIL["losses vgg16_bn"][0][0]
+    b16 = DETAIL["losses vgg16_bn_bf16"][0][0]
+    if not abs(b16 - f32) <= 0.02 * abs(f32):
+        raise AssertionError(f"bf16 first loss {b16}, f32 {f32}")
+    print(f"[vgg16_bn_bf16] first loss {b16} against the f32 path's {f32} "
+          f"(within 2%), no opaque copy")
+    phase_resume("vgg16_bn_wm5", "vgg16_bn_wm5", [(4, 1), (5, 1)],
+                 list(_VGG_SEG[0]))
+    peak("resume")
+    del peaks["before"]
+    DETAIL["vgg16_bn peak_gib"] = peaks
+    print("[vgg16_bn] peak allocated device memory, GiB: "
+          + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
+    return by_path
 
 
 def phase_evaluate(trainer, label):
@@ -2602,12 +2820,57 @@ def phase_standalone_candidates(geoms50):
     return counts
 
 
+#: the ops whose [P]-sized launches inside autograd's backward are its
+#: per-view gradient sums: the zeros of each view's [P] gradient and the
+#: adds that sum them
+_VIEW_SUM_OPS = ("aten::fill_", "aten::zero_", "aten::add_", "aten::add")
+
+
+def _in_backward(event):
+    """Whether a host op ran inside one of autograd's
+    ``evaluate_function`` scopes."""
+    p = event.cpu_parent
+    while p is not None:
+        if p.name.startswith("autograd::engine::evaluate_function"):
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def _view_sums_window(run, P):
+    """``run()`` traced with host ops and their input shapes: the device ms
+    and launch count of autograd's per-view [P] gradient sums (the
+    kernels that :data:`_VIEW_SUM_OPS` on a [P] tensor launch inside the
+    backward; the optimizer's [P] adds run outside it), and the device ms
+    of every activity in the same window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    total_us = sums_us = 0.0
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total_us += e.time_range.end - e.time_range.start
+        elif (e.name in _VIEW_SUM_OPS and e.input_shapes
+              and list(e.input_shapes[0]) == [P] and _in_backward(e)):
+            sums_us += sum(k.duration for k in e.kernels)
+            launches += len(e.kernels)
+    return sums_us / 1e3, launches, total_us / 1e3
+
+
 def phase_profile(trainer, label, steps=3):
     """Over ``steps`` further steps at the epoch-5 ratio, traced with
     ``torch.profiler`` on the device only (no host-side events, which
     slow the host): the step times, the device time by kernel, and the
     device's busy share (the union of kernel intervals) of the host wall
-    time of that same window."""
+    time of that same window. Then ``steps`` more, traced with host ops
+    and shapes, for the share of the device time in autograd's per-view
+    [P] gradient sums (:func:`_view_sums_window`)."""
     epoch = 5
     trainer.run_epoch(epoch, 1)            # warm, outside the window
     step_s = []
@@ -2616,11 +2879,19 @@ def phase_profile(trainer, label, steps=3):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ours = {k: v for k, v in by_name.items()
             if any(n in k for n in _KERNEL_SYMBOLS)}
+    kernel_ms = sum(v[0] for v in by_name.values())
+    # autograd's sums of each parameter view's [P] gradient (ROADMAP 2b
+    # item 0), in a window of their own
+    sums_ms, sums_n, traced_ms = _view_sums_window(
+        lambda: trainer.run_epoch(epoch, steps), trainer.state.params.numel())
     print(json.dumps({"profile": {
         "model": label, "steps": steps, "step_s": step_s,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": busy_ms / wall_ms,
-        "device_kernel_ms": sum(v[0] for v in by_name.values()),
+        "device_kernel_ms": kernel_ms, "view_sums_ms": sums_ms,
+        "view_sums_launches": sums_n,
+        "view_sums_window_device_ms": traced_ms,
+        "view_sums_share": sums_ms / traced_ms,
         "ported_kernels": {k[:60]: {"ms": v[0], "count": v[1]}
                            for k, v in ours.items()},
         "top": [{"kernel": k[:90], "ms": v[0], "count": v[1]}
@@ -2642,8 +2913,8 @@ def _share_datasets():
 def _snapshot(trainer):
     """Everything a ``Trainer`` carries from step to step, on the CPU: the
     parameters, the optimizer state, every worker's memory (its transmit
-    record included) and BatchNorm statistics, the sampling generators'
-    states, and the step counts."""
+    record included) and BatchNorm statistics, the sampling and dropout
+    generators' states, and the step counts."""
     import torch
     st = trainer.state
     out = [st.params] + [v for v in st.opt_state if torch.is_tensor(v)]
@@ -2651,6 +2922,7 @@ def _snapshot(trainer):
         out += [mem[k] for k in sorted(mem)] + [stats]
     return ([t.detach().cpu() for t in out]
             + [g.get_state() for g in trainer.gens]
+            + [g.get_state() for g in trainer.dropout_gens or ()]
             + [torch.tensor([st.step, st.opt_state.count])])
 
 
@@ -3008,9 +3280,10 @@ def main(argv):
     geoms50_all = _geometries("resnet50_wm5")
     geoms50 = {e: geoms50_all[e] for e in (0, 5)}
     geoms110 = _geometries("resnet110_wm5", (0, 5))
+    geoms_vgg = _geometries("vgg16_bn_wm5", (0, 1, 4, 5))
     entries = phase_kernels({"resnet20": geoms, "resnet50": geoms50,
-                             "resnet110": geoms110})
-    entries.update(phase_seg_kernels(geoms50))
+                             "resnet110": geoms110, "vgg16_bn": geoms_vgg})
+    entries.update(phase_seg_kernels(geoms50, geoms_vgg))
     entries.update(phase_opaque_kernels(geoms, geoms50))
     entries["opaque_view_from"]["retime"] = phase_opaque_retime()
     both = dict(megakernel=True, fused_select=True)
@@ -3037,6 +3310,8 @@ def main(argv):
     phase_dense_vs_cpu(world=3)
     phase_nonresample_vs_cpu()
     phase_clip_vs_cpu()
+    phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1)
+    del geoms_vgg
     phase_run_to_run()
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
     by_path = {}
@@ -3078,6 +3353,7 @@ def main(argv):
         phase_profile(r20, "resnet20")
         phase_profile(r50, "resnet50")
     del r20, r50
+    by_path.update(phase_vgg_paths("--profile" in argv))
     resume = ["topk_rows", "apply_rows", "opaque_view_from"]
     cifar = resume + ["compensate_bits", "opaque_view"]
     phase_resume("resnet20_wm5", "resnet20_wm5", [(4, 2), (5, 2)], cifar)

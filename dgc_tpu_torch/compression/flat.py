@@ -20,8 +20,9 @@ W workers in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
   ``wire / W`` and this worker's transmit record), then the dense tail's
   non-accumulating correction.
 
-Two selection paths, chosen per bucket exactly as the reference chooses
-them:
+Three selection paths, chosen per bucket exactly as the reference chooses
+them (a single-tensor bucket wider than 8M columns is first split into
+segment rows of about 4M, :func:`_segment_rows`, as VGG-16's fc1 and fc2):
 
 * the 2-D path: top-k over the [R, cols] importance view (|v|, row tails
   -1), thresholds from lane-block samples of that view;
@@ -30,7 +31,11 @@ them:
   lane, 256-block segment), the two largest-|v| candidates
   (:func:`kernels.compensate_bits_cands`), and the bucket selects its
   top ``max_sel`` among those; thresholds come from the same lane blocks,
-  read raw from the flat buffer (:meth:`FlatDGCEngine._sample_rows_3d`).
+  read raw from the flat buffer (:meth:`FlatDGCEngine._sample_rows_3d`);
+* the 3-D fallback (:meth:`FlatDGCEngine._sparsify_bucket_3d`: a bucket
+  of 3M+ columns off the segment path, VGG-16's fc buckets through the
+  warm-up): the same thresholds, then per-(row, lane) candidates over
+  the row's 128-lane blocks and the top ``max_sel`` among them.
 
 **One deliberate difference from the TPU path.** The JAX engine selects
 with ``lax.approx_max_k`` at recall 0.90 wherever k exceeds 128 (or the
@@ -93,9 +98,7 @@ Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
 for one): planner regimes and dense-planned buckets, gossip, the adaptive
 send fraction, checksums, the int8/int4/fp16 and packed-index wires and
 the bf16 error-feedback state (the per-tensor path has the int8 and fp16
-wires and the bf16 state), the segment split of rows wider than 8M and
-the 3-D selection of wide buckets that are not segment-aligned (VGG-16),
-Adasum, the two-tier exchange and telemetry.
+wires and the bf16 state), Adasum, the two-tier exchange and telemetry.
 """
 
 import math
@@ -109,29 +112,37 @@ from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.utils.pytree import named_flatten
 
 __all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
-           "ladder_cols", "lax_top_k", "select_topk", "ROUTES"]
+           "ladder_cols", "lax_top_k", "select_topk", "lane_quota",
+           "lane_candidates", "ROUTES"]
 
 #: block alignment of the compressed-block boundary and the buffer tail
 _ALIGN = 16 * 128
 _LANE = 128
 #: the reference's ladder-kernel column chunk, which fixes row widths
 _LADDER_COL_CHUNK = 128 * 1024
-#: rows wider than this are split into segments by the reference
-#: (``_segment_rows``); no ResNet-20/110 row comes near it
+#: single-tensor rows wider than this are split into segment rows of at
+#: least ``_SPLIT_TARGET`` columns (:func:`_segment_rows`; VGG-16's fc1 and
+#: fc2)
 _SPLIT_COLS = 8 * 1024 * 1024
+_SPLIT_TARGET = 4 * 1024 * 1024
 #: maximum payload growth a bucket may pay to make its payload the full
 #: [R, max_sel] selection grid (identity ``tight`` map)
 _PAD_PAYLOAD_MAX_FRAC = 0.02
 #: the reference's minimum row width for its 3-D selection path
 _SEL3D_MIN_COLS = 3 * 1024 * 1024
+#: the 3-D fallback's per-(row, lane) candidate quota as a multiple of the
+#: mean ``max_sel / 128``
+_SEL3D_MARGIN = 2
 #: the reference's on-card bound on ``max_sel * cols`` of a fused select
 _FUSED_SELECT_MAX_WORK = 16_000_000
 #: widest row the forward megakernel takes (the reference's VMEM bound)
 _MK_MAX_COLS = 128 * 1024
 
-#: calls of the :func:`lax_top_k` route since the last reset (on any
-#: device); the top-k kernel's own launches are in ``kernels.LAUNCHES``
-ROUTES = {"lax_top_k": 0}
+#: calls of the :func:`lax_top_k` route and of the 3-D fallback's bucket
+#: selection (:meth:`FlatDGCEngine._sparsify_bucket_3d`) since the last
+#: reset (on any device); the kernels' own launches are in
+#: ``kernels.LAUNCHES``
+ROUTES = {"lax_top_k": 0, "sel3d": 0}
 
 
 def _round_up(n: int, align: int) -> int:
@@ -155,6 +166,33 @@ def select_topk(x: torch.Tensor, k: int):
     if k <= kernels.TOPK_MAX_K:
         return kernels.topk_rows(x, k)
     return lax_top_k(x, k)
+
+
+def lane_quota(cols: int, max_sel: int) -> int:
+    """The 3-D fallback's candidates a (row, lane): ``min(nb, ceil(2
+    max_sel / 128))`` over a row of ``nb = cols / 128`` blocks."""
+    return min(cols // _LANE, -(-_SEL3D_MARGIN * max_sel // _LANE))
+
+
+def lane_candidates(block: torch.Tensor, kp: int):
+    """Per-(row, lane) candidates of a [R, nb * 128] block: for each of
+    the 128 lanes of each row, the ``kp`` largest |v| over the row's nb
+    128-lane blocks and their block ids, ``(values, blocks)`` each laid out
+    [R, kp, 128] and flattened to [R, kp * 128] (the reference's
+    ``approx_max_k(|v3|, kp, reduction_dimension=1)`` layout). Computed as
+    :func:`select_topk` over the rows of the transposed [R * 128, nb] view,
+    so equal magnitudes go to the lower block."""
+    R, cols = block.shape
+    nb = cols // _LANE
+    imp_t = block.view(R, nb, _LANE).abs().transpose(1, 2).reshape(
+        R * _LANE, nb).contiguous()
+    cv, cb = select_topk(imp_t, kp)                         # [R * 128, kp]
+    del imp_t
+
+    def relayout(t):
+        return t.view(R, _LANE, kp).transpose(1, 2).reshape(
+            R, kp * _LANE).contiguous()
+    return relayout(cv), relayout(cb)
 
 
 def ladder_cols(max_n: int) -> int:
@@ -333,14 +371,58 @@ class _Bucket(NamedTuple):
     stride_groups: Tuple[Tuple[int, int, int, int], ...]
 
 
-def _build_buckets(attributes, layout: ParamLayout) -> List[_Bucket]:
-    """Per-ratio sparsification attributes of each layout bucket."""
+def _segment_rows(attrs, base: int, cols: int, sample_ratio: float,
+                  compress_ratio: float):
+    """Split one giant tensor row into S segment rows (the reference's
+    ``_segment_rows``): S doubles while the halves stay at least
+    :data:`_SPLIT_TARGET` wide and each keeps a select. The tensor's
+    ``num_selects`` is split in proportion to each segment's elements,
+    Python's ``round`` on the running remainder (the sum stays exact), and
+    each segment samples at its own geometry. Returns ``(seg_cols, rows)``
+    with the row tuples of :func:`_bucket_from_rows`."""
+    # dgc.py imports this module
+    from dgc_tpu_torch.compression.dgc import sampling_geometry
+    S = 1
+    while (cols % (2 * S) == 0 and cols // (2 * S) >= _SPLIT_TARGET
+           and attrs.num_selects >= 2 * S):
+        S *= 2
+    seg_cols = cols // S
+    rows = []
+    rem_sel, rem_numel = attrs.num_selects, attrs.numel
+    for s in range(S):
+        numel_s = min(seg_cols, attrs.numel - s * seg_cols)
+        if numel_s <= 0:
+            raise ValueError(f"segment {s} of {seg_cols} columns is empty "
+                             f"({attrs.numel} elements)")
+        ns = (rem_sel if s == S - 1
+              else int(round(rem_sel * numel_s / rem_numel)))
+        ns = max(1, min(ns, rem_sel - (S - 1 - s)))
+        rem_sel -= ns
+        rem_numel -= numel_s
+        num_samples, stride = sampling_geometry(numel_s, sample_ratio,
+                                                compress_ratio)
+        topk = max(1, int(math.ceil(num_samples * compress_ratio)))
+        rows.append((base + s * seg_cols, numel_s, stride, num_samples,
+                     topk, ns))
+    return seg_cols, rows
+
+
+def _build_buckets(attributes, layout: ParamLayout,
+                   compressor) -> List[_Bucket]:
+    """Per-ratio sparsification attributes of each layout bucket; a
+    single-tensor bucket wider than :data:`_SPLIT_COLS` with at least two
+    selects becomes the segment rows of :func:`_segment_rows` where that
+    makes more than one row."""
     buckets = []
     for g in layout.buckets:
-        if len(g.names) == 1 and g.cols > _SPLIT_COLS:
-            raise ValueError(f"{g.names[0]}: rows wider than {_SPLIT_COLS} "
-                             "need the segment split, which is not ported "
-                             "(ROADMAP.md queue 1 item 6)")
+        if (len(g.names) == 1 and g.cols > _SPLIT_COLS
+                and attributes[g.names[0]].num_selects >= 2):
+            seg_cols, rows = _segment_rows(
+                attributes[g.names[0]], g.base, g.cols,
+                compressor.sample_ratio, compressor.compress_ratio)
+            if len(rows) > 1:
+                buckets.append(_bucket_from_rows(g.base, seg_cols, rows))
+                continue
         rows = [(layout.offsets[n], a.numel, a.sample_stride,
                  a.num_samples, a.top_k_samples, a.num_selects)
                 for n, a in ((n, attributes[n]) for n in g.names)]
@@ -506,16 +588,14 @@ class FlatDGCEngine:
                     f"{flag} is ROADMAP.md queue 1 item 7 (the per-tensor "
                     "path, DistributedOptimizer.exchange, takes it)")
         self.buckets = ([] if self.dense
-                        else _build_buckets(compressor.attributes, layout))
+                        else _build_buckets(compressor.attributes, layout,
+                                            compressor))
         #: per bucket: selects through the segment candidates
         self._seg = [self._use_seg_kernel(b) for b in self.buckets]
-        for b, seg in zip(self.buckets, self._seg):
-            if self._use_3d(b) and not seg:
-                raise ValueError(
-                    f"bucket [{b.rows}, {b.cols}] at {b.base} needs the 3-D "
-                    "selection of wide buckets that are not segment-"
-                    "aligned, which is not ported (ROADMAP.md queue 1 "
-                    "item 6)")
+        #: per bucket: a wide bucket off the segment path, selecting
+        #: through per-(row, lane) candidates (:meth:`_sparsify_bucket_3d`)
+        self._sel3d = [self._use_3d(b) and not seg
+                       for b, seg in zip(self.buckets, self._seg)]
         #: any bucket takes the segment path: the compensate pass then
         #: emits the candidates itself (the reference's ``_seg_fused``)
         self._seg_fused = any(self._seg)
@@ -683,7 +763,7 @@ class FlatDGCEngine:
         if consts is not None:
             return consts
         consts = []
-        for b, seg in zip(self.buckets, self._seg):
+        for b, seg, sel3d in zip(self.buckets, self._seg, self._sel3d):
             def t(a, dtype):
                 return torch.as_tensor(np.asarray(a), dtype=dtype,
                                        device=device)
@@ -713,7 +793,7 @@ class FlatDGCEngine:
                 "s_exact": t(b.num_samples >= b.numels, torch.bool)[:, None],
                 "blocks3d": ([self._sample_blocks_3d(b, gi, device)
                               for gi in range(len(b.stride_groups))]
-                             if seg else None),
+                             if seg or sel3d else None),
             }
             c["numels"] = c["numels_r"][:, None]
             consts.append(c)
@@ -839,6 +919,42 @@ class FlatDGCEngine:
                            self.layout.sentinel)
         return torch.where(valid, sel_vals, 0.0), gidx
 
+    def _sparsify_bucket_3d(self, vec_c: torch.Tensor, b: _Bucket, c,
+                            phases: Sequence[float]):
+        """Selection over one wide bucket off the segment path (the
+        reference's ``_sparsify_bucket_3d`` fallback): the threshold from
+        the lane-block samples of :meth:`_sample_rows_3d`; per (row, lane)
+        the top ``kp = min(nb, ceil(2 max_sel / 128))`` of |v| over the
+        row's nb 128-lane blocks, laid out [R, kp, 128] and flattened to
+        [R, kp * 128] (the reference's layout, which decides ties in the
+        next step); the top ``max_sel`` of those, column = block * 128 +
+        lane; the ladder adaptation from that top-k; validity ``score >=
+        thr & slot < num_selects & column < numel``; the values gathered
+        from the bucket. The candidates run as the top-kp of each row of
+        the transposed [R * 128, nb] view, so equal magnitudes in one
+        (row, lane) column go to the lower block (the reference's CPU
+        ``approx_max_k`` orders such ties its own way). Returns
+        ``(values [R, max_sel], global indices [R, max_sel])``."""
+        ROUTES["sel3d"] += 1
+        R, cols = b.rows, b.cols
+        samples = self._sample_rows_3d(b, c, vec_c.view(-1, _LANE), phases)
+        thr = select_topk(samples, b.max_k)[0].gather(1, c["k_idx"])[:, 0]
+        block = vec_c[b.base:b.base + R * cols].view(R, cols)
+        cand, blk = lane_candidates(block, lane_quota(cols, b.max_sel))
+        top_scores, c2 = select_topk(cand, b.max_sel)
+        c2 = c2.long()
+        cols_sel = blk.gather(1, c2) * _LANE + (c2 % _LANE).to(torch.int32)
+        if self.c.max_adaptation_iters > 0 and b.adapt.any():
+            thr = self._ladder_adapt_from_topk(c, top_scores, thr)
+        valid = ((top_scores >= thr[:, None]) & c["slot_ok"]
+                 & (cols_sel < c["numels"]))
+        gidx = torch.where(valid, c["row_off"] + cols_sel,
+                           self.layout.sentinel)
+        # the columns lie inside the bucket's rows, so the gather needs
+        # no sentinel slot
+        return torch.where(valid, block.gather(1, cols_sel.long()),
+                           0.0), gidx
+
     def _sample_rows(self, b: _Bucket, c, imp_rows: torch.Tensor,
                      phases) -> torch.Tensor:
         """Per-row threshold samples of one bucket: 128-lane blocks at the
@@ -909,6 +1025,9 @@ class FlatDGCEngine:
             if self._seg[bi]:
                 vals, gidx = self._sparsify_bucket_seg(vec_c, b, c,
                                                        phases[bi], seg_cands)
+            elif self._sel3d[bi]:
+                vals, gidx = self._sparsify_bucket_3d(vec_c, b, c,
+                                                      phases[bi])
             else:
                 vals, gidx = self._sparsify_bucket_2d(
                     vec_c, b, c, phases[bi], (fwd_sel or {}).get(bi))

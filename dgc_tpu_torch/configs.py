@@ -19,7 +19,12 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   last;
 * :func:`resnet18_wm5` — the same with ``configs/imagenet/resnet18.py``;
 * :func:`resnet20_wm5_megakernel` and :func:`resnet50_wm5_megakernel` —
-  with ``configs/dgc/megakernel.py`` stacked last.
+  with ``configs/dgc/megakernel.py`` stacked last;
+* :func:`vgg16_bn_wm5` — VGG-16-BN on ImageNet: ``configs/__init__.py``,
+  ``configs/imagenet/__init__.py``, ``configs/imagenet/vgg16_bn.py``,
+  ``configs/dgc/__init__.py``, ``configs/dgc/wm5.py``; and
+  :func:`vgg16_bn_wm5_bf16` with ``configs/bf16.py`` stacked last (the
+  model computes in bfloat16; ``model.dtype`` names a ``torch`` dtype).
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -34,7 +39,8 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet20_wm5o", "resnet20_wm5_nm", "resnet110_wm5",
            "resnet110_wm5o", "resnet50_wm5", "resnet50_wm5_cosine",
            "resnet18_wm5", "resnet20_wm5_megakernel",
-           "resnet50_wm5_megakernel", "RECIPES", "CONFIG_FILES"]
+           "resnet50_wm5_megakernel", "vgg16_bn_wm5", "vgg16_bn_wm5_bf16",
+           "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -63,7 +69,8 @@ def _cifar(model: str, dgc: bool) -> Config:
         seed=42,
         dataset=Config(name="cifar", root="./data/cifar10", num_classes=10,
                        image_size=32, synthetic_size=2048),
-        model=Config(name=model, num_classes=10, zero_init_residual=False),
+        model=Config(name=model, num_classes=10, zero_init_residual=False,
+                     dtype="float32"),
         train=Config(
             dgc=dgc,
             num_epochs=num_epochs,
@@ -142,8 +149,10 @@ def _imagenet(model: str, batch_size: int, lr: float, weight_decay: float,
     return Config(
         seed=42,
         dataset=Config(name="imagenet", root="./data/imagenet",
-                       num_classes=1000, image_size=224, synthetic_size=512),
-        model=Config(name=model, num_classes=1000, zero_init_residual=True),
+                       num_classes=1000, image_size=224, synthetic_size=512,
+                       synthetic_fallback=True),
+        model=Config(name=model, num_classes=1000, zero_init_residual=True,
+                     dtype="float32"),
         train=Config(
             dgc=True,
             num_epochs=num_epochs,
@@ -208,15 +217,34 @@ def resnet50_wm5_megakernel() -> Config:
     return _megakernel(resnet50_wm5())
 
 
+def vgg16_bn_wm5() -> Config:
+    """VGG-16-BN / ImageNet: batch 32, lr 0.0125, weight decay 5e-5 on
+    every parameter, no nesterov, dropout 0.5 in the classifier."""
+    cfg = _imagenet("vgg16_bn", batch_size=32, lr=0.0125,
+                    weight_decay=5e-5, nesterov=False,
+                    optimize_bn_separately=False)
+    cfg.model.zero_init_residual = False
+    return cfg
+
+
+def vgg16_bn_wm5_bf16() -> Config:
+    """:func:`vgg16_bn_wm5` with ``configs/bf16.py``: bfloat16 compute,
+    parameters, gradients and compression in f32."""
+    cfg = vgg16_bn_wm5()
+    cfg.model.dtype = "bfloat16"
+    return cfg
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
     resnet20_wm5_nm, resnet110_wm5, resnet110_wm5o, resnet50_wm5,
     resnet50_wm5_cosine, resnet18_wm5, resnet20_wm5_megakernel,
-    resnet50_wm5_megakernel)}
+    resnet50_wm5_megakernel, vgg16_bn_wm5, vgg16_bn_wm5_bf16)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
+_VGG = "configs/imagenet/vgg16_bn.py"
 _WM5, _MK = "configs/dgc/wm5.py", "configs/dgc/megakernel.py"
 
 #: each recipe's config files, in the JAX harness's ``--configs`` order
@@ -234,4 +262,6 @@ CONFIG_FILES = {
     "resnet18_wm5": (_R18, _WM5),
     "resnet20_wm5_megakernel": (_R20, _WM5, _MK),
     "resnet50_wm5_megakernel": (_R50, _WM5, _MK),
+    "vgg16_bn_wm5": (_VGG, _WM5),
+    "vgg16_bn_wm5_bf16": (_VGG, _WM5, "configs/bf16.py"),
 }

@@ -36,17 +36,18 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, channels: int, stride: int = 1,
-                 zero_init_residual: bool = False):
+                 zero_init_residual: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(cin, channels, 3, stride, 1)
-        self.BatchNorm_0 = BatchNorm(channels)
-        self.Conv_1 = Conv(channels, channels, 3, 1, 1)
-        self.BatchNorm_1 = BatchNorm(channels)
+        self.Conv_0 = Conv(cin, channels, 3, stride, 1, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(channels, dtype)
+        self.Conv_1 = Conv(channels, channels, 3, 1, 1, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(channels, dtype)
         self.zero_init_residual = zero_init_residual
         self.project = stride != 1 or cin != channels
         if self.project:
-            self.Conv_2 = Conv(cin, channels, 1, stride, 0)
-            self.BatchNorm_2 = BatchNorm(channels)
+            self.Conv_2 = Conv(cin, channels, 1, stride, 0, dtype=dtype)
+            self.BatchNorm_2 = BatchNorm(channels, dtype)
 
     def last_bn(self) -> BatchNorm:
         return self.BatchNorm_1
@@ -63,20 +64,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, channels: int, stride: int = 1,
-                 zero_init_residual: bool = False):
+                 zero_init_residual: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out = channels * self.expansion
-        self.Conv_0 = Conv(cin, channels, 1, 1, 0)
-        self.BatchNorm_0 = BatchNorm(channels)
-        self.Conv_1 = Conv(channels, channels, 3, stride, 1)
-        self.BatchNorm_1 = BatchNorm(channels)
-        self.Conv_2 = Conv(channels, out, 1, 1, 0)
-        self.BatchNorm_2 = BatchNorm(out)
+        self.Conv_0 = Conv(cin, channels, 1, 1, 0, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(channels, dtype)
+        self.Conv_1 = Conv(channels, channels, 3, stride, 1, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(channels, dtype)
+        self.Conv_2 = Conv(channels, out, 1, 1, 0, dtype=dtype)
+        self.BatchNorm_2 = BatchNorm(out, dtype)
         self.zero_init_residual = zero_init_residual
         self.project = stride != 1 or cin != out
         if self.project:
-            self.Conv_3 = Conv(cin, out, 1, stride, 0)
-            self.BatchNorm_3 = BatchNorm(out)
+            self.Conv_3 = Conv(cin, out, 1, stride, 0, dtype=dtype)
+            self.BatchNorm_3 = BatchNorm(out, dtype)
 
     def last_bn(self) -> BatchNorm:
         return self.BatchNorm_2
@@ -91,40 +93,45 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Input NCHW f32; returns f32 logits."""
+    """Input NCHW f32; computes in ``dtype``; returns f32 logits."""
 
     def __init__(self, stage_sizes: Sequence[int], block: Type[nn.Module],
-                 num_classes: int = 1000, zero_init_residual: bool = False):
+                 num_classes: int = 1000, zero_init_residual: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(3, 64, 7, 2, 3)
-        self.BatchNorm_0 = BatchNorm(64)
+        self.dtype = dtype
+        self.Conv_0 = Conv(3, 64, 7, 2, 3, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(64, dtype)
         cin, b = 64, 0
         for i, n_blocks in enumerate(stage_sizes):
             channels = 64 * 2 ** i
             for j in range(n_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
                 setattr(self, f"{block.__name__}_{b}",
-                        block(cin, channels, stride, zero_init_residual))
+                        block(cin, channels, stride, zero_init_residual,
+                              dtype))
                 cin, b = channels * block.expansion, b + 1
         self.block_names = [f"{block.__name__}_{i}" for i in range(b)]
-        self.Dense_0 = Dense(cin, num_classes)
+        self.Dense_0 = Dense(cin, num_classes, dtype)
 
     def forward(self, x, train: bool = True):
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x, train)
-        return self.Dense_0(x.mean(dim=(2, 3)))
+        return self.Dense_0(x.mean(dim=(2, 3))).float()
 
 
-def resnet18(num_classes: int = 1000,
-             zero_init_residual: bool = False) -> ResNet:
-    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, zero_init_residual)
+def resnet18(num_classes: int = 1000, zero_init_residual: bool = False,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, zero_init_residual,
+                  dtype)
 
 
-def resnet50(num_classes: int = 1000,
-             zero_init_residual: bool = False) -> ResNet:
-    return ResNet((3, 4, 6, 3), Bottleneck, num_classes, zero_init_residual)
+def resnet50(num_classes: int = 1000, zero_init_residual: bool = False,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet((3, 4, 6, 3), Bottleneck, num_classes, zero_init_residual,
+                  dtype)
 
 
 @torch.no_grad()

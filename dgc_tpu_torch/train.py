@@ -1,7 +1,8 @@
 """Training harness: a recipe of :mod:`dgc_tpu_torch.configs` —
 ResNet-20 or ResNet-110 on CIFAR-10 (``resnet20_wm5`` is the default),
-ResNet-50 or ResNet-18 on ImageNet; with DGC and its warm-up, or the
-dense baseline.
+ResNet-50, ResNet-18 or VGG-16-BN on ImageNet (VGG also in bfloat16
+compute, ``vgg16_bn_wm5_bf16``); with DGC and its warm-up, or the dense
+baseline.
 
 Counterpart of the repository's ``train.py`` for the port. ``Trainer``
 builds the config's dataset (synthetic when no data root exists), model,
@@ -30,7 +31,8 @@ The run lifecycle is the JAX harness's: the experiment directory is
 ``runs/`` in the working directory. Every epoch is saved to its
 ``checkpoints`` (:class:`~dgc_tpu_torch.training.checkpoint.
 CheckpointManager`: parameters, optimizer state, every worker's memory,
-BatchNorm statistics and sampling generator; ``best`` when the metric
+BatchNorm statistics, sampling generator and, for VGG, dropout
+generator; ``best`` when the metric
 improved); a restarted run resumes after the newest saved epoch with the
 best metric restored, and continues as the uninterrupted run would,
 bitwise. ``--evaluate`` restores ``best`` and only evaluates (the initial
@@ -51,11 +53,21 @@ that reads it (:meth:`Trainer.epoch_inputs`).
         --synthetic-size 16
     python -m dgc_tpu_torch.train --config resnet20 --device cpu \\
         --evaluate --batch-size 8 --synthetic-size 64
+    python -m dgc_tpu_torch.train --config vgg16_bn_wm5 --device cpu \\
+        --world 2 --epochs 1 --steps 1 --batch-size 2 --image-size 224 \\
+        --synthetic-size 8
     torchrun --standalone --nproc_per_node=2 -m dgc_tpu_torch.train \\
         --config resnet20_wm5 --epochs 1 --steps 2
 
 ``--image-size`` only shrinks the synthetic images (for CPU runs), as the
-JAX harness's ``--dataset.image_size`` override does. ``--megakernel`` and
+JAX harness's ``--dataset.image_size`` override does; VGG needs a multiple
+of 7 x 32 (its five pools reach 7x7 at 224), or its forward raises, as
+the reference's does. A real ``root`` with ``train/`` and ``val/`` class
+folders is read with PIL (:class:`~dgc_tpu_torch.data.datasets.
+ImageFolderSplit`); ``--data-root DIR`` names it, and then an ImageNet
+run stops when the folders are missing instead of falling back to the
+synthetic images, as the JAX harness's ``--dataset.root DIR
+--dataset.synthetic_fallback False``. ``--megakernel`` and
 ``--fused-select`` turn on the compressor's fused routes, as the JAX
 harness's ``--train.compression.megakernel True`` and
 ``--train.compression.fused_select True`` do (the ``*_megakernel`` recipes
@@ -82,7 +94,7 @@ from dgc_tpu_torch.compression.memory import DGCSGDMemory
 from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
 from dgc_tpu_torch.data.native import Prefetcher, stage_ahead
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
-from dgc_tpu_torch.models import create, param_tree
+from dgc_tpu_torch.models import from_config, param_tree, uses_dropout
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
 from dgc_tpu_torch.optim.sgd import dgc_sgd, sgd
 from dgc_tpu_torch.parallel.comm import Comm, LocalComm, ProcessGroupComm
@@ -152,15 +164,17 @@ class Trainer:
         dc = cfg.dataset
         self.dataset = {"cifar": CIFAR, "imagenet": ImageNet}[dc.name](
             dc.root, dc.num_classes, dc.image_size,
-            synthetic_size=dc.synthetic_size)
+            synthetic_size=dc.synthetic_size,
+            **({"synthetic_fallback": dc.synthetic_fallback}
+               if "synthetic_fallback" in dc else {}))
         self.nbps = tc.num_batches_per_step
         self.bs = tc.batch_size
         self.global_batch = comm.world * self.nbps * self.bs
 
         # initialised on the host, so every device starts from one weights
-        self.model = create(cfg.model.name, cfg.model.num_classes,
-                            torch.Generator().manual_seed(self.seed),
-                            cfg.model.zero_init_residual).to(self.device)
+        self.model = from_config(
+            cfg.model, torch.Generator().manual_seed(self.seed)).to(
+                self.device)
 
         cc = tc.compression
         if tc.dgc:
@@ -212,6 +226,12 @@ class Trainer:
         #: one host generator of sampling phases per local worker
         self.gens = [torch.Generator().manual_seed(self.seed * 7919 + 1 + r)
                      for r in comm.ranks]
+        #: one dropout generator per local worker on the device, for a
+        #: model with dropout (seeds above every sampling seed)
+        self.dropout_gens = (
+            [torch.Generator(device=self.device).manual_seed(
+                self.seed * 7919 + 1 + r + (1 << 32)) for r in comm.ranks]
+            if uses_dropout(self.model) else None)
         self._built_ratio = None
         self._upload_stream = None
 
@@ -228,8 +248,9 @@ class Trainer:
                         meters: Dict[str, float], best: bool = False) -> str:
         """Save this process's part of the state after ``epoch`` (every
         process of a group calls this)."""
-        rep, workers = checkpoint.state_tensors(self.state, self.gens,
-                                                self.comm.ranks)
+        rep, workers = checkpoint.state_tensors(
+            self.state, self.gens, self.comm.ranks,
+            dropout_gens=self.dropout_gens)
         return ckpt.save(epoch, rep, workers, meters, best=best,
                          topology=self.topology)
 
@@ -240,13 +261,15 @@ class Trainer:
         the state and the generators; ``(epoch, meters)``, or None when
         there is nothing to restore."""
         rep, workers = checkpoint.state_tensors(
-            self.state, self.gens, self.comm.ranks, host=False)
+            self.state, self.gens, self.comm.ranks, host=False,
+            dropout_gens=self.dropout_gens)
         out = ckpt.restore(rep, workers, best=best, topology=self.topology)
         if out is None:
             return None
         rep, workers, epoch, meters = out
         self.state = checkpoint.load_state_tensors(
-            self.state, self.gens, self.comm.ranks, rep, workers)
+            self.state, self.gens, self.comm.ranks, rep, workers,
+            dropout_gens=self.dropout_gens)
         return epoch, meters
 
     def load_flat(self, flat_params: torch.Tensor,
@@ -346,7 +369,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 self.state, loss = train_step(
                     self.model, self.setup, self.dist, self.state, xs, ys,
-                    self.gens, self.nbps)
+                    self.gens, self.nbps, self.dropout_gens)
                 if step_times is not None:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -405,6 +428,9 @@ def main(argv=None) -> List[float]:
     p.add_argument("--synthetic-size", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None,
                    help="side of the synthetic images (small for CPU runs)")
+    p.add_argument("--data-root", default=None,
+                   help="the dataset's directory; ImageNet's must hold "
+                        "train/ and val/, or the run stops")
     p.add_argument("--megakernel", action="store_true",
                    help="compensate and select through the forward "
                         "megakernel where it applies")
@@ -430,6 +456,10 @@ def main(argv=None) -> List[float]:
         cfg.train.batch_size = args.batch_size
     if args.synthetic_size:
         cfg.dataset.synthetic_size = args.synthetic_size
+    if args.data_root:
+        cfg.dataset.root = args.data_root
+        if "synthetic_fallback" in cfg.dataset:
+            cfg.dataset.synthetic_fallback = False
     if args.megakernel:
         cfg.train.compression.megakernel = True
     if args.fused_select:

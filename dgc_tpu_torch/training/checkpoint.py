@@ -7,8 +7,9 @@ a restored JAX state across):
 
 * **Layout.** One directory ``e<N>/`` an epoch: ``state.pt`` (the
   replicated state: step, parameters, optimizer state), one ``w<r>.pt``
-  per worker r (its memory, BatchNorm statistics and sampling
-  generator's state) and ``meters.json`` (the epoch, the meters and the
+  per worker r (its memory, BatchNorm statistics, sampling generator's
+  state and, for a model with dropout, its dropout generator's) and
+  ``meters.json`` (the epoch, the meters and the
   ``_topology`` the state was written under). ``latest.json`` names the
   newest epoch and is published with ``os.replace``; ``best/`` is a copy
   of the epoch with the best metric; the last ``keep`` epochs are kept.
@@ -90,13 +91,15 @@ def _unflatten(template, prefix: str, flat: Tensors, device):
 
 
 def state_tensors(state: TrainState, gens: Sequence[torch.Generator],
-                  ranks: Sequence[int], host: bool = True
+                  ranks: Sequence[int], host: bool = True,
+                  dropout_gens: Optional[Sequence[torch.Generator]] = None
                   ) -> Tuple[Tensors, Dict[int, Tensors]]:
     """A train state as checkpoint tensors: the replicated dict (step,
     parameters, the optimizer state's fields) and one dict per local
     worker, by global rank (memory, BatchNorm statistics, the sampling
-    generator's state). With ``host=False`` the state's own tensors, not
-    copies on the CPU: a template of names, shapes and dtypes for
+    generator's state and, where given, the dropout generator's). With
+    ``host=False`` the state's own tensors, not copies on the CPU: a
+    template of names, shapes and dtypes for
     :meth:`CheckpointManager.restore`."""
     conv = _host if host else torch.Tensor.detach
     rep = {"step": torch.tensor(state.step, dtype=torch.int64),
@@ -113,16 +116,21 @@ def state_tensors(state: TrainState, gens: Sequence[torch.Generator],
         d = _flatten(state.memory[w], "memory", {}, conv)
         d["batch_stats"] = conv(state.batch_stats[w])
         d["generator"] = gens[w].get_state()
+        if dropout_gens:
+            d["dropout_generator"] = dropout_gens[w].get_state()
         workers[r] = d
     return rep, workers
 
 
 def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
                        ranks: Sequence[int], rep: Tensors,
-                       workers: Dict[int, Tensors]) -> TrainState:
+                       workers: Dict[int, Tensors],
+                       dropout_gens: Optional[
+                           Sequence[torch.Generator]] = None
+                       ) -> TrainState:
     """The inverse of :func:`state_tensors` over a live ``state`` of the
     same structure: returns the restored state on the live state's
-    device and sets each local worker's generator."""
+    device and sets each local worker's generators."""
     device = state.params.device
     opt = state.opt_state
     fields = {}
@@ -141,6 +149,8 @@ def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
         memory.append(_unflatten(state.memory[w], "memory", d, device))
         stats.append(d["batch_stats"].to(device))
         gens[w].set_state(d["generator"])
+        if dropout_gens:
+            dropout_gens[w].set_state(d["dropout_generator"])
     return TrainState(step=int(rep["step"]), params=rep["params"].to(device),
                       opt_state=type(opt)(**fields), memory=memory,
                       batch_stats=stats)

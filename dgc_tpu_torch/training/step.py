@@ -33,6 +33,16 @@ same numbers as per tensor). The JAX harness has no switch for it, so
 neither has the port's CLI: this function is the path's entry point, as
 ``build_train_step(flat=None)`` is there.
 
+A model that draws dropout (VGG-16-BN's classifier) takes each worker's
+masks from that worker's own ``torch.Generator`` on the device
+(``dropout_gens[w]``; the JAX harness folds a dropout key per worker and
+micro-batch instead). A model whose compute dtype is narrower than f32
+(``configs/bf16.py``) is the reference's ``model_dtype`` path: the step
+differentiates with respect to the f32 [P] buffer through one cast of it
+to that dtype, and the model binds plain views of the narrow copy (no
+opaque copies), so the gradient, the optimizer and the whole compression
+pipeline stay f32.
+
 The flat step also runs the dense baseline's engine
 (:class:`~dgc_tpu_torch.compression.flat.FlatDenseExchange`), which
 samples nothing and keeps no memory. :func:`eval_step` is the
@@ -40,14 +50,15 @@ reference's ``build_eval_step``: each worker's top-k hit counts with its
 own BatchNorm statistics, summed over the workers.
 """
 
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from dgc_tpu_torch.compression.flat import ParamLayout
-from dgc_tpu_torch.models import param_tree, stats_tree
+from dgc_tpu_torch.models import (compute_dtype, param_tree, stats_tree,
+                                  uses_dropout)
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.training.state import TrainState
 
@@ -113,17 +124,33 @@ def _binding(layout: ParamLayout, flat: torch.Tensor):
     return {n.replace("/", "."): v for n, v in views.items()}
 
 
+def _narrow_binding(layout: ParamLayout, flat: torch.Tensor,
+                    dtype: torch.dtype):
+    """``{module path: view}`` of one cast of ``flat`` to ``dtype``."""
+    return {n.replace("/", "."): v for n, v in
+            layout.unflatten_named(flat.to(dtype)).items()}
+
+
 def worker_grad(model, setup: FlatSetup, params: torch.Tensor,
                 stats: torch.Tensor, images: torch.Tensor,
-                labels: torch.Tensor, nbps: int = 1):
-    """One worker's flat [P] gradient and (scaled, summed) loss;
-    ``stats`` is updated in place. ``images`` NCHW, ``labels`` int64."""
+                labels: torch.Tensor, nbps: int = 1,
+                dropout_gen: Optional[torch.Generator] = None):
+    """One worker's flat [P] f32 gradient and (scaled, summed) loss;
+    ``stats`` is updated in place. ``images`` NCHW, ``labels`` int64;
+    ``dropout_gen`` draws the masks of a model with dropout. A model
+    computing in a narrower dtype binds views of one cast of the
+    parameters."""
     fp = params.detach().requires_grad_(True)
-    binding = {**_binding(setup.layout, fp),
+    dtype = compute_dtype(model)
+    binding = {**(_narrow_binding(setup.layout, fp, dtype)
+                  if dtype.itemsize < 4 else _binding(setup.layout, fp)),
                **_binding(setup.stats_layout, stats)}
+    kwargs = {"train": True}
+    if uses_dropout(model):
+        kwargs["dropout_generator"] = dropout_gen
     loss_sum = torch.zeros((), device=params.device)
     for x, y in zip(images.chunk(nbps), labels.chunk(nbps)):
-        logits = functional_call(model, binding, (x,), {"train": True})
+        logits = functional_call(model, binding, (x,), kwargs)
         loss = F.cross_entropy(logits.float(), y) * (1.0 / nbps)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
@@ -132,17 +159,18 @@ def worker_grad(model, setup: FlatSetup, params: torch.Tensor,
 
 def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
                images: Sequence[torch.Tensor], labels: Sequence[torch.Tensor],
-               gens: Sequence[torch.Generator], nbps: int = 1):
+               gens: Sequence[torch.Generator], nbps: int = 1,
+               dropout_gens: Optional[Sequence[torch.Generator]] = None):
     """One step for this process's workers (``images[w]`` / ``labels[w]``
-    / ``gens[w]`` per local worker). Returns ``(state, mean loss)``; the
-    loss stays on the device."""
+    / ``gens[w]`` / ``dropout_gens[w]`` per local worker). Returns
+    ``(state, mean loss)``; the loss stays on the device."""
     comm = dist_opt.comm
     grads: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
     for w in range(len(comm.ranks)):
         g, loss = worker_grad(model, setup, state.params,
                               state.batch_stats[w], images[w], labels[w],
-                              nbps)
+                              nbps, dropout_gens[w] if dropout_gens else None)
         grads.append(g)
         losses.append(loss)
     phases = [setup.engine.draw_phases(gen) for gen in gens]

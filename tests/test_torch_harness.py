@@ -100,6 +100,9 @@ STACKS = {
     "resnet50_wm5_cosine": ("configs/imagenet/resnet50.py",
                             "configs/dgc/wm5.py",
                             "configs/imagenet/cosine.py"),
+    "vgg16_bn_wm5": ("configs/imagenet/vgg16_bn.py", "configs/dgc/wm5.py"),
+    "vgg16_bn_wm5_bf16": ("configs/imagenet/vgg16_bn.py",
+                          "configs/dgc/wm5.py", "configs/bf16.py"),
 }
 
 
@@ -122,6 +125,8 @@ def test_stacked_recipes_match_the_config_files(recipe, monkeypatch):
         assert t.model.num_classes == c.model.num_classes
         assert t.model.zero_init_residual == c.model.get(
             "zero_init_residual", False)
+        assert t.model.dtype == np.dtype(c.model.get("dtype",
+                                                     jnp.float32)).name
         for k in ("num_epochs", "batch_size", "warmup_lr_epochs",
                   "schedule_lr_per_epoch"):
             assert tr[k] == ctr[k], k

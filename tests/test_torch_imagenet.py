@@ -50,6 +50,7 @@ from dgc_tpu_torch.parallel.comm import LocalComm
 from dgc_tpu_torch.train import Trainer
 from dgc_tpu_torch.training import lr as tlr
 from dgc_tpu_torch.training.step import FlatSetup, worker_grad
+from test_torch_folder import image_folder
 
 W = 2
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -120,10 +121,17 @@ def test_synthetic_imagenet_matches_jax(tmp_path):
         idx = np.arange(len(j[split]))[::3]
         for a, b in zip(t[split].get_batch(idx), j[split].get_batch(idx)):
             np.testing.assert_array_equal(a, b)
-    (tmp_path / "real" / "train").mkdir(parents=True)
-    (tmp_path / "real" / "val").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.ImageNet(str(tmp_path / "real"))
+    # a root with train/ and val/ class folders is read, as the JAX
+    # package reads it (test_torch_folder.py holds the batches)
+    real = image_folder(tmp_path / "real", classes=2, per_class=2)
+    t, j = tdata.ImageNet(real, 2, 32), JaxImageNet(real, 2, 32)
+    for split in ("train", "test"):
+        assert isinstance(t[split], tdata.ImageFolderSplit)
+        t[split].workers = j[split].workers = 1
+        assert t[split].samples == j[split].samples
+        idx = np.arange(len(j[split]))
+        for a, b in zip(t[split].get_batch(idx), j[split].get_batch(idx)):
+            np.testing.assert_array_equal(a, b)
 
 
 # ------------------------------------------------------------------ #

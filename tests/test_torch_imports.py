@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
     for mod in ("ops.kernels", "ops.build", "ops.sparsify",
                 "compression.flat", "compression.dgc", "compression.base",
                 "compression.memory", "optim.distributed",
-                "models.resnet_imagenet",
+                "models.resnet_imagenet", "models.vgg",
                 "data.datasets", "training.lr", "training.step", "configs",
                 "interop", "training.checkpoint", "data.native",
                 "parallel.multihost", "utils.logging", "utils.profiling",

@@ -375,14 +375,6 @@ def test_imagenet_seg_selection_matches_jax_engine(imagenet_trees, name,
         np.asarray(jk.pack_sent_bits(jidx, T, sentinel=S)))
 
 
-def test_wide_buckets_off_the_segment_path_are_refused():
-    """A wide bucket that is not segment-path eligible would take the
-    reference's 3-D fallback, which is not ported."""
-    tree = {"w": {"kernel": np.zeros((1600, 2000), np.float32)}}
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _engines(tree, 1)
-
-
 # ------------------------------------------------------------------ #
 # selection beyond the top-k kernel's k                              #
 # ------------------------------------------------------------------ #
