@@ -86,6 +86,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (all four momentum flags, ties planted in its segment buckets) at
    VGG's T = 139,028,480, twice each. Each kernel's VGG summary is its
    line's ``vgg16_bn`` entry.
+   The bf16 error-feedback state (``phase_bf16_kernels``):
+   ``compensate_bits`` (infinities, NaNs and -0.0 planted in the state)
+   and ``compensate_bits_cands`` under all four momentum flags,
+   ``seg_top2_candidates`` on the stored bf16 velocity, each twice and
+   bitwise its plain version at ResNet-50's and ResNet-20's T (ties
+   planted in ResNet-50's segment buckets), timed beside the f32 state
+   at the same T with both byte bounds; ``topk_rows`` on bf16 rows at
+   ResNet-50's epoch-4 buckets. Each of the three kernels' line gets a
+   ``bf16`` entry.
    Stdout gets a summary line per kernel (and per apply shape, epochs 0
    and 5); the per-call detail and every path's launch counts go to
    ``chiprun_out/chip_smoke_detail.json``.
@@ -115,6 +124,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    VGG-16's W=4 exchange card == CPU at the epoch-0 ratio (the 3-D
    fallback on the split fc buckets, n = 175.0M entries applied a worker)
    and the epoch-5 ratio (the segment path), one step each, bitwise.
+   The wires (``phase_wires_vs_cpu``): ResNet-20's W=4 exchange card ==
+   CPU bitwise, 2 steps at the epoch-0 and epoch-5 ratios, for every wire
+   regime as a uniform plan (dense, fp32, fp16 and int8 with plain or
+   packed indices, int4_packed, int8_delta_idx), three mixed plans, int8
+   without error feedback, the int64 index wire and the bf16 state;
+   ``wire_bytes_per_worker`` printed for each.
    Then run to run: ResNet-20 (flat, default route, W=4) trained 2 steps
    at the epoch-0 ratio twice from one seed, parameters, momentum and
    memory bitwise equal.
@@ -183,6 +198,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    opaque copy, its first loss within 2% of the f32 path's; resume
    bitwise across the 3-D -> segment handover (epochs 4 -> 5, the
    dropout generators included).
+4j. The slice's path (``phase_slice_path``):
+   ``resnet50_wm5_bf16mem_int8_packidx`` (the bf16 state, the int8 wire
+   with error feedback, bit-packed indices) at full width, batch 32 a
+   worker, W=4: 1 step at epoch 4 (``compensate_bits`` on the bf16 state)
+   and 3 at epoch 5 (``compensate_bits_cands`` on it), each epoch's
+   launches of the compensates, ``topk_rows`` and ``apply_rows`` the
+   engine's predicted counts (``_predicted_launches``), the record empty;
+   its resume bitwise across the handover (in 4h's list). ResNet-20 with
+   ``--autotune``'s block (``phase_autotune``): the plan, 3 steps at epoch
+   4, the refit and replan, 2 steps at epoch 5, the second refit,
+   ``fabric.json``.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -289,13 +315,21 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: the recipes' wire flags, which the compressor takes as they are
+_WIRE_FLAGS = ("fp16_values", "int8_values", "int8_error_feedback",
+               "packed_indices", "int32_indices")
+
+
 def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
-                **flags):
+                plan=None, mem_dtype=None, **flags):
     """The flat engine's bucket geometry for a recipe's model at the
-    warm-up ratios of ``epochs``, with the compressor's ``flags``
-    (``megakernel``, ``fused_select``, ``resample``, ``strided_sample``)
-    and the memory's ``gradient_clipping`` ``clip``: {epoch: (compress
-    ratio, engine)}."""
+    warm-up ratios of ``epochs``, with the recipe's wires and memory dtype,
+    the compressor's ``flags`` (``megakernel``, ``fused_select``,
+    ``resample``, ``strided_sample``, the wires) and the memory's
+    ``gradient_clipping`` ``clip``; ``plan``, one regime a bucket of each
+    epoch's engine (a sequence, or a regime name for every bucket);
+    ``mem_dtype`` the memory's dtype in place of the recipe's:
+    {epoch: (compress ratio, engine)}."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.compression.dgc import DGCCompressor
@@ -304,13 +338,15 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
     from dgc_tpu_torch.models import from_config, param_tree
     cfg = configs.RECIPES[recipe]()
     cc = cfg.train.compression
+    wires = {k: cc[k] for k in _WIRE_FLAGS if k in cc}
     comp = DGCCompressor(
         cc.compress_ratio, memory=DGCSGDMemory(
             cc.memory.momentum, nesterov=cc.memory.nesterov,
             momentum_masking=cc.memory.momentum_masking,
-            gradient_clipping=clip),
+            gradient_clipping=clip,
+            dtype=mem_dtype or cc.memory.get("dtype")),
         sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs,
-        warmup_coeff=cc.warmup_coeff, **flags)
+        warmup_coeff=cc.warmup_coeff, **{**wires, **flags})
     model = from_config(cfg.model, torch.Generator())  # shapes only
     tree = param_tree(model)
     comp.initialize((n.replace(".", "/"), tuple(p.shape))
@@ -318,9 +354,12 @@ def _geometries(recipe="resnet20_wm5", epochs=range(6), clip=None,
     out = {}
     for epoch in epochs:
         comp.warmup_compress_ratio(epoch)
+        layout = ParamLayout.for_compressor(tree, comp)
+        regimes = plan
+        if isinstance(plan, str):
+            regimes = (plan,) * len(FlatDGCEngine(comp, layout).buckets)
         out[epoch] = (comp.compress_ratio,
-                      FlatDGCEngine(comp, ParamLayout.for_compressor(
-                          tree, comp)))
+                      FlatDGCEngine(comp, layout, plan=regimes))
     return out
 
 
@@ -1250,7 +1289,7 @@ def phase_seg_kernels(geoms50, geoms_vgg):
         # columns, seg_cols_local: a few small elementwise launches)
         launch = lambda: lib.seg_top2_launch(  # noqa: E731
             vec.data_ptr() + 4 * base, R * ns, cvb.data_ptr(),
-            cbb.data_ptr(), *K._stream_args(vec))
+            cbb.data_ptr(), 0, *K._stream_args(vec))
         # bytes: the bucket read once, 2 KB of candidates per segment
         # written; ops: ~4 compares per element
         bound_ms, bound_by = _bound(4 * R * cols + 2048 * R * ns,
@@ -2663,12 +2702,14 @@ _DGC_KERNELS = ("compensate_bits", "compensate_bits_cands",
 
 
 def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
-                     **compression):
+                     predict=False, **compression):
     """A ``Trainer`` over W=4 ``LocalComm`` workers on the card, with the
     recipe's compression settings overridden by ``compression``:
     ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before each
     epoch's steps and read just after (the path's counts are their sums).
-    ``epoch_rules`` maps an epoch to ``(must launch, must not launch)``."""
+    ``epoch_rules`` maps an epoch to ``(must launch, must not launch)``;
+    with ``predict`` each epoch's counts of the exchange's kernels must be
+    the ones its engine predicts (:func:`_predicted_launches`)."""
     import torch
     from dgc_tpu_torch import configs
     from dgc_tpu_torch.parallel.comm import LocalComm
@@ -2686,6 +2727,13 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
         torch.cuda.synchronize()
         must, must_not = (epoch_rules or {}).get(epoch, ((), ()))
         per_epoch[epoch] = _read_counts(f"{label} epoch {epoch}", must)
+        if predict:
+            want = _predicted_launches(trainer.setup.engine, 4,
+                                       len(losses[epoch]))
+            got = {k: per_epoch[epoch][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{label} epoch {epoch}: launches "
+                                     f"{got}, predicted {want}")
         launched = [k for k in must_not if per_epoch[epoch][k]]
         if launched:
             raise AssertionError(f"{label} epoch {epoch} launched "
@@ -2710,6 +2758,131 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
         print(f"[{label}] epoch {epoch} ratio {ratio} loss "
               f"{losses[epoch]} step_s {times[epoch]}")
     return trainer, counts
+
+
+def _predicted_launches(eng, world, steps):
+    """The launches ``steps`` exchanges of ``eng`` among ``world`` workers
+    make of the compensates, ``topk_rows`` and ``apply_rows``, from the
+    engine's routes: a compensate and an apply a worker step (the fused
+    candidates' compensate where a sparse bucket takes the segment path);
+    a top-k launch for every selection and threshold top-k whose k the
+    kernel takes (the segment path: the threshold and the candidates'
+    selection; the 2-D path: the selection unless fused, the threshold
+    unless the bucket samples every element)."""
+    from dgc_tpu_torch.ops import kernels as K
+    out = {"compensate_bits": 0, "compensate_bits_cands": 0, "topk_rows": 0,
+           "apply_rows": 0}
+    if eng.dense:
+        return out
+    if eng._mk_fwd_ids or eng._sel3d.count(True):
+        raise AssertionError("no prediction for the megakernel or the 3-D "
+                             "fallback")
+
+    def topk(k):
+        return int(0 < k <= K.TOPK_MAX_K)
+    per = 0
+    for bi in eng._sparse_ids:
+        b = eng.buckets[bi]
+        if eng._seg[bi]:
+            per += topk(b.max_k) + topk(b.max_sel)
+        else:
+            per += (0 if eng._use_fused_select(b) else topk(b.max_sel))
+            per += 0 if b.exact else topk(b.max_k)
+    n = world * steps
+    out["compensate_bits_cands" if eng._seg_fused else "compensate_bits"] = n
+    out["topk_rows"], out["apply_rows"] = per * n, n
+    return out
+
+
+def phase_slice_path():
+    """The slice's path: ``resnet50_wm5_bf16mem_int8_packidx`` (the bf16
+    error-feedback state, the int8 wire with error feedback, bit-packed
+    indices) at full width, 224x224, batch 32 a worker, W=4 on the card,
+    across the epoch 4 -> 5 handover (1 step at epoch 4, where every
+    bucket selects on the 2-D path and compensates through
+    ``compensate_bits``; 3 at epoch 5, where six buckets take the segment
+    path and every compensate emits the candidates): each epoch's launches
+    of the compensates, ``topk_rows`` and ``apply_rows`` the engine's
+    predicted counts, the state bf16 and the transmit record empty (the
+    int8 slots stay out of it). Returns ``(trainer, counts)``."""
+    import torch
+    label = "resnet50_bf16mem_int8_packidx"
+    trainer, counts = phase_train_path(
+        label, "resnet50_wm5_bf16mem_int8_packidx", [(4, 1), (5, 3)],
+        ["compensate_bits", "compensate_bits_cands", "topk_rows",
+         "apply_rows"],
+        epoch_rules={4: (("compensate_bits",), ("compensate_bits_cands",)),
+                     5: (("compensate_bits_cands",), ("compensate_bits",))},
+        predict=True)
+    eng = trainer.setup.engine
+    mem = trainer.state.memory[0]
+    if (mem["velocities_c"].dtype != torch.bfloat16
+            or set(eng.regimes) != {"int8_packed"}):
+        raise AssertionError(f"{label}: state {mem['velocities_c'].dtype}, "
+                             f"regimes {eng.regimes}")
+    if int(mem["sent_bits"].ne(0).sum()):
+        raise AssertionError(f"{label}: the int8 slots reached the record")
+    by_epoch = DETAIL[f"launches {label} by epoch"]
+    print(f"[{label}] launches by epoch: " + "; ".join(
+        f"{e}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+        for e, c in by_epoch.items()))
+    print(f"[{label}] wire {eng.wire_bytes_per_worker()} bytes a worker "
+          f"(the f32 wire's at the same ratio: "
+          f"{_geometries('resnet50_wm5', (5,))[5][1].wire_bytes_per_worker()})")
+    return trainer, counts
+
+
+def phase_autotune():
+    """ResNet-20 (``resnet20_wm5_autotune``: the ``--autotune`` block)
+    W=4 on the card across one epoch boundary: the plan at build time, 3
+    steps at epoch 4, the refit and replan at its end (``fabric.json``
+    written), 2 steps at epoch 5 (the engine rebuilt for the new ratio,
+    and for a plan whose key changed), the second refit. Counts zeroed
+    before each epoch and read after; the losses finite. Returns the
+    path's counts."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    label = "resnet20_autotune"
+    with tempfile.TemporaryDirectory() as tmp:
+        fab = Path(tmp) / "fabric.json"
+        trainer = Trainer(configs.resnet20_wm5_autotune(), LocalComm(4),
+                          device=DEVICE, fabric_out=str(fab))
+        at = trainer.autotuner
+        record = {"fabric": at.fabric._asdict(), "epochs": {}}
+        counts = {}
+        for epoch, steps in ((4, 3), (5, 2)):
+            torch.cuda.synchronize()
+            _zero_counts()
+            losses = [float(x) for x in trainer.run_epoch(epoch, steps)]
+            torch.cuda.synchronize()
+            c = _read_counts(f"{label} epoch {epoch}", ())
+            key = at.plan.key()
+            new = trainer.autotune_epoch_end(epoch)
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{label}: losses {losses}")
+            record["epochs"][epoch] = dict(
+                regimes=list(trainer.setup.engine.regimes), losses=losses,
+                launches={k: v for k, v in c.items() if v},
+                refit=at.fabric._asdict(), points=len(at.points),
+                key_changed=new is not None and new.key() != key,
+                next_regimes=list(at.plan.regimes))
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        written = json.loads(fab.read_text())
+    if at.refit_count != 2 or written["provenance"]["refit"] != 2:
+        raise AssertionError(f"{label}: {at.refit_count} refits")
+    record["fabric.json"] = written
+    DETAIL[f"autotune {label}"] = record
+    for epoch, r in record["epochs"].items():
+        print(f"[{label}] epoch {epoch}: plan {r['regimes']}, losses "
+              f"{r['losses']}; refit {r['refit']['gbps']:.4g} GB/s alpha "
+              f"{r['refit']['alpha_ms']:.4g} ms over {r['points']} points "
+              f"-> {r['next_regimes']} (key changed: {r['key_changed']})")
+    print(f"[{label}] fabric.json: {json.dumps(written['fit'])}, "
+          f"provenance refit {written['provenance']['refit']}")
+    return counts
 
 
 #: the VGG-16 path's rules: the warm-up epochs select wide buckets on the
@@ -3216,6 +3389,191 @@ def phase_crop_kernel(n=512, reps=20):
 
 #: the device symbols of the ported kernels, as the profiler names them
 #: (the candidates kernels are csrc/seg_top2.cu's CUDA symbols)
+# ------------------------------------------------------------------ #
+# the narrow wires and state                                         #
+# ------------------------------------------------------------------ #
+
+def phase_bf16_kernels(geoms20, geoms50):
+    """The kernels that take the bf16 error-feedback state, each bitwise
+    against its plain version, twice, at ResNet-50's and ResNet-20's T:
+    ``compensate_bits`` and ``compensate_bits_cands`` under all four
+    momentum flag combinations (infinities, NaNs and -0.0 planted in the
+    state of ``compensate_bits``; ties planted in ResNet-50's segment
+    buckets, which the candidates must show; the fused kernel's m and v
+    also bitwise ``compensate_bits``), ``seg_top2_candidates`` on the
+    stored bf16 velocity (ResNet-50's segment buckets; ResNet-20's whole
+    segments) and bitwise the fused candidates; ``topk_rows`` on bf16 rows
+    (one up-cast to f32 in the wrapper) at ResNet-50's 2-D buckets. Times
+    beside the f32 state's at the same T, and the byte bounds: 12 B an
+    element with bf16 state (g read, m and v read and written) against
+    20 with f32, plus the record's T / 8 and the candidates' 2 KB a
+    segment. ``geoms50`` holds epochs 4 and 5. Returns ``{kernel: {model:
+    detail}}``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    dev, span = DEVICE, K.SEG_SPAN
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"compensate_bits": {}, "compensate_bits_cands": {},
+           "seg_top2_candidates": {}, "topk_rows": {}}
+    for model, eng in (("resnet50", geoms50[5][1]),
+                       ("resnet20", geoms20[5][1])):
+        T = eng.T
+        nw, nseg = K.num_sent_words(T), T // span
+        g = torch.randn(T, device=dev, generator=gen)
+        m, v = (torch.randn(T, device=dev, generator=gen).bfloat16()
+                for _ in range(2))
+        ties = []
+        for b, seg in zip(eng.buckets, eng._seg):
+            if seg:
+                ties += _plant_ties(g, m, v, b.base, span)
+        sent = torch.randperm(T, device=dev, generator=gen)[:T // 1000]
+        bits = K.pack_sent_bits(sent.int(), T)
+        specials = m.clone()
+        specials[-8:] = torch.tensor([math.nan, math.inf, -math.inf, -0.0,
+                                      0.0, 1.0, -1.0, 3.0], device=dev)
+        errs = {k: [] for k in out}
+        for flags in _MOMENTUM_FLAGS:
+            args = (0.9, *flags)
+            want = K.compensate_bits_plain(g, specials, v, bits, *args)
+            errs["compensate_bits"].append(_check_twice(
+                f"compensate_bits bf16 {model} {flags}",
+                lambda: K.compensate_bits(g, specials.clone(), v.clone(),
+                                          bits, *args), want))
+            want = K.compensate_bits_cands_plain(g, m, v, bits, *args)
+            errs["compensate_bits_cands"].append(_check_twice(
+                f"compensate_bits_cands bf16 {model} {flags}",
+                lambda: K.compensate_bits_cands(g, m.clone(), v.clone(),
+                                                bits, *args), want))
+            _check_equal(f"compensate_bits vs cands bf16 {model} {flags}",
+                         K.compensate_bits(g, m.clone(), v.clone(), bits,
+                                           *args), want[:2])
+        for seg, lane, blocks, vals in ties:    # the default flags' result
+            if (tuple(want[3][seg, :, lane].tolist()) != blocks
+                    or tuple(want[2][seg, :, lane].tolist()) != vals):
+                raise AssertionError(f"bf16 tie at {model} segment {seg}")
+        vec = want[1]
+        if vec.dtype != torch.bfloat16:
+            raise AssertionError("compensate_bits_cands: state not bf16")
+        regions = ([(b.base, b.rows, b.cols) for b, seg
+                    in zip(eng.buckets, eng._seg) if seg]
+                   or [(0, 1, nseg * span)])
+        for base, R, cols in regions:
+            ns = cols // span
+            alone = K.seg_top2_candidates_plain(vec, base, R, cols)
+            errs["seg_top2_candidates"].append(_check_twice(
+                f"seg_top2_candidates bf16 {model} [{R}, {cols}]",
+                lambda: K.seg_top2_candidates(vec, base, R, cols), alone))
+            s0 = base // span
+            _check_equal("bf16 seg_top2_candidates vs the fused ones", alone,
+                         (want[2][s0:s0 + R * ns].reshape(R, -1),
+                          K.seg_cols_local(want[3][s0:s0 + R * ns].view(
+                              R, ns, 2, 128))))
+        del want
+        mm, vv = m.clone(), v.clone()
+        mf, vf = m.float(), v.float()
+        rec = 4 * nw
+        for name, per, extra, kern, plain in (
+                ("compensate_bits", 12, 0, K.compensate_bits,
+                 K.compensate_bits_plain),
+                ("compensate_bits_cands", 12, 2048 * nseg,
+                 K.compensate_bits_cands, K.compensate_bits_cands_plain)):
+            bound = _bound(per * T + rec + extra, (5 + 4 * bool(extra)) * T)
+            out[name][model] = dict(
+                shape=[T], state="bfloat16", max_abs_err=max(errs[name]),
+                ms=_device_ms(lambda: kern(g, mm, vv, bits, 0.9)),
+                plain_ms=_device_ms(lambda: plain(g, m, v, bits, 0.9)),
+                f32_ms=_device_ms(lambda: kern(g, mf, vf, bits, 0.9)),
+                bound_ms=bound[0], bound_by=bound[1],
+                f32_bound_ms=_bound(20 * T + rec + extra, 9 * T)[0])
+        base, R, cols = regions[0]
+        nb = R * cols
+        ns = cols // span
+        vf = vec.float()
+        out["seg_top2_candidates"][model] = dict(
+            shape=[R, cols], state="bfloat16",
+            max_abs_err=max(errs["seg_top2_candidates"]),
+            ms=_device_ms(lambda: K.seg_top2_candidates(vec, base, R, cols)),
+            plain_ms=_device_ms(lambda: K.seg_top2_candidates_plain(
+                vec, base, R, cols)),
+            f32_ms=_device_ms(lambda: K.seg_top2_candidates(vf, base, R,
+                                                            cols)),
+            bound_ms=_bound(2 * nb + 2048 * R * ns, 4 * nb)[0],
+            bound_by="bytes", f32_bound_ms=_bound(4 * nb + 2048 * R * ns,
+                                                  4 * nb)[0])
+        for name, d in out.items():
+            if model in d:
+                print(f"[bf16] {name} {model} {d[model]['shape']}: bitwise "
+                      f"twice, {d[model]['ms']:.5f} ms (f32 state "
+                      f"{d[model]['f32_ms']:.5f}; bound "
+                      f"{d[model]['bound_ms']:.5f}, f32 "
+                      f"{d[model]['f32_bound_ms']:.5f}; plain "
+                      f"{d[model]['plain_ms']:.5f})")
+        del g, m, v, mm, vv, mf, vf, specials, vec
+    # topk_rows on bf16 rows: ResNet-50's buckets at the epoch-4 ratio (all
+    # on the 2-D path, the bf16 path's topk calls of that epoch)
+    eng = geoms50[4][1]
+    calls = []
+    for b, seg in zip(eng.buckets, eng._seg):
+        if seg or b.max_sel > K.TOPK_MAX_K:
+            continue
+        x = torch.randn(b.rows, b.cols, device=dev,
+                        generator=gen).abs().bfloat16()
+        calls.append(dict(shape=[b.rows, b.cols], k=b.max_sel,
+                          max_abs_err=_check_twice(
+                              f"topk_rows bf16 [{b.rows}, {b.cols}]",
+                              lambda: K.topk_rows(x, b.max_sel),
+                              K.topk_rows_plain(x, b.max_sel))))
+    out["topk_rows"]["resnet50"] = calls
+    print(f"[bf16] topk_rows on bf16 rows at {len(calls)} ResNet-50 "
+          "epoch-4 buckets: bitwise twice")
+    DETAIL["bf16 kernels"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the wire regimes of the card == CPU check (the reference's, but its
+#: gossip ones), then the mixed plans over ResNet-20's two buckets
+_WIRE_REGIMES = ("dense", "fp32", "fp32_packed", "fp16", "fp16_packed",
+                 "int8", "int8_packed", "int4_packed", "int8_delta_idx")
+_WIRE_MIXED = (("int8_delta_idx", "fp16_packed"), ("dense", "int4_packed"),
+               ("int8", "fp32_packed"))
+
+
+def phase_wires_vs_cpu():
+    """ResNet-20's W=4 exchange, card against CPU, bitwise (every worker's
+    exchanged gradient, memory and transmit record; 2 steps), at the
+    epoch-0 and epoch-5 ratios, for every wire regime as a uniform plan,
+    the mixed plans, int8 without error feedback, the int64 index wire
+    and the bf16 state on the int8 wire with packed indices. Returns
+    ``{regime: wire_bytes_per_worker}`` at the epoch-5 ratio (and
+    epoch 0's under ``"epoch 0"``)."""
+    cases = [(r, r, {}) for r in _WIRE_REGIMES]
+    cases += [("+".join(m), m, {}) for m in _WIRE_MIXED]
+    cases += [("int8 no feedback", "int8", dict(int8_error_feedback=False)),
+              ("int64 indices", "fp32", dict(int32_indices=False)),
+              ("int8_packed int64", "int8_packed",
+               dict(int32_indices=False)),
+              ("bf16 state int8_packed", "int8_packed",
+               dict(mem_dtype="bfloat16")),
+              ("bf16 state fp32", "fp32", dict(mem_dtype="bfloat16"))]
+    bytes_by = {"epoch 0": {}, "epoch 5": {}}
+    t0 = time.perf_counter()
+    for label, plan, flags in cases:
+        geoms = _geometries("resnet20_wm5", (0, 5), plan=plan, **flags)
+        for epoch, (_, eng) in geoms.items():
+            _check_equal(f"wire {label} exchange (epoch {epoch})",
+                         _exchange_run(eng, DEVICE, 2),
+                         _exchange_run(eng, "cpu", 2))
+            bytes_by[f"epoch {epoch}"][label] = eng.wire_bytes_per_worker()
+    DETAIL["wire bytes per worker"] = bytes_by
+    print(f"[wires] resnet20 W=4 exchange, 2 steps, epochs 0 and 5: card "
+          f"== CPU bitwise for {[c[0] for c in cases]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for epoch, d in bytes_by.items():
+        print(f"[wires] wire_bytes_per_worker at {epoch}: {d}")
+    return bytes_by
+
+
 _KERNEL_SYMBOLS = ("compensate_bits_kernel", "compensate_bits_cands_kernel",
                    "seg_top2_kernel", "topk_rows_kernel", "apply_rows_",
                    "opaque_copy_kernel", "select_pack_rows_kernel",
@@ -3295,6 +3653,13 @@ def main(argv):
                          for m, g in (("resnet20", geoms),
                                       ("resnet110", geoms110))
                          for e in (5, 0)]))
+    for name, d in phase_bf16_kernels(geoms, geoms50_all).items():
+        if name != "topk_rows":
+            entries[name]["bf16"] = {
+                model: {k: c[k] for k in ("shape", "ms", "plain_ms",
+                                          "f32_ms", "bound_ms",
+                                          "f32_bound_ms", "max_abs_err")}
+                for model, c in d.items()}
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
@@ -3312,6 +3677,7 @@ def main(argv):
     phase_clip_vs_cpu()
     phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1)
     del geoms_vgg
+    wire_bytes = phase_wires_vs_cpu()
     phase_run_to_run()
     common = ["topk_rows", "apply_rows", "opaque_view_from"]
     by_path = {}
@@ -3323,6 +3689,9 @@ def main(argv):
         "resnet50", "resnet50_wm5", [(0, 1), (5, 3)],
         common + ["compensate_bits", "compensate_bits_cands", "lax_top_k"])
     by_path["standalone_candidates"] = phase_standalone_candidates(geoms50)
+    slice_label = "resnet50_bf16mem_int8_packidx"
+    by_path[slice_label] = phase_slice_path()[1]
+    by_path["resnet20_autotune"] = phase_autotune()
     by_path["resnet20_megakernel"] = phase_train_path(
         "resnet20_megakernel", "resnet20_wm5_megakernel", [(3, 2), (5, 2)],
         ["dgc_forward_rows", "compensate_bits", "apply_rows"])[1]
@@ -3362,6 +3731,10 @@ def main(argv):
     # at epoch 5 every ResNet-50 compensate emits the segment candidates
     phase_resume("resnet50_wm5", "resnet50_wm5", [(4, 1), (5, 1)],
                  resume + ["compensate_bits_cands"])
+    # the slice's path: the bf16 state and the int8 error feedback
+    phase_resume("resnet50_wm5_bf16mem_int8_packidx",
+                 "resnet50_wm5_bf16mem_int8_packidx", [(4, 1), (5, 1)],
+                 resume + ["compensate_bits_cands"])
     phase_input_path(trace_inline="--profile" in argv)
     phase_crop_kernel()
     phase_process_group()
@@ -3370,7 +3743,10 @@ def main(argv):
         # the count of the one path that is each kernel's own
         e["launches_path"] = _OWN_PATH.get(name, "resnet50")
         e["launches"] = by_path[e["launches_path"]][name]
+        # and on the slice's path (the bf16 state)
+        e[f"launches_{slice_label}"] = by_path[slice_label][name]
     DETAIL["launches_by_path"] = by_path
+    DETAIL["wire_bytes_per_worker"] = wire_bytes
     _write_detail()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))

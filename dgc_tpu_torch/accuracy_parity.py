@@ -15,10 +15,12 @@ every epoch and arm. The W workers run in one process on one device
 The arms: ``dense`` (stock ``sgd``, ``Compression.none``) and ``dgc``
 (``DGCCompressor`` with ``dgc_sgd``); ``dgc_exact`` is accepted as the
 same arm as ``dgc``, because the port's selection is exact at every k
-(the JAX script's ``dgc`` runs an approximate top-k on the TPU). The
-arms on narrower wires (``dgc_bf16mem``, ``dgc_int8``, ``dgc_int8nofb``,
-``dgc_int8pack``) are ROADMAP.md queue 1 item 7. The learning rate warms
-up over 5 epochs and then follows a cosine over ``--epochs``, epoch-wise.
+(the JAX script's ``dgc`` runs an approximate top-k on the TPU); and the
+JAX script's arms on the narrower wires and state: ``dgc_bf16mem`` (the
+bf16 error-feedback state), ``dgc_int8`` (int8 values, error feedback
+on), ``dgc_int8nofb`` (without it) and ``dgc_int8pack`` (int8 values and
+bit-packed indices). The learning rate warms up over 5 epochs and then
+follows a cosine over ``--epochs``, epoch-wise.
 
     python -m dgc_tpu_torch.accuracy_parity --arms dense,dgc --epochs 150
     python -m dgc_tpu_torch.accuracy_parity --arms dense,dgc --seeds 3 \\
@@ -56,10 +58,9 @@ from dgc_tpu_torch.utils.device import (resolve_device,
 __all__ = ["protos_from_draws", "make_protos", "batch_from_draws",
            "sample_batch", "run_arm", "main"]
 
-#: the arms this port runs (``dgc_exact`` is ``dgc``)
-ARMS = ("dense", "dgc", "dgc_exact")
-#: the JAX script's arms on the narrower wires
-WIRE_ARMS = ("dgc_bf16mem", "dgc_int8", "dgc_int8nofb", "dgc_int8pack")
+#: the arms (``dgc_exact`` is ``dgc``)
+ARMS = ("dense", "dgc", "dgc_exact", "dgc_bf16mem", "dgc_int8",
+        "dgc_int8nofb", "dgc_int8pack")
 #: images an evaluation chunk
 EVAL_CHUNK = 512
 
@@ -129,8 +130,14 @@ def _arm(arm: str, model, lr, world: int, args):
         comp = Compression.none()
         return comp, DistributedOptimizer(
             sgd(lr, momentum=0.9, weight_decay=1e-4), comp, comm)
-    comp = DGCCompressor(args.ratio, memory=DGCSGDMemory(momentum=0.9),
-                         warmup_epochs=args.warmup_epochs)
+    comp = DGCCompressor(
+        args.ratio, memory=DGCSGDMemory(
+            momentum=0.9,
+            dtype="bfloat16" if arm == "dgc_bf16mem" else None),
+        warmup_epochs=args.warmup_epochs,
+        int8_values=arm.startswith("dgc_int8"),
+        int8_error_feedback=arm != "dgc_int8nofb",
+        packed_indices=arm == "dgc_int8pack")
     comp.initialize((n.replace(".", "/"), tuple(p.shape))
                     for n, p in model.named_parameters() if p.dim() > 1)
     return comp, DistributedOptimizer(
@@ -230,9 +237,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     arms = args.arms.split(",")
     for arm in arms:
-        if arm in WIRE_ARMS:
-            raise SystemExit(f"arm {arm!r} needs the narrower wires of "
-                             "ROADMAP.md queue 1 item 7, not ported yet")
         if arm not in ARMS:
             raise SystemExit(f"unknown arm {arm!r}; the port runs {ARMS}")
     if args.batch % args.workers or args.eval_size < EVAL_CHUNK:

@@ -12,13 +12,18 @@ both paths:
   tensor by tensor, with the f32, fp16 (``fp16_values``) or int8
   (``int8_values``, with or without ``int8_error_feedback``) wire;
 * the flat engine (:mod:`dgc_tpu_torch.compression.flat`,
-  :meth:`DGCCompressor.make_flat_exchange`), which carries the plain f32
-  wire and f32 state only (it raises on the other wires and on bf16
-  memory), with two of the reference's opt-in fused paths:
-  ``fused_select`` (the select-and-pack kernel on the 2-D buckets) and
-  ``megakernel`` (the forward megakernel on the buckets it owns, the spans
-  between them on the compensate kernel; also ``DGC_MEGAKERNEL=1``). Both
-  change no result, only the kernels that compute it.
+  :meth:`DGCCompressor.make_flat_exchange`), with f32 or bf16 state, the
+  f32, fp16 (``fp16_values``) and int8 (``int8_values``, with or without
+  ``int8_error_feedback``) value wires, bit-packed indices
+  (``packed_indices``), the int64 index wire (``int32_indices=False``),
+  a per-bucket plan of the planner's regimes, and two of the reference's
+  opt-in fused paths: ``fused_select`` (the select-and-pack kernel on the
+  2-D buckets) and ``megakernel`` (the forward megakernel on the buckets
+  it owns, the spans between them on the compensate kernel; also
+  ``DGC_MEGAKERNEL=1``; f32 state only). The fused paths change no
+  result, only the kernels that compute it. ``checksum`` (the payload
+  integrity checksum) is refused by the flat engine: ROADMAP.md queue 1
+  item 8.
 
 The strided sample's phase is drawn on the host (:meth:`DGCCompressor.
 draw_phases`) where the reference folds a PRNG key per tensor.
@@ -97,16 +102,28 @@ class DGCCompressor(Compressor):
                  warmup_coeff=None,
                  fused_select: bool = False, megakernel: bool = False,
                  int8_values: bool = False,
-                 int8_error_feedback: bool = True, verbose: bool = False):
+                 int8_error_feedback: bool = True,
+                 packed_indices: bool = False, int32_indices: bool = True,
+                 checksum: bool = False, verbose: bool = False):
         if int8_values and fp16_values:
             raise ValueError("int8_values and fp16_values are mutually "
                              "exclusive wire formats")
-        #: the per-tensor wire: fp16 values, or int8 values with one f32
-        #: scale per tensor (the residual fed back into the velocity under
-        #: ``int8_error_feedback``); the flat engine refuses both
+        #: the wire: fp16 values, or int8 values with one f32 scale per
+        #: tensor (the rounding residual fed back into the velocity under
+        #: ``int8_error_feedback``)
         self.fp16_values = fp16_values
         self.int8_values = int8_values
         self.int8_error_feedback = int8_error_feedback
+        #: flat engine only: tensor-local indices bit-packed in
+        #: ``ceil(log2 numel)`` bits (``wirecodec.IndexCodec``); the
+        #: per-tensor path ignores it (a wire format, not numerics)
+        self.packed_indices = packed_indices
+        #: flat engine only: int32 wire indices (the reference's flag);
+        #: False ships them as int64
+        self.int32_indices = int32_indices
+        #: flat engine only: the payload checksum, which the port's engine
+        #: refuses (ROADMAP.md queue 1 item 8)
+        self.checksum = checksum
         self.base_compress_ratio = self.compress_ratio = (
             compress_ratio if compress_ratio <= 1.0 else 1.0 / compress_ratio)
         self.memory = DGCSGDMemory() if memory is None else memory
@@ -386,7 +403,8 @@ class DGCCompressor(Compressor):
             outs.append(out.reshape(ctx.shape))
         return outs, mem_states
 
-    def make_flat_exchange(self, layout):
-        """The flat-buffer engine over ``layout``; call again after every
-        ratio change."""
-        return FlatDGCEngine(self, layout)
+    def make_flat_exchange(self, layout, plan=None):
+        """The flat-buffer engine over ``layout`` (``plan``: one regime per
+        bucket, see :class:`FlatDGCEngine`); call again after every ratio
+        change."""
+        return FlatDGCEngine(self, layout, plan=plan)

@@ -7,18 +7,38 @@ tensors first, one tensor per row of a size bucket, then a gap whose first
 slot is the always-zero scatter sentinel, then the dense tail (biases,
 BatchNorm). Buffers are therefore interchangeable with the JAX package's.
 
-:class:`FlatDGCEngine` runs the reference's plain-f32-wire pipeline, split
-into the per-worker halves around the collective so one process can drive
-W workers in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
+:class:`FlatDGCEngine` runs the reference's pipeline, split into the
+per-worker halves around the collectives so one process can drive W workers
+in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
 
 * :meth:`FlatDGCEngine.compress` — bit-masked momentum compensate (the
   compensate kernel, in place) and sampled top-k sparsification of every
-  bucket into a fixed-size ``(values, indices)`` payload;
-* ``comm.all_gather`` of values and indices, ``comm.all_reduce`` of the
-  dense tail;
-* :meth:`FlatDGCEngine.apply` — the apply kernel (scatter-add of
-  ``wire / W`` and this worker's transmit record), then the dense tail's
-  non-accumulating correction.
+  sparse bucket into a fixed-size ``(values, indices)`` payload;
+* :meth:`FlatDGCEngine.encode` — the payload onto the wire lanes of each
+  bucket's regime (below), with the int8 error feedback into the memory;
+* ``comm.all_gather`` of each lane, ``comm.all_reduce`` of the dense
+  tail together with the dense-planned buckets' slabs;
+* :meth:`FlatDGCEngine.decode` and :meth:`FlatDGCEngine.apply` — the
+  lanes back to values and indices, the apply kernel (scatter-add of
+  ``wire / W`` and this worker's transmit record), then the dense slabs'
+  and tail's non-accumulating correction.
+
+Wires and state (the reference's regimes without its gossip ones,
+:data:`_REGIMES`; one regime a bucket, from a ``plan`` —
+:mod:`~dgc_tpu_torch.compression.planner` — or uniformly from the
+compressor's flags ``int8_values`` / ``fp16_values`` /
+``packed_indices``): native values (in the state's dtype) or fp16 values,
+int8 values with one f32 scale a tensor row (round half to even, clipped
+to +-127) and, under ``int8_error_feedback``, the rounding residual kept
+in the velocity and the int8 slots kept out of the transmit record, int4
+values with one scale a bucket on the int8 byte lane; plain offsets (int32,
+or int64 under ``int32_indices=False``), bit-packed tensor-local indices
+or Elias-Fano words (:mod:`~dgc_tpu_torch.compression.wirecodec`); a
+``dense`` bucket rides the dense all-reduce. ``fp16_values`` also puts the
+dense all-reduce on an fp16 wire. The error-feedback state is f32 or
+bf16 (``DGCSGDMemory(dtype="bfloat16")``): the compensate's math runs in
+f32 with one round-to-nearest-even per stored value, the selection runs on
+the stored bf16 velocity, and the values ship in bf16 on the native lane.
 
 Three selection paths, chosen per bucket exactly as the reference chooses
 them (a single-tensor bucket wider than 8M columns is first split into
@@ -95,10 +115,8 @@ ladder_counts`), the oracle the from-top-k derivation is held against; as
 in the reference, :meth:`FlatDGCEngine.sparsify` does not call it.
 
 Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
-for one): planner regimes and dense-planned buckets, gossip, the adaptive
-send fraction, checksums, the int8/int4/fp16 and packed-index wires and
-the bf16 error-feedback state (the per-tensor path has the int8 and fp16
-wires and the bf16 state), Adasum, the two-tier exchange and telemetry.
+for one): gossip, the adaptive send fraction, checksums, Adasum, the
+two-tier exchange, telemetry and layouts of 2**31 slots or more.
 """
 
 import math
@@ -108,12 +126,31 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dgc_tpu_torch.compression.planner import refuse_gossip
+from dgc_tpu_torch.compression.wirecodec import (DeltaIndexCodec, IndexCodec,
+                                                  pack_int4, unpack_int4)
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.utils.pytree import named_flatten
 
 __all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
            "ladder_cols", "lax_top_k", "select_topk", "lane_quota",
            "lane_candidates", "ROUTES"]
+
+#: exchange regime -> (value kind, index lane), the reference's regimes
+#: without its gossip ones: "d" buckets ride the dense all-reduce; the
+#: value lane is "f32" (the native values, in the state's dtype), "f16",
+#: "i8" (int8 + one f32 scale a row) or "i4" (nibble-packed int4 + one f32
+#: scale a bucket, on the int8 byte lane); the index lane is False (plain
+#: flat offsets), True (:class:`IndexCodec` words) or "delta"
+#: (:class:`DeltaIndexCodec` words; both word streams share one lane)
+_REGIMES = {
+    "dense": ("d", False),
+    "fp32": ("f32", False), "fp32_packed": ("f32", True),
+    "fp16": ("f16", False), "fp16_packed": ("f16", True),
+    "int8": ("i8", False), "int8_packed": ("i8", True),
+    "int4_packed": ("i4", True),
+    "int8_delta_idx": ("i8", "delta"),
+}
 
 #: block alignment of the compressed-block boundary and the buffer tail
 _ALIGN = 16 * 128
@@ -147,6 +184,10 @@ ROUTES = {"lax_top_k": 0, "sel3d": 0}
 
 def _round_up(n: int, align: int) -> int:
     return -(-n // align) * align
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def lax_top_k(x: torch.Tensor, k: int):
@@ -227,6 +268,8 @@ class ParamLayout:
 
     #: bucket-count / padding exchange rate of the partition DP
     FLOOR_SLOTS = 300_000
+    #: the flat buffers' dtype
+    dtype = torch.float32
 
     def __init__(self, tree, compressed_names: Sequence[str] = ()):
         named = named_flatten(tree)
@@ -262,9 +305,10 @@ class ParamLayout:
         self.p_data_end = off
         self.total = _round_up(off, _ALIGN) if off else 0
         if self.total >= 2 ** 31:
-            raise ValueError("layouts of 2**31 slots or more need the int64 "
-                             "index wire, which is not ported "
-                             "(ROADMAP.md queue 1 item 7)")
+            raise ValueError("layouts of 2**31 slots or more need 64-bit "
+                             "offsets in every kernel and the int64 apply, "
+                             "which are not ported (ROADMAP.md queue 1 item "
+                             "14)")
 
     def _group_by_size(self, compressed: Sequence[str]) -> List[List[str]]:
         """Partition the size-sorted tensors into contiguous buckets by the
@@ -480,6 +524,17 @@ def _pow_ladder(lower: float, levels: int) -> np.ndarray:
                      for i in range(levels)], np.float32)
 
 
+def _state_ladder(lower: float, levels: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The adaptation's ladder ``lower ** i`` in the thresholds' dtype:
+    :func:`_pow_ladder` for f32; for bf16 the reference's bf16 pow, ``lower``
+    rounded to bf16, raised in f32 and rounded once more."""
+    if dtype == torch.float32:
+        return torch.from_numpy(_pow_ladder(lower, levels))
+    base = float(torch.tensor(lower, dtype=dtype))
+    return torch.from_numpy(_pow_ladder(base, levels)).to(dtype)
+
+
 def _topk_counts(top_scores: torch.Tensor, thr: torch.Tensor,
                  ladder: torch.Tensor) -> torch.Tensor:
     """Per-row counts of the sorted selection top-k at each level ``thr *
@@ -567,57 +622,261 @@ class FlatDGCEngine:
     """The flat DGC pipeline for one compressor + layout pair; rebuilt
     (host-side, cheaply) whenever the warm-up schedule changes the ratio.
     Memory buffers stay valid across rebuilds, also across the change from
-    a dense ratio (>= 1) to a compressed one and back."""
+    a dense ratio (>= 1) to a compressed one and back, and across a change
+    of plan. ``plan``: one exchange regime per bucket (a regime sequence or
+    a :class:`~dgc_tpu_torch.compression.planner.Plan`), else the uniform
+    regime of the compressor's wire flags."""
 
-    def __init__(self, compressor, layout: ParamLayout):
+    def __init__(self, compressor, layout: ParamLayout, plan=None):
         self.c = compressor
         self.layout = layout
         self.T = layout.t_compressed
-        #: nothing compressed, or a ratio of 1: the all-dense exchange
-        self.dense = self.T == 0 or compressor.compress_ratio >= 1.0
-        mdt = compressor.memory.dtype
-        if mdt not in (None, torch.float32):
+        if getattr(compressor, "checksum", False):
             raise ValueError(
-                f"the flat engine keeps f32 error-feedback state only, not "
-                f"{mdt}: its bf16 memory is ROADMAP.md queue 1 item 7 (the "
-                "per-tensor path, DistributedOptimizer.exchange, takes it)")
-        for flag in ("int8_values", "fp16_values"):
-            if getattr(compressor, flag, False):
+                "checksum=True (the payload integrity checksum) is not "
+                "ported: ROADMAP.md queue 1 item 8")
+        mdt = compressor.memory.dtype
+        if mdt not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"the flat engine keeps f32 or bf16 error-"
+                             f"feedback state, not {mdt}")
+        #: the error-feedback state's dtype: f32, or the bf16 memory
+        self.state_dtype = mdt or torch.float32
+        #: the wire's index dtype: int64 where the compressor asks for it
+        #: (``int32_indices=False``); the apply narrows to int32 once, which
+        #: the layout's bound (< 2**31 slots) keeps exact
+        self.index_dtype = (torch.int32
+                            if getattr(compressor, "int32_indices", True)
+                            else torch.int64)
+        compressed = self.T > 0 and compressor.compress_ratio < 1.0
+        self.buckets = (_build_buckets(compressor.attributes, layout,
+                                       compressor) if compressed else [])
+        if plan is None:
+            regimes = (self._legacy_regime(),) * len(self.buckets)
+            self.plan = None
+        else:
+            regimes = tuple(getattr(plan, "regimes", plan))
+            refuse_gossip(regimes)
+            if len(regimes) != len(self.buckets):
                 raise ValueError(
-                    f"the flat engine carries the plain f32 wire only: "
-                    f"{flag} is ROADMAP.md queue 1 item 7 (the per-tensor "
-                    "path, DistributedOptimizer.exchange, takes it)")
-        self.buckets = ([] if self.dense
-                        else _build_buckets(compressor.attributes, layout,
-                                            compressor))
+                    f"plan carries {len(regimes)} regimes for "
+                    f"{len(self.buckets)} buckets — the plan was built for "
+                    "a different geometry; call Plan.replan(engine) after "
+                    "every warm-up compress-ratio change")
+            self.plan = plan if hasattr(plan, "regimes") else None
+        unknown = [r for r in regimes if r not in _REGIMES]
+        if unknown:
+            raise ValueError(f"unknown exchange regime(s) {unknown}; "
+                             f"expected one of {sorted(_REGIMES)}")
+        #: one exchange regime per bucket
+        self.regimes: Tuple[str, ...] = regimes
+        rk = [_REGIMES[r] for r in regimes]
+        #: bucket ids by role: dense-planned buckets ride the dense
+        #: all-reduce as slabs; the sparse pipeline runs over the rest
+        self._sparse_ids = [i for i, (k, _) in enumerate(rk) if k != "d"]
+        self._dense_ids = [i for i, (k, _) in enumerate(rk) if k == "d"]
+        #: nothing compressed, a ratio of 1, or an all-dense plan: the
+        #: all-dense exchange
+        self.dense = not self._sparse_ids
+        sparse = [self.buckets[i] for i in self._sparse_ids]
+        #: per sparse bucket (payload order): value kind, index lane
+        self._kinds = tuple(rk[i][0] for i in self._sparse_ids)
+        self._packed = tuple(rk[i][1] for i in self._sparse_ids)
+        sl, off = [], 0
+        for b in sparse:
+            sl.append((off, off + b.payload))
+            off += b.payload
+        self._payload_slices = tuple(sl)
+        #: per-worker wire payload in elements (the sparse buckets')
+        self.payload_size = off
+        self._build_lanes(sparse)
         #: per bucket: selects through the segment candidates
         self._seg = [self._use_seg_kernel(b) for b in self.buckets]
         #: per bucket: a wide bucket off the segment path, selecting
         #: through per-(row, lane) candidates (:meth:`_sparsify_bucket_3d`)
         self._sel3d = [self._use_3d(b) and not seg
                        for b, seg in zip(self.buckets, self._seg)]
-        #: any bucket takes the segment path: the compensate pass then
-        #: emits the candidates itself (the reference's ``_seg_fused``)
-        self._seg_fused = any(self._seg)
+        #: any sparse bucket takes the segment path: the compensate pass
+        #: then emits the candidates itself (the reference's ``_seg_fused``)
+        self._seg_fused = any(self._seg[i] for i in self._sparse_ids)
         #: the forward megakernel's opt-in, read where the reference reads
         #: it: the compressor's flag or ``DGC_MEGAKERNEL=1``
         self._megakernel = bool(
             getattr(compressor, "megakernel", False)
             or os.environ.get("DGC_MEGAKERNEL", "") == "1")
-        #: bucket ids whose compensate and selection run the forward
-        #: megakernel, in base order
-        self._mk_fwd_ids = tuple(bi for bi in range(len(self.buckets))
+        #: sparse bucket ids whose compensate and selection run the
+        #: forward megakernel, in base order
+        self._mk_fwd_ids = tuple(bi for bi in self._sparse_ids
                                  if self._use_megakernel_fwd(bi))
-        sl, off = [], 0
-        for b in self.buckets:
-            sl.append((off, off + b.payload))
-            off += b.payload
-        self._payload_slices = tuple(sl)
-        #: per-worker wire payload in elements
-        self.payload_size = off
-        self._ladder_np = _pow_ladder(self.c.compress_lower_bound,
-                                      self.c.max_adaptation_iters + 1)
         self._consts: Dict[torch.device, list] = {}
+        self._wire_dev: Dict[torch.device, dict] = {}
+
+    def _build_lanes(self, sparse: List[_Bucket]) -> None:
+        """The static lane layout over the sparse buckets (the reference's
+        constructor): each value kind's chunks, each index lane's chunks,
+        the int8 row map and int4 bucket map of the scales, the int4 byte
+        chunks, the int8 slot mask of a mixed plan, the codecs and the
+        receiver's clamp bounds."""
+        kof: Dict[str, int] = {}
+        vloc = []
+        for b, kk in zip(sparse, self._kinds):
+            lo = kof.get(kk, 0)
+            vloc.append((kk, lo, lo + b.payload))
+            kof[kk] = lo + b.payload
+        self._val_chunks = tuple(vloc)
+        #: payload elements on each value kind's lane
+        self._kind_payload = kof
+        iof = {True: 0, False: 0, "delta": 0}
+        iloc = []
+        for b, p in zip(sparse, self._packed):
+            iloc.append((p, iof[p], iof[p] + b.payload))
+            iof[p] += b.payload
+        self._idx_chunks = tuple(iloc)
+        self._plain_payload = iof[False]
+        # int8 buckets: payload slot -> tensor row (slot s of a bucket's
+        # [R, max_sel] grid belongs to row s // max_sel), one f32 scale a
+        # row
+        i8 = [b for b, kk in zip(sparse, self._kinds) if kk == "i8"]
+        self._i8_rows = sum(b.rows for b in i8)
+        rm, base = [], 0
+        for b in i8:
+            rm.append((b.tight // b.max_sel).astype(np.int64) + base)
+            base += b.rows
+        self._row_map = np.concatenate(rm) if rm else None
+        # int4 buckets: one f32 scale a bucket, each bucket's nibbles
+        # padded to a whole byte
+        i4 = [b for b, kk in zip(sparse, self._kinds) if kk == "i4"]
+        self._i4_buckets = len(i4)
+        self._i4_map = (np.concatenate([np.full(b.payload, j, np.int64)
+                                        for j, b in enumerate(i4)])
+                        if i4 else None)
+        ck, plo, blo = [], 0, 0
+        for b in i4:
+            nb = (b.payload + 1) // 2
+            ck.append((plo, plo + b.payload, blo, blo + nb))
+            plo, blo = plo + b.payload, blo + nb
+        self._i4_chunks = tuple(ck)
+        self._i4_bytes = blo
+        # the int8 slots of a mixed plan (int8 error feedback keeps them
+        # out of the transmit record; the other buckets record theirs)
+        self._i8_slot_mask = None
+        if i8 and len(i8) != len(sparse):
+            i8m = np.zeros(self.payload_size, bool)
+            for (s0, s1), kk in zip(self._payload_slices, self._kinds):
+                if kk == "i8":
+                    i8m[s0:s1] = True
+            self._i8_slot_mask = i8m
+        pk = [b for b, p in zip(sparse, self._packed) if p is True]
+        self._codec = IndexCodec(pk) if pk else None
+        dl = [b for b, p in zip(sparse, self._packed) if p == "delta"]
+        self._dcodec = DeltaIndexCodec(dl) if dl else None
+        # each delta bucket's payload slice and its slots' row bounds
+        # (:meth:`_sort_delta_payload`)
+        ds, dj = [], 0
+        for (s0, s1), p in zip(self._payload_slices, self._packed):
+            if p == "delta":
+                n = s1 - s0
+                ds.append((s0, s1, self._dcodec.slot_off[dj:dj + n],
+                           self._dcodec.slot_numel[dj:dj + n]))
+                dj += n
+        self._delta_sort = tuple(ds)
+        # receiver-side clamp bounds: codec slots their static rows, plain
+        # slots [0, T)
+        words = [c for c in (self._codec, self._dcodec) if c is not None]
+        if len(words) == 1 and not self._plain_payload:
+            self._clamp_bounds = (words[0].slot_off, words[0].slot_numel)
+        elif words:
+            so = np.zeros(self.payload_size, np.int64)
+            sn = np.full(self.payload_size, max(int(self.T), 1), np.int64)
+            pj = dj = 0
+            for (s0, s1), p in zip(self._payload_slices, self._packed):
+                if p is True:
+                    so[s0:s1] = self._codec.slot_off[pj:pj + s1 - s0]
+                    sn[s0:s1] = self._codec.slot_numel[pj:pj + s1 - s0]
+                    pj += s1 - s0
+                elif p == "delta":
+                    so[s0:s1] = self._dcodec.slot_off[dj:dj + s1 - s0]
+                    sn[s0:s1] = self._dcodec.slot_numel[dj:dj + s1 - s0]
+                    dj += s1 - s0
+            self._clamp_bounds = (so, sn)
+        else:
+            self._clamp_bounds = (None, None)
+
+    def _legacy_regime(self) -> str:
+        """The uniform wire regime the compressor's flags describe (every
+        ``plan=None`` engine's)."""
+        c = self.c
+        if getattr(c, "int8_values", False):
+            base = "int8"
+        elif getattr(c, "fp16_values", False):
+            base = "fp16"
+        else:
+            base = "fp32"
+        return base + ("_packed"
+                       if getattr(c, "packed_indices", False) else "")
+
+    # -------------------------------------------------------------- #
+    # wire geometry                                                  #
+    # -------------------------------------------------------------- #
+
+    def wire_bytes_per_worker(self) -> int:
+        """Per-worker sparse wire bytes a step under the regimes, as the
+        reference counts them: the value lanes (int8 payload and one f32
+        scale a row, int4 bytes and one scale a bucket, fp16, or the
+        native lane at the layout's 4 bytes) and the index lanes (codec
+        words, plain offsets at the index dtype's width). Dense-planned
+        buckets ride the dense all-reduce and cost 0 here."""
+        if not self.payload_size:
+            return 0
+        kp = self._kind_payload
+        val = 0
+        if kp.get("i8"):
+            val += kp["i8"] + 4 * self._i8_rows
+        if kp.get("i4"):
+            val += self._i4_bytes + 4 * self._i4_buckets
+        if kp.get("f16"):
+            val += 2 * kp["f16"]
+        if kp.get("f32"):
+            val += kp["f32"] * _itemsize(self.layout.dtype)
+        idx = 0
+        if self._codec is not None:
+            idx += 4 * self._codec.nwords
+        if self._dcodec is not None:
+            idx += 4 * self._dcodec.nwords
+        if self._plain_payload:
+            idx += self._plain_payload * _itemsize(self.index_dtype)
+        return int(val + idx)
+
+    def bucket_wire_bytes(self) -> List[int]:
+        """Per-bucket sparse wire bytes under the regimes (dense-planned
+        buckets 0; a packed-index bucket's slot bits rounded up to whole
+        bytes, so the sum may differ from :meth:`wire_bytes_per_worker`
+        by the shared stream's sub-word rounding)."""
+        out = []
+        pj = dj = 0
+        for b, r in zip(self.buckets, self.regimes):
+            kind, packed = _REGIMES[r]
+            if kind == "d":
+                out.append(0)
+                continue
+            if kind == "i8":
+                vb = b.payload + 4 * b.rows
+            elif kind == "i4":
+                vb = (b.payload + 1) // 2 + 4
+            elif kind == "f16":
+                vb = 2 * b.payload
+            else:
+                vb = b.payload * _itemsize(self.layout.dtype)
+            if packed is True:
+                w = self._codec.widths[pj:pj + b.payload]
+                pj += b.payload
+                ib = -(-int(w.sum()) // 8)
+            elif packed == "delta":
+                ib = 4 * self._dcodec.bucket_words[dj]
+                dj += 1
+            else:
+                ib = b.payload * _itemsize(self.index_dtype)
+            out.append(int(vb + ib))
+        return out
 
     # -------------------------------------------------------------- #
     # memory                                                         #
@@ -626,10 +885,12 @@ class FlatDGCEngine:
     def init_memory(self, device) -> Dict[str, torch.Tensor]:
         """Error-feedback buffers split at the compressed/dense boundary T,
         plus the packed transmit record of the last step (deferred
-        masking: the next compensate zeroes those coordinates on read)."""
-        T, P = self.T, self.layout.total
+        masking: the next compensate zeroes those coordinates on read).
+        The buffers are in the memory's dtype (f32, or the bf16 state);
+        the record is int32."""
+        T, P, sdt = self.T, self.layout.total, self.state_dtype
 
-        def z(n, dtype=torch.float32):
+        def z(n, dtype=sdt):
             return torch.zeros(n, dtype=dtype, device=device)
         return {"momentums_c": z(T), "velocities_c": z(T),
                 "momentums_d": z(P - T), "velocities_d": z(P - T),
@@ -638,7 +899,8 @@ class FlatDGCEngine:
     def memory_full(self, mem) -> Dict[str, torch.Tensor]:
         """Canonical ``{momentums, velocities}`` [P] view with the pending
         transmit mask applied (inspection and checkpoints only)."""
-        keep = kernels.keep_from_bits(mem["sent_bits"], self.T)
+        keep = kernels.keep_from_bits(mem["sent_bits"], self.T).to(
+            mem["velocities_c"].dtype)
         vc = mem["velocities_c"] * keep
         mc = mem["momentums_c"]
         if self.c.memory.momentum_masking:
@@ -693,13 +955,16 @@ class FlatDGCEngine:
 
     def _compensate_dense(self, mmt: torch.Tensor, grad: torch.Tensor):
         """Non-accumulating correction of an averaged dense block: returns
-        ``(corrected gradient, new momentum)``."""
+        ``(corrected gradient, new momentum)``, the math in the gradient's
+        dtype and the momentum rounded once to the state's."""
         m = self.c.memory
+        sdt = mmt.dtype
+        mmt = mmt.to(grad.dtype)
         if m.nesterov:
             mmt = (mmt + grad) * m.momentum
-            return mmt + grad, mmt
+            return mmt + grad, mmt.to(sdt)
         mmt = m.momentum * mmt + grad
-        return mmt, mmt
+        return mmt, mmt.to(sdt)
 
     def _clip_block(self, blocks: Sequence[torch.Tensor],
                     names: Sequence[str], base: int) -> List[torch.Tensor]:
@@ -747,9 +1012,13 @@ class FlatDGCEngine:
         """The sampling draws of every sampled bucket, on the host from
         ``gen``: one uniform per stride group (a list of floats), or for
         the uniform sampler a [rows, max samples] f32 tensor of uniforms;
-        nothing for a bucket that samples every element."""
+        nothing for a bucket that samples every element or that the plan
+        sends dense."""
         out = []
-        for b in self.buckets:
+        for b, r in zip(self.buckets, self.regimes):
+            if r == "dense":
+                out.append([])
+                continue
             if not self.c.strided_sample and not b.exact:
                 out.append(torch.rand((b.rows, b.max_s), generator=gen))
                 continue
@@ -771,13 +1040,17 @@ class FlatDGCEngine:
             slot = torch.arange(b.max_sel, device=device)
             c = {
                 "in_row": col[None, :] < t(b.numels, torch.int64)[:, None],
-                "row_off": t(b.row_offsets, torch.int32)[:, None],
+                "row_off": t(b.row_offsets, self.index_dtype)[:, None],
                 "slot_ok": slot[None, :] < t(b.num_selects,
                                              torch.int64)[:, None],
                 "k_idx": t(b.topk_samples - 1, torch.int64)[:, None],
                 "tight": (None if b.payload == b.rows * b.max_sel
                           else t(b.tight, torch.int64)),
-                "ladder": t(self._ladder_np, torch.float32),
+                # the thresholds' dtype: the state's (bf16 thresholds
+                # adapt on a bf16 ladder, as the reference's do)
+                "ladder": _state_ladder(self.c.compress_lower_bound,
+                                        self.c.max_adaptation_iters + 1,
+                                        self.state_dtype).to(device),
                 "lo": t(np.float32(self.c.compress_lower_bound)
                         * b.num_selects.astype(np.float32),
                         torch.float32)[:, None],
@@ -842,9 +1115,11 @@ class FlatDGCEngine:
         megakernel (the reference's on-card gate): the megakernel opt-in, a
         2-D bucket (not segment-path, not 3-D), ``0 < max_sel <= min(cols,
         MR_MAX_K)``, lane-aligned base and width, rows of at most 128K
-        columns. The port's state and gradients are f32 throughout."""
+        columns, f32 state (the bf16 state keeps the unfused route, as in
+        the reference)."""
         b = self.buckets[bi]
-        return (self._megakernel and not self._seg[bi] and not self._use_3d(b)
+        return (self._megakernel and self.state_dtype == torch.float32
+                and not self._seg[bi] and not self._use_3d(b)
                 and 0 < b.max_sel <= min(b.cols, kernels.MR_MAX_K)
                 and b.base % _LANE == 0 and b.cols % _LANE == 0
                 and b.cols <= _MK_MAX_COLS)
@@ -909,7 +1184,9 @@ class FlatDGCEngine:
         # one gather of the (value bits, column) pairs
         packed = torch.stack([cvals.view(torch.int32), ccols], dim=-1)
         sel = packed.gather(1, c2.long()[:, :, None].expand(-1, -1, 2))
-        sel_vals = sel[:, :, 0].contiguous().view(torch.float32)
+        # the candidates' f32 values are exact up-casts of a bf16 state
+        sel_vals = sel[:, :, 0].contiguous().view(torch.float32).to(
+            vec_c.dtype)
         cols_sel = sel[:, :, 1]
         if self.c.max_adaptation_iters > 0 and b.adapt.any():
             thr = self._ladder_adapt_from_topk(c, top_scores, thr)
@@ -1011,9 +1288,11 @@ class FlatDGCEngine:
                  seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  fwd_sel: Optional[Dict[int, Tuple[torch.Tensor, ...]]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Sampled top-k selection over the compressed block [T]. Returns
-        ``(values f32, indices int32)`` of length ``payload_size``;
-        invalid slots carry ``(0.0, sentinel)``. ``seg_cands`` are the
+        """Sampled top-k selection over the compressed block [T], over the
+        buckets the plan does not send dense. Returns ``(values, indices)``
+        of length ``payload_size``, the values in the state's dtype and the
+        indices in :attr:`index_dtype`; invalid slots carry ``(0.0,
+        sentinel)``. ``seg_cands`` are the
         compensate pass's candidates (:func:`kernels.compensate_bits_cands`);
         without them a segment-path bucket computes its own
         (:func:`kernels.seg_top2_candidates`). ``fwd_sel`` maps a bucket id
@@ -1021,7 +1300,8 @@ class FlatDGCEngine:
         selected (:meth:`_compensate_megakernel`)."""
         consts = self._bucket_consts(vec_c.device)
         out_v, out_i = [], []
-        for bi, (b, c) in enumerate(zip(self.buckets, consts)):
+        for bi in self._sparse_ids:
+            b, c = self.buckets[bi], consts[bi]
             if self._seg[bi]:
                 vals, gidx = self._sparsify_bucket_seg(vec_c, b, c,
                                                        phases[bi], seg_cands)
@@ -1126,49 +1406,298 @@ class FlatDGCEngine:
         comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
         return self.sparsify(comp, phases, seg_cands=cands)
 
+    # -------------------------------------------------------------- #
+    # the wire lanes                                                 #
+    # -------------------------------------------------------------- #
+
+    def _wire_consts(self, device) -> dict:
+        """The lanes' static maps as tensors on ``device`` (built once)."""
+        device = torch.device(device)
+        wc = self._wire_dev.get(device)
+        if wc is None:
+            def t(a):
+                return None if a is None else torch.as_tensor(a,
+                                                              device=device)
+            so, sn = self._clamp_bounds
+            wc = {"row_map": t(self._row_map), "i4_map": t(self._i4_map),
+                  "i8_slots": t(self._i8_slot_mask),
+                  "clamp_lo": None if so is None else t(so).to(
+                      self.index_dtype),
+                  "clamp_hi": None if so is None else t(so + sn).to(
+                      self.index_dtype)}
+            self._wire_dev[device] = wc
+        return wc
+
+    def _kind_chunks(self, arr: torch.Tensor, kind: str) -> torch.Tensor:
+        """The concatenated payload chunks of the sparse buckets whose value
+        kind is ``kind`` (``arr`` itself when every bucket has it)."""
+        if all(k == kind for k in self._kinds):
+            return arr
+        parts = [arr[s0:s1] for (s0, s1), k
+                 in zip(self._payload_slices, self._kinds) if k == kind]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _packed_chunks(self, arr: torch.Tensor, packed) -> torch.Tensor:
+        """The same for an index lane (``packed``: True, False or
+        "delta")."""
+        if all(p == packed for p in self._packed):
+            return arr
+        parts = [arr[s0:s1] for (s0, s1), p
+                 in zip(self._payload_slices, self._packed) if p == packed]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _sort_delta_payload(self, values: torch.Tensor,
+                            indices: torch.Tensor):
+        """Sort each ``int8_delta_idx`` bucket's payload slice by canonical
+        position (the in-row clipped index, so padded sentinel slots sort
+        inside their row), values and indices together, stably — the
+        Elias-Fano precondition. Rows occupy disjoint ascending ranges, so
+        no slot moves across rows and the row map stays valid."""
+        values, indices = values.clone(), indices.clone()
+        for s0, s1, off, num in self._delta_sort:
+            seg = indices[s0:s1]
+            o = torch.as_tensor(off, dtype=seg.dtype, device=seg.device)
+            hi = torch.as_tensor(num - 1, dtype=seg.dtype, device=seg.device)
+            canon = o + torch.minimum(torch.clamp(seg - o, min=0), hi)
+            order = torch.argsort(canon, stable=True)
+            values[s0:s1] = values[s0:s1][order]
+            indices[s0:s1] = seg[order]
+        return values, indices
+
+    def encode(self, values: torch.Tensor, indices: torch.Tensor, mem):
+        """One worker's payload onto the wire lanes. Returns ``(lanes,
+        flags)``: ``lanes`` maps a lane name to its tensor — ``"q"`` int8
+        bytes (the int8 payload, then the int4 nibbles), ``"f32"`` (the
+        native values in the state's dtype, then the int8 row scales and
+        the int4 bucket scales, all f32 where there are several parts),
+        ``"f16"``, ``"words"`` (codec words, then Elias-Fano words, int32)
+        and ``"idx"`` (plain offsets in :attr:`index_dtype`) — and
+        ``flags`` [payload] bool, this worker's transmit record: the
+        pre-encoding non-sentinel slots, less the int8 slots under int8
+        error feedback. Under int8 error feedback ``mem`` takes the
+        rounding residual: the velocity keeps ``v - q * scale`` at the int8
+        slots and, under momentum masking, the momentum is zeroed there
+        now instead of on the next read."""
+        if self._delta_sort:
+            values, indices = self._sort_delta_payload(values, indices)
+        wc = self._wire_consts(values.device)
+        kp = self._kind_payload
+        lanes, q_parts, f32_parts = {}, [], []
+        flags = indices != self.layout.sentinel
+        scale = scale4 = None
+        if kp.get("i8"):
+            v8 = self._kind_chunks(values, "i8")
+            rm = wc["row_map"]
+            smax = torch.full((self._i8_rows,), -math.inf, dtype=v8.dtype,
+                              device=v8.device).scatter_reduce(
+                0, rm, v8.abs(), "amax")
+            scale = kernels.divide_exact(smax, 127.0).to(torch.float32)
+            safe = torch.where(scale > 0, scale, 1.0)
+            q = torch.clamp(torch.round(v8 / safe[rm]), -127, 127).to(
+                torch.int8)
+            q_parts.append(q)
+            if getattr(self.c, "int8_error_feedback", False):
+                vc, mc = mem["velocities_c"], mem["momentums_c"]
+                idx8 = self._kind_chunks(indices, "i8").long()
+                dequant = (q.to(torch.float32) * scale[rm]).to(vc.dtype)
+                vc.index_add_(0, idx8, -dequant)
+                if self.c.memory.momentum_masking:
+                    mc.index_fill_(0, idx8, 0.0)
+                flags = flags & (~wc["i8_slots"] if wc["i8_slots"]
+                                 is not None else torch.zeros_like(flags))
+        if kp.get("i4"):
+            v4 = self._kind_chunks(values, "i4")
+            m4 = wc["i4_map"]
+            smax4 = torch.full((self._i4_buckets,), -math.inf,
+                               dtype=v4.dtype, device=v4.device
+                               ).scatter_reduce(0, m4, v4.abs(), "amax")
+            scale4 = kernels.divide_exact(smax4, 7.0).to(torch.float32)
+            safe4 = torch.where(scale4 > 0, scale4, 1.0)
+            q4 = torch.clamp(torch.round(v4 / safe4[m4]), -7, 7).to(
+                torch.int32)
+            q_parts += [pack_int4(q4[plo:phi])
+                        for plo, phi, _, _ in self._i4_chunks]
+        if kp.get("f32"):
+            f32_parts.append(self._kind_chunks(values, "f32"))
+        f32_parts += [x for x in (scale, scale4) if x is not None]
+        if len(f32_parts) == 1:
+            lanes["f32"] = f32_parts[0]
+        elif f32_parts:
+            lanes["f32"] = torch.cat([x.to(torch.float32)
+                                      for x in f32_parts])
+        if kp.get("f16"):
+            lanes["f16"] = self._kind_chunks(values, "f16").to(
+                torch.float16)
+        if q_parts:
+            lanes["q"] = q_parts[0] if len(q_parts) == 1 else torch.cat(
+                q_parts)
+        words = []
+        if self._codec is not None:
+            words.append(self._codec.encode(
+                self._packed_chunks(indices, True)))
+        if self._dcodec is not None:
+            words.append(self._dcodec.encode(
+                self._packed_chunks(indices, "delta")))
+        if words:
+            lanes["words"] = words[0] if len(words) == 1 else torch.cat(
+                words)
+        if self._plain_payload:
+            lanes["idx"] = self._packed_chunks(indices, False)
+        return lanes, flags
+
+    def _decode_i4(self, g_q4: torch.Tensor, g_scale4: torch.Tensor,
+                   dt) -> torch.Tensor:
+        """The gathered int4 bytes [W, i4 bytes] and scales (starting at
+        the [W, int4 buckets] bucket scales) -> values [W, i4 payload]."""
+        parts = [unpack_int4(g_q4[:, blo:bhi], phi - plo)
+                 for plo, phi, blo, bhi in self._i4_chunks]
+        q = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        scale = g_scale4[:, :self._i4_buckets].to(dt)
+        wc = self._wire_consts(g_q4.device)
+        return q.to(dt) * scale[:, wc["i4_map"]]
+
+    def decode(self, g, dt=torch.float32):
+        """The gathered lanes (``{lane: [W, ...]}``) -> ``(values [W,
+        payload] dt, indices [W, payload] index dtype)``: values dequantized
+        and stitched back into payload order, indices decoded and stitched,
+        then clamped — plain slots to ``[0, T)``, codec slots to their
+        static rows — with anything outside routed to the sentinel."""
+        kinds = set(self._kinds)
+        wc = self._wire_consts(next(iter(g.values())).device)
+        if kinds == {"f16"}:
+            gv = g["f16"]
+        elif kinds == {"f32"}:
+            gv = g["f32"]
+        elif kinds == {"i8"}:
+            gv = g["q"].to(dt) * g["f32"].to(dt)[:, wc["row_map"]]
+        elif kinds == {"i4"}:
+            gv = self._decode_i4(g["q"], g["f32"], dt)
+        else:
+            # a mixed plan: each value lane decoded, then the sparse
+            # buckets' chunks stitched back into payload order
+            kp = self._kind_payload
+            n8, f32_off = kp.get("i8", 0), kp.get("f32", 0)
+            lane = {"f16": g.get("f16"), "f32": g.get("f32")}
+            if n8:
+                lane["i8"] = g["q"][:, :n8].to(dt) * g["f32"][
+                    :, f32_off:].to(dt)[:, wc["row_map"]]
+            if kp.get("i4"):
+                lane["i4"] = self._decode_i4(
+                    g["q"][:, n8:], g["f32"][:, f32_off + self._i8_rows:],
+                    dt)
+            gv = torch.cat([lane[kk][:, lo:hi].to(dt)
+                            for kk, lo, hi in self._val_chunks], dim=1)
+        srcs = {}
+        nc = self._codec.nwords if self._codec is not None else 0
+        if self._codec is not None:
+            srcs[True] = self._codec.decode(g["words"][:, :nc],
+                                            self.index_dtype)
+        if self._dcodec is not None:
+            srcs["delta"] = self._dcodec.decode(
+                g["words"][:, nc:nc + self._dcodec.nwords], self.index_dtype)
+        if self._plain_payload:
+            srcs[False] = g["idx"]
+        if len(srcs) == 1:
+            gi = next(iter(srcs.values()))
+        else:
+            gi = torch.cat([srcs[p][:, lo:hi]
+                            for p, lo, hi in self._idx_chunks], dim=1)
+        if wc["clamp_lo"] is None:
+            ok = (gi >= 0) & (gi < self.T)
+        else:
+            ok = (gi >= wc["clamp_lo"]) & (gi < wc["clamp_hi"])
+        return gv.to(dt), torch.where(ok, gi, self.layout.sentinel)
+
     def apply(self, g_values: torch.Tensor, g_indices: torch.Tensor,
-              dense_avg: torch.Tensor, mem, rank: int,
-              world: int) -> torch.Tensor:
-        """One worker's receive side, from the gathered [W, payload]
-        values/indices and the averaged (and clipped) dense tail: the
-        averaged flat [P] gradient. Replaces ``mem``'s transmit record and
-        dense momentum."""
+              dense_avg: torch.Tensor, mem, rank: int, world: int,
+              own_flags: Optional[torch.Tensor] = None,
+              slabs: Sequence[Tuple[int, torch.Tensor]] = (),
+              prev=None) -> torch.Tensor:
+        """One worker's receive side, from the gathered [W, payload] values
+        and indices (decoded, f32; indices in range or on the sentinel),
+        the averaged (and clipped) dense tail and the dense-planned
+        buckets' averaged slabs ``[(bucket id, slab)]``: the averaged flat
+        [P] gradient. ``own_flags`` [payload] is this worker's transmit
+        record (:meth:`encode`; by default its non-sentinel gathered
+        slots). Replaces ``mem``'s transmit record and dense momentum; a
+        dense-planned slab gets the dense path's semantics from ``prev``
+        (:meth:`_slab_state`, the state before this step's compensate)."""
         T, S = self.T, self.layout.sentinel
-        # out-of-range indices route to the structural-zero sentinel
         g_indices = torch.where((g_indices >= 0) & (g_indices < T),
                                 g_indices, S)
-        rows = torch.arange(g_indices.shape[0], device=g_indices.device)
-        flags = ((rows[:, None] == rank) & (g_indices != S)).reshape(-1)
+        if own_flags is None:
+            own_flags = g_indices[rank] != S
+        flags = torch.zeros(g_indices.shape, dtype=torch.bool,
+                            device=g_indices.device)
+        flags[rank] = own_flags
+        # the one narrowing of an int64 index wire (T < 2**31: the layout
+        # refuses larger buffers)
         acc, mem["sent_bits"] = kernels.apply_rows(
-            g_values.reshape(-1), g_indices.reshape(-1), flags, T,
-            divisor=float(world))
+            g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
+            flags.reshape(-1), T, divisor=float(world))
+        if slabs:
+            mc_prev, vc_prev, bits_prev = prev
+            keep = kernels.keep_from_bits(bits_prev, T)
+            for (bi, slab), mp, vp in zip(slabs, mc_prev, vc_prev):
+                b = self.buckets[bi]
+                lo, hi = b.base, b.base + b.rows * b.cols
+                k = keep[lo:hi].to(vp.dtype)
+                if self.c.memory.momentum_masking:
+                    mp = mp * k
+                out, mem["momentums_c"][lo:hi] = self._compensate_dense(
+                    mp, slab)
+                mem["velocities_c"][lo:hi] = vp * k
+                acc[lo:hi] = out
         if self.layout.total == T:
             return acc
         out_d, mem["momentums_d"] = self._compensate_dense(
             mem["momentums_d"], dense_avg)
         return torch.cat([acc, out_d])
 
+    def _slab_state(self, mem):
+        """The dense-planned buckets' momentum and velocity before this
+        step's compensate writes them, and the transmit record they are
+        masked with: ``(mc slabs, vc slabs, bits)``."""
+        regions = [(self.buckets[bi].base, self.buckets[bi].base
+                    + self.buckets[bi].rows * self.buckets[bi].cols)
+                   for bi in self._dense_ids]
+        return ([mem["momentums_c"][lo:hi].clone() for lo, hi in regions],
+                [mem["velocities_c"][lo:hi].clone() for lo, hi in regions],
+                mem["sent_bits"])
+
+    def _dense_combine(self, blocks: Sequence[torch.Tensor],
+                       comm) -> List[torch.Tensor]:
+        """The dense collective: each local worker's average of
+        ``blocks`` over every worker, summed on the fp16 wire under
+        ``fp16_values``, divided in the blocks' dtype (an IEEE divide)."""
+        dt = blocks[0].dtype
+        fp16 = getattr(self.c, "fp16_values", False)
+        sums = comm.all_reduce([b.to(torch.float16) if fp16 else b
+                                for b in blocks])
+        return [kernels.divide_exact(x.to(dt), comm.world) for x in sums]
+
     def _clipping(self) -> bool:
         return self.c.memory.gradient_clipping is not None
 
     def _exchange_dense(self, flat_grads: Sequence[torch.Tensor], mems,
                         comm) -> List[torch.Tensor]:
-        """The all-dense exchange (ratio >= 1, or nothing compressed): the
-        average of the whole flat gradient, clipped, then the
-        non-accumulating correction of all of it. A transmit record still
-        pending from a compressed step is folded into the memory first
-        (the velocity, and the momentum under ``momentum_masking``, zeroed
-        where it was sent) and reset, so the next compressed step reads
-        the dense steps' momentum and an empty record."""
-        T, world = self.T, comm.world
-        avgs = [kernels.divide_exact(s, world)
-                for s in comm.all_reduce(list(flat_grads))]
+        """The all-dense exchange (ratio >= 1, nothing compressed, or an
+        all-dense plan): the average of the whole flat gradient, clipped,
+        then the non-accumulating correction of all of it. A transmit
+        record still pending from a compressed step is folded into the
+        memory first (the velocity, and the momentum under
+        ``momentum_masking``, zeroed where it was sent) and reset, so the
+        next compressed step reads the dense steps' momentum and an empty
+        record."""
+        T = self.T
+        avgs = self._dense_combine(list(flat_grads), comm)
         if self._clipping():
             avgs = self._clip_block(avgs, self.layout.names, 0)
         outs = []
         for avg, mem in zip(avgs, mems):
             if T:
-                keep = kernels.keep_from_bits(mem["sent_bits"], T)
+                keep = kernels.keep_from_bits(mem["sent_bits"], T).to(
+                    mem["velocities_c"].dtype)
                 mem["velocities_c"] = mem["velocities_c"] * keep
                 mc = mem["momentums_c"]
                 if self.c.memory.momentum_masking:
@@ -1183,13 +1712,14 @@ class FlatDGCEngine:
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
                  phases, comm) -> List[torch.Tensor]:
-        """compress -> all_gather -> apply for this process's workers
-        (``comm.ranks``), plus the dense-tail all-reduce; at a dense ratio
+        """compress -> encode -> all_gather (one a lane) -> decode -> apply
+        for this process's workers (``comm.ranks``), plus one all-reduce of
+        the dense-planned slabs and the dense tail; all dense,
         :meth:`_exchange_dense`. Under the memory's ``gradient_clipping``
         every worker's local compressed block is clipped before the
-        compensate, and the averaged dense tail before its correction.
-        Returns each worker's averaged flat gradient; the memories update
-        in place."""
+        compensate, and the averaged dense slabs and tail before their
+        correction. Returns each worker's averaged flat gradient; the
+        memories update in place."""
         if self.dense:
             return self._exchange_dense(flat_grads, mems, comm)
         T, world = self.T, comm.world
@@ -1197,17 +1727,43 @@ class FlatDGCEngine:
         if self._clipping():
             blocks = self._clip_block(blocks, self.layout.compressed_names,
                                       0)
+        prev = ([self._slab_state(m) for m in mems] if self._dense_ids
+                else [None] * len(mems))
         sent = [self.compress(g, m, ph)
                 for g, m, ph in zip(blocks, mems, phases)]
-        g_vals = comm.all_gather([v for v, _ in sent])
-        g_idx = comm.all_gather([i for _, i in sent])
-        avgs = [kernels.divide_exact(d, world)
-                for d in comm.all_reduce([g[T:] for g in flat_grads])]
+        wires = [self.encode(v, i, m) for (v, i), m in zip(sent, mems)]
+        del sent
+        gathered = {k: comm.all_gather([lanes[k] for lanes, _ in wires])
+                    for k in wires[0][0]}
+        # the dense-planned slabs (the unclipped gradient) and the tail on
+        # one all-reduce
+        regions = [(bi, self.buckets[bi].base,
+                    self.buckets[bi].base
+                    + self.buckets[bi].rows * self.buckets[bi].cols)
+                   for bi in self._dense_ids]
+        dwire = [torch.cat([g[lo:hi] for _, lo, hi in regions] + [g[T:]])
+                 if regions else g[T:] for g in flat_grads]
+        davgs = (self._dense_combine(dwire, comm) if dwire[0].numel()
+                 else dwire)
+        slabs, off = [[] for _ in mems], 0
+        for bi, lo, hi in regions:
+            part = [d[off:off + hi - lo] for d in davgs]
+            if self._clipping():
+                part = self._clip_block(part, self.layout.buckets[bi].names,
+                                        lo)
+            for w, x in enumerate(part):
+                slabs[w].append((bi, x))
+            off += hi - lo
+        tails = [d[off:] for d in davgs]
         if self._clipping() and self.layout.total > T:
-            avgs = self._clip_block(avgs, self.layout.dense_names, T)
-        return [self.apply(gv, gi, d, m, r, world)
-                for gv, gi, d, m, r in zip(g_vals, g_idx, avgs, mems,
-                                           comm.ranks)]
+            tails = self._clip_block(tails, self.layout.dense_names, T)
+        outs = []
+        for li, (mem, r) in enumerate(zip(mems, comm.ranks)):
+            gv, gi = self.decode({k: v[li] for k, v in gathered.items()})
+            outs.append(self.apply(gv, gi, tails[li], mem, r, world,
+                                   own_flags=wires[li][1], slabs=slabs[li],
+                                   prev=prev[li]))
+        return outs
 
 
 class FlatDenseExchange:

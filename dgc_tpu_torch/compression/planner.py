@@ -1,0 +1,569 @@
+"""Regime-aware exchange planner: pick the cheapest wire per bucket.
+
+Counterpart of ``dgc_tpu/compression/planner.py``, a copy of that
+JAX-free module without its gossip families. Per bucket, at engine-build
+time, the planner chooses among
+
+* ``dense``          — ride the always-present dense-fallback all-reduce
+* ``fp32``           — sparse all-gather, native values + int32 indices
+* ``int8``           — int8 values + per-row f32 scales + int32 indices
+* ``int8_packed``    — int8 values + scales + bit-packed tensor-local
+  indices (``wirecodec.IndexCodec``)
+* ``int4_packed``    — 4-bit values (two a byte, one f32 scale a bucket)
+  + the bit-packed index stream
+* ``int8_delta_idx`` — int8 values + per-row scales + an Elias-Fano
+  index stream over the canonical sorted order
+  (``wirecodec.DeltaIndexCodec``)
+
+by evaluating a cost model over a **fabric model** — a built-in modeled
+fabric or a measured ``fabric.json`` (the one :class:`~dgc_tpu_torch.
+compression.autotune.Autotuner` writes) — and the compute coefficients of
+:class:`CostModel`. The :class:`Plan` is consumed by
+``flat.FlatDGCEngine`` (one regime per bucket); :meth:`Plan.replan`
+recomputes it when the warm-up schedule changes the payload geometry.
+
+Cost model (per bucket ``b``, world size ``W``, link ``gbps``,
+per-collective launch latency ``alpha_ms``)::
+
+    wire(bytes)    = alpha_ms + (W-1) * bytes / (gbps * 1e6)        [ring]
+    dense(b)       = 2 * 4 * numel * (W-1)/W / (gbps * 1e6)
+    sparse_comp(b) = bucket_ms[b]                  (measured profile)
+                     or fixed_ms_per_bucket + select_ms_per_elem * numel
+    fp32(b)        = sparse_comp + wire(p*(4+4))            over 2 lanes
+    int8(b)        = sparse_comp + quant + wire(p*(1+4) + 4*rows)  3 lanes
+    int8_packed(b) = sparse_comp + quant + pack
+                     + wire(p*(1+bits/8) + 4*rows)                 3 lanes
+
+``dense`` charges no alpha: the dense-fallback all-reduce exists anyway
+(the bias/BN tail). The coefficients and the built-in fabrics are the
+reference's own model; they were fitted on and for a TPU and are no
+measurement of this port (the autotuner refits the link from this run's
+step times).
+
+The gossip regimes (``gossip_ring``, ``gossip_hcube``) and the gossip
+schedule options are ROADMAP.md queue 1 item 8 in the port: asking for
+them raises.
+"""
+
+import json
+import os
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+__all__ = ["Fabric", "CostModel", "BucketGeom", "Plan",
+           "BUILTIN_FABRICS", "DEFAULT_COST", "REGIMES", "GOSSIP_REGIMES",
+           "FABRIC_SCHEMA", "FABRIC_VERSION",
+           "fit_link_model", "load_fabric", "resolve_fabric",
+           "bucket_geometry", "packed_index_bits", "delta_index_bits",
+           "plan_buckets", "plan_engine", "bucket_ms_from_profile",
+           "refuse_gossip"]
+
+#: regimes the cost model ranks (the engine additionally accepts the
+#: legacy fp16 / fp16_packed / fp32_packed wire formats when a uniform
+#: plan is derived from compressor flags). Ordered cheapest-compute
+#: first: ties break toward the EARLIER candidate, so the low-bit
+#: regimes must out-model int8_packed to win a bucket.
+REGIMES = ("dense", "fp32", "int8", "int8_packed", "int4_packed",
+           "int8_delta_idx")
+
+#: the reference's decentralized regime family (gossip exchange), not
+#: ported: naming one raises (:func:`refuse_gossip`)
+GOSSIP_REGIMES = ("gossip_ring", "gossip_hcube")
+
+#: every wire format the engine can realize (REGIMES plus the legacy
+#: uniform formats derived from compressor flags) — Plan validates
+#: against this set
+_KNOWN_REGIMES = frozenset(REGIMES + ("fp32_packed", "fp16", "fp16_packed"))
+
+
+def refuse_gossip(regimes: Sequence[str] = (), sync_every=None,
+                  max_staleness=None) -> None:
+    """Raise where a gossip regime or a gossip schedule option is asked
+    for: the port has no gossip exchange yet."""
+    goss = sorted({r for r in regimes if str(r).startswith("gossip_")})
+    if goss or sync_every is not None or max_staleness is not None:
+        raise ValueError(
+            f"the gossip exchange ({goss or 'gossip schedule options'}) is "
+            "not ported: ROADMAP.md queue 1 item 8")
+
+
+FABRIC_SCHEMA = "dgc-fabric"
+FABRIC_VERSION = 1
+
+
+class Fabric(NamedTuple):
+    """A link model: ``ms = alpha_ms + bytes / (gbps * 1e6)`` per
+    collective hop. ``measured`` marks fabrics fitted from a
+    ``fabric.json`` rather than the built-in modeled table."""
+    name: str
+    workers: int
+    gbps: float          # per-link bandwidth, GB/s (1e9 bytes/s)
+    alpha_ms: float = 0.0
+    measured: bool = False
+
+
+#: the reference's modeled fabrics (a 32-worker 25 GbE cluster, and the
+#: TPU pod slice it was built for): link models, not measurements
+BUILTIN_FABRICS: Dict[str, Fabric] = {
+    "32x25GbE": Fabric("32x25GbE", 32, 25.0 / 8.0),
+    "ici_v5e8": Fabric("ici_v5e8", 8, 2 * 186.0),
+}
+
+
+class CostModel(NamedTuple):
+    """Compute-side coefficients (ms): the reference's defaults, kept so
+    that both packages plan alike (they were calibrated on the reference's
+    accelerator, not on this port's); tests override fields to steer
+    decisions."""
+    #: per-bucket fixed cost of running the sparse pipeline at all
+    #: (threshold/select launch overhead)
+    fixed_ms_per_bucket: float = 0.02
+    #: per bucket element scanned by sample/threshold/select
+    select_ms_per_elem: float = 3.0e-7
+    #: int8 quantize + dequant per payload element (x (1+W) applications)
+    quant_ms_per_elem: float = 4.0e-7
+    #: codec encode/decode per payload element (x (1+W))
+    pack_ms_per_elem: float = 2.0e-7
+    #: scatter-add apply per gathered payload element (x W)
+    apply_ms_per_elem: float = 1.0e-8
+    #: --- megakernel coefficients: one streaming compensate->select->
+    #: pack pass replaces the per-piece launches, so the fused compute
+    #: side is modeled as a smaller per-bucket fixed cost plus a
+    #: per-element scan; the fused apply folds the divide into the
+    #: scatter. ---
+    fused_fixed_ms_per_bucket: float = 0.008
+    fused_select_ms_per_elem: float = 1.5e-7
+    fused_apply_ms_per_elem: float = 0.6e-8
+
+
+DEFAULT_COST = CostModel()
+
+
+class BucketGeom(NamedTuple):
+    """The planner's static view of one engine bucket. ``delta_bits``
+    trails with a conservative default so positional constructions from
+    before the ``int8_delta_idx`` regime stay valid (32 bits/index means
+    the delta stream never beats the packed one unless measured)."""
+    numel: int           # real elements covered (sum of row numels)
+    payload: int         # sparse payload slots per worker
+    rows: int            # tensor rows (one f32 scale each on int8 wires)
+    index_bits: float    # mean bit-packed index width (<= 32)
+    delta_bits: float = 32.0   # mean Elias-Fano index width
+
+
+def packed_index_bits(bucket) -> float:
+    """Mean tensor-local index width of a ``flat._Bucket`` under the
+    packed wire — the same per-slot ``max(1, ceil(log2 numel))`` widths
+    ``wirecodec.IndexCodec`` assigns."""
+    rows = np.asarray(bucket.tight) // bucket.max_sel
+    numels = np.asarray(bucket.numels, np.int64)[rows]
+    widths = np.maximum(1, np.ceil(np.log2(np.maximum(numels, 2))))
+    return float(widths.mean()) if widths.size else 32.0
+
+
+def delta_index_bits(bucket) -> float:
+    """Mean Elias-Fano index width of a ``flat._Bucket`` under the
+    ``int8_delta_idx`` wire — mirrors ``wirecodec.DeltaIndexCodec``'s
+    static layout: ``p*s`` low bits + ``p + (U >> s) + 1`` high bits
+    over ``p`` payload slots, ``s = floor(log2(U / p))``."""
+    U = int(bucket.rows) * int(bucket.cols)
+    p = int(bucket.payload)
+    if p <= 0 or U <= 0:
+        return 32.0
+    s = max(0, (max(U // p, 1)).bit_length() - 1)
+    return (p * s + p + (U >> s) + 1) / p
+
+
+def bucket_geometry(bucket) -> BucketGeom:
+    """``flat._Bucket`` -> :class:`BucketGeom`."""
+    return BucketGeom(numel=int(np.sum(bucket.numels)),
+                      payload=int(bucket.payload),
+                      rows=int(bucket.rows),
+                      index_bits=packed_index_bits(bucket),
+                      delta_bits=delta_index_bits(bucket))
+
+
+# ------------------------------------------------------------------ #
+# fabric.json                                                        #
+# ------------------------------------------------------------------ #
+
+def fit_link_model(points: Sequence[Tuple[float, float]],
+                   prior: Optional[Fabric] = None):
+    """Least-squares ``ms = alpha + beta * bytes`` over measured
+    (bytes, ms) points; returns ``(alpha_ms, gbps)`` with both clamped
+    to physical ranges (alpha >= 0, finite positive bandwidth).
+
+    With fewer than two DISTINCT byte sizes the two-parameter fit is
+    underdetermined (the lstsq solution is numerical noise, not
+    physics). When ``prior`` is given — the fabric the run was already
+    using, the autotuner's refit path — the intercept is pinned to the
+    prior's ``alpha_ms`` and only the bandwidth is re-solved from the
+    degenerate cluster; without a prior, one distinct size keeps the
+    historical single-point behavior (alpha 0) and zero usable points
+    raises."""
+    pts = [(float(b), float(t)) for b, t in points if b > 0 and t > 0]
+    if not pts:
+        raise ValueError("fit_link_model: no usable (bytes, ms) points")
+    distinct = len({b for b, _ in pts})
+    if distinct < 2:
+        if prior is not None:
+            alpha = max(float(prior.alpha_ms), 0.0)
+            # bandwidth from the cluster mean with the prior's intercept
+            # removed; a measurement faster than the intercept alone
+            # falls back to the prior's bandwidth rather than inventing
+            # an unphysical one
+            slopes = [(t - alpha) / b for b, t in pts if t > alpha]
+            if slopes:
+                beta = max(float(np.mean(slopes)), 1e-12)
+                return alpha, 1.0 / (beta * 1e6)
+            return alpha, float(prior.gbps)
+        b, t = pts[0]
+        return 0.0, b / (t * 1e6)
+    xs = np.asarray([p[0] for p in pts])
+    ys = np.asarray([p[1] for p in pts])
+    A = np.stack([np.ones_like(xs), xs], axis=1)
+    (alpha, beta), *_ = np.linalg.lstsq(A, ys, rcond=None)
+    beta = max(float(beta), 1e-12)       # ms per byte
+    return max(float(alpha), 0.0), 1.0 / (beta * 1e6)
+
+
+def load_fabric(path: str) -> Fabric:
+    """Parse a schema-versioned ``runs/fabric.json`` into a measured
+    :class:`Fabric`. Raises ``ValueError`` on schema mismatch (same
+    fail-loudly contract as a profile reader)."""
+    with open(path) as fh:
+        obj = json.load(fh)
+    if obj.get("schema") != FABRIC_SCHEMA:
+        raise ValueError(f"{path}: not a {FABRIC_SCHEMA} file "
+                         f"(schema={obj.get('schema')!r})")
+    if obj.get("version") != FABRIC_VERSION:
+        raise ValueError(f"{path}: fabric schema version "
+                         f"{obj.get('version')} != {FABRIC_VERSION}")
+    fit = obj["fit"]
+    return Fabric(name=str(obj.get("name", os.path.basename(path))),
+                  workers=int(obj["workers"]),
+                  gbps=float(fit["gbps"]),
+                  alpha_ms=float(fit["alpha_ms"]),
+                  measured=True)
+
+
+def _log_fabric_source(source: str, fab: Fabric) -> None:
+    """One line naming which fallback-chain source won, so an
+    autotuner-refined ``runs/fabric.json`` is distinguishable from a
+    hand-built or built-in fabric in the run log."""
+    from dgc_tpu_torch.utils.logging import printr
+    printr(f"[fabric] {source} -> {fab.name} "
+           f"({'measured' if fab.measured else 'modeled'}, "
+           f"W={fab.workers}, {fab.gbps:.3g} GB/s, "
+           f"alpha {fab.alpha_ms:.3g} ms)")
+
+
+def resolve_fabric(spec=None, runs_dir: str = "runs") -> Fabric:
+    """A :class:`Fabric` from a Fabric instance, a built-in name, a
+    ``fabric.json`` path, or None (environment ``DGC_FABRIC``, then
+    ``runs/fabric.json`` if present, then the 32x25GbE built-in — the
+    documented fallback when no measurement exists). The None fallback
+    chain logs which source won (explicit specs are already
+    unambiguous)."""
+    if isinstance(spec, Fabric):
+        return spec
+    if spec is None:
+        spec = os.environ.get("DGC_FABRIC", "")
+        if spec:
+            fab = resolve_fabric(spec, runs_dir)
+            _log_fabric_source(f"env DGC_FABRIC={spec!r}", fab)
+            return fab
+        default = os.path.join(runs_dir, "fabric.json")
+        if os.path.exists(default):
+            fab = load_fabric(default)
+            _log_fabric_source(default, fab)
+        else:
+            fab = BUILTIN_FABRICS["32x25GbE"]
+            _log_fabric_source("builtin default", fab)
+        return fab
+    if spec in BUILTIN_FABRICS:
+        return BUILTIN_FABRICS[spec]
+    if os.path.exists(spec):
+        return load_fabric(spec)
+    raise ValueError(f"unknown fabric {spec!r}: not a built-in "
+                     f"({sorted(BUILTIN_FABRICS)}) and not a file")
+
+
+def bucket_ms_from_profile(profile: Optional[Dict],
+                           num_buckets: int) -> Optional[List[float]]:
+    """Per-bucket measured compute ms from a profile dict
+    (``dgc.buckets.b<i>`` phase tables, the reference's profile format). None when the profile is
+    absent or its bucket count disagrees with the engine's (a profile
+    recorded at a different warm-up ratio)."""
+    if not profile:
+        return None
+    buckets = (profile.get("dgc") or {}).get("buckets") or {}
+    out = []
+    for i in range(num_buckets):
+        tab = buckets.get(f"b{i}")
+        if not isinstance(tab, dict):
+            return None
+        out.append(float(sum(v for v in tab.values()
+                             if isinstance(v, (int, float)))))
+    return out if len(out) == num_buckets else None
+
+
+# ------------------------------------------------------------------ #
+# the cost model                                                     #
+# ------------------------------------------------------------------ #
+
+def _regime_costs(g: BucketGeom, fabric: Fabric, world: int,
+                  cost: CostModel, bucket_ms: Optional[float],
+                  value_itemsize: int, index_itemsize: int,
+                  megakernel: bool = False) -> Dict[str, float]:
+    """Predicted exchange ms of one bucket under every candidate regime.
+
+    ``megakernel=True`` prices the compute side with the fused
+    coefficients (``fused_*`` CostModel fields). A measured ``bucket_ms``
+    overrides the coefficients either way."""
+    bw = fabric.gbps * 1e6            # bytes per ms
+    a = fabric.alpha_ms
+
+    def wire(nbytes, lanes):
+        return lanes * a + (world - 1) * nbytes / bw
+
+    fixed = (cost.fused_fixed_ms_per_bucket if megakernel
+             else cost.fixed_ms_per_bucket)
+    sel = (cost.fused_select_ms_per_elem if megakernel
+           else cost.select_ms_per_elem)
+    apl = (cost.fused_apply_ms_per_elem if megakernel
+           else cost.apply_ms_per_elem)
+    comp = (bucket_ms if bucket_ms is not None
+            else fixed + sel * g.numel)
+    comp += apl * g.payload * world
+    quant = cost.quant_ms_per_elem * g.payload * (1 + world)
+    pack = cost.pack_ms_per_elem * g.payload * (1 + world)
+    scales = 4 * g.rows
+    return {
+        # marginal alpha of joining the always-present dense all-reduce
+        # is 0
+        "dense": 2 * value_itemsize * g.numel * (world - 1) / world / bw,
+        "fp32": comp + wire(g.payload * (value_itemsize + index_itemsize),
+                            2),
+        "int8": comp + quant + wire(
+            g.payload * (1 + index_itemsize) + scales, 3),
+        "int8_packed": comp + quant + pack + wire(
+            g.payload * (1 + g.index_bits / 8) + scales, 3),
+        # 4-bit values, two a byte, ONE f32 scale a bucket; indices ride
+        # the same bit-packed stream as int8_packed, the extra sort and
+        # pack work at the codec coefficient
+        "int4_packed": comp + quant + 2 * pack + wire(
+            g.payload * (0.5 + g.index_bits / 8) + 4, 3),
+        # int8 values + per-row scales + the Elias-Fano index stream; the
+        # per-bucket payload sort rides the pack coefficient
+        "int8_delta_idx": comp + quant + 2 * pack + wire(
+            g.payload * (1 + g.delta_bits / 8) + scales, 3),
+    }
+
+
+def _value_kind(regime: str) -> str:
+    if regime == "dense":
+        return "dense"
+    if regime.startswith("int4"):
+        return "i4"
+    if regime.startswith("int8"):
+        return "i8"
+    if regime.startswith("fp16"):
+        return "f16"
+    return "f32"
+
+
+def _uses_words(regime: str) -> bool:
+    """Whether a regime's indices ride the shared 32-bit words lane
+    (bit-packed or Elias-Fano) instead of the plain-offset lane."""
+    return regime.endswith("_packed") or regime == "int8_delta_idx"
+
+
+class Plan:
+    """One exchange regime per bucket + the prediction that chose it.
+
+    Immutable and hashable by :meth:`key`: the trainer treats two plans
+    with equal keys as the same exchange and skips the engine rebuild."""
+
+    def __init__(self, regimes: Sequence[str], fabric: Fabric,
+                 world: int, bucket_costs: Sequence[Dict[str, float]] = (),
+                 cost: CostModel = DEFAULT_COST,
+                 bucket_ms: Optional[Sequence[float]] = None,
+                 candidates: Sequence[str] = REGIMES,
+                 gossip_sync_every: Optional[int] = None,
+                 gossip_max_staleness: Optional[int] = None):
+        refuse_gossip(tuple(regimes) + tuple(candidates), gossip_sync_every,
+                      gossip_max_staleness)
+        for r in regimes:
+            if r not in _KNOWN_REGIMES:
+                raise ValueError(f"unknown exchange regime {r!r} "
+                                 f"(known: {sorted(_KNOWN_REGIMES)})")
+        self.regimes: Tuple[str, ...] = tuple(regimes)
+        self.fabric = fabric
+        self.world = int(world)
+        self.bucket_costs = tuple(dict(c) for c in bucket_costs)
+        self.cost = cost
+        self.bucket_ms = (tuple(bucket_ms)
+                          if bucket_ms is not None else None)
+        self.candidates = tuple(candidates)
+        #: the reference's gossip schedule (none: not ported)
+        self.gossip = None
+
+    # -- identity ------------------------------------------------- #
+
+    def key(self) -> Tuple:
+        """Static identity of the exchange this plan induces."""
+        return (self.fabric.name, self.world, self.regimes)
+
+    def __eq__(self, other):
+        return isinstance(other, Plan) and self.key() == other.key()
+
+    def __hash__(self):
+        return hash(self.key())
+
+    def __repr__(self):
+        return (f"Plan({self.fabric.name}, W={self.world}, "
+                f"regimes={list(self.regimes)})")
+
+    # -- structure ------------------------------------------------ #
+
+    @property
+    def all_dense(self) -> bool:
+        return all(r == "dense" for r in self.regimes)
+
+    @property
+    def sparse_regimes(self) -> Tuple[str, ...]:
+        return tuple(r for r in self.regimes if r != "dense")
+
+    @property
+    def num_gathers(self) -> int:
+        """Sparse all-gather lanes the engine runs: one per non-empty
+        wire lane — f32 (fp32 values and/or int8 scales), f16, int8 q,
+        plain indices, packed words (``FlatDGCEngine``'s lanes)."""
+        sp = self.sparse_regimes
+        if not sp:
+            return 0
+        kinds = {_value_kind(r) for r in sp}
+        lanes = 0
+        # f32 lane: fp32 values and/or the int8 row scales / int4
+        # bucket scales appended to it
+        lanes += 1 if kinds & {"f32", "i8", "i4"} else 0
+        lanes += 1 if "f16" in kinds else 0
+        lanes += 1 if kinds & {"i8", "i4"} else 0                # q lane
+        lanes += 1 if any(not _uses_words(r) for r in sp) else 0  # idx
+        lanes += 1 if any(_uses_words(r) for r in sp) else 0      # words
+        return lanes
+
+    def collectives(self, dense_reduces: int = 1) -> Dict[str, int]:
+        """Predicted per-step collective counts of the exchange:
+        ``dense_reduces`` all-reduces (the dense tail / all-dense
+        fallback — always one for a real model) + the sparse gather
+        lanes."""
+        return {"all-gather": self.num_gathers,
+                "all-reduce": int(dense_reduces)}
+
+    def verify_descriptor(self) -> Dict[str, object]:
+        """Static expectations of the exchange this plan induces:
+        gather lanes, whether a sparse selection appears at all, the value
+        kinds, whether indices ride the words lane, and which error-
+        feedback fold-back runs (quantizing regimes fold the rounding
+        residual back eagerly, fp32 defers through the transmit
+        record)."""
+        sp = self.sparse_regimes
+        kinds = {_value_kind(r) for r in sp}
+        return {
+            "gather_lanes": self.num_gathers,
+            "conservation": "dense" if not sp else "sparse",
+            "value_kinds": tuple(sorted(kinds)),
+            "packed_words": any(_uses_words(r) for r in sp),
+            "eager_foldback": bool(kinds & {"i8", "i4"}),
+            "gossip": None,
+        }
+
+    # -- prediction ----------------------------------------------- #
+
+    def predicted_ms(self) -> Dict[str, float]:
+        """Totals over the per-bucket cost tables: the planned mix, the
+        all-dense alternative, and their ratio (>= 1.0 means the plan
+        never loses to dense on this fabric, by model)."""
+        planned = sum(c[r] for c, r in zip(self.bucket_costs, self.regimes))
+        dense = sum(c["dense"] for c in self.bucket_costs)
+        return {"planned_ms": planned, "dense_ms": dense,
+                "ratio": dense / planned if planned > 0 else 1.0}
+
+    # -- replan --------------------------------------------------- #
+
+    def replan(self, engine_or_buckets) -> "Plan":
+        """Recompute for the current bucket geometry (a warm-up ratio
+        change reshapes payloads) with the same fabric/cost/world. The
+        caller compares ``key()`` and rebuilds the engine only on
+        change."""
+        buckets = getattr(engine_or_buckets, "buckets", engine_or_buckets)
+        return plan_buckets([bucket_geometry(b) for b in buckets],
+                            fabric=self.fabric, world=self.world,
+                            cost=self.cost, bucket_ms=self.bucket_ms,
+                            candidates=self.candidates)
+
+
+def plan_buckets(geoms: Sequence[BucketGeom], *, fabric,
+                 world: Optional[int] = None,
+                 cost: CostModel = DEFAULT_COST,
+                 bucket_ms: Optional[Sequence[float]] = None,
+                 candidates: Sequence[str] = REGIMES,
+                 value_itemsize: int = 4,
+                 index_itemsize: int = 4,
+                 megakernel: bool = False,
+                 gossip_sync_every: Optional[int] = None,
+                 gossip_max_staleness: Optional[int] = None) -> Plan:
+    """Choose the cheapest regime per bucket. Ties break toward the
+    earlier candidate (``dense`` first — the never-lose direction).
+    ``megakernel`` prices compute with the fused coefficients (see
+    :func:`_regime_costs`)."""
+    refuse_gossip(candidates, gossip_sync_every, gossip_max_staleness)
+    fabric = resolve_fabric(fabric)
+    world = int(world or fabric.workers)
+    regimes, tables = [], []
+    for i, g in enumerate(geoms):
+        bm = (float(bucket_ms[i])
+              if bucket_ms is not None and i < len(bucket_ms) else None)
+        costs = _regime_costs(g, fabric, world, cost, bm,
+                              value_itemsize, index_itemsize,
+                              megakernel=megakernel)
+        best = min(candidates, key=lambda r: (costs[r],
+                                              candidates.index(r)))
+        regimes.append(best)
+        tables.append(costs)
+    return Plan(regimes, fabric, world, tables, cost=cost,
+                bucket_ms=bucket_ms, candidates=candidates)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def plan_engine(engine, fabric=None, profile: Optional[Dict] = None,
+                world: Optional[int] = None,
+                cost: CostModel = DEFAULT_COST,
+                candidates: Sequence[str] = REGIMES,
+                megakernel: Optional[bool] = None,
+                gossip_sync_every: Optional[int] = None,
+                gossip_max_staleness: Optional[int] = None) -> Plan:
+    """Plan over a built ``FlatDGCEngine``'s buckets. ``profile`` is a
+    per-bucket cost profile dict (``dgc.buckets.b<i>`` phase tables; None
+    for the coefficient model); ``fabric`` resolves through
+    :func:`resolve_fabric`. ``megakernel`` defaults to the engine's own
+    flag, so a megakernel build is priced with the fused coefficients."""
+    refuse_gossip(candidates, gossip_sync_every, gossip_max_staleness)
+    fabric = resolve_fabric(fabric)
+    geoms = [bucket_geometry(b) for b in engine.buckets]
+    bm = bucket_ms_from_profile(profile, len(geoms))
+    if megakernel is None:
+        megakernel = bool(getattr(engine, "_megakernel", False))
+    return plan_buckets(geoms, fabric=fabric, world=world, cost=cost,
+                        bucket_ms=bm, candidates=candidates,
+                        value_itemsize=_itemsize(engine.layout.dtype),
+                        index_itemsize=_itemsize(engine.index_dtype),
+                        megakernel=megakernel)

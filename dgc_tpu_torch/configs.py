@@ -24,7 +24,18 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   ``configs/imagenet/__init__.py``, ``configs/imagenet/vgg16_bn.py``,
   ``configs/dgc/__init__.py``, ``configs/dgc/wm5.py``; and
   :func:`vgg16_bn_wm5_bf16` with ``configs/bf16.py`` stacked last (the
-  model computes in bfloat16; ``model.dtype`` names a ``torch`` dtype).
+  model computes in bfloat16; ``model.dtype`` names a ``torch`` dtype);
+* the narrow wires and state, stacked on the wm5 recipes:
+  :func:`resnet20_wm5_fp16` (``configs/dgc/fp16.py``: fp16 values and the
+  fp16 dense all-reduce), :func:`resnet20_wm5_int8` (``int8.py``: int8
+  values, one scale a tensor, error feedback), :func:`resnet20_wm5_int8_
+  packidx` (``int8.py``, ``packidx.py``: with bit-packed indices),
+  :func:`resnet50_wm5_bf16mem` (``bf16mem.py``: the bf16 error-feedback
+  state) and :func:`resnet50_wm5_bf16mem_int8_packidx` (all three);
+* :func:`resnet20_wm5_autotune` — ``configs/autotune.py`` stacked on
+  :func:`resnet20_wm5`: the ``train.autotune`` block (``enabled``,
+  ``min_points``), which the CLI's ``--autotune`` also sets
+  (:func:`with_autotune`).
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -40,7 +51,10 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet110_wm5o", "resnet50_wm5", "resnet50_wm5_cosine",
            "resnet18_wm5", "resnet20_wm5_megakernel",
            "resnet50_wm5_megakernel", "vgg16_bn_wm5", "vgg16_bn_wm5_bf16",
-           "RECIPES", "CONFIG_FILES"]
+           "resnet20_wm5_fp16", "resnet20_wm5_int8",
+           "resnet20_wm5_int8_packidx", "resnet50_wm5_bf16mem",
+           "resnet50_wm5_bf16mem_int8_packidx", "resnet20_wm5_autotune",
+           "with_autotune", "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -57,8 +71,10 @@ def _dgc() -> Config:
         strided_sample=True, compress_upper_bound=1.3,
         compress_lower_bound=0.8, max_adaptation_iters=10, resample=True,
         warmup_epochs=5, warmup_coeff=None, fused_select=False,
-        megakernel=False,
-        memory=Config(momentum=0.9, nesterov=False, momentum_masking=True))
+        megakernel=False, fp16_values=False, int8_values=False,
+        int8_error_feedback=True, packed_indices=False, int32_indices=True,
+        memory=Config(momentum=0.9, nesterov=False, momentum_masking=True,
+                      dtype=None))
 
 
 def _cifar(model: str, dgc: bool) -> Config:
@@ -235,17 +251,73 @@ def vgg16_bn_wm5_bf16() -> Config:
     return cfg
 
 
+def _wires(cfg: Config, fp16=False, int8=False, packidx=False,
+           bf16mem=False) -> Config:
+    """``configs/dgc/fp16.py``, ``int8.py``, ``packidx.py`` and
+    ``bf16mem.py`` stacked on a recipe."""
+    cc = cfg.train.compression
+    cc.fp16_values = cc.fp16_values or fp16
+    cc.int8_values = cc.int8_values or int8
+    cc.packed_indices = cc.packed_indices or packidx
+    if bf16mem:
+        cc.memory.dtype = "bfloat16"
+    return cfg
+
+
+def resnet20_wm5_fp16() -> Config:
+    """:func:`resnet20_wm5` on the fp16 wire."""
+    return _wires(resnet20_wm5(), fp16=True)
+
+
+def resnet20_wm5_int8() -> Config:
+    """:func:`resnet20_wm5` on the int8 wire (error feedback on)."""
+    return _wires(resnet20_wm5(), int8=True)
+
+
+def resnet20_wm5_int8_packidx() -> Config:
+    """:func:`resnet20_wm5` on the int8 wire with bit-packed indices."""
+    return _wires(resnet20_wm5(), int8=True, packidx=True)
+
+
+def resnet50_wm5_bf16mem() -> Config:
+    """:func:`resnet50_wm5` with the bf16 error-feedback state."""
+    return _wires(resnet50_wm5(), bf16mem=True)
+
+
+def resnet50_wm5_bf16mem_int8_packidx() -> Config:
+    """:func:`resnet50_wm5` with the bf16 error-feedback state, the int8
+    wire and bit-packed indices."""
+    return _wires(resnet50_wm5(), int8=True, packidx=True, bf16mem=True)
+
+
+def with_autotune(cfg: Config) -> Config:
+    """``configs/autotune.py`` stacked on a recipe: online replanning of
+    the exchange, with the points a refit needs first."""
+    cfg.train.autotune = Config(enabled=True, min_points=2)
+    return cfg
+
+
+def resnet20_wm5_autotune() -> Config:
+    """:func:`resnet20_wm5` with the exchange replanned online."""
+    return with_autotune(resnet20_wm5())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
     resnet20_wm5_nm, resnet110_wm5, resnet110_wm5o, resnet50_wm5,
     resnet50_wm5_cosine, resnet18_wm5, resnet20_wm5_megakernel,
-    resnet50_wm5_megakernel, vgg16_bn_wm5, vgg16_bn_wm5_bf16)}
+    resnet50_wm5_megakernel, vgg16_bn_wm5, vgg16_bn_wm5_bf16,
+    resnet20_wm5_fp16, resnet20_wm5_int8, resnet20_wm5_int8_packidx,
+    resnet50_wm5_bf16mem, resnet50_wm5_bf16mem_int8_packidx,
+    resnet20_wm5_autotune)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
 _VGG = "configs/imagenet/vgg16_bn.py"
 _WM5, _MK = "configs/dgc/wm5.py", "configs/dgc/megakernel.py"
+_I8, _PK = "configs/dgc/int8.py", "configs/dgc/packidx.py"
+_BF16MEM = "configs/dgc/bf16mem.py"
 
 #: each recipe's config files, in the JAX harness's ``--configs`` order
 CONFIG_FILES = {
@@ -264,4 +336,10 @@ CONFIG_FILES = {
     "resnet50_wm5_megakernel": (_R50, _WM5, _MK),
     "vgg16_bn_wm5": (_VGG, _WM5),
     "vgg16_bn_wm5_bf16": (_VGG, _WM5, "configs/bf16.py"),
+    "resnet20_wm5_fp16": (_R20, _WM5, "configs/dgc/fp16.py"),
+    "resnet20_wm5_int8": (_R20, _WM5, _I8),
+    "resnet20_wm5_int8_packidx": (_R20, _WM5, _I8, _PK),
+    "resnet50_wm5_bf16mem": (_R50, _WM5, _BF16MEM),
+    "resnet50_wm5_bf16mem_int8_packidx": (_R50, _WM5, _BF16MEM, _I8, _PK),
+    "resnet20_wm5_autotune": (_R20, _WM5, "configs/autotune.py"),
 }

@@ -107,34 +107,24 @@ struct StateIO {
   }
 };
 
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
 template <>
 struct StateIO<true> {
   static __device__ __forceinline__ void* at(void* p, int i) {
     return static_cast<__nv_bfloat16*>(p) + i;
   }
   static __device__ __forceinline__ float4 load4(const void* p, int q) {
-    const uint2 w = __ldca(static_cast<const uint2*>(p) + q);
-    return make_float4(__uint_as_float(w.x << 16),
-                       __uint_as_float(w.x & 0xffff0000u),
-                       __uint_as_float(w.y << 16),
-                       __uint_as_float(w.y & 0xffff0000u));
+    return dgc::bf16x4_unpack(__ldca(static_cast<const uint2*>(p) + q));
   }
   static __device__ __forceinline__ void store4(void* p, int q, float4 x) {
-    __stwb(static_cast<uint2*>(p) + q,
-           make_uint2(bf16_bits(x.x) | (bf16_bits(x.y) << 16),
-                      bf16_bits(x.z) | (bf16_bits(x.w) << 16)));
+    __stwb(static_cast<uint2*>(p) + q, dgc::bf16x4_pack(x));
   }
   static __device__ __forceinline__ float load1(const void* p, int i) {
     const unsigned short h =
         __ldca(static_cast<const unsigned short*>(p) + i);
-    return __uint_as_float((uint32_t)h << 16);
+    return dgc::bf16_value(h);
   }
   static __device__ __forceinline__ void store1(void* p, int i, float x) {
-    __stwb(static_cast<unsigned short*>(p) + i, (unsigned short)bf16_bits(x));
+    __stwb(static_cast<unsigned short*>(p) + i, (unsigned short)dgc::bf16_bits(x));
   }
 };
 

@@ -37,7 +37,13 @@
 // (emit_segment), so their candidates agree bitwise by construction. The fused kernel
 // compensates each element first (dgc::compensate, compensate.cuh: m' and
 // v' bitwise the Triton compensate_bits), stores m' and v' in place as
-// float4s and scans the stored v'. The ragged tail past the last whole
+// float4s and scans the stored v'.
+// State is f32 or bf16 (the bf16 error-feedback memory; a template flag of
+// both kernels): a quad of four bf16 is one 8-byte load, widened to f32
+// (exact), and the fused kernel rounds m' and v' to nearest even as it
+// stores them and scans the stored (rounded) v', so its candidates stay
+// bitwise the standalone kernel's on the stored velocity. The compares and
+// the candidates are f32 either way. The ragged tail past the last whole
 // segment (T % 32,768, e.g. 2,048 at ResNet-50) is compensated by the same
 // launch, masked per 128-lane block, and emits no candidate; its record
 // words exist only for its first rows. NaN inputs are outside the contract:
@@ -46,12 +52,15 @@
 // Bound on the card: bytes. The fused pass reads g, m, v and writes m', v'
 // (20 B per element), reads the record (T / 8 B) and writes 2 KB of
 // candidates per segment: 541 MB at ResNet-50's T = 27,068,416, 0.16 ms
-// at 3.35 TB/s. The standalone pass reads each bucket once (4 B per
-// element) and writes 2 KB per segment. The compares (about 3 per element)
-// are far below the f32 rate.
+// at 3.35 TB/s; with bf16 state 12 B per element, 0.098 ms. The standalone
+// pass reads each bucket once (4 B per element, 2 for bf16) and writes 2 KB
+// per segment. The compares (about 3 per element) are far below the f32
+// rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "compensate.cuh"
 
@@ -68,6 +77,27 @@ constexpr int kFusedUnroll = 4;
 constexpr int kMinBlocks = 2;
 static_assert(32 % kScanUnroll == 0 && 32 % kFusedUnroll == 0,
               "a batch of loads must divide a record row");
+
+// Four consecutive state elements: a float4, or four bf16 in a uint2.
+template <bool BF16>
+using Quad = typename std::conditional<BF16, uint2, float4>::type;
+
+__device__ __forceinline__ float4 widen(float4 x) { return x; }
+__device__ __forceinline__ float4 widen(uint2 w) {
+  return dgc::bf16x4_unpack(w);
+}
+
+// Store a quad of state; returns the stored values as f32 (rounded to
+// bf16 where the state is bf16).
+__device__ __forceinline__ float4 store_quad(float4* p, float4 x) {
+  *p = x;
+  return x;
+}
+__device__ __forceinline__ float4 store_quad(uint2* p, float4 x) {
+  const uint2 w = dgc::bf16x4_pack(x);
+  *p = w;
+  return dgc::bf16x4_unpack(w);
+}
 
 // A running top-2 of one lane: |x|, the signed value and the block.
 struct Top2 {
@@ -170,14 +200,15 @@ __device__ __forceinline__ void emit_segment(const Top2 (&t)[4], Partials& sh,
 
 // The standalone kernel: segment blockIdx.x of x (a whole number of
 // segments from x).
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-seg_top2_kernel(const float4* __restrict__ x, float* __restrict__ cv,
+seg_top2_kernel(const Quad<BF16>* __restrict__ x, float* __restrict__ cv,
                 int* __restrict__ cb) {
   __shared__ Partials sh;
   const long long seg = blockIdx.x;
   const int j = threadIdx.x >> 5, q = threadIdx.x & 31;
-  // the float4 of lanes 4q..4q+3 in block 32j of the segment
-  const float4* src = x + seg * (kSpan / 4) + j * 32 * (kLane / 4) + q;
+  // the quad of lanes 4q..4q+3 in block 32j of the segment
+  const Quad<BF16>* src = x + seg * (kSpan / 4) + j * 32 * (kLane / 4) + q;
   Top2 t[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) top2_init(t[e]);
@@ -186,7 +217,7 @@ seg_top2_kernel(const float4* __restrict__ x, float* __restrict__ cv,
     float4 r[kScanUnroll];
 #pragma unroll
     for (int u = 0; u < kScanUnroll; ++u)
-      r[u] = __ldg(src + (i0 + u) * (kLane / 4));
+      r[u] = widen(__ldg(src + (i0 + u) * (kLane / 4)));
     scan_blocks(t, r, 32 * j + i0);
   }
   emit_segment(t, sh, j, q, seg, cv, cb);
@@ -194,9 +225,11 @@ seg_top2_kernel(const float4* __restrict__ x, float* __restrict__ cv,
 
 // The fused kernel: compensate segment blockIdx.x of the [n] state
 // (m, v updated in place) and emit its candidates if it is whole.
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 compensate_bits_cands_kernel(const float4* __restrict__ g,
-                             float4* __restrict__ m, float4* __restrict__ v,
+                             Quad<BF16>* __restrict__ m,
+                             Quad<BF16>* __restrict__ v,
                              const int4* __restrict__ bits, long long n,
                              float momentum, int nesterov, int mask_momentum,
                              float* __restrict__ cv, int* __restrict__ cb) {
@@ -219,16 +252,16 @@ compensate_bits_cands_kernel(const float4* __restrict__ g,
       for (int u = 0; u < kFusedUnroll; ++u) {
         const long long e = e0 + (i0 + u) * (kLane / 4);
         gg[u] = __ldg(g + e);
-        mm[u] = m[e];
-        vv[u] = v[e];
+        mm[u] = widen(m[e]);
+        vv[u] = widen(v[e]);
       }
 #pragma unroll
       for (int u = 0; u < kFusedUnroll; ++u) {
         const long long e = e0 + (i0 + u) * (kLane / 4);
         compensate4(gg[u], mm[u], vv[u], w, i0 + u, momentum, nesterov,
                     mask_momentum);
-        m[e] = mm[u];
-        v[e] = vv[u];
+        store_quad(m + e, mm[u]);
+        vv[u] = store_quad(v + e, vv[u]);
       }
       scan_blocks(t, vv, 32 * j + i0);
     }
@@ -242,10 +275,10 @@ compensate_bits_cands_kernel(const float4* __restrict__ g,
   const int4 w = bits[w0];
   for (int i = 0; i < 32 && 32 * j + i < nblk; ++i) {
     const long long e = e0 + i * (kLane / 4);
-    float4 mm = m[e], vv = v[e];
+    float4 mm = widen(m[e]), vv = widen(v[e]);
     compensate4(g[e], mm, vv, w, i, momentum, nesterov, mask_momentum);
-    m[e] = mm;
-    v[e] = vv;
+    store_quad(m + e, mm);
+    store_quad(v + e, vv);
   }
 }
 
@@ -258,39 +291,52 @@ cudaError_t use_device(int device) {
 
 }  // namespace
 
-// x: nseg whole segments of f32 (nseg * 32768 elements, 16-byte aligned);
-// cv: [nseg, 2, 128] f32; cb: [nseg, 2, 128] int32. Returns the CUDA error
-// code of the launch (0 = launched).
-extern "C" int seg_top2_launch(const float* x, int nseg, float* cv, int* cb,
-                               int device, void* stream) {
+// x: nseg whole segments of f32, or of bf16 where bf16 (nseg * 32768
+// elements, aligned to a quad: 16 bytes, 8 for bf16); cv: [nseg, 2, 128]
+// f32; cb: [nseg, 2, 128] int32. Returns the CUDA error code of the launch
+// (0 = launched).
+extern "C" int seg_top2_launch(const void* x, int nseg, float* cv, int* cb,
+                               int bf16, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (nseg <= 0) return 0;
-  if ((uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
-  seg_top2_kernel<<<nseg, kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(x), cv, cb);
+  if ((uintptr_t)x % (bf16 ? 8 : 16)) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    seg_top2_kernel<true><<<nseg, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint2*>(x), cv, cb);
+  else
+    seg_top2_kernel<false><<<nseg, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const float4*>(x), cv, cb);
   return (int)cudaGetLastError();
 }
 
-// g, m, v: [n] f32 (16-byte aligned; m and v updated in place), n a
-// multiple of 128; bits: the transmit record [ceil(n / 4096) * 128] int32
-// (16-byte aligned); cv, cb: [n / 32768, 2, 128] f32 / int32. Returns the
-// CUDA error code of the launch (0 = launched).
+// g: [n] f32, 16-byte aligned; m, v: [n] f32, or bf16 where bf16 (updated
+// in place; 16-byte aligned, 8 for bf16), n a multiple of 128; bits: the
+// transmit record [ceil(n / 4096) * 128] int32 (16-byte aligned); cv, cb:
+// [n / 32768, 2, 128] f32 / int32. Returns the CUDA error code of the
+// launch (0 = launched).
 extern "C" int compensate_bits_cands_launch(
-    const float* g, float* m, float* v, const int* bits, long long n,
+    const float* g, void* m, void* v, const int* bits, long long n,
     float momentum, int nesterov, int mask_momentum, float* cv, int* cb,
-    int device, void* stream) {
+    int bf16, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
-  if (n % kLane || ((uintptr_t)g | (uintptr_t)m | (uintptr_t)v |
-                    (uintptr_t)bits) % 16)
+  if (n % kLane || ((uintptr_t)g | (uintptr_t)bits) % 16 ||
+      ((uintptr_t)m | (uintptr_t)v) % (bf16 ? 8 : 16))
     return (int)cudaErrorInvalidValue;
-  const long long grid = (n + kSpan - 1) / kSpan;
-  compensate_bits_cands_kernel<<<(unsigned)grid, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(g), reinterpret_cast<float4*>(m),
-      reinterpret_cast<float4*>(v), reinterpret_cast<const int4*>(bits), n,
-      momentum, nesterov, mask_momentum, cv, cb);
+  const unsigned grid = (unsigned)((n + kSpan - 1) / kSpan);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const int4* b4 = reinterpret_cast<const int4*>(bits);
+  if (bf16)
+    compensate_bits_cands_kernel<true>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            g4, static_cast<uint2*>(m), static_cast<uint2*>(v), b4, n,
+            momentum, nesterov, mask_momentum, cv, cb);
+  else
+    compensate_bits_cands_kernel<false>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            g4, static_cast<float4*>(m), static_cast<float4*>(v), b4, n,
+            momentum, nesterov, mask_momentum, cv, cb);
   return (int)cudaGetLastError();
 }

@@ -28,12 +28,19 @@ wrapper                         route     replaces (dgc_tpu/ops/kernels.py)
 
 A wrapper runs the plain version only for tensors that lie on the CPU; for
 a CUDA tensor it launches its kernel or raises. It checks device, dtype,
-shape and contiguity first. The CUDA C++ sources are in
-``dgc_tpu_torch/csrc`` (built by :mod:`dgc_tpu_torch.ops.build`); the one
-Triton kernel is defined and compiled on its first launch. Kernels
-launch on PyTorch's current stream and never synchronise. The two
-compensates are one-entry calls of :func:`fused_compensate_multi`, which
-compensates many tensors in one launch.
+shape and contiguity first. The bf16 error-feedback state reaches the
+compensates (:func:`compensate_bits`, :func:`compensate_bits_cands` and
+the per-tensor ones) and :func:`seg_top2_candidates` as bf16, loaded and
+up-cast in the kernel, the math in f32, one round-to-nearest-even per
+stored value; :func:`topk_rows` and :func:`select_pack_rows` up-cast a
+bf16 input once to f32 before their kernel and cast the values back (the
+reference's wrappers do the same); :func:`dgc_forward_rows` refuses it.
+The CUDA C++ sources are in ``dgc_tpu_torch/csrc`` (built by
+:mod:`dgc_tpu_torch.ops.build`); the one Triton kernel is defined and
+compiled on its first launch. Kernels launch on PyTorch's current stream
+and never synchronise. The two compensates are one-entry calls of
+:func:`fused_compensate_multi`, which compensates many tensors in one
+launch.
 
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
 :func:`keep_from_bits`, :func:`realign_bits`) define a format shared with
@@ -208,7 +215,9 @@ def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
 # 4096-element word group; the ragged tail (T % 4096 may be 2048) is
 # masked. Multiplying by the keep mask, not a select, keeps signed zeros
 # and NaNs as the reference has them; the launch disables FMA contraction
-# so `momentum * m0 + g` rounds twice, as the plain version does. The CUDA
+# so `momentum * m0 + g` rounds twice, as the plain version does. A bf16
+# state (12 B per element plus the record) is up-cast as it is loaded and
+# rounded to nearest even as it is stored (STATE_BF16). The CUDA
 # kernels that compensate (K10/K11, and K5, K9 on the fly) repeat its
 # arithmetic (_momentum_correct) op by op in csrc/compensate.cuh.
 
@@ -247,12 +256,13 @@ def _triton_kernels():
     def compensate_bits_kernel(g_ptr, m_ptr, v_ptr, b_ptr, n, momentum,
                                NESTEROV: tl.constexpr,
                                MASK_MOMENTUM: tl.constexpr,
+                               STATE_BF16: tl.constexpr,
                                BLOCK: tl.constexpr):
         p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
         inb = p < n
         g = tl.load(g_ptr + p, mask=inb, other=0.0)
-        m0 = tl.load(m_ptr + p, mask=inb, other=0.0)
-        v0 = tl.load(v_ptr + p, mask=inb, other=0.0)
+        m0 = tl.load(m_ptr + p, mask=inb, other=0.0).to(tl.float32)
+        v0 = tl.load(v_ptr + p, mask=inb, other=0.0).to(tl.float32)
         word = tl.load(b_ptr + ((p >> 12) * 128 + (p & 127)), mask=inb,
                        other=0)
         keep = (((word >> ((p >> 7) & 31)) & 1) == 0).to(tl.float32)
@@ -260,6 +270,9 @@ def _triton_kernels():
             m0 = m0 * keep
         v0 = v0 * keep
         m, ov = _momentum_correct(g, m0, v0, momentum, NESTEROV)
+        if STATE_BF16:
+            m = m.to(tl.bfloat16, fp_downcast_rounding="rtne")
+            ov = ov.to(tl.bfloat16, fp_downcast_rounding="rtne")
         tl.store(m_ptr + p, m, mask=inb)
         tl.store(v_ptr + p, ov, mask=inb)
 
@@ -271,24 +284,32 @@ def compensate_bits_plain(grad, mmt, vec, bits, momentum: float,
                           nesterov: bool = False,
                           momentum_masking: bool = True):
     """Plain version: unpack the record to a keep mask, mask on read, then
-    momentum correction (``dgc_tpu`` ``_compensate_math`` op order).
-    Returns new ``(mmt', vec')``."""
-    keep = keep_from_bits(bits, grad.shape[0])
-    m0 = mmt * keep if momentum_masking else mmt
-    v0 = vec * keep
+    momentum correction (``dgc_tpu`` ``_compensate_math`` op order), the
+    state up-cast to the gradient's dtype and the results rounded once to
+    the state's. Returns new ``(mmt', vec')``."""
+    sdt = mmt.dtype
+    keep = keep_from_bits(bits, grad.shape[0]).to(grad.dtype)
+    m0 = mmt.to(grad.dtype)
+    if momentum_masking:
+        m0 = m0 * keep
+    v0 = vec.to(grad.dtype) * keep
     if nesterov:
         m = (m0 + grad) * momentum
-        return m, v0 + m + grad
-    m = momentum * m0 + grad
-    return m, v0 + m
+        v = v0 + m + grad
+    else:
+        m = momentum * m0 + grad
+        v = v0 + m
+    return m.to(sdt), v.to(sdt)
 
 
 def _check_compensate(name, grad, mmt, vec, bits) -> None:
     n = grad.shape[0]
     _check(grad.dim() == 1 and mmt.shape == (n,) and vec.shape == (n,),
            f"{name}: grad, mmt, vec must be 1-D of one length")
-    _check(all(t.dtype == torch.float32 for t in (grad, mmt, vec)),
-           f"{name}: grad, mmt, vec must be float32")
+    _check(grad.dtype == torch.float32 and mmt.dtype == vec.dtype
+           and mmt.dtype in (torch.float32, torch.bfloat16),
+           f"{name}: grad must be float32, mmt and vec both float32 or both "
+           f"bfloat16, got {grad.dtype}/{mmt.dtype}/{vec.dtype}")
     _check(bits.dtype == torch.int32 and bits.shape == (num_sent_words(n),),
            f"{name}: bits must be int32 [num_sent_words(T)]")
 
@@ -296,8 +317,9 @@ def _check_compensate(name, grad, mmt, vec, bits) -> None:
 def compensate_bits(grad, mmt, vec, bits, momentum: float,
                     nesterov: bool = False, momentum_masking: bool = True):
     """Bit-masked momentum compensate, updating ``mmt`` and ``vec`` IN
-    PLACE (they have no other reader afterwards); returns them. All of
-    grad/mmt/vec are f32 [T]; ``bits`` is the previous step's record."""
+    PLACE (they have no other reader afterwards); returns them. grad is f32
+    [T], mmt/vec f32 or bf16 [T] (math in f32, one rounding to nearest even
+    per stored value); ``bits`` is the previous step's record."""
     n = grad.shape[0]
     _check_compensate("compensate_bits", grad, mmt, vec, bits)
     if not _on_card("compensate_bits", grad, mmt, vec, bits):
@@ -312,6 +334,7 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
         kernel[grid](grad, mmt, vec, bits, n, float(momentum),
                      NESTEROV=bool(nesterov),
                      MASK_MOMENTUM=bool(momentum_masking),
+                     STATE_BF16=mmt.dtype == torch.bfloat16,
                      BLOCK=_BITS_GROUP, num_warps=8,
                      enable_fp_fusion=False)
         LAUNCHES["compensate_bits"] += 1
@@ -747,9 +770,12 @@ def _ladder_counts_launch(imp_rows, thr, lower_bound: float, levels: int,
 #
 # Bound on the card: bytes. The fused pass moves the compensate's 20 B per
 # element plus the record and 2 KB of candidates per segment (541 MB at
-# ResNet-50's T = 27,068,416: 0.16 ms at 3.35 TB/s); the standalone pass
-# reads each bucket once (4 B per element). The candidate compares ride
-# the stream: a few per element, far below the f32 rate.
+# ResNet-50's T = 27,068,416: 0.16 ms at 3.35 TB/s; with bf16 state 12 B
+# per element, 0.098 ms); the standalone pass reads each bucket once (4 B
+# per element, 2 for bf16). The candidate compares ride the stream: a few
+# per element, far below the f32 rate. Both kernels take f32 or bf16 state
+# (a template flag): bf16 is widened in the kernel and the candidates stay
+# f32; the fused kernel scans the stored, rounded velocity.
 
 def seg_top2_eligible(total_blocks: int, base: int, cols: int,
                       rows: int = 1) -> bool:
@@ -792,9 +818,11 @@ def _top2_plain(x: torch.Tensor):
 
 def seg_top2_candidates_plain(flat: torch.Tensor, base: int, rows: int,
                               cols: int):
-    """Plain version of :func:`seg_top2_candidates`."""
+    """Plain version of :func:`seg_top2_candidates` (a bf16 buffer is
+    up-cast first, which is exact)."""
     nseg = cols // SEG_SPAN
-    x = flat[base:base + rows * cols].view(rows * nseg, SEG_BLOCKS, _LANE)
+    x = flat[base:base + rows * cols].float().view(rows * nseg, SEG_BLOCKS,
+                                                    _LANE)
     vals, blks = _top2_plain(x)
     return (vals.view(rows, -1),
             seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
@@ -802,29 +830,39 @@ def seg_top2_candidates_plain(flat: torch.Tensor, base: int, rows: int,
 
 _SEG_ARGS = {
     "seg_top2_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p],
     "compensate_bits_cands_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]}
+
+
+def _quad_bytes(t: torch.Tensor) -> int:
+    """Bytes of four elements of ``t``: the candidates kernels' load
+    granule, to which their state must be aligned (16 for f32, 8 for
+    bf16)."""
+    return 4 * t.element_size()
 
 
 def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
     """Per-(row, lane, segment) top-2 candidates of the bucket [rows, cols]
-    at ``base`` of the flat f32 buffer, read in place. Returns ``(signed
-    values [rows, C] f32, bucket-local columns [rows, C] int32)`` with
-    ``C = cols / 32768 * 256``, in (segment, slot, lane) order."""
-    _check(flat.dim() == 1 and flat.dtype == torch.float32
+    at ``base`` of the flat f32 or bf16 buffer, read in place. Returns
+    ``(signed values [rows, C] f32, bucket-local columns [rows, C] int32)``
+    with ``C = cols / 32768 * 256``, in (segment, slot, lane) order."""
+    _check(flat.dim() == 1 and flat.dtype in (torch.float32, torch.bfloat16)
            and flat.shape[0] % _LANE == 0,
-           "seg_top2_candidates: flat must be a lane-aligned 1-D float32 "
-           "tensor")
+           "seg_top2_candidates: flat must be a lane-aligned 1-D float32 or "
+           "bfloat16 tensor")
     _check(seg_top2_eligible(flat.shape[0] // _LANE, base, cols, rows),
            f"seg_top2_candidates: [{rows}, {cols}] at {base} is not "
            "segment-aligned inside the buffer")
     if not _on_card("seg_top2_candidates", flat):
         return seg_top2_candidates_plain(flat, base, rows, cols)
-    _check(flat.data_ptr() % 16 == 0,
-           "seg_top2_candidates: flat must be 16-byte aligned")
+    _check(flat.data_ptr() % _quad_bytes(flat) == 0,
+           f"seg_top2_candidates: flat must be {_quad_bytes(flat)}-byte "
+           "aligned")
     nseg = cols // SEG_SPAN
     vals = torch.empty((rows * nseg, 2, _LANE), dtype=torch.float32,
                        device=flat.device)
@@ -832,9 +870,10 @@ def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
                        device=flat.device)
     if rows and nseg:
         lib = _build.library("seg_top2.cu", _SEG_ARGS)
-        err = lib.seg_top2_launch(flat.data_ptr() + 4 * base, rows * nseg,
-                                  vals.data_ptr(), blks.data_ptr(),
-                                  *_stream_args(flat))
+        err = lib.seg_top2_launch(
+            flat.data_ptr() + flat.element_size() * base, rows * nseg,
+            vals.data_ptr(), blks.data_ptr(),
+            int(flat.dtype == torch.bfloat16), *_stream_args(flat))
         if err:
             raise RuntimeError(
                 f"seg_top2_candidates launch failed: CUDA error {err}")
@@ -851,7 +890,8 @@ def compensate_bits_cands_plain(grad, mmt, vec, bits, momentum: float,
     m, v = compensate_bits_plain(grad, mmt, vec, bits, momentum, nesterov,
                                  momentum_masking)
     nseg = v.shape[0] // SEG_SPAN
-    cv, cb = _top2_plain(v[:nseg * SEG_SPAN].view(nseg, SEG_BLOCKS, _LANE))
+    cv, cb = _top2_plain(v[:nseg * SEG_SPAN].float().view(nseg, SEG_BLOCKS,
+                                                           _LANE))
     return m, v, cv, cb
 
 
@@ -862,7 +902,8 @@ def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
     also emits the segment top-2 candidates of the stored velocity, for
     the ``T // 32768`` complete segments. Returns ``(mmt, vec, cand values
     [nseg, 2, 128] f32, cand blocks [nseg, 2, 128] int32)``; the
-    candidates are bitwise :func:`seg_top2_candidates` on ``vec``."""
+    candidates are bitwise :func:`seg_top2_candidates` on ``vec`` (with
+    bf16 state, on the stored, rounded velocity)."""
     n = grad.shape[0]
     _check_compensate("compensate_bits_cands", grad, mmt, vec, bits)
     if not _on_card("compensate_bits_cands", grad, mmt, vec, bits):
@@ -871,9 +912,10 @@ def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
         mmt.copy_(m)
         vec.copy_(v)
         return mmt, vec, cv, cb
-    _check(all(t.data_ptr() % 16 == 0 for t in (grad, mmt, vec, bits)),
-           "compensate_bits_cands: grad, mmt, vec, bits must be 16-byte "
-           "aligned")
+    _check(grad.data_ptr() % 16 == 0 and bits.data_ptr() % 16 == 0
+           and all(t.data_ptr() % _quad_bytes(t) == 0 for t in (mmt, vec)),
+           "compensate_bits_cands: grad and bits must be 16-byte aligned, "
+           f"mmt and vec {_quad_bytes(mmt)}-byte aligned")
     nseg = n // SEG_SPAN
     cv = torch.empty((nseg, 2, _LANE), dtype=torch.float32,
                      device=grad.device)
@@ -883,7 +925,8 @@ def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
         err = lib.compensate_bits_cands_launch(
             grad.data_ptr(), mmt.data_ptr(), vec.data_ptr(), bits.data_ptr(),
             n, float(momentum), int(nesterov), int(momentum_masking),
-            cv.data_ptr(), cb.data_ptr(), *_stream_args(grad))
+            cv.data_ptr(), cb.data_ptr(), int(mmt.dtype == torch.bfloat16),
+            *_stream_args(grad))
         if err:
             raise RuntimeError(
                 f"compensate_bits_cands launch failed: CUDA error {err}")
@@ -1057,11 +1100,14 @@ _TOPK_ARGS = {"topk_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 
 def topk_rows(x: torch.Tensor, k: int):
     """Per-row ``(values, int32 columns)`` of the k largest elements of a
-    [R, cols] f32 tensor: values descending, ties to the smaller column,
-    exactly ``jax.lax.top_k`` for NaN-free input (the values are read back
-    from the row, so a selected -0.0 keeps its sign)."""
-    _check(x.dim() == 2 and x.dtype == torch.float32,
-           "topk_rows: x must be a 2-D float32 tensor")
+    [R, cols] f32 or bf16 tensor: values descending, ties to the smaller
+    column, exactly ``jax.lax.top_k`` for NaN-free input (the values are
+    read back from the row, so a selected -0.0 keeps its sign). A bf16
+    input reaches the kernel through one up-cast to f32 (monotone and
+    exact, so the order, the ties and the values cast back are the bf16
+    top-k's), after the kernel's bound on k is checked."""
+    _check(x.dim() == 2 and x.dtype in (torch.float32, torch.bfloat16),
+           "topk_rows: x must be a 2-D float32 or bfloat16 tensor")
     R, cols = x.shape
     _check(0 <= k <= cols, f"topk_rows: k={k} outside [0, {cols}]")
     if not _on_card("topk_rows", x):
@@ -1069,6 +1115,9 @@ def topk_rows(x: torch.Tensor, k: int):
     _check(k <= TOPK_MAX_K,
            f"topk_rows: k={k} exceeds the kernel's shared-memory sort "
            f"(k <= {TOPK_MAX_K})")
+    if x.dtype != torch.float32:
+        vals, cols_out = topk_rows(x.float(), k)
+        return vals.to(x.dtype), cols_out
     return _topk_rows_launch(x, k, topk_plan(R, cols, k) if R and k else None)
 
 
@@ -1134,13 +1183,17 @@ def select_pack_rows(x: torch.Tensor, numels: torch.Tensor, k: int):
     ``numels[r]`` columns and -1 past them, in ``lax.top_k`` order. ``0 <
     k <= MR_MAX_K``; a selected -0.0 is written +0.0 (see
     :func:`select_pack_rows_plain`). The kernel runs on the top-k kernel's
-    route and geometry (:func:`topk_plan`)."""
-    _check(x.dim() == 2 and x.dtype == torch.float32,
-           "select_pack_rows: x must be a 2-D float32 tensor")
+    route and geometry (:func:`topk_plan`). A bf16 block reaches it
+    through one up-cast to f32, its scores and values cast back (exact)."""
+    _check(x.dim() == 2 and x.dtype in (torch.float32, torch.bfloat16),
+           "select_pack_rows: x must be a 2-D float32 or bfloat16 tensor")
     R, cols = x.shape
     _check_select("select_pack_rows", R, cols, numels, k)
     if not _on_card("select_pack_rows", x, numels):
         return select_pack_rows_plain(x, numels, k)
+    if x.dtype != torch.float32:
+        scores, vals, cols_out = select_pack_rows(x.float(), numels, k)
+        return scores.to(x.dtype), vals.to(x.dtype), cols_out
     return _select_pack_rows_launch(x, numels, k, topk_plan(R, cols, k))
 
 

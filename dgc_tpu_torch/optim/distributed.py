@@ -48,11 +48,18 @@ class DistributedOptimizer:
     # the flat path                                                  #
     # -------------------------------------------------------------- #
 
-    def make_flat(self, params_tree):
+    def make_flat(self, params_tree, plan=None):
         """The ``(ParamLayout, engine)`` pair; call again after the warm-up
-        schedule changes the ratio (the layout does not change)."""
+        schedule changes the ratio (the layout does not change). ``plan``:
+        an exchange plan (``compression.planner``), re-fit to this
+        geometry through ``Plan.replan`` on a probe engine, or a regime
+        sequence taken as it is."""
         layout = ParamLayout.for_compressor(params_tree, self.compressor)
-        return layout, self.compressor.make_flat_exchange(layout)
+        if plan is not None and hasattr(plan, "replan"):
+            plan = plan.replan(self.compressor.make_flat_exchange(layout))
+        if plan is None:
+            return layout, self.compressor.make_flat_exchange(layout)
+        return layout, self.compressor.make_flat_exchange(layout, plan=plan)
 
     def update_flat(self, flat_grads: Sequence[torch.Tensor], opt_state,
                     flat_params: torch.Tensor, mems: List, phases,

@@ -72,6 +72,24 @@ synthetic images, as the JAX harness's ``--dataset.root DIR
 harness's ``--train.compression.megakernel True`` and
 ``--train.compression.fused_select True`` do (the ``*_megakernel`` recipes
 are their base recipes with ``--megakernel``).
+
+The narrow wires and state are recipes (``resnet20_wm5_fp16``,
+``resnet20_wm5_int8``, ``resnet20_wm5_int8_packidx``,
+``resnet50_wm5_bf16mem``, ``resnet50_wm5_bf16mem_int8_packidx``): the
+compressor takes the recipe's ``fp16_values``, ``int8_values``,
+``int8_error_feedback``, ``packed_indices`` and ``int32_indices``, the
+memory its ``dtype``. ``--autotune`` (or the recipe's ``train.autotune``
+block, ``resnet20_wm5_autotune``) plans a regime per bucket
+(:class:`~dgc_tpu_torch.compression.autotune.Autotuner`, printed as
+``[autotune] fabric ... -> plan [...]``), records each step's host
+interval against the wire's bytes, refits the link model at each epoch
+boundary into ``<save_path>/fabric.json`` and rebuilds the engine at the
+next epoch only when the plan's key changed; a warm-up rebuild re-fits the
+plan to the new geometry. It is refused without DGC.
+
+    python -m dgc_tpu_torch.train --config resnet20_wm5 --autotune \\
+        --device cpu --world 2 --epochs 2 --steps 3 --batch-size 8 \\
+        --synthetic-size 64
 """
 
 import argparse
@@ -87,6 +105,7 @@ import torch
 import torch.distributed as dist
 
 from dgc_tpu_torch import configs as _configs
+from dgc_tpu_torch.compression.autotune import Autotuner
 from dgc_tpu_torch.compression.base import Compression
 from dgc_tpu_torch.compression.dgc import DGCCompressor
 from dgc_tpu_torch.compression.flat import ParamLayout
@@ -115,6 +134,9 @@ __all__ = ["Trainer", "main", "get_save_path"]
 
 #: steps of the first trained epoch that ``--profile`` traces
 PROFILE_STEPS = 8
+#: the recipes' wire flags the compressor takes as they are
+_WIRE_FLAGS = ("fp16_values", "int8_values", "int8_error_feedback",
+               "packed_indices", "int32_indices")
 
 
 def get_save_path(*config_paths, prefix="runs"):
@@ -154,7 +176,8 @@ class Trainer:
     """The harness's state for one run; see the module docstring."""
 
     def __init__(self, cfg=None, comm: Optional[Comm] = None,
-                 device="cuda", verbose: bool = False):
+                 device="cuda", verbose: bool = False,
+                 fabric_out: Optional[str] = None):
         self.device = resolve_device(device)
         self.cfg = cfg = cfg or _configs.resnet20_wm5()
         self.comm = comm = comm or LocalComm(1)
@@ -182,7 +205,8 @@ class Trainer:
             self.compression = DGCCompressor(
                 cc.compress_ratio,
                 memory=DGCSGDMemory(mc.momentum, nesterov=mc.nesterov,
-                                    momentum_masking=mc.momentum_masking),
+                                    momentum_masking=mc.momentum_masking,
+                                    dtype=mc.get("dtype")),
                 sample_ratio=cc.sample_ratio,
                 strided_sample=cc.strided_sample,
                 compress_upper_bound=cc.compress_upper_bound,
@@ -191,6 +215,7 @@ class Trainer:
                 resample=cc.resample, warmup_epochs=cc.warmup_epochs,
                 warmup_coeff=cc.warmup_coeff,
                 fused_select=cc.fused_select, megakernel=cc.megakernel,
+                **{k: cc[k] for k in _WIRE_FLAGS if k in cc},
                 verbose=verbose)
             self.compression.initialize(
                 (n.replace(".", "/"), tuple(p.shape))
@@ -220,7 +245,24 @@ class Trainer:
                 lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
                 nesterov=oc.nesterov, weight_decay_mask=wd_mask),
             self.compression, comm)
-        self.setup = make_flat_setup(self.model, self.dist)
+        at = tc.get("autotune") or {}
+        #: the online replanner (``train.autotune.enabled``), or None
+        self.autotuner = None
+        if at.get("enabled", False):
+            if not tc.dgc:
+                raise ValueError("autotune plans the sparse DGC wire "
+                                 "(recipes with train.dgc = True)")
+            self.autotuner = Autotuner(world=comm.world,
+                                       fabric_out=fabric_out,
+                                       min_points=at.get("min_points", 2))
+        #: a replan whose key changed: the engine is rebuilt next epoch
+        self._plan_pending = False
+        self._at_wire = 0
+        self._build_setup()
+        if self.autotuner is not None:
+            printr(f"[autotune] fabric {self.autotuner.fabric.name} "
+                   f"({self.autotuner.fabric.gbps:.3g} GB/s) -> plan "
+                   f"{list(self.setup.engine.regimes)}")
         self.state = make_flat_state(self.model, self.dist, self.setup,
                                      self.device)
         #: one host generator of sampling phases per local worker
@@ -234,6 +276,37 @@ class Trainer:
             if uses_dropout(self.model) else None)
         self._built_ratio = None
         self._upload_stream = None
+
+    def _build_setup(self) -> None:
+        """The engine at the compressor's ratio; under the autotuner with
+        the plan of its current fabric, re-fit to this geometry."""
+        self.setup = make_flat_setup(self.model, self.dist)
+        if self.autotuner is not None:
+            plan = self.autotuner.plan_for(self.setup.engine)
+            self.setup = make_flat_setup(self.model, self.dist, plan=plan)
+            # the (bytes, ms) points' size: the sparse wire when the plan
+            # keeps one, else the dense all-reduce's bytes
+            self._at_wire = (self.setup.engine.wire_bytes_per_worker()
+                             or 4 * self.setup.layout.total)
+        self._plan_pending = False
+
+    def autotune_epoch_end(self, epoch: int):
+        """The autotuner's epoch boundary: refit the link model over the
+        steps' points, write ``fabric.json``, replan; a plan whose key
+        changed rebuilds the engine at the next epoch (the memory carries
+        over). Returns the new plan, or None."""
+        at = self.autotuner
+        new = at.epoch_end(self.setup.engine, epoch=epoch)
+        if new is not None:
+            self._plan_pending = True
+            printr(f"[autotune] refit {at.fabric.gbps:.3g} GB/s alpha "
+                   f"{at.fabric.alpha_ms:.3g} ms -> replan "
+                   f"{list(new.regimes)} (rebuild next epoch)")
+        elif at.refit_count:
+            printr(f"[autotune] refit {at.fabric.gbps:.3g} GB/s alpha "
+                   f"{at.fabric.alpha_ms:.3g} ms — plan unchanged (no "
+                   "rebuild)")
+        return new
 
     @property
     def topology(self) -> Dict[str, int]:
@@ -353,14 +426,16 @@ class Trainer:
         there (:func:`~dgc_tpu_torch.utils.profiling.trace`)."""
         self.compression.warmup_compress_ratio(epoch)
         ratio = self.compression.compress_ratio
-        if ratio != self._built_ratio:
-            # new ratio -> new engine geometry; layouts and memory carry over
-            self.setup = make_flat_setup(self.model, self.dist)
+        if ratio != self._built_ratio or self._plan_pending:
+            # new ratio (or plan) -> new engine; layouts and memory carry
+            # over
+            self._build_setup()
             self._built_ratio = ratio
             if self.verbose and ratio is not None:
                 print(f"[epoch {epoch}] ratio {self._built_ratio:.4g}: "
                       f"payload {self.setup.engine.payload_size}/worker")
         losses = []
+        at_prev = None
         inputs = self.epoch_inputs(epoch, steps)
         with contextlib.closing(inputs), contextlib.ExitStack() as prof:
             if profile_dir is not None:
@@ -375,6 +450,14 @@ class Trainer:
                         torch.cuda.synchronize(self.device)
                     step_times.append(time.perf_counter() - t0)
                 losses.append(loss)
+                if self.autotuner is not None:
+                    # the step's host interval against the wire bytes (no
+                    # sync: the device's backlog shows in the interval)
+                    now = time.perf_counter()
+                    if at_prev is not None:
+                        self.autotuner.record_step((now - at_prev) * 1e3,
+                                                   self._at_wire)
+                    at_prev = now
                 if s + 1 == PROFILE_STEPS:
                     prof.close()
         return losses
@@ -437,6 +520,12 @@ def main(argv=None) -> List[float]:
     p.add_argument("--fused-select", action="store_true",
                    help="select through the select-and-pack kernel where "
                         "it applies")
+    p.add_argument("--autotune", action="store_true",
+                   help="online exchange replanning: plan per-bucket wire "
+                        "regimes, refit the link model from the steps' "
+                        "times at each epoch boundary, and rebuild the "
+                        "engine only when the plan's key changes; writes "
+                        "<save_path>/fabric.json (configs/autotune.py)")
     p.add_argument("--evaluate", action="store_true",
                    help="restore the best checkpoint and only evaluate it "
                         "on the test split")
@@ -464,6 +553,11 @@ def main(argv=None) -> List[float]:
         cfg.train.compression.megakernel = True
     if args.fused_select:
         cfg.train.compression.fused_select = True
+    if args.autotune:
+        if not cfg.train.dgc:
+            raise SystemExit("--autotune plans the sparse DGC wire (recipes "
+                             "with train.dgc = True)")
+        _configs.with_autotune(cfg)
     if args.init_method:
         if device.type == "cuda":
             torch.cuda.set_device(args.rank % torch.cuda.device_count())
@@ -486,9 +580,10 @@ def main(argv=None) -> List[float]:
     else:
         comm = LocalComm(args.world)
     try:
-        trainer = Trainer(cfg, comm, device, verbose=True)
         save_path = (get_save_path(*_configs.CONFIG_FILES[args.config])
                      + f"{args.suffix}.np{comm.world}")
+        trainer = Trainer(cfg, comm, device, verbose=True,
+                          fabric_out=os.path.join(save_path, "fabric.json"))
         printr(f"[train.save_path] = {save_path}")
         ckpt = CheckpointManager(os.path.join(save_path, "checkpoints"))
         metric = cfg.train.metric
@@ -525,6 +620,8 @@ def main(argv=None) -> List[float]:
                     if s % 50 == 0 or s == len(losses) - 1:
                         writer.add_scalar("loss/train", loss, seen)
                 out += losses
+                if trainer.autotuner is not None:
+                    trainer.autotune_epoch_end(epoch)
                 meters = trainer.evaluate()
                 is_best = best is None or best < meters[metric]
                 if is_best:

@@ -74,9 +74,11 @@ class FlatSetup(NamedTuple):
                                # the per-tensor path
 
 
-def make_flat_setup(model, dist_opt) -> FlatSetup:
-    """Layouts + engine; rebuild after a warm-up ratio change."""
-    layout, engine = dist_opt.make_flat(param_tree(model))
+def make_flat_setup(model, dist_opt, plan=None) -> FlatSetup:
+    """Layouts + engine; rebuild after a warm-up ratio change. ``plan``:
+    the exchange plan, re-fit to the fresh bucket geometry."""
+    layout, engine = (dist_opt.make_flat(param_tree(model)) if plan is None
+                      else dist_opt.make_flat(param_tree(model), plan=plan))
     return FlatSetup(layout, ParamLayout(stats_tree(model)), engine)
 
 

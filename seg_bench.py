@@ -77,20 +77,23 @@ def _load(path):
 
 
 def _fused(lib, g, m, v, bits, cv, cb):
+    import torch
     from dgc_tpu_torch.ops import kernels as K
     err = lib.compensate_bits_cands_launch(
         g.data_ptr(), m.data_ptr(), v.data_ptr(), bits.data_ptr(),
         g.shape[0], 0.9, 0, 1, cv.data_ptr(), cb.data_ptr(),
-        *K._stream_args(g))
+        int(m.dtype == torch.bfloat16), *K._stream_args(g))
     if err:
         raise RuntimeError(f"compensate_bits_cands_launch: CUDA error {err}")
     return m, v, cv, cb
 
 
 def _alone(lib, vec, base, nseg, cv, cb):
+    import torch
     from dgc_tpu_torch.ops import kernels as K
-    err = lib.seg_top2_launch(vec.data_ptr() + 4 * base, nseg, cv.data_ptr(),
-                              cb.data_ptr(), *K._stream_args(vec))
+    err = lib.seg_top2_launch(
+        vec.data_ptr() + vec.element_size() * base, nseg, cv.data_ptr(),
+        cb.data_ptr(), int(vec.dtype == torch.bfloat16), *K._stream_args(vec))
     if err:
         raise RuntimeError(f"seg_top2_launch: CUDA error {err}")
     return cv, cb

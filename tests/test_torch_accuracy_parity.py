@@ -1,7 +1,9 @@
 """``dgc_tpu_torch.accuracy_parity`` against ``scripts/accuracy_parity.py``:
 the task's formulas given the same draws (the JAX script's own
 ``jax.random`` draws, split as it splits its keys), and both arms for one
-tiny epoch on the CPU, finite.
+tiny epoch on the CPU, finite; the arms on the narrower wires and state
+(``dgc_bf16mem``, ``dgc_int8``, ``dgc_int8nofb``, ``dgc_int8pack``) set as
+the JAX script sets them, and one tiny epoch of each.
 
 The prototypes agree within rtol 1e-5: the [C, d] x [d, 3072] product
 sums in another order on each side (XLA's dot, ATen's), and ATen may
@@ -12,6 +14,7 @@ label draws."""
 import importlib.util
 import math
 import os
+import types
 
 import jax
 import numpy as np
@@ -108,8 +111,35 @@ def test_both_arms_run_a_tiny_epoch():
         assert res[arm]["final_top1"] == top1
 
 
-@pytest.mark.parametrize("arm", ["dgc_int8", "dgc_bf16mem", "sparse"])
+@pytest.mark.parametrize("arm", ["sparse", "dgc_twotier", "dgc_fp8"])
 def test_unported_arms_are_refused(arm):
-    with pytest.raises(SystemExit, match="item 7" if arm != "sparse"
-                       else "unknown arm"):
+    with pytest.raises(SystemExit, match="unknown arm"):
         ap.main(["--device", "cpu", "--arms", f"dense,{arm}"])
+
+
+def test_wire_arms_run_a_tiny_epoch():
+    """The JAX script's arms on the narrower wires and state (set as it
+    sets them) train on the CPU at a small size."""
+    arms = ["dgc", "dgc_bf16mem", "dgc_int8", "dgc_int8nofb", "dgc_int8pack"]
+    res = ap.main(["--device", "cpu", "--arms", ",".join(arms), "--epochs",
+                   "1", "--train-size", "32", "--batch", "16", "--workers",
+                   "2", "--eval-size", "512", "--classes", "10"])
+    for arm in arms:
+        (epoch, loss, top1), = res[arm]["curve"]
+        assert epoch == 0 and math.isfinite(loss) and 0 <= top1 <= 1
+
+
+@pytest.mark.parametrize("arm,want", [
+    ("dgc_bf16mem", dict(dtype=torch.bfloat16, int8_values=False)),
+    ("dgc_int8", dict(int8_values=True, int8_error_feedback=True,
+                      packed_indices=False)),
+    ("dgc_int8nofb", dict(int8_values=True, int8_error_feedback=False)),
+    ("dgc_int8pack", dict(int8_values=True, int8_error_feedback=True,
+                          packed_indices=True))])
+def test_wire_arms_are_set_as_the_jax_script_sets_them(arm, want):
+    model = ap.create("resnet20", 10, torch.Generator().manual_seed(0))
+    args = types.SimpleNamespace(ratio=0.001, warmup_epochs=5)
+    comp, _ = ap._arm(arm, model, lambda s: 0.1, 2, args)
+    for k, v in want.items():
+        got = comp.memory.dtype if k == "dtype" else getattr(comp, k)
+        assert got == v, k

@@ -215,8 +215,13 @@ def _assert_bitwise(got, want):
 
 
 def _cfg(recipe):
-    cfg = configs.RECIPES[recipe]()
+    """The recipe at a CPU size; ``+bf16mem`` stacks the bf16
+    error-feedback state on it."""
+    name, _, extra = recipe.partition("+")
+    cfg = configs.RECIPES[name]()
     cfg.train.batch_size, cfg.dataset.synthetic_size = 8, 64
+    if extra == "bf16mem":
+        cfg.train.compression.memory.dtype = "bfloat16"
     return cfg
 
 
@@ -268,11 +273,14 @@ def test_per_tensor_memory_round_trips(tmp_path):
                 assert torch.equal(a[k][n], b[k][n]), (k, n)
 
 
-@pytest.mark.parametrize("recipe", ["resnet20_wm5", "resnet20_wm5o"])
+@pytest.mark.parametrize("recipe", [
+    "resnet20_wm5", "resnet20_wm5o", "resnet20_wm5_int8",
+    "resnet20_wm5_int8_packidx+bf16mem"])
 def test_trainer_resume_is_bitwise(tmp_path, recipe):
     """Epoch 4 then 5, 2 steps each (wm5o: dense, then the first
-    compressed epoch), uninterrupted and through a save and a fresh
-    trainer's restore."""
+    compressed epoch; the int8 wire's error-feedback state, and the bf16
+    state on the int8 wire with packed indices), uninterrupted and through
+    a save and a fresh trainer's restore."""
     a = Trainer(_cfg(recipe), LocalComm(2), device="cpu")
     want = [a.run_epoch(e, 2) for e in (4, 5)]
     b = Trainer(_cfg(recipe), LocalComm(2), device="cpu")
@@ -290,6 +298,11 @@ def test_trainer_resume_is_bitwise(tmp_path, recipe):
     if recipe == "resnet20_wm5o":
         assert a.compression.compress_ratio == 0.001
         assert int(a.state.memory[0]["sent_bits"].ne(0).sum()) > 0
+    if "int8" in recipe:
+        # int8 error feedback keeps its slots out of the record
+        assert int(a.state.memory[0]["sent_bits"].ne(0).sum()) == 0
+    if "bf16mem" in recipe:
+        assert a.state.memory[0]["velocities_c"].dtype == torch.bfloat16
 
 
 _GLOO_WORKER = """

@@ -3,9 +3,11 @@ values, the learning-rate schedule, ``dgc_sgd`` (with and without the
 per-coordinate weight-decay mask), the synthetic CIFAR data and the batch
 order. All bitwise; the JAX optimizer runs op by op (no ``jax.jit``, whose
 XLA-CPU FMA contraction the port does not reproduce). Also the CLI: the
-evaluation lines and the recipes' flags reaching the trainer, and the
-flat engine's refusal of the wires this port does not carry yet."""
+evaluation lines and the recipes' flags reaching the trainer, ``--autotune``
+planning and its refusal without DGC, and the flat engine's refusal of the
+options this port does not carry yet."""
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -103,6 +105,21 @@ STACKS = {
     "vgg16_bn_wm5": ("configs/imagenet/vgg16_bn.py", "configs/dgc/wm5.py"),
     "vgg16_bn_wm5_bf16": ("configs/imagenet/vgg16_bn.py",
                           "configs/dgc/wm5.py", "configs/bf16.py"),
+    "resnet20_wm5_fp16": ("configs/cifar/resnet20.py", "configs/dgc/wm5.py",
+                          "configs/dgc/fp16.py"),
+    "resnet20_wm5_int8": ("configs/cifar/resnet20.py", "configs/dgc/wm5.py",
+                          "configs/dgc/int8.py"),
+    "resnet20_wm5_int8_packidx": ("configs/cifar/resnet20.py",
+                                  "configs/dgc/wm5.py", "configs/dgc/int8.py",
+                                  "configs/dgc/packidx.py"),
+    "resnet50_wm5_bf16mem": ("configs/imagenet/resnet50.py",
+                             "configs/dgc/wm5.py", "configs/dgc/bf16mem.py"),
+    "resnet50_wm5_bf16mem_int8_packidx": (
+        "configs/imagenet/resnet50.py", "configs/dgc/wm5.py",
+        "configs/dgc/bf16mem.py", "configs/dgc/int8.py",
+        "configs/dgc/packidx.py"),
+    "resnet20_wm5_autotune": ("configs/cifar/resnet20.py",
+                              "configs/dgc/wm5.py", "configs/autotune.py"),
 }
 
 
@@ -163,6 +180,18 @@ def test_stacked_recipes_match_the_config_files(recipe, monkeypatch):
         assert tc.memory.nesterov == cc.memory.get("nesterov", False)
         assert tc.memory.momentum_masking == cc.memory.get(
             "momentum_masking", True)
+        # the wires and the state (the JAX compressor's defaults where the
+        # files leave them unset)
+        for k, default in (("fp16_values", False), ("int8_values", False),
+                           ("int8_error_feedback", True),
+                           ("packed_indices", False),
+                           ("int32_indices", True)):
+            assert tc[k] == cc.get(k, default), k
+        assert tc.memory.dtype == cc.memory.get("dtype", None)
+        at, cat = tr.get("autotune"), ctr.get("autotune", None)
+        assert (at is None) == (cat is None)
+        if at is not None:
+            assert dict(at) == {k: cat[k] for k in cat}
     finally:
         Config.reset()
 
@@ -201,6 +230,56 @@ def test_recipes_reach_the_trainer_and_the_cli_evaluates(monkeypatch,
     assert dense.setup.engine.payload_size == 0
     assert dense.state.memory == [{}, {}]
     assert wm5o.compression.warmup_coeff == [1, 1, 1, 1, 1]
+
+
+def test_cli_autotune_plans_and_refuses_without_dgc(monkeypatch, capsys,
+                                                    tmp_path):
+    """``--autotune``: the initial plan printed, a refit at each epoch
+    boundary written to ``<save_path>/fabric.json``, the engine rebuilt
+    only when the plan's key changed; the wire recipes reach the
+    compressor; refused without DGC."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DGC_FABRIC", raising=False)
+    seen = []
+
+    class Spy(ttrain.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self)
+    monkeypatch.setattr(ttrain, "Trainer", Spy)
+    common = ["--device", "cpu", "--world", "2", "--batch-size", "4",
+              "--synthetic-size", "64"]
+    with pytest.raises(SystemExit, match="DGC"):
+        ttrain.main(common + ["--config", "resnet20", "--autotune"])
+    assert ttrain.main(common + ["--config", "resnet20_wm5", "--autotune",
+                                 "--epochs", "2", "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "[autotune] fabric autotuned-32x25GbE" in out and "-> plan [" in out
+    assert out.count("[autotune] refit") == 2
+    (trainer,) = seen
+    at = trainer.autotuner
+    assert at.refit_count == 2 and len(at.points) == 4
+    assert trainer.setup.engine.plan is not None
+    # a replan whose key changed rebuilds the engine at the next epoch
+    # only, with the memory carried
+    mem = trainer.state.memory
+    pending = trainer.setup.engine.regimes != at.plan.regimes
+    assert trainer._plan_pending == pending
+    trainer.run_epoch(2, 1)
+    assert trainer.setup.engine.regimes == at.plan.regimes
+    assert not trainer._plan_pending
+    assert [m.keys() for m in trainer.state.memory] == [m.keys()
+                                                          for m in mem]
+    path = tmp_path / "runs" / "cifar.resnet20+dgc.wm5.np2" / "fabric.json"
+    fab = json.loads(path.read_text())
+    assert fab["schema"] == "dgc-fabric" and fab["provenance"]["refit"] == 2
+    ttrain.main(common + ["--config", "resnet20_wm5_int8_packidx",
+                          "--epochs", "0"])
+    ttrain.main(common + ["--config", "resnet20_wm5_fp16", "--epochs", "0"])
+    i8, f16 = seen[1:]
+    assert i8.compression.int8_values and i8.compression.packed_indices
+    assert i8.setup.engine.regimes[0] == "int8_packed"
+    assert f16.setup.engine.regimes[0] == "fp16"
 
 
 @pytest.mark.parametrize("world,per_epoch", [(1, 391), (4, 4)])
@@ -261,20 +340,23 @@ def test_synthetic_cifar_and_batch_order_match_jax(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(fp16_values=True),
-                                dict(int8_values=True)])
+@pytest.mark.parametrize("kw", [dict(checksum=True),
+                                dict(plan=("gossip_ring",))])
 def test_unported_compressor_options_raise(kw):
-    """Options whose code paths the flat engine does not port (its fp16
-    and int8 wires, ROADMAP.md queue 1 item 7) are refused, not silently
-    run as the default path, at a compressed ratio and at a dense one."""
+    """Options whose code paths the flat engine does not port (the payload
+    checksum and the gossip regimes, ROADMAP.md queue 1 item 8) are
+    refused, not silently run as the default path, at a compressed ratio
+    and at a dense one (whose engine has no bucket: an empty plan)."""
+    kw = dict(kw)
+    plan = kw.pop("plan", None)
     for coeff in (None, [1, 1, 1, 1, 1]):
         comp = DGCCompressor(0.001, warmup_epochs=5, warmup_coeff=coeff,
                              **kw)
         comp.initialize([("w", (64, 64))])
         comp.warmup_compress_ratio(0)
         layout = ParamLayout({"w": (64, 64), "b": (64,)}, ["w"])
-        with pytest.raises(ValueError, match="item 7"):
-            FlatDGCEngine(comp, layout)
+        with pytest.raises(ValueError, match="item 8"):
+            FlatDGCEngine(comp, layout, plan=plan)
 
 
 def test_cifar_pickles_and_augmentation_match_jax(tmp_path, monkeypatch):

@@ -251,23 +251,32 @@ def _small_layout(comp):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(memory=tmemory.DGCSGDMemory(dtype="bfloat16")),
-    dict(int8_values=True), dict(fp16_values=True)])
+    dict(checksum=True), dict(plan=("gossip_hcube",)),
+    dict(memory=tmemory.DGCSGDMemory(dtype="float16"))])
 def test_flat_engine_refuses_what_it_does_not_carry(kw):
+    """The flat engine carries the bf16 state and the int8 / fp16 wires
+    (the per-tensor path's too) since they were ported; it still refuses
+    the payload checksum and the gossip regimes (ROADMAP.md queue 1 item
+    8) and a state dtype the reference has no kernel for."""
+    kw = dict(kw)
+    plan = kw.pop("plan", None)
     comp = tdgc.DGCCompressor(0.05, **kw)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        comp.make_flat_exchange(_small_layout(comp))
+    with pytest.raises(ValueError, match="ROADMAP|float16"):
+        comp.make_flat_exchange(_small_layout(comp), plan=plan)
 
 
 def test_unported_options_still_raise():
-    # the flat engine's bf16 error-feedback state (ROADMAP.md queue 1 item
-    # 7; gradient clipping, refused here before, is ported)
-    comp = tdgc.DGCCompressor(0.05, memory=tmemory.DGCSGDMemory(
-        dtype="bfloat16"))
+    # the flat engine's payload checksum (ROADMAP.md queue 1 item 8; the
+    # bf16 state, refused here before, is ported)
+    comp = tdgc.DGCCompressor(0.05, checksum=True)
     comp.initialize([("w", (64, 64))])
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="item 8"):
         tflat.FlatDGCEngine(comp, tflat.ParamLayout(
             {"w": (64, 64), "b": (64,)}, ["w"]))
+    for kw in (dict(memory=tmemory.DGCSGDMemory(dtype="bfloat16")),
+               dict(int8_values=True), dict(fp16_values=True)):
+        comp = tdgc.DGCCompressor(0.05, **kw)
+        comp.make_flat_exchange(_small_layout(comp))
     with pytest.raises(ValueError):
         TDist(t_dgc_sgd(0.1), tdgc.DGCCompressor(0.05), LocalComm(2),
               local_axis_name="local")
