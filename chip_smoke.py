@@ -103,8 +103,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ResNet-20, ResNet-50 and ResNet-110 at the epoch-0 and epoch-5
    ratios, and with
    ``megakernel=True`` and ``fused_select=True`` at the epoch-3 and
-   epoch-5 ratios (the card's megakernel engine also against the card's
-   default engine); and ``engine.sparsify(vec, phases)`` without
+   epoch-5 ratios (ResNet-50: epoch 5; the card's megakernel engine also
+   against the card's default engine); and ``engine.sparsify(vec, phases)`` without
    candidates (the standalone candidates kernel) against the same call
    with the fused candidates. The per-tensor W=4 exchange
    (``DistributedOptimizer.exchange``) on the card against the CPU at
@@ -122,8 +122,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    engine with the memory's ``gradient_clipping`` (a norm clip, and the
    global one) at W=3, epochs 4 and 5, within rtol 1e-6, records equal.
    VGG-16's W=4 exchange card == CPU at the epoch-0 ratio (the 3-D
-   fallback on the split fc buckets, n = 175.0M entries applied a worker)
-   and the epoch-5 ratio (the segment path), one step each, bitwise.
+   fallback on the split fc buckets, n = 175.0M entries applied a worker),
+   one step, bitwise (its epoch-5 segment path is ResNet-50's).
    The wires (``phase_wires_vs_cpu``): ResNet-20's W=4 exchange card ==
    CPU bitwise, 2 steps at the epoch-0 and epoch-5 ratios, for every wire
    regime as a uniform plan (dense, fp32, fp16 and int8 with plain or
@@ -209,6 +209,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``--autotune``'s block (``phase_autotune``): the plan, 3 steps at epoch
    4, the refit and replan, 2 steps at epoch 5, the second refit,
    ``fabric.json``.
+4k. The resilience slice (``phase_guard_vs_cpu``,
+   ``phase_resilient_path``, ``phase_preempt_drill``, ``phase_elastic``,
+   ``phase_twotier_adasum_vs_cpu`` and their training paths). ResNet-50's
+   checksummed engine at the epoch-4 and epoch-5 ratios, W=4, card == CPU
+   bitwise with ``DGC_FAULTS`` armed (``bitflip`` and a negative, then an
+   out-of-range ``badidx``), the mismatch counts equal; all-NaN gradients
+   through the compensate, selection and apply kernels at full width, no
+   fault, every payload index in [0, T) or on the sentinel; the guard
+   snapshot and revert and the checksum timed. ``resnet50_wm5_resilience``
+   at full width, W=4: 1 step at epoch 4 and 3 at epoch 5 with ``nan@2``,
+   the bitflip and the bad indices: the skipped step's state bitwise its
+   pre-step state, the counters the CPU's, and every epoch's launches and
+   every collective the unguarded ``resnet50_wm5`` path's. The preemption
+   drill through the CLI in subprocesses, ResNet-20 and ResNet-50
+   (resilience recipes, W=4): ``kill@K`` -> exit 75 -> the same command ->
+   the mid-epoch resume, whose losses and final checkpoint are bitwise the
+   uninterrupted run's. The elastic restore at ResNet-50's geometry: 4 ->
+   2 (merge, nbps 2), 2 -> 4 (split) and 4 -> 3 (collapse), the total
+   error-feedback mass conserved, each trained on. The two-tier exchange
+   (2 nodes x 2) card == CPU bitwise at ResNet-20's epoch-0 and epoch-5
+   ratios and ResNet-50's epoch 5; Adasum (``op="adasum"``) at W=4
+   (recursive doubling) and W=3 (the gathered reduce) card == CPU within
+   rtol 1e-5 (its dot products sum in another order); the paths
+   ``resnet50_twotier`` (W=4 as 2 x 2, epochs 4 and 5) and
+   ``resnet20_adasum`` at W=4 and W=3 (``AdasumDistributedOptimizer``,
+   epoch 5).
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -2230,17 +2256,17 @@ def _exchange_seq(engines, dev, world=4):
     return [t.cpu() for t in res]
 
 
-def phase_engine_vs_cpu(geoms, label, steps, world=4):
+def phase_engine_vs_cpu(geoms, label, steps, world=4, epochs=(0, 5)):
     """The exchange among ``world`` workers on the card and on the CPU,
-    same inputs: every output bitwise, at the epoch-0 and epoch-5 ratios
-    (at W = 3 this holds the divide by W: an IEEE divide on both)."""
-    for epoch in (0, 5):
+    same inputs: every output bitwise, at the ``epochs``' ratios (at W = 3
+    this holds the divide by W: an IEEE divide on both)."""
+    for epoch in epochs:
         eng = geoms[epoch][1]
         _check_equal(f"{label} engine exchange W={world} (epoch {epoch})",
                      _exchange_run(eng, DEVICE, steps, world),
                      _exchange_run(eng, "cpu", steps, world))
     print(f"[engine] {label} W={world} exchange, {steps} step(s): card == "
-          "CPU bitwise at the epoch-0 and epoch-5 ratios")
+          f"CPU bitwise at the ratios of epochs {list(epochs)}")
 
 
 def _check_close(name, got, want, rtol, atol):
@@ -2702,11 +2728,14 @@ _DGC_KERNELS = ("compensate_bits", "compensate_bits_cands",
 
 
 def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
-                     predict=False, **compression):
-    """A ``Trainer`` over W=4 ``LocalComm`` workers on the card, with the
-    recipe's compression settings overridden by ``compression``:
-    ``schedule`` is ``[(epoch, steps)]``; counts zeroed just before each
-    epoch's steps and read just after (the path's counts are their sums).
+                     predict=False, world=4, comm=None, adasum=False,
+                     train=None, on_epoch=None, **compression):
+    """A ``Trainer`` over W=``world`` ``LocalComm`` workers (or ``comm``)
+    on the card, with the recipe's compression settings overridden by
+    ``compression`` and its ``train`` keys by ``train`` (``adasum``: the
+    Adasum optimizer): ``schedule`` is ``[(epoch, steps)]``; counts zeroed
+    just before each epoch's steps and read just after (the path's counts
+    are their sums); ``on_epoch(epoch)`` runs before each epoch.
     ``epoch_rules`` maps an epoch to ``(must launch, must not launch)``;
     with ``predict`` each epoch's counts of the exchange's kernels must be
     the ones its engine predicts (:func:`_predicted_launches`)."""
@@ -2716,9 +2745,13 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
     from dgc_tpu_torch.train import Trainer
     cfg = configs.RECIPES[recipe]()
     cfg.train.compression.update(compression)
-    trainer = Trainer(cfg, comm=LocalComm(4), device=DEVICE)
+    cfg.train.update(train or {})
+    trainer = Trainer(cfg, comm=comm or LocalComm(world), device=DEVICE,
+                      adasum=adasum)
     times, losses, ratios, per_epoch = {}, {}, {}, {}
     for epoch, steps in schedule:
+        if on_epoch is not None:
+            on_epoch(epoch)
         t = []
         torch.cuda.synchronize()
         _zero_counts()
@@ -2728,7 +2761,7 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
         must, must_not = (epoch_rules or {}).get(epoch, ((), ()))
         per_epoch[epoch] = _read_counts(f"{label} epoch {epoch}", must)
         if predict:
-            want = _predicted_launches(trainer.setup.engine, 4,
+            want = _predicted_launches(trainer.setup.engine, world,
                                        len(losses[epoch]))
             got = {k: per_epoch[epoch][k] for k in want}
             if got != want:
@@ -2757,6 +2790,7 @@ def phase_train_path(label, recipe, schedule, must_launch, epoch_rules=None,
         ratio = "dense" if ratios[epoch] is None else f"{ratios[epoch]:.4g}"
         print(f"[{label}] epoch {epoch} ratio {ratio} loss "
               f"{losses[epoch]} step_s {times[epoch]}")
+    DETAIL[f"step_s {label}"] = times
     return trainer, counts
 
 
@@ -3306,11 +3340,11 @@ def phase_input_path(trace_inline, steps=2, traced=3):
     t_phase = time.perf_counter()
 
     class Inline(Trainer):
-        def epoch_inputs(self, epoch, steps=None):
+        def epoch_inputs(self, epoch, steps=None, start=0):
             it = epoch_batches(len(self.dataset["train"]), self.global_batch,
                                epoch, seed=self.seed,
                                drop_last=self.nbps > 1)
-            for idx in itertools.islice(it, steps):
+            for idx in itertools.islice(it, start, steps):
                 yield self._batches(idx)
 
     out = {}
@@ -3595,6 +3629,504 @@ _OWN_PATH = {"opaque_view": "resnet20",
              "ladder_counts": "resnet20_nonresample"}
 
 
+# ------------------------------------------------------------------ #
+# the resilience slice: guards, checksum, faults, preemption, elastic #
+# restarts, two tiers and Adasum                                      #
+# ------------------------------------------------------------------ #
+
+#: the engine fault drills of the resilient path, by epoch: a bitflip
+#: after the gather, and a negative (epoch 4) or out-of-range (epoch 5)
+#: gathered index before the clamp
+_ENGINE_FAULTS = {4: "bitflip:elem=0:bit=18,badidx:elem=3:set=-5",
+                  5: "bitflip:elem=0:bit=18,badidx:elem=7:set=2000000000"}
+#: the resilient path's step that is poisoned (``TrainState.step``)
+_NAN_STEP = 2
+
+
+class _faults_armed:
+    """``DGC_FAULTS=spec`` inside the block (the engines and trainers read
+    it when they are built); restored after."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def __enter__(self):
+        import os
+        self.prev = os.environ.get("DGC_FAULTS")
+        if self.spec:
+            os.environ["DGC_FAULTS"] = self.spec
+        else:
+            os.environ.pop("DGC_FAULTS", None)
+
+    def __exit__(self, *exc):
+        import os
+        if self.prev is None:
+            os.environ.pop("DGC_FAULTS", None)
+        else:
+            os.environ["DGC_FAULTS"] = self.prev
+        return False
+
+
+def _recording_comm(world, local_size=1):
+    """A ``LocalComm`` that counts its collectives (``.calls``), also those
+    of its two tiers' groups."""
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    calls = {"all_gather": 0, "all_reduce": 0, "swap": 0}
+
+    def counted(obj):
+        for name in calls:
+            fn = getattr(obj, name)
+
+            def wrap(xs, *a, _fn=fn, _n=name):
+                calls[_n] += 1
+                return _fn(xs, *a)
+            setattr(obj, name, wrap)
+        return obj
+
+    class Recording(LocalComm):
+        def split(self, local_size):
+            return tuple(counted(g) for g in super().split(local_size))
+    comm = counted(Recording(world))
+    comm.calls = calls
+    return comm
+
+
+def _exchange_health(eng, dev, world=4, nan=False, local_size=1, op=None):
+    """One exchange of ``eng`` among ``world`` workers on ``dev`` from
+    seeded inputs, with ``health`` (the checksum count), two tiers of
+    ``local_size`` and the combine ``op``: the outputs, memories and count
+    on the CPU. ``nan``: every gradient NaN (the ``nan@K`` drill)."""
+    import torch
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    mems = [eng.init_memory(dev) for _ in range(world)]
+    grads = [torch.randn(eng.layout.total,
+                         generator=torch.Generator().manual_seed(300 + w))
+             .to(dev) for w in range(world)]
+    if nan:
+        grads = [torch.full_like(g, float("nan")) for g in grads]
+    phases = [eng.draw_phases(torch.Generator().manual_seed(30 + w))
+              for w in range(world)]
+    comm, kw = LocalComm(world), {}
+    if local_size > 1:
+        kw["local_comm"], comm = comm.split(local_size)
+    if op is not None:
+        kw["op"] = op
+    health = {} if eng.checksum else None
+    if health is not None:
+        kw["health"] = health
+    outs = eng.exchange(grads, mems, phases, comm, **kw)
+    res = [t.cpu() for t in outs + [t for m in mems for t in m.values()]]
+    return res, (None if health is None
+                 else float(health["checksum_failures"]))
+
+
+def phase_guard_vs_cpu():
+    """ResNet-50's checksummed engine (``resnet50_wm5_resilience``), W=4, at
+    the epoch-4 (2-D) and epoch-5 (segment) ratios with each epoch's
+    engine fault drill armed: card == CPU bitwise, the mismatch counts
+    equal (returned by epoch: the resilient path's expected count a step).
+    Then all-NaN gradients (the ``nan@K`` step) through the compensate,
+    selection and apply kernels at full width: no fault, every payload
+    index in [0, T) or the sentinel. And the
+    costs the resilient step adds: the guard snapshot and the revert over
+    a ResNet-50 W=4 state, the checksum and the count of one worker."""
+    import torch
+    from dgc_tpu_torch.resilience import guard, integrity
+    counts, nan_idx = {}, {}
+    for epoch, spec in _ENGINE_FAULTS.items():
+        with _faults_armed(spec):
+            eng = _geometries("resnet50_wm5_resilience", (epoch,),
+                              checksum=True)[epoch][1]
+            if not eng.checksum or eng._faults is None:
+                raise AssertionError("resilient engine without its drill")
+            got, cg = _exchange_health(eng, DEVICE)
+            want, cw = _exchange_health(eng, "cpu")
+        _check_equal(f"resilient exchange (epoch {epoch}, {spec})", got,
+                     want)
+        if cg != cw or not cg >= 1:
+            raise AssertionError(f"epoch {epoch}: checksum count {cg} on the "
+                                 f"card, {cw} on the CPU")
+        counts[epoch] = cg
+        with _faults_armed(None):
+            eng = _geometries("resnet50_wm5_resilience", (epoch,),
+                              checksum=True)[epoch][1]
+            # what a NaN step selects is thrown away by the revert: the
+            # exchange must only run without a fault (the order the
+            # selections give NaNs is the kernels', not compared)
+            _exchange_health(eng, DEVICE, nan=True)
+            mem = eng.init_memory(DEVICE)
+            g = torch.full((eng.layout.total,), float("nan"), device=DEVICE)
+            _, idx = eng.compress(g, mem, eng.draw_phases(
+                torch.Generator().manual_seed(1)))
+            torch.cuda.synchronize()
+            S, T = eng.layout.sentinel, eng.T
+            bad = int(((idx < 0) | (idx >= T)).sum())
+            if bad:
+                raise AssertionError(f"NaN step: {bad} indices out of range")
+            nan_idx[epoch] = {"payload": int(idx.numel()),
+                              "on_sentinel": int((idx == S).sum())}
+    # the costs: a resilient W=4 state's snapshot and revert, and one
+    # worker's checksum and count at the epoch-5 payload
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.compression.flat import ParamLayout
+    from dgc_tpu_torch.models import from_config, stats_tree
+    eng = _geometries("resnet50_wm5_resilience", (5,), checksum=True)[5][1]
+    n_stats = ParamLayout(stats_tree(from_config(
+        configs.resnet50_wm5().model, torch.Generator()))).total
+    mems = [eng.init_memory(DEVICE) for _ in range(4)]
+    stats = [torch.zeros(n_stats, device=DEVICE) for _ in range(4)]
+    params = torch.zeros(eng.layout.total, device=DEVICE)
+    skip = torch.tensor(False, device=DEVICE)
+
+    def snap_and_select():
+        m0, s0 = guard.snapshot(mems), guard.snapshot(stats)
+        guard.tree_select(skip, params, params)
+        guard.tree_select(skip, m0, mems)
+        guard.tree_select(skip, s0, stats)
+    vals = torch.randn(eng.payload_size, device=DEVICE)
+    idx = torch.randint(0, eng.T, (eng.payload_size,), device=DEVICE,
+                        dtype=torch.int32)
+    seg = torch.as_tensor(eng._seg_ids, device=DEVICE)
+    chk = integrity.payload_checksum(vals, idx, seg, eng._num_seg)
+    gv, gi, gc = (torch.stack([x] * 4) for x in (vals, idx, chk))
+    times = {"snapshot_and_revert_ms": _device_ms(snap_and_select, reps=5),
+             "checksum_ms": _device_ms(lambda: integrity.payload_checksum(
+                 vals, idx, seg, eng._num_seg)),
+             "count_mismatches_ms": _device_ms(
+                 lambda: integrity.count_mismatches(gv, gi, gc, seg,
+                                                    eng._num_seg))}
+    state_bytes = sum(t.numel() * t.element_size() for m in mems
+                      for t in m.values()) + 4 * n_stats * 4
+    DETAIL["guard_vs_cpu"] = {"counts": counts, "nan_indices": nan_idx,
+                              "snapshot_bytes": state_bytes, **times}
+    print(f"[guard] resnet50 W=4 checksummed exchange, faults armed: card == "
+          f"CPU bitwise, mismatch counts {counts} (epoch: count); NaN "
+          f"gradients through the kernels: no fault, indices in range or "
+          f"on the sentinel {nan_idx}; snapshot + revert of "
+          f"{state_bytes / 1e6:.1f} MB {times['snapshot_and_revert_ms']:.3f}"
+          f" ms, checksum {times['checksum_ms']:.4f} ms and count "
+          f"{times['count_mismatches_ms']:.4f} ms a worker "
+          f"(payload {eng.payload_size})")
+    return counts
+
+
+def _state_snapshot(trainer):
+    """The resilient path's revertible state on the CPU (the optimizer's
+    count read after the pending verdict)."""
+    import torch
+    from dgc_tpu_torch.training.step import resolve_pending_skip
+    st = resolve_pending_skip(trainer.state)
+    out = [st.params, st.opt_state.momentum_buffer]
+    for mem, stats in zip(st.memory, st.batch_stats):
+        out += [mem[k] for k in sorted(mem)] + [stats]
+    return ([t.detach().to("cpu", copy=True) for t in out if t is not None]
+            + [torch.tensor([st.opt_state.count])])
+
+
+def phase_resilient_path(counts_cpu):
+    """The slice's main path, ``resnet50_wm5_resilience`` (the guards, the
+    checksum, the watchdog's and flight recorder's recipe) at full width,
+    224x224, batch 32 a worker, W=4 on the card: 1 step at epoch 4 and 3
+    at epoch 5, ``nan@2`` (the second epoch-5 step) with each epoch's
+    engine drill (``_ENGINE_FAULTS``). The skipped step's state bitwise
+    its pre-step state; the counters 1 skipped, 1 non-finite, and the
+    checksum's the CPU's counts (``counts_cpu``, by epoch) a step; every
+    epoch's launches and the collectives the unguarded ``resnet50_wm5``
+    path's (same schedule, no fault). Returns the path's counts."""
+    import torch
+    schedule = [(4, 1), (5, 3)]
+    must = ["topk_rows", "apply_rows", "opaque_view_from"]
+    rules = {4: (("compensate_bits",), ("compensate_bits_cands",)),
+             5: (("compensate_bits_cands",), ("compensate_bits",))}
+    plain_comm = _recording_comm(4)
+    with _faults_armed(None):
+        _, _ = phase_train_path("resnet50_unguarded", "resnet50_wm5",
+                                schedule, must, epoch_rules=rules,
+                                comm=plain_comm)
+    snaps, seen = [], []
+
+    def on_step(batch, metrics):
+        seen.append({"step": metrics["step"],
+                     "guards": {k: float(v)
+                                for k, v in metrics["guards"].items()}})
+        snaps.append(_state_snapshot(trainer))
+        del snaps[:-2]
+        if metrics["step"] == _NAN_STEP:
+            _check_same_state("resilient: the skipped step's state",
+                              snaps[-1], snaps[-2])
+
+    import os
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.train import Trainer
+    comm = _recording_comm(4)
+    label = "resnet50_resilience"
+    per_epoch, times = {}, {}
+    try:
+        for epoch, steps in schedule:
+            # the trainer reads nan@K once; each epoch's engine its drill
+            os.environ["DGC_FAULTS"] = (f"nan@{_NAN_STEP},"
+                                        + _ENGINE_FAULTS[epoch])
+            if epoch == schedule[0][0]:
+                trainer = Trainer(configs.resnet50_wm5_resilience(),
+                                  comm=comm, device=DEVICE)
+            t = []
+            torch.cuda.synchronize()
+            _zero_counts()
+            trainer.run_epoch(epoch, steps, t, on_step=on_step)
+            torch.cuda.synchronize()
+            per_epoch[epoch] = _read_counts(f"{label} epoch {epoch}",
+                                            rules[epoch][0])
+            times[epoch] = t
+    finally:
+        os.environ.pop("DGC_FAULTS", None)
+    want_launch = DETAIL["launches resnet50_unguarded by epoch"]
+    for epoch in per_epoch:
+        if per_epoch[epoch] != want_launch[epoch]:
+            raise AssertionError(f"{label} epoch {epoch}: launches "
+                                 f"{per_epoch[epoch]}, unguarded "
+                                 f"{want_launch[epoch]}")
+    if comm.calls != plain_comm.calls:
+        raise AssertionError(f"{label}: collectives {comm.calls}, unguarded "
+                             f"{plain_comm.calls}")
+    g = seen[-1]["guards"]
+    want_chk = sum(counts_cpu[e] * s for e, s in schedule)
+    if (g["skipped_steps"] != 1.0 or g["nonfinite_rate"] != 0.25
+            or g["checksum_failures"] != want_chk):
+        raise AssertionError(f"{label}: guard counters {g}, want 1 skipped, "
+                             f"rate 0.25, {want_chk} checksum failures")
+    if not bool(torch.isfinite(trainer.state.params).all()):
+        raise AssertionError(f"{label}: non-finite parameters")
+    counts = {k: sum(c[k] for c in per_epoch.values())
+              for k in per_epoch[4]}
+    DETAIL[f"launches {label} by epoch"] = per_epoch
+    DETAIL[label] = {"guards": seen, "collectives": comm.calls,
+                     "step_s": times,
+                     "unguarded_step_s": DETAIL["step_s resnet50_unguarded"]}
+    print(f"[{label}] W=4, epochs 4 (1 step) and 5 (3 steps), nan@"
+          f"{_NAN_STEP} + {_ENGINE_FAULTS}: the skipped step bitwise a "
+          f"no-op, guards {g}; launches by epoch equal the unguarded path's "
+          f"({per_epoch}); collectives {comm.calls} equal; step_s {times} "
+          f"(unguarded {DETAIL['step_s resnet50_unguarded']})")
+    return counts
+
+
+def _cli_run(args, cwd, env=None, timeout=900):
+    """``python -m <args>`` from ``cwd`` with this checkout on the path:
+    ``(exit code, stdout)``."""
+    import os
+    e = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    e.pop("DGC_FAULTS", None)
+    e.update(env or {})
+    out = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=e,
+                         capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout + out.stderr[-3000:]
+
+
+def _epoch_files(run, epoch):
+    import torch
+    d = Path(run) / "checkpoints" / f"e{epoch}"
+    return {f.name: torch.load(f, weights_only=True)
+            for f in sorted(d.glob("*.pt"))}
+
+
+def _uninterrupted(recipe, args, path):
+    """The CLI's run of ``args`` (``--epochs 1``, ``--steps``,
+    ``--synthetic-size``) on a ``Trainer`` at W=4, epoch 0 saved under
+    ``path`` as the CLI saves it: its losses."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    from dgc_tpu_torch.training.checkpoint import CheckpointManager
+    opts = dict(zip(args[::2], args[1::2]))
+    if opts.get("--epochs") != "1":
+        raise AssertionError(f"the drill runs one epoch, not {args}")
+    cfg = configs.RECIPES[recipe]()
+    if "--synthetic-size" in opts:
+        cfg.dataset.synthetic_size = int(opts["--synthetic-size"])
+    t = Trainer(cfg, comm=LocalComm(4), device=DEVICE)
+    losses = [float(x) for x in t.run_epoch(0, int(opts["--steps"]))]
+    torch.cuda.synchronize()
+    t.save_checkpoint(CheckpointManager(str(path / "checkpoints")), 0,
+                      {"acc/test_top1": 0.0})
+    return losses
+
+
+def phase_preempt_drill(recipe, label, args, kill):
+    """The preemption drill through the CLI, in subprocesses from a scratch
+    directory: the uninterrupted run (in this process,
+    :func:`_uninterrupted`), then ``DGC_FAULTS=kill@<kill>`` (exit
+    75, the emergency checkpoint of the epoch in progress with
+    ``preempt_batch``), then the same command again (the mid-epoch resume
+    at the next batch): its losses and the final checkpoint's every tensor
+    bitwise the uninterrupted run's. ``kill@K`` fires after the K-th step,
+    so the run stops before batch K (``preempt_batch`` K - 1)."""
+    import torch
+    stop_batch = kill - 1
+    flags = ["dgc_tpu_torch.train", "--config", recipe, "--world", "4",
+             *args]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the uninterrupted run in this process (the CLI's flags on a
+        # Trainer: a CLI run is bitwise one, phase_cli), saved as the CLI
+        # saves the epoch
+        t0 = time.perf_counter()
+        full_run = Path(tmp, "uninterrupted")
+        want = _uninterrupted(recipe, args, full_run)
+        t_full = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc, killed = _cli_run(flags, tmp, {"DGC_FAULTS": f"kill@{kill}"})
+        t_kill = time.perf_counter() - t0
+        want_line = f"stopping at epoch 0, batch {stop_batch}"
+        if rc != 75 or want_line not in killed:
+            raise AssertionError(f"{label}: kill@{kill} exited {rc}, want 75 "
+                                 f"and '{want_line}':\n{killed[-3000:]}")
+        save_s = float(re.search(r"emergency checkpoint -> \S+ \(([\d.]+) s\)",
+                                 killed).group(1))
+        t0 = time.perf_counter()
+        rc, resumed = _cli_run(flags, tmp)
+        t_resume = time.perf_counter() - t0
+        if rc or f"[resumed] mid-epoch 0 at batch {stop_batch + 1}" not in \
+                resumed:
+            raise AssertionError(f"{label}: resume exited {rc}:\n"
+                                 f"{resumed[-3000:]}")
+        (run,) = Path(tmp, "runs").iterdir()
+        a, b = _epoch_files(run, 0), _epoch_files(full_run, 0)
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: files {sorted(a)}, {sorted(b)}")
+        n = 0
+        for f in a:
+            if set(a[f]) != set(b[f]):
+                raise AssertionError(f"{label}: {f} keys differ")
+            for k in a[f]:
+                n += 1
+                if not torch.equal(a[f][k], b[f][k]):
+                    raise AssertionError(f"{label}: resumed {f}:{k} differs "
+                                         "from the uninterrupted run's")
+    got = [x for s in _summaries(killed) for x in s["loss"]] + [
+        x for s in _summaries(resumed) for x in s["loss"]]
+    if got != want:
+        raise AssertionError(f"{label}: killed + resumed losses {got}, "
+                             f"uninterrupted {want}")
+    DETAIL[f"preempt {label}"] = {
+        "losses": got, "tensors": n, "emergency_save_s": save_s,
+        "uninterrupted_s": t_full, "killed_s": t_kill, "resumed_s": t_resume}
+    print(f"[preempt {label}] kill@{kill} -> exit 75 (emergency save "
+          f"{save_s:.2f} s) -> resume at batch {stop_batch + 1}: losses "
+          f"{got} and {n} checkpoint tensors bitwise the uninterrupted run's "
+          f"(processes {t_full:.1f} / {t_kill:.1f} / {t_resume:.1f} s)")
+
+
+def _total_mass(trainer):
+    """Every worker's error-feedback mass, pending records folded, summed
+    in float64 on the card."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    T = trainer.setup.engine.T
+    mask = trainer.compression.memory.momentum_masking
+    total = torch.zeros((), dtype=torch.float64, device=DEVICE)
+    for mem in trainer.state.memory:
+        keep = K.keep_from_bits(mem["sent_bits"], T)
+        total += (mem["velocities_c"] * keep).double().sum()
+        total += (mem["momentums_c"] * (keep if mask else 1)).double().sum()
+        total += mem["momentums_d"].double().sum()
+        total += mem["velocities_d"].double().sum()
+    return float(total)
+
+
+def phase_elastic():
+    """The elastic restore at ResNet-50's geometry (``resnet50_wm5``, full
+    width, W=4 on the card, epoch 5): 4 workers train a step and save; 2
+    restore with ``elastic=True`` (a merge, ``num_batches_per_step`` 2
+    keeping the global batch), the total error-feedback mass conserved,
+    train a step and save; 4 restore that (a split) and 3 restore the
+    first (a collapse), each conserving the mass and training on. The
+    restores' seconds."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    from dgc_tpu_torch.training.checkpoint import CheckpointManager
+
+    def trainer(world, nbps=1):
+        cfg = configs.resnet50_wm5()
+        cfg.train.num_batches_per_step = nbps
+        return Trainer(cfg, comm=LocalComm(world), device=DEVICE)
+
+    def restore(t, ckpt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = t.restore_checkpoint(ckpt, elastic=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        c4, c2 = (CheckpointManager(str(Path(tmp) / n)) for n in ("a", "b"))
+        a = trainer(4)
+        a.run_epoch(5, 1)
+        a.save_checkpoint(c4, 5, {"acc/test_top1": 0.0})
+        mass4 = _total_mass(a)
+        del a
+        for label, (world, nbps, src, epoch) in (
+                ("4->2 merge", (2, 2, c4, 5)), ("2->4 split", (4, 1, c2, 6)),
+                ("4->3 collapse", (3, 1, c4, 5))):
+            t = trainer(world, nbps)
+            (ep, meters), secs = restore(t, src)
+            if ep != epoch or "_elastic" not in meters:
+                raise AssertionError(f"elastic {label}: restored {ep}, "
+                                     f"{meters}")
+            before = mass4 if src is c4 else res["4->2 merge"]["mass_after"]
+            mass = _total_mass(t)
+            if not math.isclose(mass, before, rel_tol=1e-6):
+                raise AssertionError(f"elastic {label}: mass {mass}, saved "
+                                     f"{before}")
+            losses = [float(x) for x in t.run_epoch(epoch + 1, 1)]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"elastic {label}: losses {losses}")
+            res[label] = {"restore_s": secs, "mass_before": before,
+                          "mass_restored": mass, "losses": losses,
+                          "mass_after": _total_mass(t)}
+            if label == "4->2 merge":
+                t.save_checkpoint(c2, 6, {"acc/test_top1": 0.0})
+            del t
+    DETAIL["elastic"] = res
+    print("[elastic] resnet50 W=4 epoch 5: " + "; ".join(
+        f"{k}: mass {v['mass_restored']:.9g} (saved {v['mass_before']:.9g}), "
+        f"restore {v['restore_s']:.2f} s, then loss {v['losses']}"
+        for k, v in res.items()))
+
+
+def phase_twotier_adasum_vs_cpu():
+    """The two-tier exchange (``LocalComm(4).split(2)``: 2 nodes x 2) card
+    == CPU bitwise at ResNet-20's epoch-0 and epoch-5 ratios and
+    ResNet-50's epoch 5; the Adasum exchange (``op="adasum"``) at W=4
+    (recursive doubling over ``Comm.swap``) and W=3 (the gathered
+    reduce) at ResNet-20's epochs 0 and 5 card == CPU within rtol 1e-5
+    (the dot products are reductions in another order; integer outputs
+    equal)."""
+    geoms = _geometries("resnet20_wm5", (0, 5))
+    for epoch, (_, eng) in geoms.items():
+        _check_equal(f"two-tier exchange resnet20 (epoch {epoch})",
+                     _exchange_health(eng, DEVICE, local_size=2)[0],
+                     _exchange_health(eng, "cpu", local_size=2)[0])
+    eng = _geometries("resnet50_wm5", (5,))[5][1]
+    _check_equal("two-tier exchange resnet50 (epoch 5)",
+                 _exchange_health(eng, DEVICE, local_size=2)[0],
+                 _exchange_health(eng, "cpu", local_size=2)[0])
+    worst = {}
+    for world in (4, 3):
+        for epoch, (_, eng) in geoms.items():
+            worst[f"W={world} epoch {epoch}"] = _check_close(
+                f"Adasum exchange W={world} (epoch {epoch})",
+                _exchange_health(eng, DEVICE, world=world, op="adasum")[0],
+                _exchange_health(eng, "cpu", world=world, op="adasum")[0],
+                rtol=1e-5, atol=1e-7)
+    DETAIL["adasum_vs_cpu_max_abs"] = worst
+    print("[twotier] 2 nodes x 2: card == CPU bitwise (resnet20 epochs 0 "
+          "and 5, resnet50 epoch 5); [adasum] W=4 and W=3 card == CPU "
+          f"within rtol 1e-5 (max abs {worst})")
+
+
 def phase_process_group():
     import torch
     import torch.distributed as dist
@@ -3612,6 +4144,28 @@ def phase_process_group():
     if not all(math.isfinite(x) for x in loss):
         raise AssertionError(f"ProcessGroupComm step loss {loss}")
     print(f"[pg] one NCCL rank, one step: loss {loss}")
+
+
+def _clock_phases():
+    """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
+    (by phase, summed over its calls): where the run's time goes."""
+    spent, depth = DETAIL.setdefault("phase_s", {}), [0]
+    for name, fn in list(globals().items()):
+        if not (name.startswith("phase_") and callable(fn)):
+            continue
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    spent[_name] = spent.get(_name, 0.0) + (
+                        time.perf_counter() - t0)
+        globals()[name] = functools.wraps(fn)(timed)
+    return spent
 
 
 def main(argv):
@@ -3632,6 +4186,7 @@ def main(argv):
         if flag in argv:
             globals()[name] = argv[argv.index(flag) + 1]
     t_start = time.perf_counter()
+    spent = _clock_phases()
     _share_datasets()
     phase_build()
     geoms = _geometries()
@@ -3666,7 +4221,7 @@ def main(argv):
     phase_engine_vs_cpu(geoms, "resnet20", steps=2, world=3)
     phase_engine_vs_cpu(geoms110, "resnet110", steps=1)
     phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
-    phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1)
+    phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1, epochs=(5,))
     phase_per_tensor_vs_cpu()
     phase_per_tensor_vs_cpu(world=3)
     phase_per_tensor_vs_flat("resnet20_wm5", "resnet20", steps=3)
@@ -3675,7 +4230,9 @@ def main(argv):
     phase_dense_vs_cpu(world=3)
     phase_nonresample_vs_cpu()
     phase_clip_vs_cpu()
-    phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1)
+    # VGG's epoch 0 (the 3-D fallback, its own); the segment path at full
+    # width is ResNet-50's epoch 5
+    phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1, epochs=(0,))
     del geoms_vgg
     wire_bytes = phase_wires_vs_cpu()
     phase_run_to_run()
@@ -3735,6 +4292,26 @@ def main(argv):
     phase_resume("resnet50_wm5_bf16mem_int8_packidx",
                  "resnet50_wm5_bf16mem_int8_packidx", [(4, 1), (5, 1)],
                  resume + ["compensate_bits_cands"])
+    # the resilience slice: guards, checksum, faults, preemption, elastic
+    # restarts, two tiers and Adasum
+    counts_cpu = phase_guard_vs_cpu()
+    by_path["resnet50_resilience"] = phase_resilient_path(counts_cpu)
+    phase_twotier_adasum_vs_cpu()
+    by_path["resnet50_twotier"] = phase_train_path(
+        "resnet50_twotier", "resnet50_wm5_twotier", [(4, 1), (5, 2)],
+        resume + ["compensate_bits", "compensate_bits_cands"],
+        train={"num_local_workers": 2})[1]
+    by_path["resnet20_adasum"] = phase_train_path(
+        "resnet20_adasum", "resnet20_wm5", [(5, 2)], exchange,
+        adasum=True)[1]
+    phase_train_path("resnet20_adasum_w3", "resnet20_wm5", [(5, 2)],
+                     exchange, adasum=True, world=3)
+    phase_elastic()
+    phase_preempt_drill("resnet20_wm5_resilience", "resnet20",
+                        ["--epochs", "1", "--steps", "4"], kill=2)
+    phase_preempt_drill("resnet50_wm5_resilience", "resnet50",
+                        ["--epochs", "1", "--steps", "2",
+                         "--synthetic-size", "256"], kill=1)
     phase_input_path(trace_inline="--profile" in argv)
     phase_crop_kernel()
     phase_process_group()
@@ -3743,11 +4320,17 @@ def main(argv):
         # the count of the one path that is each kernel's own
         e["launches_path"] = _OWN_PATH.get(name, "resnet50")
         e["launches"] = by_path[e["launches_path"]][name]
-        # and on the slice's path (the bf16 state)
-        e[f"launches_{slice_label}"] = by_path[slice_label][name]
+        # and on the slice's paths (PR 13's bf16 state; the resilient,
+        # two-tier and Adasum paths)
+        for path in (slice_label, "resnet50_resilience", "resnet50_twotier",
+                     "resnet20_adasum"):
+            e[f"launches_{path}"] = by_path[path][name]
     DETAIL["launches_by_path"] = by_path
     DETAIL["wire_bytes_per_worker"] = wire_bytes
     _write_detail()
+    print("[phases] " + ", ".join(
+        f"{k[6:]} {v:.1f}" for k, v in sorted(spent.items(),
+                                             key=lambda kv: -kv[1])[:15]))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

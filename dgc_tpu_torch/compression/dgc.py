@@ -22,8 +22,9 @@ both paths:
   it owns, the spans between them on the compensate kernel; also
   ``DGC_MEGAKERNEL=1``; f32 state only). The fused paths change no
   result, only the kernels that compute it. ``checksum`` (the payload
-  integrity checksum) is refused by the flat engine: ROADMAP.md queue 1
-  item 8.
+  integrity checksum, :mod:`~dgc_tpu_torch.resilience.integrity`) is the
+  flat engine's: the per-tensor exchange refuses it, as the reference
+  keeps it to the flat path.
 
 The strided sample's phase is drawn on the host (:meth:`DGCCompressor.
 draw_phases`) where the reference folds a PRNG key per tensor.
@@ -121,8 +122,8 @@ class DGCCompressor(Compressor):
         #: flat engine only: int32 wire indices (the reference's flag);
         #: False ships them as int64
         self.int32_indices = int32_indices
-        #: flat engine only: the payload checksum, which the port's engine
-        #: refuses (ROADMAP.md queue 1 item 8)
+        #: flat engine only: one int32 checksum word a sparse bucket over
+        #: the wire, counted into the guard metrics (``checksum_failures``)
         self.checksum = checksum
         self.base_compress_ratio = self.compress_ratio = (
             compress_ratio if compress_ratio <= 1.0 else 1.0 / compress_ratio)
@@ -402,6 +403,14 @@ class DGCCompressor(Compressor):
                 mem_states[i], ctx.name, g, accumulate=False, clipped=True)
             outs.append(out.reshape(ctx.shape))
         return outs, mem_states
+
+    def elastic_reshard_opts(self) -> Dict[str, bool]:
+        """Keyword arguments of ``resilience.elastic.reshard_workers`` that
+        depend on this compressor's memory: whether the deferred transmit
+        record also masks the momentum decides which buffers the pending
+        ``sent_bits`` fold zeroes before workers merge."""
+        return {"momentum_masking":
+                bool(getattr(self.memory, "momentum_masking", True))}
 
     def make_flat_exchange(self, layout, plan=None):
         """The flat-buffer engine over ``layout`` (``plan``: one regime per

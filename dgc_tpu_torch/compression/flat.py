@@ -114,9 +114,23 @@ The engine's threshold ladder is also kept as a full scan,
 ladder_counts`), the oracle the from-top-k derivation is held against; as
 in the reference, :meth:`FlatDGCEngine.sparsify` does not call it.
 
+:meth:`FlatDGCEngine.exchange` also takes the combine ``op``
+(``"average"``, ``"sum"`` or ``"adasum"``: compressed payloads divide by
+the world only under the average; Adasum combines the dense block
+pairwise), the two-tier exchange's local group (``local_comm``: each
+worker's gradient is first replaced by its node's mean, then the whole
+pipeline runs over ``comm``, the cross group) and ``health``, a dict that
+receives the payload checksum's mismatch count
+(``DGCCompressor(checksum=True)``, :mod:`~dgc_tpu_torch.resilience.
+integrity`: the sender's per-bucket words ride the index lane, every
+receiver recomputes them over the gathered payload). An armed
+``DGC_FAULTS`` plan (read once, when the engine is built) corrupts the
+gathered values (``bitflip``, after the gather) and indices (``badidx``,
+before the clamp), on copies.
+
 Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
-for one): gossip, the adaptive send fraction, checksums, Adasum, the
-two-tier exchange, telemetry and layouts of 2**31 slots or more.
+for one): gossip, the adaptive send fraction, telemetry and layouts of
+2**31 slots or more.
 """
 
 import math
@@ -130,11 +144,16 @@ from dgc_tpu_torch.compression.planner import refuse_gossip
 from dgc_tpu_torch.compression.wirecodec import (DeltaIndexCodec, IndexCodec,
                                                   pack_int4, unpack_int4)
 from dgc_tpu_torch.ops import kernels
+from dgc_tpu_torch.resilience import faults as _faults
+from dgc_tpu_torch.resilience import integrity
 from dgc_tpu_torch.utils.pytree import named_flatten
 
 __all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
            "ladder_cols", "lax_top_k", "select_topk", "lane_quota",
-           "lane_candidates", "ROUTES"]
+           "lane_candidates", "node_mean", "ROUTES", "OPS"]
+
+#: the exchange's combine semantics (the reference's allreduce ops)
+OPS = ("average", "sum", "adasum")
 
 #: exchange regime -> (value kind, index lane), the reference's regimes
 #: without its gossip ones: "d" buckets ride the dense all-reduce; the
@@ -180,6 +199,18 @@ _MK_MAX_COLS = 128 * 1024
 #: reset (on any device); the kernels' own launches are in
 #: ``kernels.LAUNCHES``
 ROUTES = {"lax_top_k": 0, "sel3d": 0}
+
+
+def node_mean(xs: Sequence[torch.Tensor], local_comm,
+              op: str = "average") -> List[torch.Tensor]:
+    """The two-tier exchange's first tier: each worker's tensor replaced by
+    its node's sum over ``local_comm``, divided by the node's size under
+    ``"average"`` and ``"adasum"`` (whose participant is the node mean),
+    in full precision."""
+    sums = local_comm.all_reduce(list(xs))
+    if op == "sum":
+        return sums
+    return [kernels.divide_exact(x, local_comm.world) for x in sums]
 
 
 def _round_up(n: int, align: int) -> int:
@@ -631,10 +662,8 @@ class FlatDGCEngine:
         self.c = compressor
         self.layout = layout
         self.T = layout.t_compressed
-        if getattr(compressor, "checksum", False):
-            raise ValueError(
-                "checksum=True (the payload integrity checksum) is not "
-                "ported: ROADMAP.md queue 1 item 8")
+        #: the armed fault plan, read once (None: ``DGC_FAULTS`` unset)
+        self._faults = _faults.active_plan()
         mdt = compressor.memory.dtype
         if mdt not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"the flat engine keeps f32 or bf16 error-"
@@ -700,6 +729,30 @@ class FlatDGCEngine:
         self._seg_fused = any(self._seg[i] for i in self._sparse_ids)
         #: the forward megakernel's opt-in, read where the reference reads
         #: it: the compressor's flag or ``DGC_MEGAKERNEL=1``
+        #: the payload checksum (resilience.integrity): one int32 word a
+        #: sparse bucket over the exact wire words, on the index lane;
+        #: verified where the caller passes ``health`` to :meth:`exchange`
+        self.checksum = (bool(getattr(compressor, "checksum", False))
+                         and self.payload_size > 0)
+        if self.checksum and self._row_map is not None:
+            raise ValueError(
+                "checksum=True is not supported with int8_values — the "
+                "per-row f32 scale wire would ride uncovered; use the "
+                "fp16/f32 value wire")
+        if self.checksum and self._i4_buckets:
+            raise ValueError(
+                "checksum=True is not supported with the int4_packed "
+                "wire — the per-bucket f32 scale wire would ride "
+                "uncovered; use the fp16/f32 value wire")
+        if self.checksum and len(set(regimes) - {"dense"}) > 1:
+            raise ValueError(
+                "checksum=True needs one wire format across the sparse "
+                f"buckets; the plan mixes {sorted(set(regimes) - {'dense'})}"
+                " — plan with candidates=('dense', <one regime>) or disable "
+                "the checksum")
+        self._num_seg = len(sparse)
+        self._seg_ids = (integrity.bucket_segments(sparse) if self.checksum
+                         else None)
         self._megakernel = bool(
             getattr(compressor, "megakernel", False)
             or os.environ.get("DGC_MEGAKERNEL", "") == "1")
@@ -1424,7 +1477,8 @@ class FlatDGCEngine:
                   "clamp_lo": None if so is None else t(so).to(
                       self.index_dtype),
                   "clamp_hi": None if so is None else t(so + sn).to(
-                      self.index_dtype)}
+                      self.index_dtype),
+                  "seg_ids": t(self._seg_ids)}
             self._wire_dev[device] = wc
         return wc
 
@@ -1464,7 +1518,8 @@ class FlatDGCEngine:
             indices[s0:s1] = seg[order]
         return values, indices
 
-    def encode(self, values: torch.Tensor, indices: torch.Tensor, mem):
+    def encode(self, values: torch.Tensor, indices: torch.Tensor, mem,
+               checksum: bool = False):
         """One worker's payload onto the wire lanes. Returns ``(lanes,
         flags)``: ``lanes`` maps a lane name to its tensor — ``"q"`` int8
         bytes (the int8 payload, then the int4 nibbles), ``"f32"`` (the
@@ -1477,7 +1532,10 @@ class FlatDGCEngine:
         error feedback. Under int8 error feedback ``mem`` takes the
         rounding residual: the velocity keeps ``v - q * scale`` at the int8
         slots and, under momentum masking, the momentum is zeroed there
-        now instead of on the next read."""
+        now instead of on the next read. With ``checksum`` the sparse
+        buckets' checksum words (over the value lane as shipped and the
+        indices as the receiver decodes them) follow the codec words on
+        ``"words"``, or the offsets on ``"idx"``."""
         if self._delta_sort:
             values, indices = self._sort_delta_payload(values, indices)
         wc = self._wire_consts(values.device)
@@ -1531,10 +1589,21 @@ class FlatDGCEngine:
         if q_parts:
             lanes["q"] = q_parts[0] if len(q_parts) == 1 else torch.cat(
                 q_parts)
+        chk = None
+        if checksum:
+            # the constructor keeps the plan uniform and off int8 / int4:
+            # one value lane carries the whole payload
+            wire = lanes["f16"] if "f16" in lanes else lanes["f32"]
+            canon = (self._codec.canonical(indices)
+                     if self._codec is not None else indices)
+            chk = integrity.payload_checksum(wire, canon, wc["seg_ids"],
+                                             self._num_seg)
         words = []
         if self._codec is not None:
             words.append(self._codec.encode(
                 self._packed_chunks(indices, True)))
+            if chk is not None:
+                words.append(chk)
         if self._dcodec is not None:
             words.append(self._dcodec.encode(
                 self._packed_chunks(indices, "delta")))
@@ -1543,6 +1612,9 @@ class FlatDGCEngine:
                 words)
         if self._plain_payload:
             lanes["idx"] = self._packed_chunks(indices, False)
+            if chk is not None and self._codec is None:
+                lanes["idx"] = torch.cat([lanes["idx"],
+                                          chk.to(self.index_dtype)])
         return lanes, flags
 
     def _decode_i4(self, g_q4: torch.Tensor, g_scale4: torch.Tensor,
@@ -1556,12 +1628,17 @@ class FlatDGCEngine:
         wc = self._wire_consts(g_q4.device)
         return q.to(dt) * scale[:, wc["i4_map"]]
 
-    def decode(self, g, dt=torch.float32):
+    def decode(self, g, dt=torch.float32, checksum: bool = False,
+               health: Optional[Dict] = None):
         """The gathered lanes (``{lane: [W, ...]}``) -> ``(values [W,
         payload] dt, indices [W, payload] index dtype)``: values dequantized
         and stitched back into payload order, indices decoded and stitched,
         then clamped — plain slots to ``[0, T)``, codec slots to their
-        static rows — with anything outside routed to the sentinel."""
+        static rows — with anything outside routed to the sentinel. An
+        armed fault plan corrupts copies of the values (at wire precision)
+        and of the indices before the clamp; with ``checksum`` the lanes
+        carry the senders' words, recomputed here, and ``health``
+        receives the mismatch count (``"checksum_failures"``, f32)."""
         kinds = set(self._kinds)
         wc = self._wire_consts(next(iter(g.values())).device)
         if kinds == {"f16"}:
@@ -1589,19 +1666,30 @@ class FlatDGCEngine:
                             for kk, lo, hi in self._val_chunks], dim=1)
         srcs = {}
         nc = self._codec.nwords if self._codec is not None else 0
+        g_chk = None
         if self._codec is not None:
             srcs[True] = self._codec.decode(g["words"][:, :nc],
                                             self.index_dtype)
+            if checksum:
+                g_chk = g["words"][:, nc:nc + self._num_seg]
         if self._dcodec is not None:
             srcs["delta"] = self._dcodec.decode(
                 g["words"][:, nc:nc + self._dcodec.nwords], self.index_dtype)
         if self._plain_payload:
-            srcs[False] = g["idx"]
+            srcs[False] = g["idx"][:, :self._plain_payload]
+            if checksum and self._codec is None:
+                g_chk = g["idx"][:, self._plain_payload:]
         if len(srcs) == 1:
             gi = next(iter(srcs.values()))
         else:
             gi = torch.cat([srcs[p][:, lo:hi]
                             for p, lo, hi in self._idx_chunks], dim=1)
+        if self._faults is not None:
+            gv = _faults.corrupt_wire(self._faults, gv)
+            gi = _faults.corrupt_indices(self._faults, gi)
+        if checksum and health is not None:
+            health["checksum_failures"] = integrity.count_mismatches(
+                gv, gi, g_chk, wc["seg_ids"], self._num_seg)
         if wc["clamp_lo"] is None:
             ok = (gi >= 0) & (gi < self.T)
         else:
@@ -1612,7 +1700,7 @@ class FlatDGCEngine:
               dense_avg: torch.Tensor, mem, rank: int, world: int,
               own_flags: Optional[torch.Tensor] = None,
               slabs: Sequence[Tuple[int, torch.Tensor]] = (),
-              prev=None) -> torch.Tensor:
+              prev=None, op: str = "average") -> torch.Tensor:
         """One worker's receive side, from the gathered [W, payload] values
         and indices (decoded, f32; indices in range or on the sentinel),
         the averaged (and clipped) dense tail and the dense-planned
@@ -1621,7 +1709,9 @@ class FlatDGCEngine:
         record (:meth:`encode`; by default its non-sentinel gathered
         slots). Replaces ``mem``'s transmit record and dense momentum; a
         dense-planned slab gets the dense path's semantics from ``prev``
-        (:meth:`_slab_state`, the state before this step's compensate)."""
+        (:meth:`_slab_state`, the state before this step's compensate).
+        The payload is divided by ``world`` only under ``op="average"``
+        (the reference's decompress: any other op sums)."""
         T, S = self.T, self.layout.sentinel
         g_indices = torch.where((g_indices >= 0) & (g_indices < T),
                                 g_indices, S)
@@ -1634,7 +1724,8 @@ class FlatDGCEngine:
         # refuses larger buffers)
         acc, mem["sent_bits"] = kernels.apply_rows(
             g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
-            flags.reshape(-1), T, divisor=float(world))
+            flags.reshape(-1), T,
+            divisor=float(world) if op == "average" else None)
         if slabs:
             mc_prev, vc_prev, bits_prev = prev
             keep = kernels.keep_from_bits(bits_prev, T)
@@ -1665,22 +1756,29 @@ class FlatDGCEngine:
                 [mem["velocities_c"][lo:hi].clone() for lo, hi in regions],
                 mem["sent_bits"])
 
-    def _dense_combine(self, blocks: Sequence[torch.Tensor],
-                       comm) -> List[torch.Tensor]:
+    def _dense_combine(self, blocks: Sequence[torch.Tensor], comm,
+                       op: str = "average") -> List[torch.Tensor]:
         """The dense collective: each local worker's average of
         ``blocks`` over every worker, summed on the fp16 wire under
-        ``fp16_values``, divided in the blocks' dtype (an IEEE divide)."""
+        ``fp16_values``, divided in the blocks' dtype (an IEEE divide);
+        the sum under ``"sum"``; the pairwise Adasum under ``"adasum"``
+        (full precision: an fp16 wire would overflow its dot products)."""
+        if op == "adasum":
+            from dgc_tpu_torch.optim.adasum import adasum_allreduce
+            return adasum_allreduce(list(blocks), comm)
         dt = blocks[0].dtype
         fp16 = getattr(self.c, "fp16_values", False)
         sums = comm.all_reduce([b.to(torch.float16) if fp16 else b
                                 for b in blocks])
+        if op == "sum":
+            return [x.to(dt) for x in sums]
         return [kernels.divide_exact(x.to(dt), comm.world) for x in sums]
 
     def _clipping(self) -> bool:
         return self.c.memory.gradient_clipping is not None
 
     def _exchange_dense(self, flat_grads: Sequence[torch.Tensor], mems,
-                        comm) -> List[torch.Tensor]:
+                        comm, op: str = "average") -> List[torch.Tensor]:
         """The all-dense exchange (ratio >= 1, nothing compressed, or an
         all-dense plan): the average of the whole flat gradient, clipped,
         then the non-accumulating correction of all of it. A transmit
@@ -1690,7 +1788,7 @@ class FlatDGCEngine:
         next compressed step reads the dense steps' momentum and an empty
         record."""
         T = self.T
-        avgs = self._dense_combine(list(flat_grads), comm)
+        avgs = self._dense_combine(list(flat_grads), comm, op)
         if self._clipping():
             avgs = self._clip_block(avgs, self.layout.names, 0)
         outs = []
@@ -1711,18 +1809,26 @@ class FlatDGCEngine:
         return outs
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
-                 phases, comm) -> List[torch.Tensor]:
+                 phases, comm, op: str = "average", local_comm=None,
+                 health: Optional[Dict] = None) -> List[torch.Tensor]:
         """compress -> encode -> all_gather (one a lane) -> decode -> apply
         for this process's workers (``comm.ranks``), plus one all-reduce of
         the dense-planned slabs and the dense tail; all dense,
         :meth:`_exchange_dense`. Under the memory's ``gradient_clipping``
         every worker's local compressed block is clipped before the
         compensate, and the averaged dense slabs and tail before their
-        correction. Returns each worker's averaged flat gradient; the
-        memories update in place."""
+        correction. ``op``: the combine (:data:`OPS`); ``local_comm``: the
+        two-tier exchange's node group (``comm`` is then the cross group);
+        ``health``: receives the checksum's mismatch count. Returns each
+        worker's combined flat gradient; the memories update in place."""
+        if op not in OPS:
+            raise ValueError(f"op must be one of {OPS}, got {op!r}")
+        if local_comm is not None and local_comm.world > 1:
+            flat_grads = node_mean(flat_grads, local_comm, op)
         if self.dense:
-            return self._exchange_dense(flat_grads, mems, comm)
+            return self._exchange_dense(flat_grads, mems, comm, op)
         T, world = self.T, comm.world
+        chk = self.checksum and health is not None
         blocks = [g[:T] for g in flat_grads]
         if self._clipping():
             blocks = self._clip_block(blocks, self.layout.compressed_names,
@@ -1731,7 +1837,9 @@ class FlatDGCEngine:
                 else [None] * len(mems))
         sent = [self.compress(g, m, ph)
                 for g, m, ph in zip(blocks, mems, phases)]
-        wires = [self.encode(v, i, m) for (v, i), m in zip(sent, mems)]
+        wires = [self.encode(v, i, m, checksum=chk)
+                 for (v, i), m in zip(sent, mems)]
+        local_idx = [i for _, i in sent]
         del sent
         gathered = {k: comm.all_gather([lanes[k] for lanes, _ in wires])
                     for k in wires[0][0]}
@@ -1743,7 +1851,7 @@ class FlatDGCEngine:
                    for bi in self._dense_ids]
         dwire = [torch.cat([g[lo:hi] for _, lo, hi in regions] + [g[T:]])
                  if regions else g[T:] for g in flat_grads]
-        davgs = (self._dense_combine(dwire, comm) if dwire[0].numel()
+        davgs = (self._dense_combine(dwire, comm, op) if dwire[0].numel()
                  else dwire)
         slabs, off = [[] for _ in mems], 0
         for bi, lo, hi in regions:
@@ -1759,10 +1867,21 @@ class FlatDGCEngine:
             tails = self._clip_block(tails, self.layout.dense_names, T)
         outs = []
         for li, (mem, r) in enumerate(zip(mems, comm.ranks)):
-            gv, gi = self.decode({k: v[li] for k, v in gathered.items()})
+            # every receiver counts the same mismatches; the first's stand
+            gv, gi = self.decode({k: v[li] for k, v in gathered.items()},
+                                 checksum=chk,
+                                 health=health if li == 0 else {})
             outs.append(self.apply(gv, gi, tails[li], mem, r, world,
                                    own_flags=wires[li][1], slabs=slabs[li],
-                                   prev=prev[li]))
+                                   prev=prev[li], op=op))
+            if self._faults is not None and self._faults.badidx is not None:
+                # the record is what this worker sent, not what a corrupted
+                # wire delivered back to it (the reference packs the local
+                # indices): rebuilt only under the fault drill
+                S = self.layout.sentinel
+                mem["sent_bits"] = kernels.pack_sent_bits(
+                    torch.where(wires[li][1], local_idx[li], S), T,
+                    sentinel=S)
         return outs
 
 
@@ -1785,11 +1904,24 @@ class FlatDenseExchange:
         return None
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
-                 phases, comm) -> List[torch.Tensor]:
+                 phases, comm, op: str = "average", local_comm=None,
+                 health: Optional[Dict] = None) -> List[torch.Tensor]:
         """Each local worker's averaged flat gradient: the compressor's
         own compress (to the wire) and decompress (the average) around
-        the all-reduce (``mems`` and ``phases`` are unused)."""
+        the all-reduce (``mems`` and ``phases`` are unused; the dense
+        all-reduce has no payload to checksum, so ``health`` is too).
+        Two tiers: the node mean first, in full precision (the fp16 wire
+        casts only for the cross group, after the divide). ``"sum"``
+        skips the divide; ``"adasum"`` combines pairwise."""
+        if op not in OPS:
+            raise ValueError(f"op must be one of {OPS}, got {op!r}")
+        if local_comm is not None and local_comm.world > 1:
+            flat_grads = node_mean(flat_grads, local_comm, op)
+        if op == "adasum":
+            from dgc_tpu_torch.optim.adasum import adasum_allreduce
+            return adasum_allreduce(list(flat_grads), comm)
         sent = [self.c.compress(None, None, g, None)[:2] for g in flat_grads]
         totals = comm.all_reduce([wire for wire, _ in sent])
-        return [self.c.decompress(t, ctx, None, comm.world)[0]
+        world = comm.world if op == "average" else 1
+        return [self.c.decompress(t, ctx, None, world)[0]
                 for t, (_, ctx) in zip(totals, sent)]

@@ -11,8 +11,7 @@ in one batched call (:meth:`DGCSGDMemory.compensate_all`).
 
 The flat engine (:mod:`dgc_tpu_torch.compression.flat`) keeps its own flat
 buffers and reads only ``momentum``, ``nesterov``, ``momentum_masking``
-and ``gradient_clipping`` from here; it takes f32 state only and raises
-on ``dtype=bfloat16``.
+and ``gradient_clipping`` from here (and ``dtype``: f32 or bf16 state).
 
 ``gradient_clipping`` (:mod:`dgc_tpu_torch.utils.clip_grad`) is called
 with one tensor per local worker (:meth:`DGCSGDMemory.clip`), so its
@@ -29,7 +28,15 @@ import torch
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.ops.sparsify import transmitted_mask
 
-__all__ = ["Memory", "DGCSGDMemory"]
+__all__ = ["Memory", "DGCSGDMemory", "ELASTIC_ADDITIVE_PREFIXES"]
+
+#: how an elastic restart (``resilience.elastic``) reshards a memory key
+#: across a world-size change: a key whose name starts with one of these
+#: is additive error-feedback mass (the gradient a worker has not yet
+#: sent), so merging workers sums it; any other key but the flat engine's
+#: transmit record ``sent_bits`` is refused. (The reference also lists
+#: ``gossip_inbox``, which joins with the gossip exchange.)
+ELASTIC_ADDITIVE_PREFIXES = ("momentums", "velocities")
 
 
 class Memory:

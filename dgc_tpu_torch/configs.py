@@ -35,7 +35,17 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
 * :func:`resnet20_wm5_autotune` — ``configs/autotune.py`` stacked on
   :func:`resnet20_wm5`: the ``train.autotune`` block (``enabled``,
   ``min_points``), which the CLI's ``--autotune`` also sets
-  (:func:`with_autotune`).
+  (:func:`with_autotune`);
+* :func:`resnet50_wm5_resilience` and :func:`resnet20_wm5_resilience` —
+  ``configs/resilience.py`` stacked on the wm5 recipes, with its
+  ``checksum`` on (the JAX harness's ``--train.resilience.checksum
+  True``): the ``train.resilience`` block (the guards, the payload
+  checksum, the watchdog, the emergency checkpoint, the flight recorder,
+  the non-finite streak; the cohort-surgery keys are not ported);
+* :func:`resnet50_wm5_twotier` and :func:`resnet20_wm5_twotier` —
+  ``configs/dgc/twotier.py`` stacked on the wm5 recipes:
+  ``train.num_local_workers`` (8, which must divide the world; smaller
+  runs set their own).
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -54,7 +64,9 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet20_wm5_fp16", "resnet20_wm5_int8",
            "resnet20_wm5_int8_packidx", "resnet50_wm5_bf16mem",
            "resnet50_wm5_bf16mem_int8_packidx", "resnet20_wm5_autotune",
-           "with_autotune", "RECIPES", "CONFIG_FILES"]
+           "resnet50_wm5_resilience", "resnet20_wm5_resilience",
+           "resnet50_wm5_twotier", "resnet20_wm5_twotier",
+           "with_autotune", "with_resilience", "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -302,6 +314,42 @@ def resnet20_wm5_autotune() -> Config:
     return with_autotune(resnet20_wm5())
 
 
+def with_resilience(cfg: Config, checksum: bool = True) -> Config:
+    """``configs/resilience.py`` stacked on ``cfg`` (its ``checksum`` as
+    given: the file's default is off)."""
+    cfg.train.resilience = Config(
+        enabled=True, nonfinite_guard=True, spike_window=0,
+        spike_factor=10.0, checksum=checksum, watchdog_secs=300,
+        emergency_checkpoint=True, flight_steps=256, nonfinite_streak=3)
+    return cfg
+
+
+def resnet50_wm5_resilience() -> Config:
+    """:func:`resnet50_wm5` with the resilience layer and the checksum."""
+    return with_resilience(resnet50_wm5())
+
+
+def resnet20_wm5_resilience() -> Config:
+    """:func:`resnet20_wm5` with the resilience layer and the checksum."""
+    return with_resilience(resnet20_wm5())
+
+
+def _twotier(cfg: Config) -> Config:
+    """``configs/dgc/twotier.py``: eight workers a node."""
+    cfg.train.num_local_workers = 8
+    return cfg
+
+
+def resnet50_wm5_twotier() -> Config:
+    """:func:`resnet50_wm5` over the two-tier exchange."""
+    return _twotier(resnet50_wm5())
+
+
+def resnet20_wm5_twotier() -> Config:
+    """:func:`resnet20_wm5` over the two-tier exchange."""
+    return _twotier(resnet20_wm5())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
@@ -310,7 +358,8 @@ RECIPES = {f.__name__: f for f in (
     resnet50_wm5_megakernel, vgg16_bn_wm5, vgg16_bn_wm5_bf16,
     resnet20_wm5_fp16, resnet20_wm5_int8, resnet20_wm5_int8_packidx,
     resnet50_wm5_bf16mem, resnet50_wm5_bf16mem_int8_packidx,
-    resnet20_wm5_autotune)}
+    resnet20_wm5_autotune, resnet50_wm5_resilience, resnet20_wm5_resilience,
+    resnet50_wm5_twotier, resnet20_wm5_twotier)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
@@ -318,6 +367,7 @@ _VGG = "configs/imagenet/vgg16_bn.py"
 _WM5, _MK = "configs/dgc/wm5.py", "configs/dgc/megakernel.py"
 _I8, _PK = "configs/dgc/int8.py", "configs/dgc/packidx.py"
 _BF16MEM = "configs/dgc/bf16mem.py"
+_RES, _TT = "configs/resilience.py", "configs/dgc/twotier.py"
 
 #: each recipe's config files, in the JAX harness's ``--configs`` order
 CONFIG_FILES = {
@@ -342,4 +392,8 @@ CONFIG_FILES = {
     "resnet50_wm5_bf16mem": (_R50, _WM5, _BF16MEM),
     "resnet50_wm5_bf16mem_int8_packidx": (_R50, _WM5, _BF16MEM, _I8, _PK),
     "resnet20_wm5_autotune": (_R20, _WM5, "configs/autotune.py"),
+    "resnet50_wm5_resilience": (_R50, _WM5, _RES),
+    "resnet20_wm5_resilience": (_R20, _WM5, _RES),
+    "resnet50_wm5_twotier": (_R50, _WM5, _TT),
+    "resnet20_wm5_twotier": (_R20, _WM5, _TT),
 }

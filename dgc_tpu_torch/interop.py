@@ -23,7 +23,10 @@ buffer, or none) carries across with :func:`carry_opt_state`, and a whole
 flat train state (e.g. one the JAX ``CheckpointManager`` restored: the
 flat parameters and optimizer state, and the memory and BatchNorm
 statistics with their leading ``[world]`` axis) with
-:func:`carry_train_state`.
+:func:`carry_train_state`, which also carries the step guards' state
+(:func:`carry_guard_state`) and, under the Adasum scheme, the optimizer
+state per worker (:func:`carry_per_worker_opt_state`, from its leading
+``[world]`` axis).
 """
 
 from typing import Dict, Tuple
@@ -37,7 +40,8 @@ from dgc_tpu_torch.training.state import TrainState
 from dgc_tpu_torch.utils.pytree import named_flatten, nest
 
 __all__ = ["carry_variables", "export_variables", "carry_memory",
-           "export_memory", "carry_opt_state", "carry_train_state"]
+           "export_memory", "carry_opt_state", "carry_train_state",
+           "carry_guard_state", "carry_per_worker_opt_state"]
 
 _MEMORY_KEYS = ("momentums", "velocities")
 
@@ -109,18 +113,43 @@ def carry_opt_state(state, device=None) -> SGDState:
     return SGDState(int(state.count), buf)
 
 
-def carry_train_state(state, device=None) -> TrainState:
+def carry_guard_state(gstate, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's guard state (``resilience.guard.init_state``'s
+    keys, numpy arrays) -> the port's: the same keys and dtypes."""
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in gstate.items()}
+
+
+def carry_per_worker_opt_state(state, device=None) -> list:
+    """The Adasum scheme's per-worker ``SGDState`` (each field with a
+    leading ``[world]`` axis) -> one port ``SGDState`` a worker."""
+    counts = np.asarray(state.count).reshape(-1)
+    buf = state.momentum_buffer
+    return [SGDState(int(c), None if buf is None else torch.from_numpy(
+        np.array(np.asarray(buf)[w], np.float32)).to(device))
+        for w, c in enumerate(counts)]
+
+
+def carry_train_state(state, device=None,
+                      per_worker_opt: bool = False) -> TrainState:
     """The JAX package's flat ``TrainState`` (numpy arrays, e.g. from
     ``jax.device_get``: ``params`` and ``batch_stats`` the flat buffers,
-    the memory a dict of ``[world, ...]`` arrays) -> the port's, one
-    memory dict and statistics buffer per worker, bit for bit."""
+    the memory a dict of ``[world, ...]`` arrays, the guards' state where
+    it has one; ``per_worker_opt``: the optimizer state has a leading
+    ``[world]`` axis, the Adasum scheme) -> the port's, one memory dict
+    and statistics buffer (and optimizer state) per worker, bit for
+    bit."""
     def tensor(a):
         return torch.from_numpy(np.array(a)).to(device)
     stats = np.asarray(state.batch_stats)
     mem = {k: np.asarray(v) for k, v in state.memory.items()}
+    guards = getattr(state, "guards", None)
     return TrainState(
         step=int(state.step), params=tensor(state.params),
-        opt_state=carry_opt_state(state.opt_state, device),
+        opt_state=(carry_per_worker_opt_state(state.opt_state, device)
+                   if per_worker_opt
+                   else carry_opt_state(state.opt_state, device)),
         memory=[{k: tensor(v[w]) for k, v in mem.items()}
                 for w in range(stats.shape[0])],
-        batch_stats=[tensor(s) for s in stats])
+        batch_stats=[tensor(s) for s in stats],
+        guards=None if guards is None else carry_guard_state(guards, device))

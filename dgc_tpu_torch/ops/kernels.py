@@ -803,17 +803,23 @@ def seg_cols_local(blks: torch.Tensor) -> torch.Tensor:
 def _top2_plain(x: torch.Tensor):
     """Plain cell function over [S, 256, 128] segments: ``(values
     [S, 2, 128] f32, blocks [S, 2, 128] int32)``; the value read back at
-    the block plus 0.0 (the kernels' masked sum), so -0.0 reads +0.0."""
-    a = x.abs()
+    the block plus 0.0 (the kernels' masked sum), so -0.0 reads +0.0. A
+    NaN never wins, as in the kernel's running top-2 (a NaN step's
+    candidates are thrown away by the guards' revert, but must stay in
+    range): a lane slot with no number left gives block 0 and 0.0."""
+    a = torch.where(torch.isnan(x), -1.0, x.abs())
     blk = torch.arange(SEG_BLOCKS, dtype=torch.int32,
                        device=x.device).view(1, SEG_BLOCKS, 1)
-    b1 = torch.where(a >= a.amax(1, keepdim=True), blk,
-                     SEG_BLOCKS).amin(1, keepdim=True)
+    m1 = a.amax(1, keepdim=True)
+    b1 = torch.where(a >= m1, blk, SEG_BLOCKS).amin(1, keepdim=True)
     a_2 = torch.where(blk == b1, -1.0, a)
-    b2 = torch.where(a_2 >= a_2.amax(1, keepdim=True), blk,
-                     SEG_BLOCKS).amin(1, keepdim=True)
+    m2 = a_2.amax(1, keepdim=True)
+    b2 = torch.where(a_2 >= m2, blk, SEG_BLOCKS).amin(1, keepdim=True)
+    b2 = torch.where(m2 < 0, 0, b2)
     blocks = torch.cat([b1, b2], 1)
-    return x.gather(1, blocks.long()) + 0.0, blocks
+    vals = torch.where(torch.cat([m1, m2], 1) < 0, 0.0,
+                       x.gather(1, blocks.long()))
+    return vals + 0.0, blocks
 
 
 def seg_top2_candidates_plain(flat: torch.Tensor, base: int, rows: int,

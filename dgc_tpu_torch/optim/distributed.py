@@ -15,14 +15,26 @@ serves this process's workers (``comm.ranks``) in one call:
 Either way the wrapped optimizer steps the (replicated) flat parameters:
 the per-tensor path flattens the exchanged gradient into the parameters'
 layout first (``dgc_sgd`` is elementwise, so per tensor and flat give the
-same numbers). The two-tier exchange (``local_axis_name``) is not ported.
+same numbers).
+
+**Two tiers** (``local_size > 1``; the reference also names the local
+mesh axis, the port's groups come from the ``Comm``; the "#Sparsified
+Nodes < #GPUs" regime, ``configs/dgc/twotier.py``): ``comm`` splits into
+a local group (the ``local_size`` ranks of one node, NVLink on a real
+machine) and a cross group (the ranks with the same local index on every node;
+:meth:`Comm.split`). Each worker's gradient is first averaged densely over
+its node (full precision), then the DGC exchange runs on the node
+gradient over the cross group among ``num_nodes`` participants. A node's
+workers hold the same node gradient, draw the same sampling phases (the
+trainer seeds their generators by the node's index) and so keep the same
+memory: the memory is per node.
 """
 
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from dgc_tpu_torch.compression.flat import ParamLayout
+from dgc_tpu_torch.compression.flat import ParamLayout, node_mean
 from dgc_tpu_torch.parallel.comm import Comm
 from dgc_tpu_torch.utils.pytree import named_flatten
 
@@ -30,16 +42,34 @@ __all__ = ["DistributedOptimizer"]
 
 
 class DistributedOptimizer:
+    #: True when the wrapped optimizer steps on local gradients and its
+    #: state is per worker (the Adasum scheme)
+    per_worker_opt_state = False
+
+    _PER_TENSOR_CHECKSUM = (
+        "the payload checksum (DGCCompressor(checksum=True)) covers the flat "
+        "engine's bucket payload only, as in the JAX package: the "
+        "per-tensor exchange refuses it")
+
     def __init__(self, optimizer, compressor, comm: Comm,
-                 fuse_payloads: bool = True,
-                 local_axis_name: Optional[str] = None):
-        if local_axis_name is not None:
-            raise ValueError("the two-tier exchange (local_axis_name) is not "
-                             "ported (ROADMAP.md queue 1 item 7)")
+                 fuse_payloads: bool = True, local_size: int = 1):
+        if local_size < 1:
+            raise ValueError(f"local_size must be >= 1, got {local_size}")
+        if comm.world % local_size:
+            raise ValueError(f"local_size {local_size} must divide the "
+                             f"world {comm.world}")
         self.optimizer = optimizer
         self.compressor = compressor
         self.comm = comm
         self.fuse_payloads = fuse_payloads
+        #: workers a node (1: flat data parallelism)
+        self.local_size = int(local_size)
+        #: sparse-exchange participants (nodes under two tiers)
+        self.num_nodes = comm.world // self.local_size
+        if self.local_size > 1:
+            self.local_comm, self.cross_comm = comm.split(self.local_size)
+        else:
+            self.local_comm, self.cross_comm = None, comm
 
     def init(self, flat_params: torch.Tensor):
         return self.optimizer.init(flat_params)
@@ -61,15 +91,28 @@ class DistributedOptimizer:
             return layout, self.compressor.make_flat_exchange(layout)
         return layout, self.compressor.make_flat_exchange(layout, plan=plan)
 
+    def _flat_exchange(self, engine, flat_grads, mems, phases, op, health):
+        kw = {}
+        if op != "average":
+            kw["op"] = op
+        if self.local_comm is not None:
+            kw["local_comm"] = self.local_comm
+        if health is not None:
+            kw["health"] = health
+        return engine.exchange(flat_grads, mems, phases, self.cross_comm,
+                               **kw)
+
     def update_flat(self, flat_grads: Sequence[torch.Tensor], opt_state,
                     flat_params: torch.Tensor, mems: List, phases,
-                    engine):
+                    engine, health: Optional[Dict] = None):
         """Exchange every local worker's gradient (memories update in
-        place), then one optimizer step on the replicated parameters.
-        Every local worker's exchanged gradient is the same, so the first
-        one drives the step. Returns ``(new params, opt state,
-        exchanged gradients)``."""
-        exchanged = engine.exchange(flat_grads, mems, phases, self.comm)
+        place; ``health`` receives the payload checksum's mismatch count),
+        then one optimizer step on the replicated parameters. Every local
+        worker's exchanged gradient is the same, so the first one drives
+        the step. Returns ``(new params, opt state, exchanged
+        gradients)``."""
+        exchanged = self._flat_exchange(engine, flat_grads, mems, phases,
+                                        "average", health)
         upd, opt_state = self.optimizer.update(exchanged[0], opt_state,
                                                flat_params)
         return flat_params + upd, opt_state, exchanged
@@ -83,6 +126,18 @@ class DistributedOptimizer:
         return self.compressor.memory.init(named_flatten(params_tree).items(),
                                            device)
 
+    def _node_mean_named(self, grads: Sequence[Dict[str, torch.Tensor]],
+                         op: str = "average"):
+        """Each worker's gradients replaced by its node's mean (two tiers),
+        tensor by tensor over the local group."""
+        names = list(grads[0])
+        out = [{} for _ in grads]
+        for n in names:
+            for w, g in enumerate(node_mean([g[n] for g in grads],
+                                            self.local_comm, op)):
+                out[w][n] = g
+        return out
+
     def exchange(self, grads: Sequence[Dict[str, torch.Tensor]],
                  mem_states: List[Dict], phases: Sequence[Dict[str, int]]):
         """Compress, communicate and decompress every gradient of every
@@ -90,8 +145,14 @@ class DistributedOptimizer:
         ``phases[w]`` names to its strided-sample phases
         (``compressor.draw_phases``). Returns ``(outs, mem_states)``,
         ``outs[w]`` worker w's exchanged gradients in ``grads[w]``'s
-        order (the memories update in place)."""
-        comp, comm = self.compressor, self.comm
+        order (the memories update in place). Under two tiers the node
+        mean goes through the exchange over the cross group."""
+        comp = self.compressor
+        if getattr(comp, "checksum", False):
+            raise ValueError(self._PER_TENSOR_CHECKSUM)
+        if self.local_size > 1:
+            grads = self._node_mean_named(grads)
+        comm = self.cross_comm
         names = list(grads[0])
         local = range(len(grads))
         compressed = [{} for _ in local]       # name -> (payload, ctx)

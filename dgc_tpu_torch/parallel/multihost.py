@@ -28,6 +28,8 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from dgc_tpu_torch.resilience import faults as _faults
+
 __all__ = ["resolve_launch", "initialize_multihost", "is_coordinator",
            "local_batch_slice"]
 
@@ -99,6 +101,9 @@ def initialize_multihost(device="cuda", init_retries: int = 3,
     attempts = max(1, int(init_retries))
     for attempt in range(attempts):
         try:
+            if _faults.should_fail_init(attempt):
+                raise RuntimeError(f"injected init failure (attempt "
+                                   f"{attempt + 1}, {_faults.ENV})")
             dist.init_process_group(
                 "nccl" if dev.type == "cuda" else "gloo",
                 init_method=f"tcp://{address}", world_size=world, rank=rank)

@@ -90,6 +90,33 @@ plan to the new geometry. It is refused without DGC.
     python -m dgc_tpu_torch.train --config resnet20_wm5 --autotune \\
         --device cpu --world 2 --epochs 2 --steps 3 --batch-size 8 \\
         --synthetic-size 64
+
+Resilience (the ``*_resilience`` recipes, ``configs/resilience.py`` with
+the checksum on; the recipe's ``train.resilience`` block): the step
+guards (the non-finite skip and the loss-spike breaker, ``train_step(...,
+guards=...)``), the payload checksum, a watchdog thread, a flight recorder
+of the last steps (``<save_path>/flight.json``), and preemption: SIGTERM or
+SIGINT stops the run at the next step boundary (agreed by every process),
+writes an emergency checkpoint of the epoch in progress with the last
+trained batch (``preempt_batch``) and exits 75; the same command run again
+resumes mid-epoch at the next batch, bitwise as the uninterrupted run.
+A streak of non-finite losses the guards cannot skip dumps the flight
+ring and exits 70. ``DGC_FAULTS`` (``resilience.faults``) arms the drills
+(``nan@K``, ``bitflip``, ``badidx``, ``kill@K``, ``slow``, ``hang``,
+``exit``, ``init_fail@N``). ``--elastic`` (or the recipe's
+``train.elastic``) resumes across a world-size change: the experiment
+directory ends in ``.npE``, the per-worker state is resharded, and
+``num_batches_per_step`` is scaled so the global batch stays the same.
+The two-tier recipes (``*_twotier``, ``configs/dgc/twotier.py``:
+``train.num_local_workers``, which must divide the world) average each
+node's gradients densely, then run DGC across the nodes.
+
+    DGC_FAULTS=kill@3 python -m dgc_tpu_torch.train \\
+        --config resnet20_wm5_resilience --device cpu --world 2 \\
+        --epochs 1 --steps 6 --batch-size 8 --synthetic-size 64  # exits 75
+    python -m dgc_tpu_torch.train --config resnet20_wm5_resilience \\
+        --device cpu --world 2 --epochs 1 --steps 6 --batch-size 8 \\
+        --synthetic-size 64                               # resumes at 4
 """
 
 import argparse
@@ -97,8 +124,9 @@ import contextlib
 import itertools
 import json
 import os
+import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,16 +142,23 @@ from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
 from dgc_tpu_torch.data.native import Prefetcher, stage_ahead
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
 from dgc_tpu_torch.models import from_config, param_tree, uses_dropout
+from dgc_tpu_torch.optim.adasum import AdasumDistributedOptimizer
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
 from dgc_tpu_torch.optim.sgd import dgc_sgd, sgd
 from dgc_tpu_torch.parallel.comm import Comm, LocalComm, ProcessGroupComm
 from dgc_tpu_torch.parallel.multihost import initialize_multihost
+from dgc_tpu_torch.resilience import elastic as _elastic
+from dgc_tpu_torch.resilience import faults as _faults
+from dgc_tpu_torch.resilience import preempt as _preempt
+from dgc_tpu_torch.resilience.guard import GuardConfig
+from dgc_tpu_torch.telemetry.flight import FlightRecorder, NonfiniteStreak
 from dgc_tpu_torch.training import checkpoint
 from dgc_tpu_torch.training.checkpoint import CheckpointManager
 from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
                                        multistep_schedule)
 from dgc_tpu_torch.training.step import (eval_step, make_flat_setup,
-                                         make_flat_state, train_step)
+                                         make_flat_state,
+                                         resolve_pending_skip, train_step)
 from dgc_tpu_torch.utils import profiling
 from dgc_tpu_torch.utils.device import (resolve_device,
                                         set_reproducible_numerics)
@@ -177,12 +212,30 @@ class Trainer:
 
     def __init__(self, cfg=None, comm: Optional[Comm] = None,
                  device="cuda", verbose: bool = False,
-                 fabric_out: Optional[str] = None):
+                 fabric_out: Optional[str] = None, adasum: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg = cfg or _configs.resnet20_wm5()
         self.comm = comm = comm or LocalComm(1)
         self.verbose = verbose
         tc = cfg.train
+        rc = tc.get("resilience") or {}
+        #: the step guards (``train.resilience``), or None
+        self.guards = (GuardConfig(
+            nonfinite=bool(rc.get("nonfinite_guard", True)),
+            spike_window=int(rc.get("spike_window", 0) or 0),
+            spike_factor=float(rc.get("spike_factor", 10.0)))
+            if rc.get("enabled", False) else None)
+        checksum = bool(self.guards is not None and rc.get("checksum", False))
+        if checksum and not tc.dgc:
+            raise ValueError("the payload checksum needs the sparse DGC wire "
+                             "(recipes with train.dgc = True)")
+        #: the armed fault plan, read once (None: ``DGC_FAULTS`` unset)
+        self.faults = _faults.active_plan()
+        #: workers a node (two tiers when > 1)
+        self.num_local = int(tc.get("num_local_workers", 1) or 1)
+        if comm.world % self.num_local:
+            raise ValueError(f"num_local_workers {self.num_local} must "
+                             f"divide the world {comm.world}")
         self.seed = cfg.seed
         dc = cfg.dataset
         self.dataset = {"cifar": CIFAR, "imagenet": ImageNet}[dc.name](
@@ -216,7 +269,7 @@ class Trainer:
                 warmup_coeff=cc.warmup_coeff,
                 fused_select=cc.fused_select, megakernel=cc.megakernel,
                 **{k: cc[k] for k in _WIRE_FLAGS if k in cc},
-                verbose=verbose)
+                checksum=checksum, verbose=verbose)
             self.compression.initialize(
                 (n.replace(".", "/"), tuple(p.shape))
                 for n, p in self.model.named_parameters() if p.dim() > 1)
@@ -240,11 +293,14 @@ class Trainer:
             wd_mask = ParamLayout.for_compressor(
                 param_tree(self.model), self.compression).mask_vector(
                     lambda n: "BatchNorm" not in n, device=self.device)
-        self.dist = DistributedOptimizer(
+        # Adasum (library-only, as in the reference): the base optimizer
+        # steps each worker's local gradient, the deltas are combined
+        self.dist = (AdasumDistributedOptimizer if adasum
+                     else DistributedOptimizer)(
             (dgc_sgd if tc.dgc else sgd)(
                 lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
                 nesterov=oc.nesterov, weight_decay_mask=wd_mask),
-            self.compression, comm)
+            self.compression, comm, local_size=self.num_local)
         at = tc.get("autotune") or {}
         #: the online replanner (``train.autotune.enabled``), or None
         self.autotuner = None
@@ -264,10 +320,14 @@ class Trainer:
                    f"({self.autotuner.fabric.gbps:.3g} GB/s) -> plan "
                    f"{list(self.setup.engine.regimes)}")
         self.state = make_flat_state(self.model, self.dist, self.setup,
-                                     self.device)
-        #: one host generator of sampling phases per local worker
-        self.gens = [torch.Generator().manual_seed(self.seed * 7919 + 1 + r)
-                     for r in comm.ranks]
+                                     self.device, guards=self.guards)
+        #: one host generator of sampling phases per local worker, seeded
+        #: by its node's index (its own rank without two tiers): the
+        #: workers of a node draw the same phases, those a flat run's
+        #: worker of that index draws
+        self.gens = [torch.Generator().manual_seed(
+            self.seed * 7919 + 1 + r // self.num_local)
+            for r in comm.ranks]
         #: one dropout generator per local worker on the device, for a
         #: model with dropout (seeds above every sampling seed)
         self.dropout_gens = (
@@ -276,6 +336,11 @@ class Trainer:
             if uses_dropout(self.model) else None)
         self._built_ratio = None
         self._upload_stream = None
+        #: the last batch index ``run_epoch`` trained before ``stop`` said
+        #: so, else None
+        self.stopped_at: Optional[int] = None
+        #: the last guarded step's guard metrics (device tensors)
+        self.last_guards = None
 
     def _build_setup(self) -> None:
         """The engine at the compressor's ratio; under the autotuner with
@@ -315,28 +380,41 @@ class Trainer:
         has no two-tier exchange)."""
         return {"process_count": (dist.get_world_size()
                                   if dist.is_initialized() else 1),
-                "world": self.comm.world, "num_local_workers": 1}
+                "world": self.comm.world,
+                "num_local_workers": self.num_local}
 
     def save_checkpoint(self, ckpt: CheckpointManager, epoch: int,
-                        meters: Dict[str, float], best: bool = False) -> str:
+                        meters: Dict[str, float], best: bool = False,
+                        topology: Optional[Dict[str, int]] = None) -> str:
         """Save this process's part of the state after ``epoch`` (every
-        process of a group calls this)."""
+        process of a group calls this). A pending upload on the side
+        stream is waited for first, and a pending guard verdict read."""
+        if self._upload_stream is not None:
+            self._upload_stream.synchronize()
+        resolve_pending_skip(self.state)
         rep, workers = checkpoint.state_tensors(
             self.state, self.gens, self.comm.ranks,
             dropout_gens=self.dropout_gens)
         return ckpt.save(epoch, rep, workers, meters, best=best,
-                         topology=self.topology)
+                         topology=topology or self.topology)
 
     def restore_checkpoint(self, ckpt: CheckpointManager,
-                           best: bool = False
+                           best: bool = False, elastic: bool = False
                            ) -> Optional[Tuple[int, Dict[str, float]]]:
         """Restore the newest loadable epoch (``best``: the best one) into
         the state and the generators; ``(epoch, meters)``, or None when
-        there is nothing to restore."""
+        there is nothing to restore. ``elastic``: reshard a checkpoint of
+        another world size."""
         rep, workers = checkpoint.state_tensors(
             self.state, self.gens, self.comm.ranks, host=False,
             dropout_gens=self.dropout_gens)
-        out = ckpt.restore(rep, workers, best=best, topology=self.topology)
+        opts = None
+        if elastic:
+            opts = {"per_worker_opt": self.dist.per_worker_opt_state}
+            if hasattr(self.compression, "elastic_reshard_opts"):
+                opts.update(self.compression.elastic_reshard_opts())
+        out = ckpt.restore(rep, workers, best=best, topology=self.topology,
+                           elastic=elastic, elastic_opts=opts)
         if out is None:
             return None
         rep, workers, epoch, meters = out
@@ -392,7 +470,8 @@ class Trainer:
             ready.record()
         return xs, ys, ready
 
-    def epoch_inputs(self, epoch: int, steps: Optional[int] = None):
+    def epoch_inputs(self, epoch: int, steps: Optional[int] = None,
+                     start: int = 0):
         """The inputs of ``epoch``'s steps (at most ``steps``) for this
         process's workers, ``(images, labels)`` lists on the device: the
         batches of ``epoch_batches``, prepared on a background thread and
@@ -400,12 +479,14 @@ class Trainer:
         ordered before the step that reads it by its upload's event (and
         its device memory held for that step's stream). Only the batches
         of those steps are prepared, so a split's augmentation draws as
-        many as inline batches would."""
+        many as inline batches would. ``start``: the batches before it are
+        skipped (a mid-epoch resume; the epoch's order is a function of
+        the epoch and the seed, so it lines up)."""
         split = self.dataset["train"]
         it = epoch_batches(len(split), self.global_batch, epoch,
                            seed=self.seed, drop_last=self.nbps > 1)
-        if steps is not None:
-            it = itertools.islice(it, steps)
+        if steps is not None or start:
+            it = itertools.islice(it, start, steps)
         host = _HostBatches(split, pin=self.device.type == "cuda")
         with Prefetcher(host, it) as batches:
             for xs, ys, ready in stage_ahead(batches, self._stage):
@@ -418,12 +499,20 @@ class Trainer:
 
     def run_epoch(self, epoch: int, steps: Optional[int] = None,
                   step_times: Optional[List[float]] = None,
-                  profile_dir: Optional[str] = None) -> List[torch.Tensor]:
-        """Train ``epoch`` (at most ``steps`` steps). Returns the mean
-        losses, still on the device. With ``step_times``, each step is
-        synchronised and its wall time appended (seconds). With
-        ``profile_dir``, the first :data:`PROFILE_STEPS` steps are traced
-        there (:func:`~dgc_tpu_torch.utils.profiling.trace`)."""
+                  profile_dir: Optional[str] = None, start: int = 0,
+                  stop: Optional[Callable[[int], bool]] = None,
+                  on_step: Optional[Callable[[int, dict], None]] = None
+                  ) -> List[torch.Tensor]:
+        """Train ``epoch`` (its batches ``start`` to ``steps``, all by
+        default). Returns the mean losses, still on the device. With
+        ``step_times``, each step is synchronised and its wall time
+        appended (seconds). With ``profile_dir``, the first
+        :data:`PROFILE_STEPS` steps are traced there
+        (:func:`~dgc_tpu_torch.utils.profiling.trace`). ``stop(batch)``
+        is asked at each step boundary before the batch: True ends the
+        epoch there (:attr:`stopped_at` is then the last batch trained);
+        ``on_step(batch, metrics)`` runs after each step (``metrics``:
+        ``loss``, and ``step`` and ``guards`` with guards)."""
         self.compression.warmup_compress_ratio(epoch)
         ratio = self.compression.compress_ratio
         if ratio != self._built_ratio or self._plan_pending:
@@ -436,15 +525,23 @@ class Trainer:
                       f"payload {self.setup.engine.payload_size}/worker")
         losses = []
         at_prev = None
-        inputs = self.epoch_inputs(epoch, steps)
+        self.stopped_at = None
+        inputs = self.epoch_inputs(epoch, steps, start)
         with contextlib.closing(inputs), contextlib.ExitStack() as prof:
             if profile_dir is not None:
                 prof.enter_context(profiling.trace(profile_dir))
             for s, (xs, ys) in enumerate(inputs):
+                if stop is not None and stop(start + s):
+                    self.stopped_at = start + s - 1
+                    break
                 t0 = time.perf_counter()
-                self.state, loss = train_step(
+                self.state, out = train_step(
                     self.model, self.setup, self.dist, self.state, xs, ys,
-                    self.gens, self.nbps, self.dropout_gens)
+                    self.gens, self.nbps, self.dropout_gens,
+                    guards=self.guards, faults=self.faults)
+                metrics = out if isinstance(out, dict) else {"loss": out}
+                loss = metrics["loss"]
+                self.last_guards = metrics.get("guards")
                 if step_times is not None:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -458,6 +555,8 @@ class Trainer:
                         self.autotuner.record_step((now - at_prev) * 1e3,
                                                    self._at_wire)
                     at_prev = now
+                if on_step is not None:
+                    on_step(start + s, metrics)
                 if s + 1 == PROFILE_STEPS:
                     prof.close()
         return losses
@@ -534,6 +633,13 @@ def main(argv=None) -> List[float]:
     p.add_argument("--profile", action="store_true",
                    help="trace the first steps of the first epoch trained "
                         "to <save_path>/profile")
+    p.add_argument("--num-local-workers", type=int, default=None,
+                   help="workers a node of the two-tier exchange (the "
+                        "JAX harness's --train.num_local_workers)")
+    p.add_argument("--elastic", action="store_true",
+                   help="resume across a world-size change: reshard the "
+                        "per-worker state, keep the global batch "
+                        "(configs/elastic.py); the directory ends in .npE")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -558,6 +664,10 @@ def main(argv=None) -> List[float]:
             raise SystemExit("--autotune plans the sparse DGC wire (recipes "
                              "with train.dgc = True)")
         _configs.with_autotune(cfg)
+    if args.num_local_workers:
+        cfg.train.num_local_workers = args.num_local_workers
+    ec = cfg.train.get("elastic") or {}
+    elastic_on = bool(args.elastic or ec.get("enabled", False))
     if args.init_method:
         if device.type == "cuda":
             torch.cuda.set_device(args.rank % torch.cuda.device_count())
@@ -580,21 +690,53 @@ def main(argv=None) -> List[float]:
     else:
         comm = LocalComm(args.world)
     try:
+        # a two-tier run's memory is per node: its own directory; an
+        # elastic run shares one lineage across world sizes
+        num_local = int(cfg.train.get("num_local_workers", 1) or 1)
+        tier = f".tt{num_local}" if num_local > 1 else ""
         save_path = (get_save_path(*_configs.CONFIG_FILES[args.config])
-                     + f"{args.suffix}.np{comm.world}")
+                     + args.suffix + tier
+                     + (".npE" if elastic_on else f".np{comm.world}"))
+        ckpt = CheckpointManager(os.path.join(save_path, "checkpoints"))
+        if elastic_on:
+            saved_topo = ckpt.saved_topology()
+            if saved_topo is not None and int(saved_topo["world"]) != \
+                    comm.world:
+                nbps, note = _elastic.resolve_batch_geometry(
+                    int(saved_topo["world"]), comm.world,
+                    cfg.train.num_batches_per_step,
+                    preserve=bool(ec.get("preserve_global_batch", True)))
+                if note:
+                    printr(f"[elastic] {note}")
+                cfg.train.num_batches_per_step = nbps
         trainer = Trainer(cfg, comm, device, verbose=True,
                           fabric_out=os.path.join(save_path, "fabric.json"))
         printr(f"[train.save_path] = {save_path}")
-        ckpt = CheckpointManager(os.path.join(save_path, "checkpoints"))
         metric = cfg.train.metric
         last_epoch, best = -1, None
-        restored = (trainer.restore_checkpoint(ckpt, best=args.evaluate)
+        resume_epoch, resume_batch = None, 0
+        restored = (trainer.restore_checkpoint(ckpt, best=args.evaluate,
+                                               elastic=elastic_on)
                     if args.evaluate or ckpt.latest_epoch() is not None
                     else None)
         if restored is not None:
             last_epoch, saved = restored
             best = saved.get(metric + "_best")
-            printr(f"\n[resumed] epoch {last_epoch}, best {best}")
+            einfo = saved.pop("_elastic", None)
+            if einfo is not None:
+                printr(f"[elastic] resharded checkpoint state "
+                       f"{einfo['from_world']} -> {einfo['to_world']} "
+                       "workers")
+            # an emergency checkpoint holds the epoch in progress and its
+            # last trained batch: resume at the next batch of that epoch
+            pb = saved.get("preempt_batch")
+            if pb is not None and not args.evaluate:
+                resume_epoch, resume_batch = last_epoch, int(pb) + 1
+                last_epoch -= 1
+                printr(f"\n[resumed] mid-epoch {resume_epoch} at batch "
+                       f"{resume_batch}, best {best}")
+            else:
+                printr(f"\n[resumed] epoch {last_epoch}, best {best}")
         else:
             printr("\n==> train from scratch")
         # the sanity eval before training, as the reference runs it
@@ -605,21 +747,32 @@ def main(argv=None) -> List[float]:
         epochs = (args.epochs if args.epochs is not None
                   else cfg.train.num_epochs)
         writer = MetricWriter(save_path)
+        res = _Resilience(cfg.train.get("resilience") or {}, trainer,
+                          save_path, device, last_epoch, resume_batch)
         try:
             for epoch in range(last_epoch + 1, epochs):
                 times: List[float] = []
                 profile_dir = (os.path.join(save_path, "profile")
                                if args.profile and epoch == last_epoch + 1
                                else None)
+                start = resume_batch if epoch == resume_epoch else 0
                 losses = [float(x) for x in trainer.run_epoch(
-                    epoch, args.steps, times, profile_dir=profile_dir)]
+                    epoch, args.steps, times, profile_dir=profile_dir,
+                    start=start, stop=res.stop(epoch),
+                    on_step=res.on_step(epoch))]
                 # x = samples seen, counting every earlier epoch whole
-                seen = epoch * trainer.steps_per_epoch * trainer.global_batch
+                seen = ((epoch * trainer.steps_per_epoch + start)
+                        * trainer.global_batch)
                 for s, loss in enumerate(losses):
                     seen += trainer.global_batch
                     if s % 50 == 0 or s == len(losses) - 1:
                         writer.add_scalar("loss/train", loss, seen)
                 out += losses
+                if trainer.stopped_at is not None:
+                    print(json.dumps({"epoch": epoch, "preempted_at":
+                                      trainer.stopped_at, "loss": losses}))
+                    res.preempted(ckpt, epoch, metric, best)
+                res.check_streak(losses, epoch)
                 if trainer.autotuner is not None:
                     trainer.autotune_epoch_end(epoch)
                 meters = trainer.evaluate()
@@ -634,16 +787,142 @@ def main(argv=None) -> List[float]:
                                                best=is_best)
                 printr(f"[save_path] = {path}")
                 # the epoch's summary last, on every process
+                res.last_ckpt_epoch = epoch
                 print(json.dumps({
                     "epoch": epoch,
                     "ratio": trainer.compression.compress_ratio,
                     "loss": losses, "step_s": times, "eval": meters}))
         finally:
             writer.close()
+            res.close()
         return out
     finally:
-        if grouped:
+        if grouped and dist.is_initialized():
             dist.destroy_process_group()
+
+
+class _Resilience:
+    """The CLI's host-side resilience (the recipe's ``train.resilience``):
+    the preemption handler and its step-boundary agreement, the watchdog,
+    the flight recorder, the non-finite streak breaker and the host fault
+    hooks. Inert when the block is off (the fault hooks stay armed by
+    ``DGC_FAULTS``, as in the JAX harness only with resilience on)."""
+
+    def __init__(self, rc, trainer: Trainer, save_path: str, device,
+                 last_epoch: int, resume_batch: int):
+        self.on = bool(rc.get("enabled", False))
+        self.rc, self.trainer, self.device = rc, trainer, device
+        self.last_ckpt_epoch = last_epoch
+        self.gstep = ((last_epoch + 1) * trainer.steps_per_epoch
+                      + resume_batch)
+        self.handler = self.watchdog = self.flight = self.streak = None
+        self.flight_path = os.path.join(save_path, "flight.json")
+        if not self.on:
+            return
+        self.handler = _preempt.PreemptionHandler()
+        fl = int(rc.get("flight_steps", 0) or 0)
+        if fl > 0:
+            eng = trainer.setup.engine
+            self.flight = FlightRecorder(capacity=fl, static=dict(
+                world=trainer.comm.world,
+                num_local_workers=trainer.num_local, save_path=save_path,
+                payload=getattr(eng, "payload_size", 0)))
+        ns = int(rc.get("nonfinite_streak", 0) or 0)
+        if ns > 0:
+            self.streak = NonfiniteStreak(ns)
+        wd = float(rc.get("watchdog_secs", 0) or 0)
+        if wd > 0:
+            self.watchdog = _preempt.Watchdog(
+                wd, flight=self.flight, flight_path=self.flight_path)
+        printr(f"[resilience] guards={trainer.guards} checksum="
+               f"{getattr(trainer.setup.engine, 'checksum', False)} "
+               f"watchdog={wd or 'off'} flight={fl or 'off'}")
+
+    def stop(self, epoch: int) -> Optional[Callable[[int], bool]]:
+        """The step-boundary check: every process agrees on a preemption
+        (one tiny all-reduce with several)."""
+        faults = self.trainer.faults
+        if self.handler is None and faults is None:
+            return None
+
+        def check(batch: int) -> bool:
+            _faults.maybe_slow(faults, self.gstep)
+            return self.handler is not None and _preempt.agree_preempt(
+                self.handler.requested, self.device)
+        return check
+
+    def on_step(self, epoch: int) -> Callable[[int, dict], None]:
+        def after(batch: int, metrics: dict) -> None:
+            self.gstep += 1
+            if self.flight is not None:
+                self.flight.record(self.gstep, epoch=epoch, batch=batch,
+                                   loss=metrics["loss"],
+                                   guards=metrics.get("guards"),
+                                   last_ckpt_epoch=self.last_ckpt_epoch)
+            if self.watchdog is not None:
+                self.watchdog.beat()
+            faults = self.trainer.faults
+            if faults is not None:
+                _faults.maybe_hang(faults, self.gstep)
+                _faults.maybe_exit(faults, self.gstep)
+                _faults.maybe_kill(faults, self.gstep)
+        return after
+
+    def preempted(self, ckpt: CheckpointManager, epoch: int, metric: str,
+                  best) -> None:
+        """The emergency exit: the flight ring, the checkpoint of the epoch
+        in progress with its last trained batch, then exit 75."""
+        b = self.trainer.stopped_at
+        printr(f"\n[preempt] signal {self.handler.signum}: stopping at "
+               f"epoch {epoch}, batch {b}")
+        if self.flight is not None:
+            p = self.flight.dump(self.flight_path,
+                                 reason=f"preempt signal {self.handler.signum}")
+            if p:
+                printr(f"[preempt] flight recorder -> {p}")
+        if bool(self.rc.get("emergency_checkpoint", True)):
+            meters = {"preempt_batch": b}
+            if best is not None:
+                meters[metric + "_best"] = best
+            t0 = time.perf_counter()
+            path = _preempt.emergency_save(
+                lambda topology: self.trainer.save_checkpoint(
+                    ckpt, epoch, meters, topology=topology),
+                self.trainer.topology)
+            printr(f"[preempt] emergency checkpoint -> {path} "
+                   f"({time.perf_counter() - t0:.2f} s)")
+        self.close()
+        _preempt.clean_shutdown()
+        sys.stdout.flush()
+        raise SystemExit(_preempt.EXIT_PREEMPTED)
+
+    def check_streak(self, losses: List[float], epoch: int) -> None:
+        """Feed the epoch's losses to the breaker; on a trip, dump the
+        flight ring and exit 70 (the state is gone; do not relaunch)."""
+        if self.streak is None:
+            return
+        for x in losses:
+            self.streak.update(x)
+        if not self.streak.tripped:
+            return
+        printr(f"\n[resilience] {self.streak.streak} consecutive nonfinite "
+               f"losses at epoch {epoch} — aborting (last checkpoint: epoch "
+               f"{self.last_ckpt_epoch})")
+        if self.flight is not None:
+            p = self.flight.dump(self.flight_path,
+                                 reason=f"nonfinite-streak x{self.streak.streak}")
+            if p:
+                printr(f"[resilience] flight recorder -> {p}")
+        self.close()
+        raise SystemExit(_preempt.EXIT_NONFINITE)
+
+    def close(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.handler is not None:
+            self.handler.uninstall()
+            self.handler = None
 
 
 if __name__ == "__main__":

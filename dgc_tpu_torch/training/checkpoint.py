@@ -6,10 +6,13 @@ directories; neither reads the other's files, and ``interop.py`` carries
 a restored JAX state across):
 
 * **Layout.** One directory ``e<N>/`` an epoch: ``state.pt`` (the
-  replicated state: step, parameters, optimizer state), one ``w<r>.pt``
-  per worker r (its memory, BatchNorm statistics, sampling generator's
-  state and, for a model with dropout, its dropout generator's) and
-  ``meters.json`` (the epoch, the meters and the
+  replicated state: step, parameters, optimizer state, and the step
+  guards' state under ``guards:<key>`` when the run has guards), one
+  ``w<r>.pt`` per worker r (its memory, BatchNorm statistics, sampling
+  generator's state and, for a model with dropout, its dropout
+  generator's; under the Adasum scheme its own optimizer state) and
+  ``meters.json`` (the epoch, the meters — an emergency save's
+  ``preempt_batch``, the last batch it trained, among them — and the
   ``_topology`` the state was written under). ``latest.json`` names the
   newest epoch and is published with ``os.replace``; ``best/`` is a copy
   of the epoch with the best metric; the last ``keep`` epochs are kept.
@@ -22,7 +25,12 @@ a restored JAX state across):
 * **Restore** walks ``latest``, then the kept epochs newest first, and
   falls back past a checkpoint that does not load (a torn file, another
   layout). A ``_topology`` that differs from the caller's raises
-  :class:`TopologyMismatch` before any state file is read.
+  :class:`TopologyMismatch` before any state file is read, unless
+  ``elastic=True``: then every worker file of the saved world is read and
+  resharded onto the caller's (``resilience.elastic.reshard_workers``),
+  and the meters carry an ``_elastic`` record. A checkpoint written
+  without guards restores into a guarded run with fresh guard state (and
+  a guarded one into an unguarded run without it).
 * **Several processes.** Under a ``torch.distributed`` group every
   process writes the files of the workers it holds and the coordinator
   (rank 0) the replicated state; the coordinator alone publishes,
@@ -31,8 +39,7 @@ a restored JAX state across):
 
 Not ported: the JAX manager's migration of legacy ``sent_c`` /
 ``keep_c`` memory records (no port checkpoint predates the packed
-record) and its elastic restore across a world-size change (ROADMAP.md
-queue 1 item 8).
+record).
 """
 
 import json
@@ -45,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from dgc_tpu_torch.parallel.multihost import is_coordinator
+from dgc_tpu_torch.resilience import elastic as _elastic
 from dgc_tpu_torch.training.state import TrainState
 
 __all__ = ["CheckpointManager", "TopologyMismatch", "state_tensors",
@@ -54,6 +62,7 @@ Tensors = Dict[str, torch.Tensor]
 
 _STATE = "state.pt"
 _SEP = ":"
+_GUARDS = "guards" + _SEP
 
 
 class TopologyMismatch(RuntimeError):
@@ -104,13 +113,11 @@ def state_tensors(state: TrainState, gens: Sequence[torch.Generator],
     conv = _host if host else torch.Tensor.detach
     rep = {"step": torch.tensor(state.step, dtype=torch.int64),
            "params": conv(state.params)}
-    opt = state.opt_state
-    for field in opt._fields:
-        v = getattr(opt, field)
-        if v is None:
-            continue
-        rep[f"opt{_SEP}{field}"] = (conv(v) if torch.is_tensor(v)
-                                    else torch.tensor(v, dtype=torch.int64))
+    per_worker = isinstance(state.opt_state, list)
+    if not per_worker:
+        _opt_tensors(state.opt_state, rep, conv)
+    if state.guards is not None:
+        _flatten(state.guards, "guards", rep, conv)
     workers = {}
     for w, r in enumerate(ranks):
         d = _flatten(state.memory[w], "memory", {}, conv)
@@ -118,8 +125,33 @@ def state_tensors(state: TrainState, gens: Sequence[torch.Generator],
         d["generator"] = gens[w].get_state()
         if dropout_gens:
             d["dropout_generator"] = dropout_gens[w].get_state()
+        if per_worker:
+            _opt_tensors(state.opt_state[w], d, conv)
         workers[r] = d
     return rep, workers
+
+
+def _opt_tensors(opt, out: Tensors, conv) -> None:
+    for field in opt._fields:
+        v = getattr(opt, field)
+        if v is None:
+            continue
+        out[f"opt{_SEP}{field}"] = (conv(v) if torch.is_tensor(v)
+                                    else torch.tensor(v, dtype=torch.int64))
+
+
+def _opt_from(opt, src: Tensors, device):
+    fields = {}
+    for field in opt._fields:
+        v = getattr(opt, field)
+        key = f"opt{_SEP}{field}"
+        if v is None:
+            fields[field] = None
+        elif torch.is_tensor(v):
+            fields[field] = src[key].to(device)
+        else:
+            fields[field] = int(src[key])
+    return type(opt)(**fields)
 
 
 def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
@@ -130,20 +162,12 @@ def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
                        ) -> TrainState:
     """The inverse of :func:`state_tensors` over a live ``state`` of the
     same structure: returns the restored state on the live state's
-    device and sets each local worker's generators."""
+    device and sets each local worker's generators. Guard state missing
+    from ``rep`` (a checkpoint written without guards) stays the live
+    state's."""
     device = state.params.device
-    opt = state.opt_state
-    fields = {}
-    for field in opt._fields:
-        v = getattr(opt, field)
-        key = f"opt{_SEP}{field}"
-        if v is None:
-            fields[field] = None
-        elif torch.is_tensor(v):
-            fields[field] = rep[key].to(device)
-        else:
-            fields[field] = int(rep[key])
-    memory, stats = [], []
+    per_worker = isinstance(state.opt_state, list)
+    memory, stats, opts = [], [], []
     for w, r in enumerate(ranks):
         d = workers[r]
         memory.append(_unflatten(state.memory[w], "memory", d, device))
@@ -151,9 +175,16 @@ def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
         gens[w].set_state(d["generator"])
         if dropout_gens:
             dropout_gens[w].set_state(d["dropout_generator"])
+        if per_worker:
+            opts.append(_opt_from(state.opt_state[w], d, device))
+    guards = state.guards
+    if guards is not None and any(k.startswith(_GUARDS) for k in rep):
+        guards = _unflatten(guards, "guards", rep, device)
     return TrainState(step=int(rep["step"]), params=rep["params"].to(device),
-                      opt_state=type(opt)(**fields), memory=memory,
-                      batch_stats=stats)
+                      opt_state=(opts if per_worker
+                                 else _opt_from(state.opt_state, rep,
+                                                device)),
+                      memory=memory, batch_stats=stats, guards=guards)
 
 
 def _check_like(got: Tensors, want: Tensors, what: str) -> None:
@@ -277,10 +308,25 @@ class CheckpointManager:
             return kept
         return [latest] + [e for e in kept if e != latest]
 
+    def saved_topology(self) -> Optional[Dict[str, int]]:
+        """The ``_topology`` record of the checkpoint a restore would take
+        first (None: nothing saved, or no record): read before the run's
+        batch geometry is set, so an elastic restart can keep the global
+        batch (``resilience.elastic.resolve_batch_geometry``)."""
+        for e in self._candidates():
+            try:
+                with open(os.path.join(self._epoch_dir(e),
+                                       "meters.json")) as f:
+                    topo = json.load(f).get("_topology")
+            except (OSError, ValueError):
+                continue
+            return dict(topo) if topo else None
+        return None
+
     def restore(self, replicated: Tensors, workers: Dict[int, Tensors],
                 best: bool = False,
                 topology: Optional[Dict[str, int]] = None,
-                elastic: bool = False
+                elastic: bool = False, elastic_opts: Optional[Dict] = None
                 ) -> Optional[Tuple[Tensors, Dict[int, Tensors], int,
                                     Dict[str, float]]]:
         """``(replicated, workers, epoch, meters)`` read from ``best/`` or
@@ -288,11 +334,9 @@ class CheckpointManager:
         resume. ``replicated`` and ``workers`` are the live
         state's tensors (:func:`state_tensors`): the files must hold the
         same names, shapes and dtypes, and only the workers named in
-        ``workers`` are read."""
-        if elastic:
-            raise ValueError("the elastic restore across a world-size "
-                             "change is not ported (ROADMAP.md queue 1 "
-                             "item 8)")
+        ``workers`` are read. ``elastic``: a checkpoint of another world
+        size is resharded (``elastic_opts``: ``momentum_masking``,
+        ``per_worker_opt``) instead of refused."""
         if best:
             paths = [os.path.join(self.directory, "best")]
         else:
@@ -301,7 +345,8 @@ class CheckpointManager:
             if not os.path.exists(path):
                 continue
             try:
-                return self._restore_one(path, replicated, workers, topology)
+                return self._restore_one(path, replicated, workers, topology,
+                                         elastic, elastic_opts or {})
             except TopologyMismatch:
                 raise
             except Exception as e:   # torn or foreign files: fall back
@@ -315,25 +360,62 @@ class CheckpointManager:
 
     def _restore_one(self, path: str, replicated: Tensors,
                      workers: Dict[int, Tensors],
-                     topology: Optional[Dict[str, int]]):
+                     topology: Optional[Dict[str, int]],
+                     elastic: bool = False, elastic_opts: Dict = None):
         with open(os.path.join(path, "meters.json")) as f:
             meters = json.load(f)
         saved = meters.pop("_topology", None)
-        if (topology is not None and saved is not None
-                and dict(saved) != dict(topology)):
+        mismatch = (topology is not None and saved is not None
+                    and dict(saved) != dict(topology))
+        if mismatch and not elastic:
             raise TopologyMismatch(
                 f"checkpoint at {path} was written under topology {saved} "
                 f"but this run has {dict(topology)}: resume with the same "
-                "process and worker configuration, or start a fresh "
-                "experiment directory (the elastic restore across a "
-                "world-size change is ROADMAP.md queue 1 item 8)")
+                "process and worker configuration, pass elastic=True "
+                "(--elastic) to reshard the per-worker state across the "
+                "world-size change, or start a fresh experiment directory")
         epoch = int(meters.pop("epoch"))
         rep = torch.load(os.path.join(path, _STATE), map_location="cpu",
                          weights_only=True)
-        _check_like(rep, replicated, f"{path}/{_STATE}")
+        want_rep = replicated
+        has = any(k.startswith(_GUARDS) for k in rep)
+        wants = any(k.startswith(_GUARDS) for k in replicated)
+        if wants and not has:
+            print(f"[checkpoint] {path} predates the resilience guard "
+                  "counters — they start fresh")
+        if wants != has:
+            want_rep = {k: v for k, v in replicated.items()
+                        if not k.startswith(_GUARDS)}
+            rep = {k: v for k, v in rep.items() if not k.startswith(_GUARDS)}
+        _check_like(rep, want_rep, f"{path}/{_STATE}")
         got = {}
+        if mismatch:
+            got = self._reshard(path, saved, topology, workers,
+                                elastic_opts or {})
+            meters["_elastic"] = {
+                "from_world": int(saved["world"]),
+                "to_world": int(topology["world"]),
+                "from_process_count": int(saved.get("process_count", 1)),
+                "to_process_count": int(topology.get("process_count", 1))}
+        else:
+            for r in workers:
+                name = os.path.join(path, _worker_file(r))
+                got[r] = torch.load(name, map_location="cpu",
+                                    weights_only=True)
         for r, want in workers.items():
-            name = os.path.join(path, _worker_file(r))
-            got[r] = torch.load(name, map_location="cpu", weights_only=True)
-            _check_like(got[r], want, name)
+            _check_like(got[r], want, os.path.join(path, _worker_file(r)))
         return rep, got, epoch, meters
+
+    def _reshard(self, path, saved, topology, workers, opts):
+        """Every worker file of the saved world, resharded onto the workers
+        this process holds; a refusal raises :class:`TopologyMismatch`."""
+        parents = [torch.load(os.path.join(path, _worker_file(r)),
+                              map_location="cpu", weights_only=True)
+                   for r in range(int(saved["world"]))]
+        fresh = {r: {k: (v if v.device.type == "cpu" else _host(v))
+                     for k, v in d.items()} for r, d in workers.items()}
+        try:
+            return _elastic.reshard_workers(parents, fresh, saved, topology,
+                                            **opts)
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            raise TopologyMismatch(f"checkpoint at {path}: {e}") from e

@@ -43,6 +43,19 @@ to that dtype, and the model binds plain views of the narrow copy (no
 opaque copies), so the gradient, the optimizer and the whole compression
 pipeline stay f32.
 
+Guards (``train_step(..., guards=GuardConfig(...))``, the reference's
+``build_train_step(guards=...)``): an armed ``nan@K`` fault poisons the
+gradients after the backward; each worker's non-finite flag rides the
+loss all-reduce as a stacked ``[2]`` vector (no extra collective);
+:func:`~dgc_tpu_torch.resilience.guard.apply` decides the skip on the
+device, and a skipped step is reverted atomically — the parameters, the
+optimizer state, every worker's whole memory (its transmit record
+included) and BatchNorm statistics take their pre-step values (the memory
+and the statistics are written in place, so the guarded step copies them
+first; the unguarded step copies nothing). The exchange still runs on a
+skipped step, so its checksum count and its phase draws are kept, as in
+the reference. The guarded step returns ``{"loss", "step", "guards"}``.
+
 The flat step also runs the dense baseline's engine
 (:class:`~dgc_tpu_torch.compression.flat.FlatDenseExchange`), which
 samples nothing and keeps no memory. :func:`eval_step` is the
@@ -60,11 +73,13 @@ from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.models import (compute_dtype, param_tree, stats_tree,
                                   uses_dropout)
 from dgc_tpu_torch.ops import kernels
+from dgc_tpu_torch.resilience import faults as _faults
+from dgc_tpu_torch.resilience import guard as _guard
 from dgc_tpu_torch.training.state import TrainState
 
 __all__ = ["FlatSetup", "make_flat_setup", "make_per_tensor_setup",
            "make_flat_state", "train_step", "train_step_per_tensor",
-           "worker_grad", "eval_step", "topk_hits"]
+           "worker_grad", "eval_step", "topk_hits", "resolve_pending_skip"]
 
 
 class FlatSetup(NamedTuple):
@@ -92,24 +107,65 @@ def make_per_tensor_setup(model, dist_opt) -> FlatSetup:
 
 
 def make_flat_state(model, dist_opt, setup: FlatSetup, device,
-                    flat_params=None, flat_stats=None) -> TrainState:
+                    flat_params=None, flat_stats=None,
+                    guards=None) -> TrainState:
     """Initial state from the model's own weights, or from given flat
     buffers (e.g. carried from the JAX package). The memory is the flat
     engine's, or the per-name state of the per-tensor path when
-    ``setup`` has no engine."""
+    ``setup`` has no engine; the optimizer state one a local worker under
+    the Adasum scheme; ``guards``: a ``GuardConfig`` whose fresh state the
+    train state carries."""
     if flat_params is None:
         flat_params = setup.layout.flatten(param_tree(model), device=device)
     if flat_stats is None:
         flat_stats = setup.stats_layout.flatten(stats_tree(model),
                                                 device=device)
     local = len(dist_opt.comm.ranks)
+    params = flat_params.to(device)
     return TrainState(
-        step=0, params=flat_params.to(device),
-        opt_state=dist_opt.init(flat_params.to(device)),
+        step=0, params=params,
+        opt_state=(dist_opt.init_per_worker(params)
+                   if dist_opt.per_worker_opt_state
+                   else dist_opt.init(params)),
         memory=[setup.engine.init_memory(device) if setup.engine is not None
                 else dist_opt.init_memory(param_tree(model), device)
                 for _ in range(local)],
-        batch_stats=[flat_stats.to(device).clone() for _ in range(local)])
+        batch_stats=[flat_stats.to(device).clone() for _ in range(local)],
+        guards=None if guards is None else _guard.init_state(guards, device))
+
+
+def _read_later(skip: torch.Tensor):
+    """``(host copy, event)`` of a device verdict, copied without a sync:
+    waiting on the event later waits for this step's end only, not for
+    the work queued after it."""
+    if skip.device.type != "cuda":
+        return skip, None
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(skip, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def resolve_pending_skip(state: TrainState) -> TrainState:
+    """Read the last guarded step's skip verdict (one host sync) and take
+    back the optimizer state's step count where it skipped: the count is
+    a host int, the rest of the revert happened on the device."""
+    pending = state.pending_skip
+    if pending is None:
+        return state
+    state.pending_skip = None
+    skip, ready = pending
+    if ready is not None:
+        ready.synchronize()
+    if bool(skip):
+        if isinstance(state.opt_state, list):
+            state.opt_state = [s._replace(count=s.count - 1)
+                               for s in state.opt_state]
+        else:
+            state.opt_state = state.opt_state._replace(
+                count=state.opt_state.count - 1)
+    return state
 
 
 def _binding(layout: ParamLayout, flat: torch.Tensor):
@@ -162,11 +218,27 @@ def worker_grad(model, setup: FlatSetup, params: torch.Tensor,
 def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
                images: Sequence[torch.Tensor], labels: Sequence[torch.Tensor],
                gens: Sequence[torch.Generator], nbps: int = 1,
-               dropout_gens: Optional[Sequence[torch.Generator]] = None):
+               dropout_gens: Optional[Sequence[torch.Generator]] = None,
+               guards: Optional[_guard.GuardConfig] = None,
+               faults: Optional[_faults.FaultPlan] = None):
     """One step for this process's workers (``images[w]`` / ``labels[w]``
     / ``gens[w]`` / ``dropout_gens[w]`` per local worker). Returns
-    ``(state, mean loss)``; the loss stays on the device."""
+    ``(state, mean loss)``, the loss on the device; with ``guards``
+    (``state.guards`` must hold their state) ``(state, {"loss", "step",
+    "guards"})``. ``faults``: the armed fault plan (``nan@K``)."""
+    engine = setup.engine
+    if getattr(engine, "checksum", False) and guards is None:
+        raise ValueError(
+            "DGCCompressor(checksum=True) needs guards= on the train step — "
+            "the mismatch counter travels in the guard metrics")
+    if guards is not None and state.guards is None:
+        raise ValueError("guards= needs a state made with "
+                         "make_flat_state(..., guards=cfg)")
     comm = dist_opt.comm
+    if guards is not None:
+        # the pre-step values a skip restores: the statistics are written
+        # during the forward and the memory during the exchange, in place
+        stats0 = _guard.snapshot(state.batch_stats)
     grads: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
     for w in range(len(comm.ranks)):
@@ -175,15 +247,39 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
                               nbps, dropout_gens[w] if dropout_gens else None)
         grads.append(g)
         losses.append(loss)
-    phases = [setup.engine.draw_phases(gen) for gen in gens]
+    grads = _faults.inject_nan_grads(faults, grads, state.step)
+    phases = [engine.draw_phases(gen) for gen in gens]
+    resolve_pending_skip(state)
+    if guards is None:
+        params, opt_state, _ = dist_opt.update_flat(
+            grads, state.opt_state, state.params, state.memory, phases,
+            engine)
+        mean_loss = comm.all_reduce(losses)[0] / comm.world
+        state.step += 1
+        state.params = params
+        state.opt_state = opt_state
+        return state, mean_loss
+    mem0 = _guard.snapshot(state.memory)
+    health = {} if getattr(engine, "checksum", False) else None
     params, opt_state, _ = dist_opt.update_flat(
-        grads, state.opt_state, state.params, state.memory, phases,
-        setup.engine)
-    mean_loss = comm.all_reduce(losses)[0] / comm.world
+        grads, state.opt_state, state.params, state.memory, phases, engine,
+        health=health)
+    # the flag rides the loss all-reduce: one collective, as unguarded
+    packed = comm.all_reduce([torch.stack([loss, _guard.nonfinite_flag(
+        g, loss)]) for g, loss in zip(grads, losses)])[0]
+    mean_loss = packed[0] / comm.world
+    skip, gstate, gmetrics = _guard.apply(
+        guards, state.guards, bad_count=packed[1], mean_loss=mean_loss,
+        checksum_failures=(health or {}).get("checksum_failures"))
+    state.params = _guard.tree_select(skip, state.params, params)
+    state.opt_state = _guard.tree_select(skip, state.opt_state, opt_state)
+    state.memory = _guard.tree_select(skip, mem0, state.memory)
+    state.batch_stats = _guard.tree_select(skip, stats0, state.batch_stats)
+    state.guards = gstate
+    state.pending_skip = _read_later(skip)
+    step = state.step
     state.step += 1
-    state.params = params
-    state.opt_state = opt_state
-    return state, mean_loss
+    return state, {"loss": mean_loss, "step": step, "guards": gmetrics}
 
 
 def train_step_per_tensor(model, setup: FlatSetup, dist_opt,
@@ -196,7 +292,7 @@ def train_step_per_tensor(model, setup: FlatSetup, dist_opt,
     worker's gradients as ``{name: tensor}``, the distributed optimizer's
     per-tensor ``update`` (phases drawn from ``gens[w]``), the loss
     all-reduce. Returns ``(state, mean loss)``; the loss stays on the
-    device."""
+    device. The step guards are the flat path's, as in the reference."""
     comm = dist_opt.comm
     grads: List[dict] = []
     losses: List[torch.Tensor] = []

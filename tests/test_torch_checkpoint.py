@@ -152,13 +152,15 @@ def test_topology_mismatch_raises_like_jax(tmp_path):
     other = dict(TOPO, world=4)
     with pytest.raises(RuntimeError, match="topology"):
         jm.restore(_jax_state(0.0), topology=other)
-    with pytest.raises(tckpt.TopologyMismatch, match="item 8"):
+    with pytest.raises(tckpt.TopologyMismatch, match="elastic=True"):
         tm.restore(*_port(0.0), topology=other)
     # the matching or an absent record restores, and stays out of meters
     for topo in (TOPO, None):
         assert "_topology" not in tm.restore(*_port(0.0), topology=topo)[3]
-    with pytest.raises(ValueError, match="item 8"):
-        tm.restore(*_port(0.0), elastic=True)
+    # elastic with the same topology (or none given) is a plain restore;
+    # the reshard across a world-size change is test_torch_elastic.py's
+    out = tm.restore(*_port(0.0), elastic=True)
+    assert out[2] == 0 and "_elastic" not in out[3]
 
 
 @pytest.fixture(scope="module")

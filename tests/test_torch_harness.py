@@ -340,13 +340,15 @@ def test_synthetic_cifar_and_batch_order_match_jax(tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(checksum=True),
+@pytest.mark.parametrize("kw", [dict(checksum=True, int8_values=True),
                                 dict(plan=("gossip_ring",))])
 def test_unported_compressor_options_raise(kw):
-    """Options whose code paths the flat engine does not port (the payload
-    checksum and the gossip regimes, ROADMAP.md queue 1 item 8) are
-    refused, not silently run as the default path, at a compressed ratio
-    and at a dense one (whose engine has no bucket: an empty plan)."""
+    """Options whose code paths the flat engine does not carry (the gossip
+    regimes, ROADMAP.md queue 1 item 8; the payload checksum over the int8
+    wire, whose scales it would not cover — the reference refuses it too)
+    are refused, not silently run as the default path, at a compressed
+    ratio and at a dense one (whose engine has no bucket: an empty plan,
+    no payload)."""
     kw = dict(kw)
     plan = kw.pop("plan", None)
     for coeff in (None, [1, 1, 1, 1, 1]):
@@ -355,7 +357,11 @@ def test_unported_compressor_options_raise(kw):
         comp.initialize([("w", (64, 64))])
         comp.warmup_compress_ratio(0)
         layout = ParamLayout({"w": (64, 64), "b": (64,)}, ["w"])
-        with pytest.raises(ValueError, match="item 8"):
+        if coeff is not None and "checksum" in kw:
+            # a dense epoch sends no payload: nothing to checksum
+            assert not FlatDGCEngine(comp, layout, plan=plan).checksum
+            continue
+        with pytest.raises(ValueError, match="item 8|int8_values"):
             FlatDGCEngine(comp, layout, plan=plan)
 
 

@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
                 "data.datasets", "training.lr", "training.step", "configs",
                 "interop", "training.checkpoint", "data.native",
                 "parallel.multihost", "utils.logging", "utils.profiling",
-                "accuracy_parity"):
+                "accuracy_parity", "resilience.faults", "resilience.guard",
+                "resilience.integrity", "resilience.preempt",
+                "resilience.elastic", "telemetry.flight", "optim.adasum",
+                "parallel.comm"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 

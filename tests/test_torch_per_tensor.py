@@ -251,35 +251,44 @@ def _small_layout(comp):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(checksum=True), dict(plan=("gossip_hcube",)),
+    dict(checksum=True, int8_values=True), dict(plan=("gossip_hcube",)),
     dict(memory=tmemory.DGCSGDMemory(dtype="float16"))])
 def test_flat_engine_refuses_what_it_does_not_carry(kw):
-    """The flat engine carries the bf16 state and the int8 / fp16 wires
-    (the per-tensor path's too) since they were ported; it still refuses
-    the payload checksum and the gossip regimes (ROADMAP.md queue 1 item
-    8) and a state dtype the reference has no kernel for."""
+    """The flat engine carries the bf16 state, the int8 / fp16 wires (the
+    per-tensor path's too) and the payload checksum since they were
+    ported; it still refuses the gossip regimes (ROADMAP.md queue 1 item
+    8), the checksum over the int8 wire (its scales would ride uncovered,
+    as the reference refuses it) and a state dtype the reference has no
+    kernel for."""
     kw = dict(kw)
     plan = kw.pop("plan", None)
     comp = tdgc.DGCCompressor(0.05, **kw)
-    with pytest.raises(ValueError, match="ROADMAP|float16"):
+    with pytest.raises(ValueError, match="ROADMAP|float16|int8_values"):
         comp.make_flat_exchange(_small_layout(comp), plan=plan)
 
 
 def test_unported_options_still_raise():
-    # the flat engine's payload checksum (ROADMAP.md queue 1 item 8; the
-    # bf16 state, refused here before, is ported)
+    # the flat engine's payload checksum is ported (the bf16 state, refused
+    # here before, too); the per-tensor exchange refuses it, as the
+    # reference keeps it to the flat engine
     comp = tdgc.DGCCompressor(0.05, checksum=True)
     comp.initialize([("w", (64, 64))])
-    with pytest.raises(ValueError, match="item 8"):
-        tflat.FlatDGCEngine(comp, tflat.ParamLayout(
-            {"w": (64, 64), "b": (64,)}, ["w"]))
+    assert tflat.FlatDGCEngine(comp, tflat.ParamLayout(
+        {"w": (64, 64), "b": (64,)}, ["w"])).checksum
+    with pytest.raises(ValueError, match="per-tensor"):
+        TDist(t_dgc_sgd(0.1), comp, LocalComm(2)).exchange(
+            [{}, {}], [{}, {}], [{}, {}])
     for kw in (dict(memory=tmemory.DGCSGDMemory(dtype="bfloat16")),
                dict(int8_values=True), dict(fp16_values=True)):
         comp = tdgc.DGCCompressor(0.05, **kw)
         comp.make_flat_exchange(_small_layout(comp))
+    # the two tiers are ported: a local_size that divides the world builds
+    # them (tests/test_torch_twotier.py), one that does not is refused
+    assert TDist(t_dgc_sgd(0.1), tdgc.DGCCompressor(0.05), LocalComm(2),
+                 local_size=2).num_nodes == 1
     with pytest.raises(ValueError):
         TDist(t_dgc_sgd(0.1), tdgc.DGCCompressor(0.05), LocalComm(2),
-              local_axis_name="local")
+              local_size=3)
     with pytest.raises(ValueError):
         tdgc.DGCCompressor(0.05, int8_values=True, fp16_values=True)
 

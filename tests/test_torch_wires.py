@@ -252,7 +252,11 @@ def test_plans_and_refusals(params):
         _engines(params, 5, plan=("gossip_ring", "fp32"))
     with pytest.raises(ValueError, match="unknown exchange regime"):
         _engines(params, 5, plan=("int2", "fp32"))
-    with pytest.raises(ValueError, match="item 8"):
-        _engines(params, 5, checksum=True)
+    # the payload checksum is ported (test_torch_checksum.py holds it):
+    # both engines build it; over the int8 wire both refuse it
+    je, te = _engines(params, 5, checksum=True)
+    assert te.checksum and je.checksum
+    with pytest.raises(ValueError, match="int8_values"):
+        _engines(params, 5, checksum=True, int8_values=True)
     dense = _engines(params, 5, plan=("dense", "dense"))[1]
     assert dense.dense and dense.payload_size == 0
