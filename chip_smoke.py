@@ -235,6 +235,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``resnet50_twotier`` (W=4 as 2 x 2, epochs 4 and 5) and
    ``resnet20_adasum`` at W=4 and W=3 (``AdasumDistributedOptimizer``,
    epoch 5).
+4l. The telemetry slice (``phase_telemetry_vs_cpu``,
+   ``phase_telemetry_path``, ``phase_adaptive_path``). The engine's step
+   stats (``exchange(..., telemetry=True)``, W=4) card == CPU at
+   ResNet-50's epoch-4 and epoch-5 ratios and at ResNet-20 with the bf16
+   state and int8 error feedback: the payload counts, the selected
+   fractions, the thresholds and the wire bytes bitwise, the norms within
+   rtol 1e-5 (CUDA and CPU sums reduce in other orders).
+   ``resnet50_wm5_telemetry`` (the taps, the fleet gather, the CLI's sink)
+   at full width, W=4, 1 step at epoch 4 and 3 at epoch 5, against
+   ``resnet50_wm5`` on the same schedule: every epoch's launches equal,
+   the collectives the plain path's plus one all-gather a step, the step
+   thread's synchronising calls over 2 steps under the profiler equal
+   with telemetry on and off, one sink record a step under a valid
+   header, a traced window (the phase markers on, a step at epochs 4 and
+   6) through ``telemetry.attrib.phase_table`` with every
+   ``compensate_bits`` (``_cands``), ``topk_rows`` and ``apply_rows`` event
+   in the ``compensate``, ``select`` and ``apply`` phase (the attributed
+   share printed), and both paths' step times in turns.
+   ``resnet50_wm5_adaptive``, the same schedule, fed the clocks
+   ``_CLOCKS`` (step 2 skewed: worker 3 150 ms past the 200 ms median):
+   worker 3 sends 1 - 0.75 x 150 / 500 of its quota at step 3
+   (``adaptive_engaged`` 1) and all of it at step 4; the launches the
+   plain path's; that engine's exchange at those fractions card == CPU
+   bitwise, worker 3's wire the slots of rank below ``ceil(quota x
+   0.775)``, its withheld selections in its velocity and out of its
+   transmit record.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -4146,6 +4172,438 @@ def phase_process_group():
     print(f"[pg] one NCCL rank, one step: loss {loss}")
 
 
+# ------------------------------------------------------------------ #
+# the telemetry slice: step taps, the sink, phase attribution, the    #
+# fleet gather and the straggler-adaptive exchange                    #
+# ------------------------------------------------------------------ #
+
+#: the step stats the card and the CPU give bitwise (counts and minima);
+#: the norms and masses sum [T] elements, in another order on each
+_EXACT_STATS = ("payload_elems", "selected_frac", "threshold", "wire_bytes",
+                "clip_delta")
+#: the host calls that wait for the device
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "cudaMemcpy")
+#: device kernel name -> the phase its launches must land in
+_PHASE_OF = (("compensate_bits_cands_kernel", "compensate"),
+             ("compensate_bits_kernel", "compensate"),
+             ("topk_rows_kernel", "select"), ("apply_rows_", "apply"))
+#: the adaptive path's clocks, step by step: step 2 skewed
+_CLOCKS = ([200.0] * 4, [200.0, 200.0, 200.0, 350.0], [200.0] * 4,
+           [200.0] * 4)
+
+
+def _exchange_stats(eng, dev, steps=1, world=4, send_frac=None):
+    """``steps`` telemetry exchanges of ``eng`` among ``world`` workers on
+    ``dev`` from seeded inputs (``send_frac``: each worker's fraction):
+    ``(outputs and final memories, [per step, per worker stats])`` on the
+    CPU."""
+    import torch
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    mems = [eng.init_memory(dev) for _ in range(world)]
+    res, stats = [], []
+    frac = (None if send_frac is None else
+            [torch.tensor(f, device=dev) for f in send_frac])
+    for step in range(steps):
+        grads = [torch.randn(eng.layout.total,
+                             generator=torch.Generator().manual_seed(
+                                 700 + 100 * step + w)).to(dev)
+                 for w in range(world)]
+        phases = [eng.draw_phases(torch.Generator().manual_seed(
+            70 + 10 * step + w)) for w in range(world)]
+        outs, st = eng.exchange(grads, mems, phases, LocalComm(world),
+                                telemetry=True, send_frac=frac)
+        res += outs
+        stats.append([{k: v.cpu() for k, v in s.items()} for s in st])
+    res += [t for m in mems for t in m.values()]
+    return [t.cpu() for t in res], stats
+
+
+def _check_stats(label, got, want):
+    """The per-step, per-worker stats of the card against the CPU's:
+    :data:`_EXACT_STATS` bitwise, the norms within rtol 1e-5 (torch's
+    CUDA sum reduces a [T] vector as a tree of blocks, its CPU sum in
+    vectorized runs: another order). Returns the worst relative
+    difference of the norms."""
+    import torch
+    worst = 0.0
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            for k in w:
+                if k in _EXACT_STATS:
+                    _check_equal(f"{label} {k}", [g[k]], [w[k]])
+                    continue
+                if not torch.allclose(g[k], w[k], rtol=1e-5, atol=0):
+                    raise AssertionError(f"{label} {k}: card {g[k]}, CPU "
+                                         f"{w[k]} (rtol 1e-5)")
+                rel = float(((g[k] - w[k]).abs()
+                             / w[k].abs().clamp(min=1e-30)).max())
+                worst = max(worst, rel)
+    return worst
+
+
+def phase_telemetry_vs_cpu():
+    """The engine's step stats (``exchange(..., telemetry=True)``), W=4,
+    card against CPU on one input: ResNet-50 at the epoch-4 (2-D) and
+    epoch-5 (segment) ratios and ResNet-20 with the bf16 state and the
+    int8 wire's error feedback, 2 steps: every output and memory bitwise,
+    the stats as :func:`_check_stats` holds them."""
+    cases = [(f"resnet50 epoch {e}", eng) for e, (_, eng) in
+             _geometries("resnet50_wm5", (4, 5)).items()]
+    cases.append(("resnet20 bf16 int8-ef epoch 5", _geometries(
+        "resnet20_wm5", (5,), mem_dtype="bfloat16", int8_values=True,
+        int8_error_feedback=True)[5][1]))
+    worst, seen = {}, {}
+    for label, eng in cases:
+        steps = 1 if label.startswith("resnet50") else 2
+        got, gst = _exchange_stats(eng, DEVICE, steps)
+        want, wst = _exchange_stats(eng, "cpu", steps)
+        _check_equal(f"telemetry exchange {label}", got, want)
+        worst[label] = _check_stats(f"stats {label}", gst, wst)
+        seen[label] = {k: v.tolist() for k, v in gst[-1][0].items()}
+    DETAIL["telemetry_vs_cpu"] = {"norm_rel_diff": worst, "stats": seen}
+    print(f"[telemetry] W=4 step stats card == CPU: counts, fractions, "
+          f"thresholds, wire bytes bitwise; norms within rtol 1e-5 (worst "
+          f"{worst})")
+
+
+def _sync_calls(trainer, epoch, steps, on_step=None):
+    """``steps`` steps of ``trainer`` at ``epoch`` (``on_step`` after each)
+    under the profiler: the synchronising calls (:data:`_SYNC_CALLS`) its
+    main thread made, by name."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function("chip_smoke.window"):
+                trainer.run_epoch(epoch, steps, on_step=on_step)
+            torch.cuda.synchronize()
+        path = os.path.join(d, "t.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    win = [e for e in events if e.get("name") == "chip_smoke.window"
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        raise AssertionError(f"the profiler window: {len(win)} ranges")
+    tid, t0 = win[0]["tid"], float(win[0]["ts"])
+    t1 = t0 + float(win[0]["dur"])
+    out = {}
+    for e in events:
+        if (e.get("cat") == "cuda_runtime" and e.get("tid") == tid
+                and e.get("name") in _SYNC_CALLS
+                and t0 <= float(e["ts"]) <= t1):
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def _attributed_window(trainer, schedule):
+    """The ``schedule``'s steps of ``trainer`` under the profiler with the
+    phase markers on: ``(phase table, {kernel prefix: (events, phases
+    seen)})`` over the window's device events."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dgc_tpu_torch.telemetry import attrib, trace
+    prev = trace.enable(True)
+    torch.cuda.synchronize()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for epoch, steps in schedule:
+                    trainer.run_epoch(epoch, steps)
+                torch.cuda.synchronize()
+            path = os.path.join(d, "t.json")
+            prof.export_chrome_trace(path)
+            dev = attrib.device_events(attrib.load_trace_events(path),
+                                       device="gpu")
+    finally:
+        trace.enable(prev)
+    table = attrib.phase_table(dev, steps=sum(s for _, s in schedule))
+    kernels = {}
+    for e in dev:
+        for prefix, _ in _PHASE_OF:
+            # CUDA names come demangled ("void topk_rows_kernel<...>(...)")
+            if prefix in e["name"]:
+                n, seen = kernels.get(prefix, (0, set()))
+                seen.add(attrib.op_phase(e)[0])
+                kernels[prefix] = (n + 1, seen)
+                break
+    return table, kernels
+
+
+def _telemetry_trainer(recipe, comm):
+    """A ``Trainer`` of ``recipe`` on the card whose steps write the CLI's
+    sink (``train._Telemetry``: one record a step, the telemetry means,
+    the fleet columns and the loss) under a scratch directory, without the
+    recipe's tracing (the markers are turned on where a window asks):
+    ``(trainer, sink helper, directory)``."""
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.train import Trainer, _Telemetry
+    cfg = configs.RECIPES[recipe]()
+    cfg.train.trace.enabled = False
+    trainer = Trainer(cfg, comm=comm, device=DEVICE)
+    d = tempfile.mkdtemp(prefix="dgc_telemetry_")
+    return trainer, _Telemetry(cfg, trainer, d), d
+
+
+def _run_schedule(label, trainer, schedule, on_step=None):
+    """The schedule's epochs, each epoch's launch counts zeroed before it
+    and read after: ``({epoch: counts}, {epoch: step seconds})``."""
+    import torch
+    per_epoch, times = {}, {}
+    for epoch, steps in schedule:
+        t = []
+        torch.cuda.synchronize()
+        _zero_counts()
+        trainer.run_epoch(epoch, steps, t,
+                          on_step=None if on_step is None
+                          else on_step(epoch))
+        torch.cuda.synchronize()
+        per_epoch[epoch] = _read_counts(f"{label} epoch {epoch}", ())
+        times[epoch] = t
+    return per_epoch, times
+
+
+def phase_telemetry_path():
+    """The slice's main path, ``resnet50_wm5_telemetry`` (the step taps,
+    the fleet gather, the sink) at full width, 224x224, batch 32 a
+    worker, W=4 on the card: 1 step at epoch 4 and 3 at epoch 5, against
+    ``resnet50_wm5`` over the same schedule: every epoch's kernel
+    launches equal, the collectives the plain path's plus one all-gather
+    a step; the main thread's synchronising calls over 2 steps equal with
+    telemetry on and off; one sink record a step under a valid header; a
+    traced window (epoch 4 and epoch 6, a step each, the phase markers
+    on) attributed by ``attrib.phase_table``: every ``compensate_bits``
+    (``_cands``), ``topk_rows`` and ``apply_rows`` event in the
+    ``compensate``, ``select`` and ``apply`` phase; then the step times
+    of both in turns. Returns the path's launch counts."""
+    import shutil
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.telemetry import registry, sink
+    from dgc_tpu_torch.train import Trainer
+    schedule = [(4, 1), (5, 3)]
+    label = "resnet50_telemetry"
+    plain_comm = _recording_comm(4)
+    plain = Trainer(configs.resnet50_wm5(), comm=plain_comm, device=DEVICE)
+    want_launch, _ = _run_schedule("resnet50 (plain)", plain, schedule)
+    want_calls = dict(plain_comm.calls)
+    comm = _recording_comm(4)
+    trainer, tel, d = _telemetry_trainer("resnet50_wm5_telemetry", comm)
+    seen = []
+
+    def on_step(epoch):
+        write = tel.on_step(epoch)
+
+        def after(batch, metrics):
+            seen.append(metrics)
+            write(batch, metrics)
+        return after
+    try:
+        per_epoch, times = _run_schedule(label, trainer, schedule, on_step)
+        for epoch in per_epoch:
+            if per_epoch[epoch] != want_launch[epoch]:
+                raise AssertionError(f"{label} epoch {epoch}: launches "
+                                     f"{per_epoch[epoch]}, plain "
+                                     f"{want_launch[epoch]}")
+        nsteps = sum(s for _, s in schedule)
+        want = dict(want_calls, all_gather=want_calls["all_gather"] + nsteps)
+        if comm.calls != want:
+            raise AssertionError(f"{label}: collectives {comm.calls}, want "
+                                 f"the plain path's {want_calls} + one "
+                                 "all_gather a step")
+        calls = dict(comm.calls)
+        # the synchronising calls of the step's own thread, on and off
+        syncs = {"off": _sync_calls(plain, 6, 2),
+                 "on": _sync_calls(trainer, 6, 2, on_step(6))}
+        if syncs["on"] != syncs["off"]:
+            raise AssertionError(f"{label}: synchronising calls {syncs}")
+        # the phase attribution of a traced window
+        table, kernels = _attributed_window(trainer, [(4, 1), (6, 1)])
+        for prefix, phase in _PHASE_OF:
+            if prefix not in kernels:
+                raise AssertionError(f"{label}: no {prefix} event traced")
+            if kernels[prefix][1] != {phase}:
+                raise AssertionError(f"{label}: {prefix} attributed to "
+                                     f"{kernels[prefix][1]}, not {phase}")
+        share = table["attributed_ms"] / max(table["total_ms"], 1e-12)
+        # step times, telemetry off and on in turns
+        turns = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off", "off", "on"):
+            t = []
+            (plain if which == "off" else trainer).run_epoch(7, 2, t)
+            turns[which] += t
+        n_written = len(seen)
+        # the taps' [T] reductions of a W=4 step alone on the device (the
+        # gradient's, the momenta's norms, the residual's sum of squares
+        # and mass), against their byte bound (each input read once)
+        from dgc_tpu_torch.telemetry import taps
+        mems = trainer.state.memory
+        grads = [torch.randn(trainer.setup.layout.total,
+                             generator=torch.Generator().manual_seed(w))
+                 .to(DEVICE) for w in range(len(mems))]
+
+        def reductions():
+            for g, m in zip(grads, mems):
+                taps.l2(g)
+                taps.l2(m["momentums_c"])
+                taps.l2(m["momentums_d"])
+                taps.sumsq(m["velocities_c"])
+                taps.l1(m["velocities_c"])
+        taps_ms = _device_ms(reductions, reps=5, hold_cycles=_LONG_HOLD)
+        taps_bound = _bound(sum(4 * (g.numel() + m["momentums_c"].numel()
+                                     + m["momentums_d"].numel()
+                                     + m["velocities_c"].numel())
+                                for g, m in zip(grads, mems)), 0)[0]
+        del grads
+    finally:
+        tel.close()
+    header, recs = sink.read_run(str(Path(d) / "telemetry" / "host0" /
+                                     "telemetry.jsonl"))
+    shutil.rmtree(d, ignore_errors=True)
+    steps = [r for r in recs if "event" not in r]
+    if (header["schema"] != registry.SCHEMA or not header.get(
+            "fleet_metrics") or len(steps) != n_written
+            or n_written != nsteps + 2):
+        raise AssertionError(f"{label}: sink {header.get('schema')}, "
+                             f"{len(steps)} records of {n_written} steps")
+    for r in steps:
+        missing = (set(registry.step_stat_names())
+                   | set(registry.fleet_stat_names())) - set(r)
+        if missing or not all(math.isfinite(x) for x in r["w_grad_norm"]):
+            raise AssertionError(f"{label}: record {r['step']}: {missing}")
+    last = {k: (v.tolist() if torch.is_tensor(v) else v)
+            for k, v in {**seen[-1]["telemetry"],
+                         **seen[-1]["fleet"]}.items()}
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    DETAIL[f"launches {label} by epoch"] = per_epoch
+    DETAIL[label] = {"collectives": calls,
+                     "plain_collectives": want_calls, "sync_calls": syncs,
+                     "phase_table": table, "attributed_share": share,
+                     "kernel_phases": {k: [n, sorted(s)] for k, (n, s)
+                                       in kernels.items()},
+                     "step_s": times, "turns_step_s": turns,
+                     "median_step_s": med, "last_stats": last,
+                     "records": len(steps), "taps_ms": taps_ms,
+                     "taps_bound_ms": taps_bound}
+    print(f"[{label}] W=4, epochs 4 (1 step) and 5 (3 steps): launches by "
+          f"epoch equal resnet50_wm5's; collectives {calls} = plain "
+          f"{want_calls} + {nsteps} all_gather; main-thread syncs over 2 "
+          f"steps {syncs}; {len(steps)} sink records; attributed "
+          f"{100 * share:.1f}% of {table['total_ms']:.2f} device ms a "
+          f"step, phases {table['phases']}; kernels "
+          f"{DETAIL[label]['kernel_phases']}; median step s in turns "
+          f"{med}; the taps' [T] reductions {taps_ms:.3f} ms a step "
+          f"(bound {taps_bound:.3f}, {100 * taps_ms / 1e3 / med['on']:.2f}% "
+          f"of the step)")
+    counts = {k: sum(c[k] for c in per_epoch.values())
+              for k in per_epoch[4]}
+    del plain, trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_adaptive_path():
+    """``resnet50_wm5_adaptive`` at full width, W=4 on the card, the same
+    schedule, fed the clocks of :data:`_CLOCKS` (one process shares one
+    host stamp, so the skew cannot come from a sleep): step 2's skewed
+    clock gives worker 3 the send fraction 1 - 0.75 x 150 / 500 for step
+    3, which step 3's fleet lanes carry (``adaptive_engaged`` 1) and step
+    4 drops (memoryless release); every epoch's launches ``resnet50_wm5``'s.
+    Then that epoch-5 engine's exchange at those fractions, card against
+    CPU bitwise (stats as :func:`_check_stats`), worker 3's wire the
+    slots of rank below ``ceil(quota x 0.775)`` of its selection, and its
+    withheld selections still in its velocity and out of its record.
+    Returns the path's launch counts."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.ops import kernels as K
+    label = "resnet50_adaptive"
+    schedule = [(4, 1), (5, 3)]
+    want_launch = DETAIL["launches resnet50_telemetry by epoch"]
+    cfg = configs.resnet50_wm5_adaptive()
+    from dgc_tpu_torch.train import Trainer
+    trainer = Trainer(cfg, comm=_recording_comm(4), device=DEVICE)
+    clocks = iter(_CLOCKS)
+    trainer.clock = lambda dt_ms: torch.tensor(next(clocks), device=DEVICE)
+    seen, fracs = [], []
+
+    def on_step(epoch):
+        def after(batch, metrics):
+            seen.append({k: v.cpu() for k, v in metrics["fleet"].items()})
+            fracs.append(trainer.state.adaptive["w_frac"].cpu())
+        return after
+    per_epoch, times = _run_schedule(label, trainer, schedule, on_step)
+    for epoch in per_epoch:
+        if per_epoch[epoch] != want_launch[epoch]:
+            raise AssertionError(f"{label} epoch {epoch}: launches "
+                                 f"{per_epoch[epoch]}, plain "
+                                 f"{want_launch[epoch]}")
+    want = (torch.tensor(1.0) - torch.tensor(0.75)
+            * (torch.tensor(150.0) / torch.tensor(500.0)))
+    engaged = [float(s["adaptive_engaged"]) for s in seen]
+    if (fracs[1][3] != want or not bool((fracs[1][:3] == 1).all())
+            or seen[2]["w_eff_ratio"][3] != want
+            or engaged != [0.0, 0.0, 1.0, 0.0]
+            or not bool((fracs[2] == 1).all())):
+        raise AssertionError(f"{label}: fractions {fracs}, engaged "
+                             f"{engaged}, eff {seen[2]['w_eff_ratio']}")
+    # the step-3 exchange of the path's epoch-5 engine at those fractions
+    eng = trainer.setup.engine
+    frac = fracs[1].tolist()
+    got, gst = _exchange_stats(eng, DEVICE, send_frac=frac)
+    wantx, wst = _exchange_stats(eng, "cpu", send_frac=frac)
+    _check_equal(f"{label} masked exchange", got, wantx)
+    worst = _check_stats(f"{label} stats", gst, wst)
+    # worker 3's selection before the mask, and what the wire kept
+    S = eng.layout.sentinel
+    mem = eng.init_memory(DEVICE)
+    g3 = torch.randn(eng.layout.total, generator=torch.Generator(
+        ).manual_seed(703)).to(DEVICE)
+    ph3 = eng.draw_phases(torch.Generator().manual_seed(73))
+    vals, idx = eng.compress(g3, mem, ph3)
+    rank = torch.as_tensor(eng._adaptive_rank, device=DEVICE)
+    quota = torch.as_tensor(eng._adaptive_quota, device=DEVICE)
+    keep = rank < torch.ceil(quota * want.to(DEVICE))
+    kept = int(((idx != S) & keep).sum())
+    cap = int(keep.sum())
+    if float(gst[0][3]["payload_elems"]) != kept or kept > cap:
+        raise AssertionError(f"{label}: worker 3 sent "
+                             f"{float(gst[0][3]['payload_elems'])}, its "
+                             f"selection kept {kept} (cap {cap})")
+    keys = list(eng.init_memory("cpu"))
+    mem3 = dict(zip(keys, got[4 + 3 * len(keys): 4 + 4 * len(keys)]))
+    rec = K.keep_from_bits(mem3["sent_bits"].to(DEVICE), eng.T)
+    held = idx[(idx != S) & ~keep].long()
+    if held.numel() == 0 or not bool((rec[held] == 1).all()) or not bool(
+            (mem3["velocities_c"].to(DEVICE)[held]
+             == vals[(idx != S) & ~keep]).all()):
+        raise AssertionError(f"{label}: the withheld selections left the "
+                             "velocity or entered the record")
+    DETAIL[f"launches {label} by epoch"] = per_epoch
+    DETAIL[label] = {"w_frac": [f.tolist() for f in fracs],
+                     "adaptive_engaged": engaged, "step_s": times,
+                     "worker3_payload": kept, "worker3_cap": cap,
+                     "withheld": int(held.numel()),
+                     "norm_rel_diff": worst}
+    print(f"[{label}] W=4, clocks {list(_CLOCKS)}: worker 3's step-3 send "
+          f"fraction {float(fracs[1][3])} (1 - 0.75 x 150 / 500), engaged "
+          f"{engaged}, released at step 4; launches by epoch equal "
+          f"resnet50_wm5's; the masked exchange card == CPU bitwise, "
+          f"worker 3 sent {kept} of its selection's {int((idx != S).sum())}"
+          f" (sum of ceil(quota x 0.775) = {cap}), {int(held.numel())} "
+          f"withheld in its velocity; step_s {times}")
+    counts = {k: sum(c[k] for c in per_epoch.values())
+              for k in per_epoch[4]}
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -4306,6 +4764,11 @@ def main(argv):
         adasum=True)[1]
     phase_train_path("resnet20_adasum_w3", "resnet20_wm5", [(5, 2)],
                      exchange, adasum=True, world=3)
+    # the telemetry slice: the step taps card == CPU, the main path with
+    # the sink, the syncs, the attribution, and the adaptive exchange
+    phase_telemetry_vs_cpu()
+    by_path["resnet50_telemetry"] = phase_telemetry_path()
+    by_path["resnet50_adaptive"] = phase_adaptive_path()
     phase_elastic()
     phase_preempt_drill("resnet20_wm5_resilience", "resnet20",
                         ["--epochs", "1", "--steps", "4"], kill=2)
@@ -4323,7 +4786,8 @@ def main(argv):
         # and on the slice's paths (PR 13's bf16 state; the resilient,
         # two-tier and Adasum paths)
         for path in (slice_label, "resnet50_resilience", "resnet50_twotier",
-                     "resnet20_adasum"):
+                     "resnet20_adasum", "resnet50_telemetry",
+                     "resnet50_adaptive"):
             e[f"launches_{path}"] = by_path[path][name]
     DETAIL["launches_by_path"] = by_path
     DETAIL["wire_bytes_per_worker"] = wire_bytes
@@ -4331,6 +4795,10 @@ def main(argv):
     print("[phases] " + ", ".join(
         f"{k[6:]} {v:.1f}" for k, v in sorted(spent.items(),
                                              key=lambda kv: -kv[1])[:15]))
+    print("[phases] telemetry slice: " + ", ".join(
+        f"{k[6:]} {spent.get(k, 0.0):.1f}" for k in (
+            "phase_telemetry_vs_cpu", "phase_telemetry_path",
+            "phase_adaptive_path")))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,13 +2,14 @@
 times and re-run the regime planner at epoch boundaries.
 
 Counterpart of ``dgc_tpu/compression/autotune.py`` (host-only Python, a
-copy of it apart from the inputs the port does not have yet). The planner
+copy of it). The planner
 chooses regimes once, at engine-build time, from a static fabric model;
 the :class:`Autotuner` closes the loop on the host::
 
     step loop   -> record_step(wall_ms, wire_bytes)
+                   (+ add_profile(profile.json), add_fleet_view(run dir))
                          |
-                 epoch boundary: epoch_end(engine)
+                 epoch boundary: epoch_end(engine, profile=...)
                          |
         fit_link_model(points, prior=current fabric)
                          |
@@ -25,11 +26,14 @@ unchanged ``key()`` no rebuild. The refit fabric keeps one stable name
 ``(fabric.name, world, regimes)`` — changes exactly when the chosen
 regimes change.
 
-Not ported (ROADMAP.md queue 1 item 9): :meth:`Autotuner.add_profile`
-(per-bucket all-gather device costs from a telemetry profile) and
-:meth:`Autotuner.add_fleet_view` (the fleet telemetry lanes) raise; the
-step-time points are the refit's only input. The gossip candidates are
-refused, as in :mod:`~dgc_tpu_torch.compression.planner`.
+Besides the step points: :meth:`Autotuner.add_profile` takes each
+bucket's all-gather device milliseconds from a ``dgc-profile`` table
+(:mod:`dgc_tpu_torch.telemetry.attrib`) against the bucket's wire bytes,
+and :meth:`Autotuner.add_fleet_view` the per-step cohort maximum of a
+fleet lane from a run's sink shards (:mod:`dgc_tpu_torch.telemetry.
+fleet`). Refits and replans go to ``sink`` as ``autotune_replan``
+records. The gossip candidates are refused, as in
+:mod:`~dgc_tpu_torch.compression.planner`.
 """
 
 import json
@@ -153,19 +157,44 @@ class Autotuner:
                 del self.points[:len(self.points) - self.max_points]
 
     def add_profile(self, profile: Optional[Dict], engine) -> int:
-        """Per-bucket all-gather device costs from a telemetry profile:
-        not ported (the port writes no such profile)."""
-        raise NotImplementedError(
-            "Autotuner.add_profile reads the telemetry profile, which is "
-            "not ported: ROADMAP.md queue 1 item 9")
+        """Per-bucket allgather device ms from an
+        ``attrib.profile_json`` dict x the engine's per-bucket wire
+        bytes — the sharp input: every differently-sized bucket is a
+        distinct point on the line. Returns points added."""
+        if not profile:
+            return 0
+        buckets = (profile.get("dgc") or {}).get("buckets") or {}
+        wire = engine.bucket_wire_bytes()
+        added = 0
+        for i, nbytes in enumerate(wire):
+            tab = buckets.get(f"b{i}")
+            if not isinstance(tab, dict) or nbytes <= 0:
+                continue
+            ms = tab.get("allgather")
+            if isinstance(ms, (int, float)) and ms > 0:
+                self.record_step(float(ms), int(nbytes))
+                added += 1
+        return added
 
     def add_fleet_view(self, run_dir: str, wire_bytes: int,
                        metric: str = "w_clock", last: int = 200) -> int:
-        """The fleet telemetry lanes' per-step cohort maximum: not
-        ported."""
-        raise NotImplementedError(
-            "Autotuner.add_fleet_view reads the fleet telemetry lanes, "
-            "which are not ported: ROADMAP.md queue 1 item 9")
+        """Per-step cohort max of a fleet lane (``telemetry.fleet``
+        sink shards) x the static wire bytes — the slowest worker
+        bounds the synchronous exchange. Tolerant: a missing or
+        unreadable run directory adds nothing."""
+        try:
+            from dgc_tpu_torch.telemetry.fleet import load_view, worker_series
+            series = worker_series(load_view(run_dir), metric)
+        except Exception:
+            return 0
+        added = 0
+        for _, lanes in series[-last:]:
+            vals = [v for v in lanes if isinstance(v, (int, float))
+                    and np.isfinite(v) and v > 0]
+            if vals and wire_bytes > 0:
+                self.record_step(max(vals), wire_bytes)
+                added += 1
+        return added
 
     # -- the refit -------------------------------------------------- #
 

@@ -128,9 +128,26 @@ receiver recomputes them over the gathered payload). An armed
 gathered values (``bitflip``, after the gather) and indices (``badidx``,
 before the clamp), on copies.
 
+Telemetry (:mod:`dgc_tpu_torch.telemetry`): ``exchange(...,
+telemetry=True)`` also returns each local worker's ``STEP_METRICS`` dict
+(:meth:`FlatDGCEngine._telemetry_stats`: the gradient's norm before
+clipping, the clip's relative reduction, the momenta's and the
+untransmitted residual's norms and mass, the payload's real elements, the
+wire's bytes, and per bucket the selected fraction and the effective
+threshold from ``sparsify(..., stats_out=)``); the residual comes from the
+reference's identity over the transmitted values, so no masked copy of
+the velocity is built. ``bucket_descriptors`` and ``telemetry_static``
+give the sink's header. ``exchange(..., send_frac=[...])`` is the
+straggler-adaptive exchange (:mod:`~dgc_tpu_torch.resilience.adaptive`):
+each local worker keeps only each row's ``ceil(quota * send_frac)``
+largest selections, the rest become ``(0.0, sentinel)`` pads, dropped
+from the transmit record, so the withheld mass stays in the velocity. The
+stages run inside the reference's phase markers
+(:func:`dgc_tpu_torch.telemetry.trace.phase`), which cost nothing while
+tracing is off.
+
 Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
-for one): gossip, the adaptive send fraction, telemetry and layouts of
-2**31 slots or more.
+for one): gossip and layouts of 2**31 slots or more.
 """
 
 import math
@@ -146,6 +163,8 @@ from dgc_tpu_torch.compression.wirecodec import (DeltaIndexCodec, IndexCodec,
 from dgc_tpu_torch.ops import kernels
 from dgc_tpu_torch.resilience import faults as _faults
 from dgc_tpu_torch.resilience import integrity
+from dgc_tpu_torch.telemetry import taps
+from dgc_tpu_torch.telemetry.trace import phase
 from dgc_tpu_torch.utils.pytree import named_flatten
 
 __all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
@@ -717,6 +736,19 @@ class FlatDGCEngine:
         self._payload_slices = tuple(sl)
         #: per-worker wire payload in elements (the sparse buckets')
         self.payload_size = off
+        #: adaptive-exchange statics (resilience/adaptive.py): per payload
+        #: slot, its rank within its row and the row's full quota, from
+        #: the bucket's tight map. The selections of a row come in
+        #: descending |value| order, so masking the slots of rank >=
+        #: ceil(quota * send_frac) keeps exactly the largest; at
+        #: send_frac == 1 every structurally valid slot survives
+        self._adaptive_rank = self._adaptive_quota = None
+        if sparse and self.payload_size:
+            self._adaptive_rank = np.concatenate(
+                [(b.tight % b.max_sel).astype(np.int32) for b in sparse])
+            self._adaptive_quota = np.concatenate(
+                [np.asarray(b.num_selects, np.float32)[b.tight // b.max_sel]
+                 for b in sparse])
         self._build_lanes(sparse)
         #: per bucket: selects through the segment candidates
         self._seg = [self._use_seg_kernel(b) for b in self.buckets]
@@ -930,6 +962,35 @@ class FlatDGCEngine:
                 ib = b.payload * _itemsize(self.index_dtype)
             out.append(int(vb + ib))
         return out
+
+    def bucket_descriptors(self) -> List[Dict]:
+        """Static per-bucket geometry for telemetry headers and readers:
+        the per-bucket stat columns (``selected_frac``, ``threshold``)
+        come in this order. Carries each bucket's regime and its wire
+        bytes."""
+        wb = self.bucket_wire_bytes()
+        return [{"base": int(b.base), "rows": int(b.rows),
+                 "cols": int(b.cols), "numel": int(np.sum(b.numels)),
+                 "num_selects": int(np.sum(b.num_selects)),
+                 "payload": int(b.payload), "regime": r,
+                 "wire_bytes": int(w)}
+                for b, r, w in zip(self.buckets, self.regimes, wb)]
+
+    def telemetry_static(self) -> Dict:
+        """Header block for the telemetry sink (``registry.make_header``)."""
+        return {
+            "engine": type(self).__name__,
+            "num_params": int(self.layout.total),
+            "t_compressed": int(self.T),
+            "compress_ratio": float(self.c.compress_ratio),
+            "payload_elems": int(self.payload_size),
+            "wire_bytes": self.wire_bytes_per_worker(),
+            "index_bits": (round(self._codec.bits_per_index, 2)
+                           if self._codec is not None else
+                           8 * _itemsize(self.index_dtype)),
+            "regimes": list(self.regimes),
+            "buckets": self.bucket_descriptors(),
+        }
 
     # -------------------------------------------------------------- #
     # memory                                                         #
@@ -1339,7 +1400,8 @@ class FlatDGCEngine:
 
     def sparsify(self, vec_c: torch.Tensor, phases: Sequence[Sequence[float]],
                  seg_cands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 fwd_sel: Optional[Dict[int, Tuple[torch.Tensor, ...]]] = None
+                 fwd_sel: Optional[Dict[int, Tuple[torch.Tensor, ...]]] = None,
+                 stats_out: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sampled top-k selection over the compressed block [T], over the
         buckets the plan does not send dense. Returns ``(values, indices)``
@@ -1350,66 +1412,107 @@ class FlatDGCEngine:
         without them a segment-path bucket computes its own
         (:func:`kernels.seg_top2_candidates`). ``fwd_sel`` maps a bucket id
         to the ``(scores, values, columns)`` the forward megakernel already
-        selected (:meth:`_compensate_megakernel`)."""
+        selected (:meth:`_compensate_megakernel`). ``stats_out``: a dict
+        that receives the telemetry's selection stats (:meth:`
+        _selection_stats`)."""
         consts = self._bucket_consts(vec_c.device)
         out_v, out_i = [], []
         for bi in self._sparse_ids:
             b, c = self.buckets[bi], consts[bi]
             if self._seg[bi]:
-                vals, gidx = self._sparsify_bucket_seg(vec_c, b, c,
-                                                       phases[bi], seg_cands)
+                with phase("select", bi):
+                    vals, gidx = self._sparsify_bucket_seg(
+                        vec_c, b, c, phases[bi], seg_cands)
             elif self._sel3d[bi]:
-                vals, gidx = self._sparsify_bucket_3d(vec_c, b, c,
-                                                      phases[bi])
+                with phase("select", bi):
+                    vals, gidx = self._sparsify_bucket_3d(vec_c, b, c,
+                                                          phases[bi])
             else:
                 vals, gidx = self._sparsify_bucket_2d(
-                    vec_c, b, c, phases[bi], (fwd_sel or {}).get(bi))
-            if c["tight"] is None:
-                out_v.append(vals.reshape(-1))
-                out_i.append(gidx.reshape(-1))
-            else:
-                out_v.append(vals.reshape(-1)[c["tight"]])
-                out_i.append(gidx.reshape(-1)[c["tight"]])
+                    vec_c, b, c, phases[bi], (fwd_sel or {}).get(bi), bi)
+            with phase("pack", bi):
+                if c["tight"] is None:
+                    out_v.append(vals.reshape(-1))
+                    out_i.append(gidx.reshape(-1))
+                else:
+                    out_v.append(vals.reshape(-1)[c["tight"]])
+                    out_i.append(gidx.reshape(-1)[c["tight"]])
+        if stats_out is not None:
+            stats_out.update(self._selection_stats(out_v, out_i))
         return torch.cat(out_v), torch.cat(out_i)
 
+    def _selection_stats(self, out_v, out_i) -> Dict[str, torch.Tensor]:
+        """The telemetry tap over the emitted payload (each sparse
+        bucket's ``(values, indices)``): per bucket the real selections
+        over the bucket's elements (``selected_frac``) and the least |value|
+        sent (``threshold``), a dense-planned bucket 1.0 and 0.0, and the
+        payload's real elements (``payload_elems``)."""
+        dev = out_v[0].device
+        counts, thrs, fracs = [], [], []
+        sj = 0
+        for b, r in zip(self.buckets, self.regimes):
+            if r == "dense":
+                fracs.append(torch.ones((), dtype=torch.float32, device=dev))
+                thrs.append(torch.zeros((), dtype=torch.float32, device=dev))
+                continue
+            cnt, thr = taps.bucket_payload_stats(out_v[sj], out_i[sj],
+                                                 self.layout.sentinel)
+            sj += 1
+            counts.append(cnt)
+            thrs.append(thr)
+            fracs.append(cnt / torch.full((), float(np.sum(b.numels)),
+                                          dtype=torch.float32, device=dev))
+        return {"selected_frac": torch.stack(fracs),
+                "threshold": torch.stack(thrs),
+                "payload_elems": sum(counts)}
+
     def _sparsify_bucket_2d(self, vec_c: torch.Tensor, b: _Bucket, c,
-                            phases: Sequence[float], fused=None):
-        """Selection over the [R, cols] importance view of one bucket: the
-        top ``max_sel`` by importance with their values — ``fused`` (the
-        forward megakernel's), else the select-and-pack kernel's under
-        ``fused_select``, else the top-k of the importance and a gather —
-        then the sampled threshold and its adaptation from those scores.
-        Returns ``(values [R, max_sel], global indices [R, max_sel])``."""
+                            phases: Sequence[float], fused=None, bi=-1):
+        """Selection over the [R, cols] importance view of one bucket
+        (``bi``, for the phase markers): the top ``max_sel`` by importance
+        with their values — ``fused`` (the forward megakernel's), else the
+        select-and-pack kernel's under ``fused_select``, else the top-k of
+        the importance and a gather — then the sampled threshold and its
+        adaptation from those scores. Returns ``(values [R, max_sel],
+        global indices [R, max_sel])``."""
         block = vec_c[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
-        if fused is None and self._use_fused_select(b):
-            fused = kernels.select_pack_rows(block, c["numels_r"], b.max_sel)
-        imp_rows = (torch.where(c["in_row"], block.abs(), -1.0)
-                    if fused is None or not b.exact else None)
-        if fused is not None:
-            top_scores, sel_vals, cols = fused
-        else:
-            top_scores, cols = select_topk(imp_rows, b.max_sel)
-            sel_vals = block.gather(1, cols.long())
+        with phase("select", bi):
+            if fused is None and self._use_fused_select(b):
+                fused = kernels.select_pack_rows(block, c["numels_r"],
+                                                 b.max_sel)
+            imp_rows = (torch.where(c["in_row"], block.abs(), -1.0)
+                        if fused is None or not b.exact else None)
+            if fused is not None:
+                top_scores, sel_vals, cols = fused
+            else:
+                top_scores, cols = select_topk(imp_rows, b.max_sel)
+                sel_vals = block.gather(1, cols.long())
         if b.exact:
             # every row samples its whole tensor: the threshold is the
             # exact k-th largest, so top-num_selects is the selection
-            valid = (top_scores >= 0) & c["slot_ok"]
+            with phase("select", bi):
+                valid = (top_scores >= 0) & c["slot_ok"]
         else:
-            samples = self._sample_rows(b, c, imp_rows, phases)
-            sorted_s = select_topk(samples.contiguous(), b.max_k)[0]
-            thr = sorted_s.gather(1, c["k_idx"])[:, 0]
-            if self.c.max_adaptation_iters > 0 and b.adapt.any():
-                if self.c.resample:
-                    thr = self._ladder_adapt_from_topk(c, top_scores, thr)
-                else:
-                    thr = _batched_adapt(
-                        imp_rows, thr, c["lo"][:, 0], c["hi"], c["adapt"],
-                        self.c.compress_lower_bound,
-                        self.c.compress_upper_bound,
-                        self.c.max_adaptation_iters)
-            valid = (top_scores >= thr[:, None]) & c["slot_ok"]
-        gidx = torch.where(valid, c["row_off"] + cols, self.layout.sentinel)
-        return torch.where(valid, sel_vals, 0.0), gidx
+            with phase("threshold", bi):
+                samples = self._sample_rows(b, c, imp_rows, phases)
+                sorted_s = select_topk(samples.contiguous(), b.max_k)[0]
+                thr = sorted_s.gather(1, c["k_idx"])[:, 0]
+                if self.c.max_adaptation_iters > 0 and b.adapt.any():
+                    if self.c.resample:
+                        thr = self._ladder_adapt_from_topk(c, top_scores,
+                                                           thr)
+                    else:
+                        thr = _batched_adapt(
+                            imp_rows, thr, c["lo"][:, 0], c["hi"],
+                            c["adapt"], self.c.compress_lower_bound,
+                            self.c.compress_upper_bound,
+                            self.c.max_adaptation_iters)
+            with phase("select", bi):
+                valid = (top_scores >= thr[:, None]) & c["slot_ok"]
+        with phase("select", bi):
+            gidx = torch.where(valid, c["row_off"] + cols,
+                               self.layout.sentinel)
+            return torch.where(valid, sel_vals, 0.0), gidx
 
     # -------------------------------------------------------------- #
     # the exchange                                                   #
@@ -1439,25 +1542,46 @@ class FlatDGCEngine:
             b = self.buckets[bi]
             hi = b.base + b.rows * b.cols
             span(pos, b.base)
-            fwd_sel[bi] = kernels.dgc_forward_rows(
-                grad_c[b.base:hi], mmt[b.base:hi], vec[b.base:hi], bits,
-                b.base, consts[bi]["numels_r"], b.max_sel, *flags)
+            with phase("forward", bi):
+                fwd_sel[bi] = kernels.dgc_forward_rows(
+                    grad_c[b.base:hi], mmt[b.base:hi], vec[b.base:hi], bits,
+                    b.base, consts[bi]["numels_r"], b.max_sel, *flags)
             pos = hi
         span(pos, self.T)
         return vec, fwd_sel
 
-    def compress(self, flat_grad: torch.Tensor, mem, phases):
+    def compress(self, flat_grad: torch.Tensor, mem, phases,
+                 stats_out: Optional[Dict] = None):
         """One worker's send side: compensate (in place on ``mem``), then
         sparsify. Returns the ``(values, indices)`` payload. With buckets
         on the forward megakernel the segment-path buckets get no fused
         candidates and compute their own, as in the reference. Does not
-        clip: :meth:`exchange` clips every worker's block first."""
+        clip: :meth:`exchange` clips every worker's block first.
+        ``stats_out``: see :meth:`sparsify`."""
         if self._mk_fwd_ids:
-            vec, fwd_sel = self._compensate_megakernel(mem,
-                                                       flat_grad[:self.T])
-            return self.sparsify(vec, phases, fwd_sel=fwd_sel)
-        comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
-        return self.sparsify(comp, phases, seg_cands=cands)
+            with phase("forward"):
+                vec, fwd_sel = self._compensate_megakernel(
+                    mem, flat_grad[:self.T])
+            return self.sparsify(vec, phases, fwd_sel=fwd_sel,
+                                 stats_out=stats_out)
+        with phase("compensate"):
+            comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
+        return self.sparsify(comp, phases, seg_cands=cands,
+                             stats_out=stats_out)
+
+    def mask_send_frac(self, values: torch.Tensor, indices: torch.Tensor,
+                       send_frac) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The straggler-adaptive mask of one worker's payload: the slots
+        of rank ``>= ceil(quota * clip(send_frac, 0, 1))`` in their row
+        become ``(0.0, sentinel)`` (in f32, as the reference computes it;
+        ``send_frac`` a float or an f32 device scalar). At 1 the payload
+        is unchanged."""
+        wc = self._wire_consts(values.device)
+        fr = torch.clamp(torch.as_tensor(send_frac, dtype=torch.float32,
+                                         device=values.device), 0.0, 1.0)
+        keep = wc["ad_rank"] < torch.ceil(wc["ad_quota"] * fr)
+        return (torch.where(keep, values, 0.0),
+                torch.where(keep, indices, self.layout.sentinel))
 
     # -------------------------------------------------------------- #
     # the wire lanes                                                 #
@@ -1478,7 +1602,9 @@ class FlatDGCEngine:
                       self.index_dtype),
                   "clamp_hi": None if so is None else t(so + sn).to(
                       self.index_dtype),
-                  "seg_ids": t(self._seg_ids)}
+                  "seg_ids": t(self._seg_ids),
+                  "ad_rank": t(self._adaptive_rank),
+                  "ad_quota": t(self._adaptive_quota)}
             self._wire_dev[device] = wc
         return wc
 
@@ -1537,7 +1663,8 @@ class FlatDGCEngine:
         indices as the receiver decodes them) follow the codec words on
         ``"words"``, or the offsets on ``"idx"``."""
         if self._delta_sort:
-            values, indices = self._sort_delta_payload(values, indices)
+            with phase("pack"):
+                values, indices = self._sort_delta_payload(values, indices)
         wc = self._wire_consts(values.device)
         kp = self._kind_payload
         lanes, q_parts, f32_parts = {}, [], []
@@ -1546,13 +1673,14 @@ class FlatDGCEngine:
         if kp.get("i8"):
             v8 = self._kind_chunks(values, "i8")
             rm = wc["row_map"]
-            smax = torch.full((self._i8_rows,), -math.inf, dtype=v8.dtype,
-                              device=v8.device).scatter_reduce(
-                0, rm, v8.abs(), "amax")
-            scale = kernels.divide_exact(smax, 127.0).to(torch.float32)
-            safe = torch.where(scale > 0, scale, 1.0)
-            q = torch.clamp(torch.round(v8 / safe[rm]), -127, 127).to(
-                torch.int8)
+            with phase("pack"):
+                smax = torch.full((self._i8_rows,), -math.inf,
+                                  dtype=v8.dtype, device=v8.device
+                                  ).scatter_reduce(0, rm, v8.abs(), "amax")
+                scale = kernels.divide_exact(smax, 127.0).to(torch.float32)
+                safe = torch.where(scale > 0, scale, 1.0)
+                q = torch.clamp(torch.round(v8 / safe[rm]), -127, 127).to(
+                    torch.int8)
             q_parts.append(q)
             if getattr(self.c, "int8_error_feedback", False):
                 vc, mc = mem["velocities_c"], mem["momentums_c"]
@@ -1566,15 +1694,16 @@ class FlatDGCEngine:
         if kp.get("i4"):
             v4 = self._kind_chunks(values, "i4")
             m4 = wc["i4_map"]
-            smax4 = torch.full((self._i4_buckets,), -math.inf,
-                               dtype=v4.dtype, device=v4.device
-                               ).scatter_reduce(0, m4, v4.abs(), "amax")
-            scale4 = kernels.divide_exact(smax4, 7.0).to(torch.float32)
-            safe4 = torch.where(scale4 > 0, scale4, 1.0)
-            q4 = torch.clamp(torch.round(v4 / safe4[m4]), -7, 7).to(
-                torch.int32)
-            q_parts += [pack_int4(q4[plo:phi])
-                        for plo, phi, _, _ in self._i4_chunks]
+            with phase("pack"):
+                smax4 = torch.full((self._i4_buckets,), -math.inf,
+                                   dtype=v4.dtype, device=v4.device
+                                   ).scatter_reduce(0, m4, v4.abs(), "amax")
+                scale4 = kernels.divide_exact(smax4, 7.0).to(torch.float32)
+                safe4 = torch.where(scale4 > 0, scale4, 1.0)
+                q4 = torch.clamp(torch.round(v4 / safe4[m4]), -7, 7).to(
+                    torch.int32)
+                q_parts += [pack_int4(q4[plo:phi])
+                            for plo, phi, _, _ in self._i4_chunks]
         if kp.get("f32"):
             f32_parts.append(self._kind_chunks(values, "f32"))
         f32_parts += [x for x in (scale, scale4) if x is not None]
@@ -1593,28 +1722,31 @@ class FlatDGCEngine:
         if checksum:
             # the constructor keeps the plan uniform and off int8 / int4:
             # one value lane carries the whole payload
-            wire = lanes["f16"] if "f16" in lanes else lanes["f32"]
-            canon = (self._codec.canonical(indices)
-                     if self._codec is not None else indices)
-            chk = integrity.payload_checksum(wire, canon, wc["seg_ids"],
-                                             self._num_seg)
+            with phase("pack"):
+                wire = lanes["f16"] if "f16" in lanes else lanes["f32"]
+                canon = (self._codec.canonical(indices)
+                         if self._codec is not None else indices)
+                chk = integrity.payload_checksum(wire, canon,
+                                                 wc["seg_ids"],
+                                                 self._num_seg)
         words = []
-        if self._codec is not None:
-            words.append(self._codec.encode(
-                self._packed_chunks(indices, True)))
-            if chk is not None:
-                words.append(chk)
-        if self._dcodec is not None:
-            words.append(self._dcodec.encode(
-                self._packed_chunks(indices, "delta")))
-        if words:
-            lanes["words"] = words[0] if len(words) == 1 else torch.cat(
-                words)
-        if self._plain_payload:
-            lanes["idx"] = self._packed_chunks(indices, False)
-            if chk is not None and self._codec is None:
-                lanes["idx"] = torch.cat([lanes["idx"],
-                                          chk.to(self.index_dtype)])
+        with phase("pack"):
+            if self._codec is not None:
+                words.append(self._codec.encode(
+                    self._packed_chunks(indices, True)))
+                if chk is not None:
+                    words.append(chk)
+            if self._dcodec is not None:
+                words.append(self._dcodec.encode(
+                    self._packed_chunks(indices, "delta")))
+            if words:
+                lanes["words"] = (words[0] if len(words) == 1
+                                  else torch.cat(words))
+            if self._plain_payload:
+                lanes["idx"] = self._packed_chunks(indices, False)
+                if chk is not None and self._codec is None:
+                    lanes["idx"] = torch.cat([lanes["idx"],
+                                              chk.to(self.index_dtype)])
         return lanes, flags
 
     def _decode_i4(self, g_q4: torch.Tensor, g_scale4: torch.Tensor,
@@ -1722,28 +1854,32 @@ class FlatDGCEngine:
         flags[rank] = own_flags
         # the one narrowing of an int64 index wire (T < 2**31: the layout
         # refuses larger buffers)
-        acc, mem["sent_bits"] = kernels.apply_rows(
-            g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
-            flags.reshape(-1), T,
-            divisor=float(world) if op == "average" else None)
-        if slabs:
-            mc_prev, vc_prev, bits_prev = prev
-            keep = kernels.keep_from_bits(bits_prev, T)
-            for (bi, slab), mp, vp in zip(slabs, mc_prev, vc_prev):
-                b = self.buckets[bi]
-                lo, hi = b.base, b.base + b.rows * b.cols
-                k = keep[lo:hi].to(vp.dtype)
-                if self.c.memory.momentum_masking:
-                    mp = mp * k
-                out, mem["momentums_c"][lo:hi] = self._compensate_dense(
-                    mp, slab)
-                mem["velocities_c"][lo:hi] = vp * k
-                acc[lo:hi] = out
-        if self.layout.total == T:
+        with phase("apply"):
+            acc, mem["sent_bits"] = kernels.apply_rows(
+                g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
+                flags.reshape(-1), T,
+                divisor=float(world) if op == "average" else None)
+        if not slabs and self.layout.total == T:
             return acc
-        out_d, mem["momentums_d"] = self._compensate_dense(
-            mem["momentums_d"], dense_avg)
-        return torch.cat([acc, out_d])
+        with phase("dense"):
+            if slabs:
+                mc_prev, vc_prev, bits_prev = prev
+                keep = kernels.keep_from_bits(bits_prev, T)
+                for (bi, slab), mp, vp in zip(slabs, mc_prev, vc_prev):
+                    b = self.buckets[bi]
+                    lo, hi = b.base, b.base + b.rows * b.cols
+                    k = keep[lo:hi].to(vp.dtype)
+                    if self.c.memory.momentum_masking:
+                        mp = mp * k
+                    out, mem["momentums_c"][lo:hi] = self._compensate_dense(
+                        mp, slab)
+                    mem["velocities_c"][lo:hi] = vp * k
+                    acc[lo:hi] = out
+            if self.layout.total == T:
+                return acc
+            out_d, mem["momentums_d"] = self._compensate_dense(
+                mem["momentums_d"], dense_avg)
+            return torch.cat([acc, out_d])
 
     def _slab_state(self, mem):
         """The dense-planned buckets' momentum and velocity before this
@@ -1778,7 +1914,7 @@ class FlatDGCEngine:
         return self.c.memory.gradient_clipping is not None
 
     def _exchange_dense(self, flat_grads: Sequence[torch.Tensor], mems,
-                        comm, op: str = "average") -> List[torch.Tensor]:
+                        comm, op: str = "average", telemetry: bool = False):
         """The all-dense exchange (ratio >= 1, nothing compressed, or an
         all-dense plan): the average of the whole flat gradient, clipped,
         then the non-accumulating correction of all of it. A transmit
@@ -1786,11 +1922,18 @@ class FlatDGCEngine:
         memory first (the velocity, and the momentum under
         ``momentum_masking``, zeroed where it was sent) and reset, so the
         next compressed step reads the dense steps' momentum and an empty
-        record."""
+        record. Returns ``(outputs, clip deltas)``, the deltas (of the
+        averaged gradient's norm) with ``telemetry`` only."""
         T = self.T
         avgs = self._dense_combine(list(flat_grads), comm, op)
+        deltas = None
+        if telemetry:
+            deltas = [_zero(a.device) for a in avgs]
         if self._clipping():
+            pre = [taps.l2(a) for a in avgs] if telemetry else None
             avgs = self._clip_block(avgs, self.layout.names, 0)
+            if telemetry:
+                deltas = [_clip_delta(p, a) for p, a in zip(pre, avgs)]
         outs = []
         for avg, mem in zip(avgs, mems):
             if T:
@@ -1806,11 +1949,61 @@ class FlatDGCEngine:
             out_d, mem["momentums_d"] = self._compensate_dense(
                 mem["momentums_d"], avg[T:])
             outs.append(torch.cat([out_c, out_d]) if T else out_d)
-        return outs
+        return outs, deltas
+
+    def _transmitted(self, values: torch.Tensor, int8_ef: bool):
+        """``(sum of squares, sum of |.|)`` of the values this worker's
+        transmit record will hold (the deferred-masking slots: under int8
+        error feedback none of a uniform int8 plan's, the non-int8 slots
+        of a mixed one), f32; ``(None, None)`` where the velocity already
+        is the residual."""
+        if int8_ef and self._i8_slot_mask is None:
+            return None, None
+        vf = values.to(torch.float32)
+        if int8_ef:
+            vf = torch.where(self._wire_consts(vf.device)["i8_slots"], 0.0,
+                             vf)
+        return taps.sumsq(vf), torch.sum(torch.abs(vf))
+
+    def _telemetry_stats(self, grad_norm, clip_delta, mem, sel,
+                         tx_energy=None, tx_abs=None):
+        """One worker's ``STEP_METRICS`` dict (see ``telemetry.taps``) over
+        its memory after the exchange. ``sel`` is sparsify's
+        ``stats_out``, or None on the all-dense path (zero payload, zero
+        wire). ``tx_energy`` / ``tx_abs`` — the transmitted values' sum of
+        squares and of |.| for the deferred-masking residual identity:
+        under deferred masking the velocity still holds exactly the
+        transmitted values at the transmitted slots, which the next
+        compensate zeroes, so the residual's energy is the velocity's
+        minus theirs (and its mass likewise); None means the velocity
+        already is the residual (the dense path, int8 error feedback)."""
+        dev = grad_norm.device
+        if sel is None:
+            sel = taps.empty_bucket_stats(len(self.buckets), dev)
+            wire = 0.0
+        else:
+            wire = float(self.wire_bytes_per_worker())
+        vc = mem["velocities_c"]
+        mom = torch.sqrt(taps.l2(mem["momentums_c"]) ** 2
+                         + taps.l2(mem["momentums_d"]) ** 2)
+        if tx_energy is None:
+            res, mass = taps.l2(vc), taps.l1(vc)
+        else:
+            res = torch.sqrt(torch.clamp(taps.sumsq(vc) - tx_energy,
+                                         min=0.0))
+            mass = torch.clamp(taps.l1(vc) - tx_abs, min=0.0)
+        return taps.assemble_step_stats(
+            grad_norm=grad_norm, momentum_norm=mom, residual_norm=res,
+            residual_mass=mass, clip_delta=clip_delta,
+            payload_elems=sel["payload_elems"],
+            wire_bytes=torch.full((), wire, dtype=torch.float32,
+                                  device=dev),
+            selected_frac=sel["selected_frac"], threshold=sel["threshold"])
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
                  phases, comm, op: str = "average", local_comm=None,
-                 health: Optional[Dict] = None) -> List[torch.Tensor]:
+                 health: Optional[Dict] = None, telemetry: bool = False,
+                 send_frac: Optional[Sequence] = None):
         """compress -> encode -> all_gather (one a lane) -> decode -> apply
         for this process's workers (``comm.ranks``), plus one all-reduce of
         the dense-planned slabs and the dense tail; all dense,
@@ -1820,57 +2013,95 @@ class FlatDGCEngine:
         correction. ``op``: the combine (:data:`OPS`); ``local_comm``: the
         two-tier exchange's node group (``comm`` is then the cross group);
         ``health``: receives the checksum's mismatch count. Returns each
-        worker's combined flat gradient; the memories update in place."""
+        worker's combined flat gradient; the memories update in place.
+
+        ``send_frac``: each local worker's adaptive send fraction (floats
+        or f32 device scalars), applied to its payload after the selection
+        (:meth:`mask_send_frac`); the all-dense path ignores it.
+        ``telemetry=True`` returns ``(outputs, stats)``, ``stats[w]``
+        local worker w's ``STEP_METRICS`` dict on the device
+        (:meth:`_telemetry_stats`; ``payload_elems`` counted after the
+        send-fraction mask, ``selected_frac`` and ``threshold`` before
+        it)."""
         if op not in OPS:
             raise ValueError(f"op must be one of {OPS}, got {op!r}")
         if local_comm is not None and local_comm.world > 1:
             flat_grads = node_mean(flat_grads, local_comm, op)
+        gnorms = [taps.l2(g) for g in flat_grads] if telemetry else None
         if self.dense:
-            return self._exchange_dense(flat_grads, mems, comm, op)
-        T, world = self.T, comm.world
+            outs, deltas = self._exchange_dense(flat_grads, mems, comm, op,
+                                                telemetry)
+            if not telemetry:
+                return outs
+            return outs, [self._telemetry_stats(gn, cd, m, None)
+                          for gn, cd, m in zip(gnorms, deltas, mems)]
+        T, world, S = self.T, comm.world, self.layout.sentinel
         chk = self.checksum and health is not None
         blocks = [g[:T] for g in flat_grads]
+        deltas = ([_zero(b.device) for b in blocks] if telemetry
+                  else None)
         if self._clipping():
+            pre = [taps.l2(b) for b in blocks] if telemetry else None
             blocks = self._clip_block(blocks, self.layout.compressed_names,
                                       0)
+            if telemetry:
+                deltas = [_clip_delta(p, b) for p, b in zip(pre, blocks)]
         prev = ([self._slab_state(m) for m in mems] if self._dense_ids
                 else [None] * len(mems))
-        sent = [self.compress(g, m, ph)
-                for g, m, ph in zip(blocks, mems, phases)]
+        sel = [{} if telemetry else None for _ in mems]
+        sent = [self.compress(g, m, ph, stats_out=st)
+                for g, m, ph, st in zip(blocks, mems, phases, sel)]
+        if send_frac is not None and self._adaptive_rank is not None:
+            sent = [self.mask_send_frac(v, i, f)
+                    for (v, i), f in zip(sent, send_frac)]
+            if telemetry:
+                for st, (_, i) in zip(sel, sent):
+                    # the wire's real elements, after the mask (the
+                    # selection's stats describe the selection)
+                    st["payload_elems"] = torch.sum(
+                        (i != S).to(torch.float32))
+        if telemetry:
+            int8_ef = bool(self._kind_payload.get("i8")) and getattr(
+                self.c, "int8_error_feedback", False)
+            tx = [self._transmitted(v, int8_ef) for v, _ in sent]
         wires = [self.encode(v, i, m, checksum=chk)
                  for (v, i), m in zip(sent, mems)]
         local_idx = [i for _, i in sent]
         del sent
-        gathered = {k: comm.all_gather([lanes[k] for lanes, _ in wires])
-                    for k in wires[0][0]}
+        with phase("allgather"):
+            gathered = {k: comm.all_gather([lanes[k] for lanes, _ in wires])
+                        for k in wires[0][0]}
         # the dense-planned slabs (the unclipped gradient) and the tail on
         # one all-reduce
         regions = [(bi, self.buckets[bi].base,
                     self.buckets[bi].base
                     + self.buckets[bi].rows * self.buckets[bi].cols)
                    for bi in self._dense_ids]
-        dwire = [torch.cat([g[lo:hi] for _, lo, hi in regions] + [g[T:]])
-                 if regions else g[T:] for g in flat_grads]
-        davgs = (self._dense_combine(dwire, comm, op) if dwire[0].numel()
-                 else dwire)
-        slabs, off = [[] for _ in mems], 0
-        for bi, lo, hi in regions:
-            part = [d[off:off + hi - lo] for d in davgs]
-            if self._clipping():
-                part = self._clip_block(part, self.layout.buckets[bi].names,
-                                        lo)
-            for w, x in enumerate(part):
-                slabs[w].append((bi, x))
-            off += hi - lo
-        tails = [d[off:] for d in davgs]
-        if self._clipping() and self.layout.total > T:
-            tails = self._clip_block(tails, self.layout.dense_names, T)
+        with phase("dense"):
+            dwire = [torch.cat([g[lo:hi] for _, lo, hi in regions]
+                               + [g[T:]])
+                     if regions else g[T:] for g in flat_grads]
+            davgs = (self._dense_combine(dwire, comm, op)
+                     if dwire[0].numel() else dwire)
+            slabs, off = [[] for _ in mems], 0
+            for bi, lo, hi in regions:
+                part = [d[off:off + hi - lo] for d in davgs]
+                if self._clipping():
+                    part = self._clip_block(
+                        part, self.layout.buckets[bi].names, lo)
+                for w, x in enumerate(part):
+                    slabs[w].append((bi, x))
+                off += hi - lo
+            tails = [d[off:] for d in davgs]
+            if self._clipping() and self.layout.total > T:
+                tails = self._clip_block(tails, self.layout.dense_names, T)
         outs = []
         for li, (mem, r) in enumerate(zip(mems, comm.ranks)):
             # every receiver counts the same mismatches; the first's stand
-            gv, gi = self.decode({k: v[li] for k, v in gathered.items()},
-                                 checksum=chk,
-                                 health=health if li == 0 else {})
+            with phase("decode"):
+                gv, gi = self.decode({k: v[li] for k, v in gathered.items()},
+                                     checksum=chk,
+                                     health=health if li == 0 else {})
             outs.append(self.apply(gv, gi, tails[li], mem, r, world,
                                    own_flags=wires[li][1], slabs=slabs[li],
                                    prev=prev[li], op=op))
@@ -1878,11 +2109,24 @@ class FlatDGCEngine:
                 # the record is what this worker sent, not what a corrupted
                 # wire delivered back to it (the reference packs the local
                 # indices): rebuilt only under the fault drill
-                S = self.layout.sentinel
                 mem["sent_bits"] = kernels.pack_sent_bits(
                     torch.where(wires[li][1], local_idx[li], S), T,
                     sentinel=S)
-        return outs
+        if not telemetry:
+            return outs
+        return outs, [self._telemetry_stats(gn, cd, m, st, *t)
+                      for gn, cd, m, st, t in zip(gnorms, deltas, mems, sel,
+                                                  tx)]
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def _clip_delta(pre: torch.Tensor, clipped: torch.Tensor) -> torch.Tensor:
+    """The clip's relative reduction of a norm: ``(pre - |clipped|) /
+    max(pre, 1e-12)``."""
+    return (pre - taps.l2(clipped)) / torch.clamp(pre, min=1e-12)
 
 
 class FlatDenseExchange:
@@ -1905,23 +2149,42 @@ class FlatDenseExchange:
 
     def exchange(self, flat_grads: Sequence[torch.Tensor], mems,
                  phases, comm, op: str = "average", local_comm=None,
-                 health: Optional[Dict] = None) -> List[torch.Tensor]:
+                 health: Optional[Dict] = None, telemetry: bool = False,
+                 send_frac: Optional[Sequence] = None):
         """Each local worker's averaged flat gradient: the compressor's
         own compress (to the wire) and decompress (the average) around
         the all-reduce (``mems`` and ``phases`` are unused; the dense
-        all-reduce has no payload to checksum, so ``health`` is too).
-        Two tiers: the node mean first, in full precision (the fp16 wire
-        casts only for the cross group, after the divide). ``"sum"``
-        skips the divide; ``"adasum"`` combines pairwise."""
+        all-reduce has no payload to checksum, so ``health`` is too, and
+        no quota for ``send_frac`` to shrink). Two tiers: the node mean
+        first, in full precision (the fp16 wire casts only for the cross
+        group, after the divide). ``"sum"`` skips the divide;
+        ``"adasum"`` combines pairwise. ``telemetry=True`` returns
+        ``(outputs, stats)``: each worker's gradient norm, the rest 0 (no
+        sparse payload, no error-feedback state; ``wire_bytes`` is the
+        sparse wire's and stays 0)."""
         if op not in OPS:
             raise ValueError(f"op must be one of {OPS}, got {op!r}")
+        stats = None
+        if telemetry:
+            # the local gradient's norm, before any node mean (the
+            # reference's dense engine taps it first)
+            stats = []
+            for g in flat_grads:
+                z = _zero(g.device)
+                stats.append(taps.assemble_step_stats(
+                    grad_norm=taps.l2(g), momentum_norm=z, residual_norm=z,
+                    residual_mass=z, clip_delta=z, wire_bytes=z,
+                    **taps.empty_bucket_stats(0, g.device)))
         if local_comm is not None and local_comm.world > 1:
             flat_grads = node_mean(flat_grads, local_comm, op)
         if op == "adasum":
             from dgc_tpu_torch.optim.adasum import adasum_allreduce
-            return adasum_allreduce(list(flat_grads), comm)
-        sent = [self.c.compress(None, None, g, None)[:2] for g in flat_grads]
-        totals = comm.all_reduce([wire for wire, _ in sent])
-        world = comm.world if op == "average" else 1
-        return [self.c.decompress(t, ctx, None, world)[0]
-                for t, (_, ctx) in zip(totals, sent)]
+            outs = adasum_allreduce(list(flat_grads), comm)
+        else:
+            sent = [self.c.compress(None, None, g, None)[:2]
+                    for g in flat_grads]
+            totals = comm.all_reduce([wire for wire, _ in sent])
+            world = comm.world if op == "average" else 1
+            outs = [self.c.decompress(t, ctx, None, world)[0]
+                    for t, (_, ctx) in zip(totals, sent)]
+        return (outs, stats) if telemetry else outs

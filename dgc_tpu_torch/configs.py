@@ -45,7 +45,17 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
 * :func:`resnet50_wm5_twotier` and :func:`resnet20_wm5_twotier` —
   ``configs/dgc/twotier.py`` stacked on the wm5 recipes:
   ``train.num_local_workers`` (8, which must divide the world; smaller
-  runs set their own).
+  runs set their own);
+* :func:`resnet20_wm5_telemetry` and :func:`resnet50_wm5_telemetry` —
+  ``configs/telemetry.py``, ``configs/fleet.py`` and ``configs/trace.py``
+  stacked on the wm5 recipes (:func:`with_telemetry`): the
+  ``train.telemetry`` block (``enabled``, ``every``, ``rotate_mb``,
+  ``fleet``) and the ``train.trace`` block (``enabled``,
+  ``max_events``); :func:`resnet50_wm5_adaptive` with
+  ``configs/adaptive.py`` stacked last: the ``train.adaptive`` block
+  (``enabled`` and the policy's knobs), which the CLI's ``--adaptive``
+  also sets (:func:`with_adaptive`; ``--trace`` sets the trace block,
+  :func:`with_trace`).
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -66,7 +76,10 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet50_wm5_bf16mem_int8_packidx", "resnet20_wm5_autotune",
            "resnet50_wm5_resilience", "resnet20_wm5_resilience",
            "resnet50_wm5_twotier", "resnet20_wm5_twotier",
-           "with_autotune", "with_resilience", "RECIPES", "CONFIG_FILES"]
+           "resnet20_wm5_telemetry", "resnet50_wm5_telemetry",
+           "resnet50_wm5_adaptive", "with_autotune", "with_resilience",
+           "with_telemetry", "with_trace", "with_adaptive", "RECIPES",
+           "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -350,6 +363,59 @@ def resnet20_wm5_twotier() -> Config:
     return _twotier(resnet20_wm5())
 
 
+def with_trace(cfg: Config) -> Config:
+    """``configs/trace.py`` stacked on ``cfg``: the phase markers and the
+    host spans, at most ``max_events`` spans kept for ``trace.json``."""
+    cfg.train.trace = Config(enabled=True, max_events=65536)
+    return cfg
+
+
+def with_adaptive(cfg: Config) -> Config:
+    """``configs/adaptive.py`` stacked on ``cfg``: the straggler-adaptive
+    exchange's policy, and the fleet taps it reads (with the telemetry
+    block where ``cfg`` lacks one)."""
+    if "telemetry" not in cfg.train:
+        cfg.train.telemetry = Config(enabled=True, every=1, rotate_mb=64)
+    cfg.train.telemetry.fleet = True
+    if "adaptive" not in cfg.train:
+        cfg.train.adaptive = Config()
+    cfg.train.adaptive.update(
+        enabled=True, engage_gap_ms=100.0, min_frac=0.25, ramp_ms=500.0,
+        deadline_factor=4.0, partial_frac=0.02, floor_ms=1.0)
+    return cfg
+
+
+def with_telemetry(cfg: Config, fleet: bool = True,
+                   trace: bool = True) -> Config:
+    """``configs/telemetry.py`` stacked on ``cfg``, then
+    ``configs/fleet.py`` (``fleet``) and ``configs/trace.py``
+    (``trace``)."""
+    cfg.train.telemetry = Config(enabled=True, every=1, rotate_mb=64)
+    if fleet:
+        cfg.train.telemetry.fleet = True
+    if trace:
+        with_trace(cfg)
+    return cfg
+
+
+def resnet20_wm5_telemetry() -> Config:
+    """:func:`resnet20_wm5` with the telemetry taps, the fleet gather and
+    the tracing."""
+    return with_telemetry(resnet20_wm5())
+
+
+def resnet50_wm5_telemetry() -> Config:
+    """:func:`resnet50_wm5` with the telemetry taps, the fleet gather and
+    the tracing."""
+    return with_telemetry(resnet50_wm5())
+
+
+def resnet50_wm5_adaptive() -> Config:
+    """:func:`resnet50_wm5_telemetry` with the straggler-adaptive
+    exchange."""
+    return with_adaptive(resnet50_wm5_telemetry())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
@@ -359,7 +425,8 @@ RECIPES = {f.__name__: f for f in (
     resnet20_wm5_fp16, resnet20_wm5_int8, resnet20_wm5_int8_packidx,
     resnet50_wm5_bf16mem, resnet50_wm5_bf16mem_int8_packidx,
     resnet20_wm5_autotune, resnet50_wm5_resilience, resnet20_wm5_resilience,
-    resnet50_wm5_twotier, resnet20_wm5_twotier)}
+    resnet50_wm5_twotier, resnet20_wm5_twotier, resnet20_wm5_telemetry,
+    resnet50_wm5_telemetry, resnet50_wm5_adaptive)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
@@ -368,6 +435,7 @@ _WM5, _MK = "configs/dgc/wm5.py", "configs/dgc/megakernel.py"
 _I8, _PK = "configs/dgc/int8.py", "configs/dgc/packidx.py"
 _BF16MEM = "configs/dgc/bf16mem.py"
 _RES, _TT = "configs/resilience.py", "configs/dgc/twotier.py"
+_TELEM = ("configs/telemetry.py", "configs/fleet.py", "configs/trace.py")
 
 #: each recipe's config files, in the JAX harness's ``--configs`` order
 CONFIG_FILES = {
@@ -396,4 +464,8 @@ CONFIG_FILES = {
     "resnet20_wm5_resilience": (_R20, _WM5, _RES),
     "resnet50_wm5_twotier": (_R50, _WM5, _TT),
     "resnet20_wm5_twotier": (_R20, _WM5, _TT),
+    "resnet20_wm5_telemetry": (_R20, _WM5) + _TELEM,
+    "resnet50_wm5_telemetry": (_R50, _WM5) + _TELEM,
+    "resnet50_wm5_adaptive": (_R50, _WM5) + _TELEM
+    + ("configs/adaptive.py",),
 }

@@ -45,6 +45,12 @@ launch.
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
 :func:`keep_from_bits`, :func:`realign_bits`) define a format shared with
 the JAX package and are bitwise its functions.
+
+As in the reference, :func:`pack_sent_bits`, :func:`topk_rows`,
+:func:`select_pack_rows` and :func:`apply_rows` are phase-marked
+(``@phased("pack" / "select" / "apply")``, :mod:`dgc_tpu_torch.telemetry.
+trace`): with the markers on, their launches land in that phase of a
+profile wherever they are called from.
 """
 
 import ctypes
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from dgc_tpu_torch.ops import build as _build
+from dgc_tpu_torch.telemetry import trace as _trace
 
 __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "keep_from_bits", "realign_bits", "keep_from_sent",
@@ -146,6 +153,7 @@ def num_sent_words(total: int) -> int:
     return -(-total // _BITS_GROUP) * _LANE
 
 
+@_trace.phased("pack")
 def pack_sent_bits(indices: torch.Tensor, total: int,
                    sentinel: Optional[int] = None) -> torch.Tensor:
     """Transmit indices -> packed one-bit-per-coordinate record (int32).
@@ -1104,6 +1112,7 @@ _TOPK_ARGS = {"topk_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
               + _PLAN_ARGS + [ctypes.c_int, ctypes.c_void_p]}
 
 
+@_trace.phased("select")
 def topk_rows(x: torch.Tensor, k: int):
     """Per-row ``(values, int32 columns)`` of the k largest elements of a
     [R, cols] f32 or bf16 tensor: values descending, ties to the smaller
@@ -1182,6 +1191,7 @@ _SELECT_ARGS = {"select_pack_rows_launch": [ctypes.c_void_p] * 5
                 + [ctypes.c_int, ctypes.c_void_p]}
 
 
+@_trace.phased("select")
 def select_pack_rows(x: torch.Tensor, numels: torch.Tensor, k: int):
     """Fused threshold -> select -> pack over a bucket's [R, cols] f32
     block: per row, ``(scores, signed values, int32 columns)`` [R, k] of
@@ -1428,6 +1438,7 @@ _APPLY_ARGS = {"apply_rows_launch": [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
 
 
+@_trace.phased("apply")
 def apply_rows(values, indices, flags, total: int,
                divisor: Optional[float] = None):
     """Decompress + transmit record in one pass over the gathered payload

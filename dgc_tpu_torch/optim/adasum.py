@@ -93,11 +93,19 @@ class AdasumDistributedOptimizer(DistributedOptimizer):
 
     def update_flat(self, flat_grads: Sequence[torch.Tensor], opt_states,
                     flat_params: torch.Tensor, mems: List, phases, engine,
-                    health=None):
+                    health=None, telemetry: bool = False, send_frac=None):
         """Each local worker's base step on its own gradient (its own
         optimizer state), then the engine's exchange of the deltas under
         ``op="adasum"``. Returns ``(new params, opt states, reduced
-        deltas)``."""
+        deltas)``. The telemetry taps and the adaptive send fraction are
+        refused, as in the reference."""
+        if telemetry:
+            raise NotImplementedError(
+                "telemetry taps are not wired through the Adasum flat path")
+        if send_frac is not None:
+            raise NotImplementedError(
+                "straggler-adaptive send fractions are not wired through "
+                "the Adasum flat path")
         upds, new_states = [], []
         for g, s in zip(flat_grads, opt_states):
             u, s = self.optimizer.update(g, s, flat_params)

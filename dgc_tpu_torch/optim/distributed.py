@@ -91,7 +91,8 @@ class DistributedOptimizer:
             return layout, self.compressor.make_flat_exchange(layout)
         return layout, self.compressor.make_flat_exchange(layout, plan=plan)
 
-    def _flat_exchange(self, engine, flat_grads, mems, phases, op, health):
+    def _flat_exchange(self, engine, flat_grads, mems, phases, op, health,
+                       telemetry=False, send_frac=None):
         kw = {}
         if op != "average":
             kw["op"] = op
@@ -99,22 +100,32 @@ class DistributedOptimizer:
             kw["local_comm"] = self.local_comm
         if health is not None:
             kw["health"] = health
+        if telemetry:
+            kw["telemetry"] = True
+        if send_frac is not None:
+            kw["send_frac"] = send_frac
         return engine.exchange(flat_grads, mems, phases, self.cross_comm,
                                **kw)
 
     def update_flat(self, flat_grads: Sequence[torch.Tensor], opt_state,
                     flat_params: torch.Tensor, mems: List, phases,
-                    engine, health: Optional[Dict] = None):
+                    engine, health: Optional[Dict] = None,
+                    telemetry: bool = False, send_frac=None):
         """Exchange every local worker's gradient (memories update in
-        place; ``health`` receives the payload checksum's mismatch count),
-        then one optimizer step on the replicated parameters. Every local
+        place; ``health`` receives the payload checksum's mismatch count;
+        ``send_frac``: each local worker's adaptive send fraction), then
+        one optimizer step on the replicated parameters. Every local
         worker's exchanged gradient is the same, so the first one drives
         the step. Returns ``(new params, opt state, exchanged
-        gradients)``."""
-        exchanged = self._flat_exchange(engine, flat_grads, mems, phases,
-                                        "average", health)
+        gradients)``, and with ``telemetry`` each local worker's stats
+        dict (the engine's) as a fourth element."""
+        out = self._flat_exchange(engine, flat_grads, mems, phases,
+                                  "average", health, telemetry, send_frac)
+        exchanged, stats = out if telemetry else (out, None)
         upd, opt_state = self.optimizer.update(exchanged[0], opt_state,
                                                flat_params)
+        if telemetry:
+            return flat_params + upd, opt_state, exchanged, stats
         return flat_params + upd, opt_state, exchanged
 
     # -------------------------------------------------------------- #

@@ -8,8 +8,9 @@ Counterpart of ``dgc_tpu/resilience/preempt.py``:
 * :class:`Watchdog` is a daemon thread fed one ``beat()`` a step; after
   ``timeout`` seconds without one it prints every thread's stack and
   dumps the flight recorder's ring (diagnostics only: it never kills the
-  run). The reference also flushes its telemetry sink (ROADMAP.md queue 1
-  item 9) and refreshes a heartbeat file for its supervisor (item 11).
+  run), and flushes the telemetry sink it is given. The reference also
+  refreshes a heartbeat file for its supervisor (ROADMAP.md queue 1 item
+  11).
 * :func:`agree_preempt` turns the local flag into an all-process verdict
   (a one-element all-reduce over the ``torch.distributed`` group), so
   every process enters the emergency save at the same step boundary; one
@@ -69,13 +70,15 @@ class PreemptionHandler:
 
 class Watchdog:
     """A daemon thread that dumps the stacks (and the flight ring to
-    ``flight_path``) once a step stalls past ``timeout`` seconds, then
-    rearms. ``beat()`` once a step."""
+    ``flight_path``, and flushes ``sink``, a ``TelemetrySink``) once a
+    step stalls past ``timeout`` seconds, then rearms. ``beat()`` once a
+    step."""
 
     def __init__(self, timeout: float,
                  on_stall: Optional[Callable[[], None]] = None,
                  interval: Optional[float] = None, stream=None,
-                 flight=None, flight_path: Optional[str] = None):
+                 flight=None, flight_path: Optional[str] = None,
+                 sink=None):
         if timeout <= 0:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout}")
         self.timeout = timeout
@@ -84,6 +87,7 @@ class Watchdog:
         self._stream = stream
         self._flight = flight
         self._flight_path = flight_path
+        self._sink = sink
         self._interval = interval if interval is not None else max(
             0.1, timeout / 4.0)
         # _last and stalls are shared by beat() and the watchdog thread
@@ -121,6 +125,12 @@ class Watchdog:
                     if p:
                         print(f"[watchdog] flight recorder dumped to {p}",
                               file=stream, flush=True)
+                except Exception:
+                    pass
+            if self._sink is not None:
+                try:
+                    # drain what the sink holds: the records up to the stall
+                    self._sink.flush()
                 except Exception:
                     pass
             if self._on_stall is not None:

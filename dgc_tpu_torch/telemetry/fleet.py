@@ -1,0 +1,513 @@
+"""Fleet observability: cross-worker dispersion taps + run-level
+aggregation.
+
+Counterpart of ``dgc_tpu/telemetry/fleet.py``; its host half (from
+:class:`FleetView` on) is a copy. Two halves, one schema
+(``registry.FLEET_METRICS``):
+
+**In the step** (:func:`gather_stats`) — the fleet step replaces the
+telemetry all-reduce (:func:`taps.pmean_stats`) with ONE packed
+``all_gather``: every worker contributes its packed telemetry vector plus
+a 6-lane fleet vector (step-time proxy, grad norm, residual mass,
+sent-bits ratio, effective send fraction, gossip age), the gathered
+``[W, n]`` matrix yields the telemetry *means* locally (a gather strictly
+dominates a mean — the all-reduce becomes redundant), and the fleet
+columns fall out for free: per-worker series, the straggler argmax, and
+the cohort skew. The fleet step therefore costs no collective more than
+the telemetry step, and no host sync.
+
+The step-time proxy is a **host-stamped prep interval**: each process
+stamps the wall-clock milliseconds from its previous step's dispatch
+RETURN to this step's dispatch START into a small ``[world]`` f32 tensor
+(:func:`make_clock`). That window covers the host's own work — data
+loading, preprocessing, injected faults — and deliberately EXCLUDES the
+step call itself: a step can block on the cohort collective, and that
+wait is the same on every host (a synchronous cohort equalizes everyone's
+full step period), so including it would erase the straggler's signature.
+No cross-host clock sync is needed (intervals, not absolute times) and
+nothing syncs — the stamp rides into the step like the batch does. A
+straggling worker's own work stretches only ITS stamps: the argmax of the
+gathered clock column IS the worker the cohort waited on ("The Tail at
+Scale", Dean & Barroso, CACM 2013). Gossip is not ported, so the gossip
+age lane and the forced-sync counter stamp constants, as the reference
+does with gossip off.
+
+**Host-side** (:func:`load_view` + friends) — merge the per-host rotated
+JSONL sink shards of a run (``<run>/telemetry/host*/telemetry*.jsonl``,
+falling back to the coordinator-only layout) into one :class:`FleetView`:
+per-worker time series, cohort dispersion, the straggler table, and a
+rolling-band desync detector over the per-worker residual/momentum mass —
+the additive error-feedback quantity the elastic reshard conserves
+(resilience/elastic.py), so sustained divergence from the cohort band
+means a worker's DGC state went bad, not that training got exciting.
+
+Aggregation is plain numpy/json over files: usable offline and in tests,
+with no device involvement.
+"""
+
+import glob as _glob
+import os
+import re
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dgc_tpu_torch.ops.kernels import divide_exact
+from dgc_tpu_torch.telemetry import registry, sink as _sink
+from dgc_tpu_torch.telemetry.taps import pack_stats, unpack_stats
+
+__all__ = [
+    "gather_stats", "make_clock", "FleetView", "DesyncAlert",
+    "discover_shards", "discover_runs", "load_view", "worker_series",
+    "detect_desync", "straggler_table", "fleet_summary",
+    "discover_serving", "serving_summary",
+]
+
+#: fleet lanes appended to the packed telemetry vector, in order; the
+#: first four are the dispersion lanes the worker_skew rollup reads —
+#: w_eff_ratio (the adaptive policy's effective send fraction,
+#: resilience/adaptive.py) and w_staleness (the gossip age, a constant 0
+#: here) are excluded from the skew: an engaged policy is the mechanism
+#: doing its job, not the cohort desyncing
+_FLEET_LANES = ("w_clock", "w_grad_norm", "w_residual_mass", "w_sent_ratio",
+                "w_eff_ratio", "w_staleness")
+_SKEW_LANES = ("w_clock", "w_grad_norm", "w_residual_mass", "w_sent_ratio")
+
+#: relative-dispersion floor: cohort spreads below this never alert
+_EPS = 1e-12
+
+
+# --------------------------------------------------------------------- #
+# in the step: the packed fleet gather                                   #
+# --------------------------------------------------------------------- #
+
+def _mean(x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """``jnp.mean``: the sum, then an IEEE divide by the count."""
+    return divide_exact(torch.sum(x, dim=dim), n)
+
+
+def gather_stats(stats: Sequence[Dict[str, torch.Tensor]], comm, *, clock,
+                 total_elems: int, eff_ratio=None, staleness=None,
+                 forced=None) -> Tuple[Dict, Dict]:
+    """One packed all_gather -> ``(telemetry_means, fleet_stats)``, once
+    (identical for every local worker).
+
+    ``stats`` — each local worker's STEP_METRICS dict
+    (``taps.assemble_step_stats`` output); ``comm`` the step's whole group
+    (both tiers' workers, gathered worker-major). ``clock`` — the [world]
+    f32 prep-interval tensor (:func:`make_clock`); worker ``r`` reads
+    ``clock[r]``. ``total_elems`` — the engine's total model element count
+    (Python int), the sent-ratio denominator. ``eff_ratio`` — each local
+    worker's adaptive effective send fraction (f32 device scalars,
+    resilience/adaptive.py); None (adaptive off) stamps a constant 1.0
+    lane, so the packed vector's shape — and the collective count — never
+    depends on the mode. ``staleness`` / ``forced`` — the gossip age and
+    forced-sync counter, None here (gossip is not ported): the lane and
+    the scalar stamp a constant 0.0.
+
+    Replaces ``taps.pmean_stats``: the telemetry means are computed
+    locally from the gathered matrix, and the fleet per-worker columns +
+    derived scalars ride the same single collective.
+    """
+    denom = max(int(total_elems), 1)
+    rows = []
+    for li, (s, r) in enumerate(zip(stats, comm.ranks)):
+        dev = s["grad_norm"].device
+        denom_t = torch.full((), float(denom), dtype=torch.float32,
+                             device=dev)
+        eff = (torch.ones((), dtype=torch.float32, device=dev)
+               if eff_ratio is None
+               else eff_ratio[li].to(torch.float32).reshape(()))
+        stale = (torch.zeros((), dtype=torch.float32, device=dev)
+                 if staleness is None
+                 else staleness[li].to(torch.float32).reshape(()))
+        fvec = torch.stack([clock[r].to(torch.float32),
+                            s["grad_norm"].to(torch.float32),
+                            s["residual_mass"].to(torch.float32),
+                            s["payload_elems"].to(torch.float32) / denom_t,
+                            eff, stale])
+        rows.append(torch.cat([pack_stats(s), fvec]))
+    mat = comm.all_gather(rows)[0]                  # [W, total + 6]
+    world = mat.shape[0]
+    total = mat.shape[1] - len(_FLEET_LANES)
+    telem = unpack_stats(_mean(mat[:, :total], world), stats[0])
+
+    cols = {name: mat[:, total + i]
+            for i, name in enumerate(_FLEET_LANES)}   # each [W]
+    w_clock = cols["w_clock"]
+    skews = []
+    for name in _SKEW_LANES:
+        col = cols[name]
+        spread = torch.max(col) - torch.min(col)
+        skews.append(spread / torch.clamp(torch.abs(_mean(col, world)),
+                                          min=_EPS))
+    fleet = dict(cols)
+    fleet["straggler"] = torch.argmax(w_clock).to(torch.float32)
+    fleet["straggler_gap"] = torch.max(w_clock) - torch.min(w_clock)
+    fleet["worker_skew"] = torch.max(torch.stack(skews))
+    # any worker below full send fraction => the adaptive policy is
+    # engaged somewhere in the cohort (1.0/0.0 gauge; off-mode lanes are
+    # constant 1.0, so this reads 0.0 there)
+    fleet["adaptive_engaged"] = (
+        torch.min(cols["w_eff_ratio"]) < 0.999).to(torch.float32)
+    fleet["max_staleness_seen"] = torch.max(cols["w_staleness"])
+    fleet["gossip_forced_syncs"] = (
+        torch.zeros((), dtype=torch.float32, device=mat.device)
+        if forced is None else forced.to(torch.float32).reshape(()))
+    registry.validate_fleet_stats(fleet)
+    return telem, {k: v.to(torch.float32) for k, v in fleet.items()}
+
+
+def make_clock(dt_ms: float, world: int, device) -> torch.Tensor:
+    """Host-stamped [world] f32 prep-interval tensor on ``device``: this
+    process's stamp in every slot (each worker reads its own slot; the
+    workers of one process share the one stamp, as the reference's
+    single-process mesh does). A fill on the device, no copy."""
+    return torch.full((int(world),), float(dt_ms), dtype=torch.float32,
+                      device=device)
+
+
+# --------------------------------------------------------------------- #
+# host-side: shard discovery + merge                                     #
+# --------------------------------------------------------------------- #
+
+class FleetView(NamedTuple):
+    """One merged fleet view of a run.
+
+    ``hosts`` — per-host step records (rotation-ordered, events excluded).
+    ``events`` — every event record across hosts, t_host-ordered.
+    ``header`` — the coordinator shard's header (schema + engine static).
+    ``skipped`` — torn JSONL lines skipped across all shards (live
+    writers); the monitor surfaces this count.
+    """
+    hosts: Dict[str, List[Dict]]
+    events: List[Dict]
+    header: Dict
+    skipped: int
+
+    @property
+    def world(self) -> int:
+        w = self.header.get("static", {}).get("world")
+        if w:
+            return int(w)
+        for _, recs in sorted(self.hosts.items()):
+            for r in recs:
+                if isinstance(r.get("w_clock"), list):
+                    return len(r["w_clock"])
+        return len(self.hosts)
+
+    @property
+    def steps(self) -> List[Dict]:
+        """Coordinator-host step records (the per-worker fleet columns are
+        replicated, so one host's stream is the whole fleet's)."""
+        for _, recs in sorted(self.hosts.items()):
+            if recs:
+                return recs
+        return []
+
+
+def _rotation_key(path: str):
+    # telemetry.jsonl < telemetry.1.jsonl < telemetry.2.jsonl < ...
+    m = re.search(r"\.(\d+)\.jsonl$", path)
+    return (int(m.group(1)) if m else -1, path)
+
+
+#: JSONL files that live beside telemetry shards but are not sink files:
+#: supervisor / control-plane event streams and MetricWriter's training
+#: metric log (a run that only has the latter is not a telemetry run)
+_EVENT_STREAMS = ("supervise_events.jsonl", "control_events.jsonl",
+                  "metrics.jsonl")
+
+
+def _shard_files(root: str) -> List[str]:
+    # the supervisor's / control plane's event streams live beside the
+    # shards but are not sink files — never merge them as one
+    return sorted((p for p in _glob.glob(os.path.join(root, "*.jsonl"))
+                   if os.path.basename(p) not in _EVENT_STREAMS),
+                  key=_rotation_key)
+
+
+def discover_shards(run: str) -> Dict[str, List[str]]:
+    """Map a run path to ``{host_label: [shard files, rotation order]}``.
+
+    Accepts any of: a single ``.jsonl`` file, a telemetry directory, a
+    directory containing ``host*/`` shard dirs (the fleet multi-host
+    layout train.py writes), or a run dir containing a ``telemetry/``
+    subdir of either shape. The ``telemetry/`` subdir wins over loose
+    files in the run root (non-sink JSONL like metric logs can live
+    there).
+    """
+    if os.path.isfile(run):
+        return {"host0": [run]}
+    roots = [r for r in (os.path.join(run, "telemetry"), run)
+             if os.path.isdir(r)]
+    for root in roots:
+        out: Dict[str, List[str]] = {}
+        for hd in sorted(_glob.glob(os.path.join(root, "host*"))):
+            if os.path.isdir(hd):
+                files = _shard_files(hd)
+                if files:
+                    out[os.path.basename(hd)] = files
+        if out:
+            return out
+    for root in roots:
+        files = _shard_files(root)
+        if files:
+            return {"host0": files}
+    return {}
+
+
+def discover_runs(fleet_root: str) -> Dict[str, str]:
+    """Map a fleet root to ``{run_name: run_path}`` for the cross-run
+    monitor (docs/TELEMETRY.md §"Control plane").
+
+    A *run* is any direct subdirectory with discoverable telemetry
+    shards, or one a supervisor has started writing an event stream for
+    (so a just-launched run appears in the fleet view before its first
+    telemetry record). When the root has no such subdirectories but is
+    itself a run dir, it maps to its own basename — pointing the fleet
+    monitor at a single run degrades gracefully."""
+    out: Dict[str, str] = {}
+    if not os.path.isdir(fleet_root):
+        return out
+    for name in sorted(os.listdir(fleet_root)):
+        path = os.path.join(fleet_root, name)
+        if not os.path.isdir(path) or name == "telemetry" \
+                or re.fullmatch(r"host\d+", name):
+            # a telemetry/ subdir or host<i>/ shard dirs mean the ROOT
+            # is itself a single run, not a fleet of them
+            continue
+        if discover_shards(path) or os.path.isfile(
+                os.path.join(path, "supervise_events.jsonl")) \
+                or discover_serving(path):
+            out[name] = path
+    if not out and discover_shards(fleet_root):
+        base = os.path.basename(os.path.normpath(fleet_root)) or "run"
+        out[base] = fleet_root
+    return out
+
+
+def load_view(run: str) -> FleetView:
+    """Merge every discovered shard into one :class:`FleetView`. Shards a
+    live writer tore mid-line are skipped-with-count (sink.read_run_
+    tolerant); a run with no readable shard raises ``FileNotFoundError``."""
+    shards = discover_shards(run)
+    if not shards:
+        raise FileNotFoundError(f"{run}: no telemetry shards found "
+                                "(expected host*/ dirs or *.jsonl)")
+    hosts: Dict[str, List[Dict]] = {}
+    events: List[Dict] = []
+    header: Optional[Dict] = None
+    skipped = 0
+    for host in sorted(shards):
+        recs: List[Dict] = []
+        for path in shards[host]:
+            h, rs, sk = _sink.read_run_tolerant(path)
+            skipped += sk
+            if header is None:
+                header = h
+            for r in rs:
+                if "event" in r:
+                    events.append(dict(r, host=host))
+                else:
+                    recs.append(r)
+        hosts[host] = recs
+    events.sort(key=lambda e: e.get("t_host", 0.0))
+    return FleetView(hosts=hosts, events=events, header=header or {},
+                     skipped=skipped)
+
+
+def worker_series(view: FleetView, metric: str = "w_residual_mass"
+                  ) -> List[Tuple[int, List[float]]]:
+    """``[(step, [per-worker values])]`` for one fleet column.
+
+    Prefers the in-record per-worker columns (fleet taps on — one host's
+    stream carries the whole cohort). Falls back to aligning the per-host
+    SCALAR column across host shards by step (fleet taps off — coarser:
+    one value per host, not per worker), so the desync detector still
+    works on pre-fleet multi-host runs.
+    """
+    for recs in view.hosts.values():
+        series = [(int(r["step"]), [float(x) for x in r[metric]])
+                  for r in recs if isinstance(r.get(metric), list)]
+        if series:
+            return series
+    # per-host fallback: strip the w_ prefix -> the scalar STEP metric
+    scalar = metric[2:] if metric.startswith("w_") else metric
+    by_step: Dict[int, Dict[str, float]] = {}
+    for host, recs in view.hosts.items():
+        for r in recs:
+            if isinstance(r.get(scalar), (int, float)):
+                by_step.setdefault(int(r["step"]), {})[host] = float(
+                    r[scalar])
+    labels = sorted(view.hosts)
+    return [(step, [vals[h] for h in labels])
+            for step, vals in sorted(by_step.items())
+            if len(vals) == len(labels)]
+
+
+# --------------------------------------------------------------------- #
+# host-side: detectors + summaries                                       #
+# --------------------------------------------------------------------- #
+
+class DesyncAlert(NamedTuple):
+    step: int
+    worker: int
+    metric: str
+    value: float
+    cohort: float       # cohort median at the alert step
+    deviation: float    # relative deviation from the cohort median
+    band: float         # rolling band it exceeded
+
+
+def detect_desync(series: List[Tuple[int, List[float]]],
+                  metric: str = "w_residual_mass", *, window: int = 16,
+                  band_scale: float = 4.0, band_floor: float = 0.25,
+                  min_hits: int = 3) -> List[DesyncAlert]:
+    """Rolling-band divergence detector over a per-worker series.
+
+    Per step: cohort median ``m``; each worker's relative deviation
+    ``d_i = |v_i - m| / max(|m|, eps)``. The band is
+    ``max(band_floor, band_scale * rolling-median of the cohort's typical
+    deviation over the previous `window` steps)`` — history only, so a
+    diverging worker cannot inflate the band it is judged against. A
+    worker alerts after ``min_hits`` consecutive steps outside the band:
+    DGC residual/momentum mass wanders step to step (selection is
+    stochastic), but a worker whose error-feedback state corrupted walks
+    AWAY from the cohort and stays out.
+    """
+    alerts: List[DesyncAlert] = []
+    spreads: List[float] = []          # trailing typical deviations
+    hits: Dict[int, int] = {}
+    for step, vals in series:
+        v = np.asarray(vals, np.float64)  # dgclint: ok[f64-dtype] — host-side detector math over JSON records, never traced
+        if v.size < 2:
+            continue
+        m = float(np.median(v))
+        dev = np.abs(v - m) / max(abs(m), _EPS)
+        typical = float(np.median(dev))
+        if len(spreads) >= max(min_hits, 2):
+            band = max(band_floor,
+                       band_scale * float(np.median(spreads[-window:])))
+            for i, d in enumerate(dev):
+                if d > band:
+                    hits[i] = hits.get(i, 0) + 1
+                    if hits[i] >= min_hits:
+                        alerts.append(DesyncAlert(
+                            step=step, worker=i, metric=metric,
+                            value=float(v[i]), cohort=m,
+                            deviation=float(d), band=band))
+                else:
+                    hits[i] = 0
+        # the band learns from the cohort's typical spread, outliers
+        # clipped by the median — a lone bad worker doesn't teach it
+        spreads.append(typical)
+    return alerts
+
+
+def straggler_table(view: FleetView, window: int = 50) -> List[Dict]:
+    """Per-worker prep-interval rows over the trailing ``window``
+    steps: ``{worker, mean_ms, max_ms, last_ms, share}`` sorted
+    slowest-first. ``share`` — the worker's mean interval relative to the
+    cohort mean (1.0 = perfectly even). Empty when the run carried no
+    fleet clock column."""
+    series = [s for s in worker_series(view, "w_clock") if s[1]]
+    if not series:
+        return []
+    tail = series[-window:]
+    mat = np.asarray([vals for _, vals in tail], np.float64)  # [T, W]  # dgclint: ok[f64-dtype] — host-side table math over JSON records, never traced
+    means = mat.mean(axis=0)
+    cohort = float(means.mean()) or _EPS
+    rows = [{
+        "worker": i,
+        "mean_ms": round(float(means[i]), 3),
+        "max_ms": round(float(mat[:, i].max()), 3),
+        "last_ms": round(float(mat[-1, i]), 3),
+        "share": round(float(means[i]) / cohort, 3),
+    } for i in range(mat.shape[1])]
+    rows.sort(key=lambda r: -r["mean_ms"])
+    return rows
+
+
+def discover_serving(run: str) -> Optional[str]:
+    """A run's serving-stream directory, when the trainer exports one:
+    ``<run>/serving/`` holding a ``manifest.json`` (dgc_tpu.serving
+    layout), or the run dir itself when pointed straight at a stream."""
+    for cand in (os.path.join(run, "serving"), run):
+        if os.path.isfile(os.path.join(cand, "manifest.json")):
+            return cand
+    return None
+
+
+def serving_summary(serving_dir: str) -> Dict:
+    """One serving-lane rollup: the stream head from ``manifest.json``
+    plus the latest per-replica ``replica_status`` records
+    (``replica_<name>.json`` files the replicas publish beside the
+    stream). Plain file reads — same offline/live/test reach as the rest
+    of the host-side fleet code. Replica records that fail the registry
+    schema are dropped-with-count rather than trusted."""
+    import json
+
+    out: Dict = {"replicas": {}, "bad_status": 0}
+    try:
+        with open(os.path.join(serving_dir, "manifest.json")) as f:
+            man = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return out
+    out["head"] = {
+        "base_version": int(man.get("base_version", 0)),
+        "latest_seq": int(man.get("latest_seq", 0)),
+        "max_lag": int(man.get("max_lag", 0)),
+        "wire_bytes_per_update": int(man.get("wire_bytes_per_update", 0)),
+        "full_checkpoint_bytes": int(man.get("full_checkpoint_bytes", 0)),
+        "lineage": man.get("lineage", {}),
+    }
+    for path in sorted(_glob.glob(os.path.join(serving_dir,
+                                               "replica_*.json"))):
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+            registry.validate_replica_status(rec)
+        except (OSError, json.JSONDecodeError, ValueError):
+            out["bad_status"] += 1
+            continue
+        out["replicas"][str(rec["replica"])] = rec
+    stale = [n for n, r in out["replicas"].items()
+             if r["health"] != "ok" or (
+                 0 <= int(r["max_lag"]) < int(r["staleness"]))]
+    out["stale_replicas"] = sorted(stale)
+    out["num_replicas"] = len(out["replicas"])
+    if out["replicas"]:
+        out["max_staleness"] = max(int(r["staleness"])
+                                   for r in out["replicas"].values())
+    return out
+
+
+def fleet_summary(view: FleetView, *, desync_metrics: Sequence[str] = (
+        "w_residual_mass", "w_grad_norm")) -> Dict:
+    """Run-level fleet rollup: the gate-able dispersion medians
+    (worker_skew, straggler_gap — registry.RUN_METRICS), the straggler
+    verdict, and the desync alerts per monitored mass metric."""
+    steps = view.steps
+    out: Dict = {"num_steps": len(steps), "num_hosts": len(view.hosts),
+                 "world": view.world, "skipped_lines": view.skipped}
+    for name in ("worker_skew", "straggler_gap"):
+        vals = [float(r[name]) for r in steps
+                if isinstance(r.get(name), (int, float))]
+        if vals:
+            out[name] = float(np.median(vals))
+    table = straggler_table(view)
+    if table:
+        out["straggler"] = table[0]["worker"]
+        out["straggler_share"] = table[0]["share"]
+    alerts: List[DesyncAlert] = []
+    for metric in desync_metrics:
+        alerts.extend(detect_desync(worker_series(view, metric),
+                                    metric=metric))
+    out["desync_alerts"] = len(alerts)
+    if alerts:
+        workers = sorted({a.worker for a in alerts})
+        out["desync_workers"] = workers
+        out["desync_first"] = alerts[0]._asdict()
+    return out

@@ -1,0 +1,241 @@
+"""Bench/telemetry regression gate.
+
+A copy of ``dgc_tpu/telemetry/regress.py`` (JAX-free there too) over the
+port's sink and registry. Compares a fresh run against a recorded baseline and exits nonzero on >tol
+regressions in step time, overhead, or wire volume::
+
+    python -m dgc_tpu_torch.telemetry.regress base.jsonl runs/new.jsonl --tol 0.10
+
+Either side may be:
+
+* a telemetry JSONL run from :class:`dgc_tpu_torch.telemetry.sink.TelemetrySink`
+  (bench writes a run-summary record; train runs summarize per-step
+  records), or
+* a bench artifact — the one-line JSON ``bench.py`` prints, or a
+  ``BENCH_r*.json`` wrapper around it (``{"parsed": {...}}``).
+
+Only the metrics present on BOTH sides are compared, each by its declared
+direction in :data:`dgc_tpu_torch.telemetry.registry.RUN_METRICS` ("lower" for
+the time/volume metrics, "higher" for the fabric-regime speedup ratios
+``ici_ratio``/``ici_planned_ratio``). A metric regresses when the new value is
+worse than baseline by more than ``tol`` (relative). Improvements always
+pass.
+
+Exit codes (distinct so CI can tell "perf regressed" from "gate is
+misconfigured"):
+
+* 0 — pass
+* 1 — regression beyond tolerance
+* 2 — parse error / no overlapping metrics
+* 3 — baseline or run file missing (record one first — see message)
+* 4 — telemetry schema version mismatch (re-record with this tree, or
+  compare with a matching reader)
+"""
+
+import json
+import sys
+from typing import Dict, List, Optional
+
+from dgc_tpu_torch.telemetry import registry, sink
+from dgc_tpu_torch.telemetry.sink import SchemaMismatchError
+
+__all__ = ["load_summary", "compare", "main"]
+
+#: metrics the gate compares by default (--metrics overrides)
+DEFAULT_METRICS = tuple(s.name for s in registry.RUN_METRICS)
+
+
+def _from_bench_obj(obj: Dict) -> Dict[str, float]:
+    """Map a bench.py JSON object (or BENCH_r*.json wrapper) to the
+    run-metric namespace."""
+    if "parsed" in obj and isinstance(obj["parsed"], dict):
+        obj = obj["parsed"]
+    out: Dict[str, float] = {}
+    if isinstance(obj.get("value"), (int, float)):
+        out["exchange_ms"] = float(obj["value"])
+    # alias_coverage / peak_live_bytes are top-level in the dgcver
+    # analysis report (runs/analysis_report.json), which this reader
+    # accepts like any other one-object bench artifact
+    for k in ("overhead_ms", "step_time_ms", "wire_bytes", "payload_elems",
+              "alias_coverage", "peak_live_bytes"):
+        if isinstance(obj.get(k), (int, float)):
+            out[k] = float(obj[k])
+    # nested fabric-regime ratios (higher is better; see registry)
+    ici = obj.get("ici_v5e8")
+    if isinstance(ici, dict) and isinstance(ici.get("ratio"), (int, float)):
+        out["ici_ratio"] = float(ici["ratio"])
+    planned = obj.get("planned")
+    if isinstance(planned, dict):
+        pici = planned.get("ici_v5e8")
+        if isinstance(pici, dict) and isinstance(pici.get("ratio"),
+                                                 (int, float)):
+            out["ici_planned_ratio"] = float(pici["ratio"])
+        peth = planned.get("32x25GbE")
+        if isinstance(peth, dict) and isinstance(peth.get("ratio"),
+                                                 (int, float)):
+            out["eth_planned_ratio"] = float(peth["ratio"])
+    # fleet dispersion medians (lower is better; see registry)
+    flt = obj.get("fleet")
+    if isinstance(flt, dict):
+        for k in ("worker_skew", "straggler_gap", "straggler_stall_ms"):
+            if isinstance(flt.get(k), (int, float)):
+                out[k] = float(flt[k])
+    # serving delta-stream wire accounting (lower is better; see registry)
+    srv = obj.get("serving")
+    if isinstance(srv, dict) and isinstance(
+            srv.get("wire_bytes_per_update"), (int, float)):
+        out["wire_bytes_per_update"] = float(srv["wire_bytes_per_update"])
+    # gang-scheduler service metrics (lower is better; see registry) —
+    # median grant wait + schedulable backlog, as written by the t1.sh
+    # SCHED smoke or monitor.collect_sched
+    sch = obj.get("scheduler")
+    if isinstance(sch, dict):
+        if isinstance(sch.get("grant_latency_s"), (int, float)):
+            out["grant_latency_s"] = float(sch["grant_latency_s"])
+        if isinstance(sch.get("sched_queue_depth"), (int, float)):
+            out["sched_queue_depth"] = float(sch["sched_queue_depth"])
+    # gossip staleness accounting (lower is better; see registry) — as
+    # written by the t1.sh GOSSIP smoke or a gossip-planned bench run
+    gsp = obj.get("gossip")
+    if isinstance(gsp, dict):
+        if isinstance(gsp.get("max_staleness_seen"), (int, float)):
+            out["max_staleness_seen"] = float(gsp["max_staleness_seen"])
+        if isinstance(gsp.get("forced_syncs"), (int, float)):
+            out["gossip_forced_syncs"] = float(gsp["forced_syncs"])
+    return out
+
+
+def load_summary(path: str) -> Dict[str, float]:
+    """Load either artifact kind into ``{metric: value}``.
+
+    Telemetry runs: explicit run-summary records (``"event":
+    "run_summary"``) win; otherwise the median of per-step records is used
+    for the step metrics that exist there (wire_bytes, payload_elems).
+    """
+    try:
+        header, records = sink.read_run(path)
+    except SchemaMismatchError:
+        # IS a sink file, written by a different tree — reparsing it as
+        # bench JSON would silently compare garbage; surface instead
+        raise
+    except ValueError:
+        with open(path) as fh:
+            text = fh.read().strip()
+        try:
+            obj = json.loads(text)
+        except json.JSONDecodeError:
+            # log-style file: last parseable JSON line (bench.py stdout)
+            obj = None
+            for line in reversed(text.splitlines()):
+                line = line.strip()
+                if line.startswith("{"):
+                    try:
+                        obj = json.loads(line)
+                        break
+                    except json.JSONDecodeError:
+                        continue
+            if obj is None:
+                raise ValueError(f"{path}: no parseable JSON found")
+        out = _from_bench_obj(obj)
+        if not out:
+            raise ValueError(f"{path}: no comparable metrics found")
+        return out
+
+    out = {}
+    for rec in records:
+        if rec.get("event") == "run_summary":
+            out.update({k: float(v) for k, v in rec.items()
+                        if isinstance(v, (int, float)) and k != "step"})
+    if not out:
+        summary = sink.summarize(records)
+        for name in DEFAULT_METRICS:
+            if name in summary:
+                out[name] = summary[name]["median"]
+    out.pop("t_host", None)
+    if not out:
+        raise ValueError(f"{path}: telemetry run holds no comparable "
+                         f"metrics (names: {DEFAULT_METRICS})")
+    return out
+
+
+def compare(base: Dict[str, float], new: Dict[str, float], tol: float,
+            metrics: Optional[List[str]] = None) -> List[Dict]:
+    """Rows for every metric present on both sides. A row regresses when
+    the new value is worse than ``(1 + tol) * base`` in the metric's
+    declared direction (zero/negative baselines compare absolutely against
+    ``tol`` to avoid division blowups)."""
+    specs = registry.spec_by_name()
+    rows = []
+    for name in (metrics or DEFAULT_METRICS):
+        if name not in base or name not in new:
+            continue
+        better = specs[name].better if name in specs else "lower"
+        b, n = float(base[name]), float(new[name])
+        if better == "higher":
+            b, n = -b, -n
+        if b > 0:
+            rel = (n - b) / b
+            regressed = rel > tol
+        else:
+            rel = n - b
+            regressed = rel > tol
+        rows.append({"metric": name, "base": float(base[name]),
+                     "new": float(new[name]), "rel": rel,
+                     "regressed": bool(regressed)})
+    return rows
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m dgc_tpu_torch.telemetry.regress",
+        description="gate a fresh bench/telemetry run against a baseline")
+    ap.add_argument("baseline", help="BENCH_r*.json or telemetry .jsonl")
+    ap.add_argument("run", help="fresh run (same formats)")
+    ap.add_argument("--tol", type=float, default=0.10,
+                    help="relative regression tolerance (default 0.10)")
+    ap.add_argument("--metrics", default=None,
+                    help="comma-separated metric subset to compare")
+    args = ap.parse_args(argv)
+
+    try:
+        base = load_summary(args.baseline)
+        new = load_summary(args.run)
+    except (FileNotFoundError, IsADirectoryError) as e:
+        print(f"regress: {e}", file=sys.stderr)
+        print("regress: no baseline/run to compare — record one first:\n"
+              "  telemetry: python -m dgc_tpu_torch.train --config "
+              "resnet20_wm5_telemetry ... (<save_path>/telemetry/)",
+              file=sys.stderr)
+        return 3
+    except SchemaMismatchError as e:
+        print(f"regress: {e}", file=sys.stderr)
+        print("regress: the file was written by a different telemetry "
+              "schema version — re-record it with this tree, or run the "
+              "gate from the tree that wrote it", file=sys.stderr)
+        return 4
+    except (OSError, ValueError) as e:
+        print(f"regress: {e}", file=sys.stderr)
+        return 2
+
+    metrics = args.metrics.split(",") if args.metrics else None
+    rows = compare(base, new, args.tol, metrics)
+    if not rows:
+        print("regress: no overlapping metrics between baseline and run",
+              file=sys.stderr)
+        return 2
+
+    width = max(len(r["metric"]) for r in rows)
+    bad = False
+    for r in rows:
+        mark = "REGRESSED" if r["regressed"] else "ok"
+        bad |= r["regressed"]
+        print(f"{r['metric']:>{width}}: base={r['base']:.6g} "
+              f"new={r['new']:.6g} rel={r['rel']:+.2%} [{mark}]")
+    print(f"regress: {'FAIL' if bad else 'PASS'} "
+          f"(tol {args.tol:.0%}, {len(rows)} metrics)")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,319 @@
+"""Structured tracing: host-side spans + device-side phase markers.
+
+Counterpart of ``dgc_tpu/telemetry/trace.py``. Two instruments, one
+switch:
+
+* **Phase markers** — :func:`phase` / :func:`phased` wrap the DGC
+  pipeline's stages (``compensate -> threshold -> select -> pack ->
+  allgather -> decode -> apply``, plus the step's ``fwd_bwd`` / ``update``
+  / ``loss`` regions) in a ``torch.profiler.record_function`` range named
+  ``dgcph.<phase>[.b<bucket>]`` (and an NVTX range on the card:
+  :func:`dgc_tpu_torch.utils.profiling.annotate`). A profiler trace then
+  holds each range on the thread that launched the stage's kernels, and
+  :mod:`dgc_tpu_torch.telemetry.attrib` maps every device event to its
+  phase and bucket through the launch that queued it. The markers are
+  off by default (``DGC_TRACE=1`` or :func:`enable` turns them on): off,
+  :func:`phase` returns a ``nullcontext`` and the step runs exactly the
+  calls it runs without this module; on, the ranges are host-side
+  records only — no new kernel, no new collective.
+
+* **Host spans** — :class:`SpanTracer` records wall-clock spans around
+  the harness's host work (data load, step, checkpoint, eval) as
+  Chrome-trace-event ``ph:"X"`` records. Completed spans stream through
+  the async :class:`telemetry.sink.TelemetrySink` (``event: "span"``
+  records — the train loop never blocks on trace I/O) and export as
+  Perfetto-loadable Chrome-trace JSON, either live
+  (:meth:`SpanTracer.save`) or offline from a sink JSONL
+  (:func:`chrome_trace_from_records`, CLI below). Each span also opens a
+  ``record_function`` range ``host.<name>``, so an active profiler lines
+  the host spans up with the device lanes in the same Perfetto view.
+
+CLI: rebuild a Chrome trace from a telemetry JSONL run::
+
+    python -m dgc_tpu_torch.telemetry.trace runs/telemetry.jsonl -o trace.json
+"""
+
+import contextlib
+import functools
+import gzip
+import json
+import os
+import sys
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, Iterator, List, Optional
+
+__all__ = ["PHASES", "SCOPE_PREFIX", "enabled", "enable", "phase",
+           "phased", "scope_name", "SpanTracer", "NULL_TRACER",
+           "chrome_trace_from_records", "validate_chrome_trace"]
+
+#: canonical DGC phase vocabulary (attrib's table rows come out in this
+#: order; unknown tokens still aggregate — the list is not a gate)
+PHASES = ("compensate", "forward", "threshold", "select", "pack",
+          "allgather", "decode", "apply", "dense", "fwd_bwd", "update",
+          "loss")
+
+#: range-name prefix: ranges are ``dgcph.<phase>`` or
+#: ``dgcph.<phase>.b<bucket>`` (the reference's named-scope tokens)
+SCOPE_PREFIX = "dgcph."
+
+_ENABLED = os.environ.get("DGC_TRACE", "") == "1"
+
+
+def enabled() -> bool:
+    """Whether the phase markers are on."""
+    return _ENABLED
+
+
+def enable(on: bool = True) -> bool:
+    """Flip the phase-marker switch; returns the previous value. Takes
+    effect at the next :func:`phase` call."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(on)
+    return prev
+
+
+def scope_name(name: str, bucket: int = -1) -> str:
+    """The range name of a phase (``bucket < 0`` = no bucket)."""
+    return SCOPE_PREFIX + name + (f".b{bucket}" if bucket >= 0 else "")
+
+
+def phase(name: str, bucket: int = -1):
+    """Phase marker around a stage of the step.
+
+    Off (default): a nullcontext. On: a ``record_function`` range (and an
+    NVTX range on the card) named :func:`scope_name` — attrib maps the
+    kernels launched inside it back to the phase and bucket."""
+    if not _ENABLED:
+        return contextlib.nullcontext()
+    from dgc_tpu_torch.utils.profiling import annotate
+    return annotate(scope_name(name, bucket))
+
+
+def phased(name: str):
+    """Decorator form of :func:`phase` for whole-function kernels
+    (``@phased("apply")`` on ``kernels.apply_rows``)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with phase(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+# ---------------------------------------------------------------------- #
+# host spans                                                             #
+# ---------------------------------------------------------------------- #
+
+class SpanTracer:
+    """Host-side span recorder with Chrome-trace export.
+
+    Thread-safe; spans nest per-thread (each records its ``parent``).
+    ``sink`` — optional :class:`telemetry.sink.TelemetrySink`; completed
+    spans are enqueued as ``{"event": "span", ...}`` records (async, the
+    caller never blocks on I/O). The in-memory ring keeps the most
+    recent ``max_events`` spans for :meth:`save`/:meth:`chrome_trace`
+    and the per-step summary the flight recorder snapshots."""
+
+    def __init__(self, sink=None, max_events: int = 65536):
+        self._sink = sink
+        self._t0 = time.perf_counter()
+        self._events: deque = deque(maxlen=int(max_events))
+        self._lock = threading.Lock()
+        self._stacks: Dict[int, List[str]] = {}
+        self._step_acc: Dict[str, float] = {}
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args):
+        """Record one wall-clock span; nests freely within a thread."""
+        tid = threading.get_ident()
+        with self._lock:
+            stack = self._stacks.setdefault(tid, [])
+            parent = stack[-1] if stack else None
+            stack.append(name)
+        # line host spans up with device lanes when a profiler session is
+        # live (a record_function range records nothing without one)
+        import torch
+        ann = torch.profiler.record_function(f"host.{name}")
+        t0 = self._now_us()
+        try:
+            with ann:
+                yield
+        finally:
+            dur = self._now_us() - t0
+            ev = {"name": name, "ph": "X", "ts": round(t0, 3),
+                  "dur": round(dur, 3), "pid": os.getpid(), "tid": tid,
+                  "args": dict(args)}
+            if parent is not None:
+                ev["args"]["parent"] = parent
+            with self._lock:
+                self._stacks[tid].pop()
+                self._events.append(ev)
+                self._step_acc[name] = (self._step_acc.get(name, 0.0)
+                                        + dur / 1e3)
+            if self._sink is not None:
+                self._sink.write_record({
+                    "event": "span", "name": name, "ts_us": ev["ts"],
+                    "dur_us": ev["dur"], "tid": tid, **ev["args"]})
+
+    def wrap_iter(self, iterable: Iterable, name: str, **args) -> Iterator:
+        """Span each ``next()`` of an iterable (the data-load wait)."""
+        it = iter(iterable)
+        while True:
+            with self.span(name, **args):
+                try:
+                    v = next(it)
+                except StopIteration:
+                    return
+            yield v
+
+    def step_summary(self, reset: bool = True) -> Dict[str, float]:
+        """Per-span-name total ms since the last summary (the flight
+        recorder stores one of these per step record)."""
+        with self._lock:
+            out = {k: round(v, 4) for k, v in self._step_acc.items()}
+            if reset:
+                self._step_acc.clear()
+        return out
+
+    def events(self) -> List[Dict]:
+        with self._lock:
+            return list(self._events)
+
+    def chrome_trace(self) -> Dict:
+        """Perfetto-loadable Chrome-trace-event JSON object."""
+        return _chrome_obj(self.events())
+
+    def save(self, path: str) -> str:
+        """Atomically write the Chrome trace (``.gz`` suffix gzips)."""
+        return _write_json(self.chrome_trace(), path)
+
+
+class _NullTracer:
+    """Do-nothing stand-in so harness code never branches per call."""
+
+    def span(self, name: str, **args):
+        return contextlib.nullcontext()
+
+    def wrap_iter(self, iterable, name, **args):
+        return iter(iterable)
+
+    def step_summary(self, reset: bool = True) -> Dict[str, float]:
+        return {}
+
+    def events(self) -> List[Dict]:
+        return []
+
+    def save(self, path: str) -> Optional[str]:
+        return None
+
+
+NULL_TRACER = _NullTracer()
+
+
+# ---------------------------------------------------------------------- #
+# Chrome-trace assembly / validation                                     #
+# ---------------------------------------------------------------------- #
+
+def _chrome_obj(events: List[Dict]) -> Dict:
+    pid = events[0]["pid"] if events else os.getpid()
+    meta = [{"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+             "args": {"name": "dgc-host"}}]
+    for tid in sorted({e["tid"] for e in events}):
+        meta.append({"ph": "M", "pid": pid, "tid": tid,
+                     "name": "thread_name",
+                     "args": {"name": f"host-thread-{tid}"}})
+    return {"displayTimeUnit": "ms", "traceEvents": meta + list(events)}
+
+
+def chrome_trace_from_records(records: List[Dict]) -> Dict:
+    """Rebuild a Chrome trace from sink JSONL ``event: "span"`` records
+    (the async-sink export path: spans stream to JSONL during the run,
+    this converts offline)."""
+    events = []
+    for r in records:
+        if r.get("event") != "span":
+            continue
+        args = {k: v for k, v in r.items()
+                if k not in ("event", "name", "ts_us", "dur_us", "tid",
+                             "t_host")}
+        events.append({"name": r["name"], "ph": "X",
+                       "ts": float(r["ts_us"]), "dur": float(r["dur_us"]),
+                       "pid": os.getpid(), "tid": int(r.get("tid", 0)),
+                       "args": args})
+    events.sort(key=lambda e: e["ts"])
+    return _chrome_obj(events)
+
+
+def validate_chrome_trace(obj: Dict) -> List[str]:
+    """Schema check for the exported trace (tests + a cheap guard before
+    handing a file to Perfetto). Returns violation strings; [] = valid."""
+    out = []
+    if not isinstance(obj.get("traceEvents"), list):
+        return ["traceEvents: missing or not a list"]
+    for i, ev in enumerate(obj["traceEvents"]):
+        ph = ev.get("ph")
+        if ph not in ("X", "M", "B", "E", "i"):
+            out.append(f"event {i}: bad ph {ph!r}")
+            continue
+        if not isinstance(ev.get("name"), str):
+            out.append(f"event {i}: name must be a string")
+        for k in ("pid", "tid"):
+            if not isinstance(ev.get(k), int):
+                out.append(f"event {i}: {k} must be an int")
+        if ph == "X":
+            for k in ("ts", "dur"):
+                v = ev.get(k)
+                if not isinstance(v, (int, float)) or v < 0:
+                    out.append(f"event {i}: {k} must be a number >= 0")
+    return out
+
+
+def _write_json(obj: Dict, path: str) -> str:
+    """Atomic JSON write (tmp + rename; ``.gz`` suffix gzips)."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    if path.endswith(".gz"):
+        with gzip.open(tmp, "wt") as fh:
+            json.dump(obj, fh)
+    else:
+        with open(tmp, "w") as fh:
+            json.dump(obj, fh)
+    os.replace(tmp, path)
+    return path
+
+
+def _main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m dgc_tpu_torch.telemetry.trace",
+        description="rebuild a Perfetto-loadable Chrome trace from a "
+                    "telemetry JSONL run's span records")
+    ap.add_argument("run", help="telemetry .jsonl file")
+    ap.add_argument("-o", "--out", default="trace.json",
+                    help="output Chrome-trace JSON (default trace.json)")
+    args = ap.parse_args(argv)
+    from dgc_tpu_torch.telemetry import sink as _sink
+    _, records = _sink.read_run(args.run)
+    obj = chrome_trace_from_records(records)
+    n = sum(1 for e in obj["traceEvents"] if e.get("ph") == "X")
+    bad = validate_chrome_trace(obj)
+    if bad:
+        for b in bad:
+            print(f"trace: {b}", file=sys.stderr)
+        return 2
+    _write_json(obj, args.out)
+    print(f"wrote {args.out}: {n} spans "
+          f"(open at https://ui.perfetto.dev)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -150,8 +150,13 @@ from dgc_tpu_torch.parallel.multihost import initialize_multihost
 from dgc_tpu_torch.resilience import elastic as _elastic
 from dgc_tpu_torch.resilience import faults as _faults
 from dgc_tpu_torch.resilience import preempt as _preempt
+from dgc_tpu_torch.resilience.adaptive import AdaptiveConfig
 from dgc_tpu_torch.resilience.guard import GuardConfig
+from dgc_tpu_torch.telemetry import trace as _trace
+from dgc_tpu_torch.telemetry.attrib import load_profile
+from dgc_tpu_torch.telemetry.fleet import make_clock
 from dgc_tpu_torch.telemetry.flight import FlightRecorder, NonfiniteStreak
+from dgc_tpu_torch.telemetry.sink import TelemetrySink
 from dgc_tpu_torch.training import checkpoint
 from dgc_tpu_torch.training.checkpoint import CheckpointManager
 from dgc_tpu_torch.training.lr import (cosine_schedule, make_lr_schedule,
@@ -231,6 +236,31 @@ class Trainer:
                              "(recipes with train.dgc = True)")
         #: the armed fault plan, read once (None: ``DGC_FAULTS`` unset)
         self.faults = _faults.active_plan()
+        tel = tc.get("telemetry") or {}
+        #: the step's telemetry taps (``train.telemetry.enabled``) and the
+        #: fleet gather (``train.telemetry.fleet``)
+        self.telemetry = bool(tel.get("enabled", False))
+        self.fleet = bool(self.telemetry and tel.get("fleet", False))
+        ac = tc.get("adaptive") or {}
+        #: the straggler-adaptive exchange's policy (``train.adaptive``),
+        #: or None
+        self.adaptive = None
+        if ac.get("enabled", False):
+            if not tc.dgc:
+                raise ValueError("the adaptive exchange degrades the sparse "
+                                 "DGC wire (recipes with train.dgc = True)")
+            if not self.fleet:
+                raise ValueError(
+                    "the adaptive exchange reads the fleet w_clock lane: "
+                    "it needs train.telemetry.enabled and fleet")
+            self.adaptive = AdaptiveConfig(**{
+                k: float(ac[k]) for k in AdaptiveConfig._fields if k in ac})
+        #: the telemetry sink and the host span tracer (the CLI sets them)
+        self.sink = None
+        self.tracer = _trace.NULL_TRACER
+        #: the end of the last step call (the fleet clock's prep interval
+        #: runs from it to the next step's start)
+        self._prev_dispatch: Optional[float] = None
         #: workers a node (two tiers when > 1)
         self.num_local = int(tc.get("num_local_workers", 1) or 1)
         if comm.world % self.num_local:
@@ -320,7 +350,8 @@ class Trainer:
                    f"({self.autotuner.fabric.gbps:.3g} GB/s) -> plan "
                    f"{list(self.setup.engine.regimes)}")
         self.state = make_flat_state(self.model, self.dist, self.setup,
-                                     self.device, guards=self.guards)
+                                     self.device, guards=self.guards,
+                                     adaptive=self.adaptive)
         #: one host generator of sampling phases per local worker, seeded
         #: by its node's index (its own rank without two tiers): the
         #: workers of a node draw the same phases, those a flat run's
@@ -355,13 +386,14 @@ class Trainer:
                              or 4 * self.setup.layout.total)
         self._plan_pending = False
 
-    def autotune_epoch_end(self, epoch: int):
+    def autotune_epoch_end(self, epoch: int, profile: Optional[Dict] = None):
         """The autotuner's epoch boundary: refit the link model over the
-        steps' points, write ``fabric.json``, replan; a plan whose key
-        changed rebuilds the engine at the next epoch (the memory carries
-        over). Returns the new plan, or None."""
+        steps' points (and a ``dgc-profile`` table's per-bucket all-gather
+        costs, ``profile``), write ``fabric.json``, replan; a plan whose
+        key changed rebuilds the engine at the next epoch (the memory
+        carries over). Returns the new plan, or None."""
         at = self.autotuner
-        new = at.epoch_end(self.setup.engine, epoch=epoch)
+        new = at.epoch_end(self.setup.engine, epoch=epoch, profile=profile)
         if new is not None:
             self._plan_pending = True
             printr(f"[autotune] refit {at.fabric.gbps:.3g} GB/s alpha "
@@ -428,7 +460,8 @@ class Trainer:
         """Replace the initial weights (e.g. with ones carried from the
         JAX package); call before the first step."""
         self.state = make_flat_state(self.model, self.dist, self.setup,
-                                     self.device, flat_params, flat_stats)
+                                     self.device, flat_params, flat_stats,
+                                     adaptive=self.adaptive)
 
     def _batches(self, idx: np.ndarray, split: str = "train",
                  per: Optional[int] = None):
@@ -512,7 +545,10 @@ class Trainer:
         is asked at each step boundary before the batch: True ends the
         epoch there (:attr:`stopped_at` is then the last batch trained);
         ``on_step(batch, metrics)`` runs after each step (``metrics``:
-        ``loss``, and ``step`` and ``guards`` with guards)."""
+        ``loss``, ``step`` and ``guards`` with guards, ``telemetry`` and
+        ``fleet`` with the taps). With the fleet taps each step gets the
+        host's prep interval (:meth:`clock`); the host spans (``data_load``,
+        ``step``) go to :attr:`tracer`."""
         self.compression.warmup_compress_ratio(epoch)
         ratio = self.compression.compress_ratio
         if ratio != self._built_ratio or self._plan_pending:
@@ -520,6 +556,11 @@ class Trainer:
             # over
             self._build_setup()
             self._built_ratio = ratio
+            if self.sink is not None:
+                # readers re-anchor the per-bucket columns at a rebuild
+                self.sink.write_record(dict(
+                    _telemetry_static(self.setup), event="engine_rebuild",
+                    epoch=epoch))
             if self.verbose and ratio is not None:
                 print(f"[epoch {epoch}] ratio {self._built_ratio:.4g}: "
                       f"payload {self.setup.engine.payload_size}/worker")
@@ -530,15 +571,28 @@ class Trainer:
         with contextlib.closing(inputs), contextlib.ExitStack() as prof:
             if profile_dir is not None:
                 prof.enter_context(profiling.trace(profile_dir))
-            for s, (xs, ys) in enumerate(inputs):
+            for s, (xs, ys) in enumerate(
+                    self.tracer.wrap_iter(inputs, "data_load")):
                 if stop is not None and stop(start + s):
                     self.stopped_at = start + s - 1
                     break
                 t0 = time.perf_counter()
-                self.state, out = train_step(
-                    self.model, self.setup, self.dist, self.state, xs, ys,
-                    self.gens, self.nbps, self.dropout_gens,
-                    guards=self.guards, faults=self.faults)
+                kw = {}
+                if self.telemetry:
+                    kw = {"telemetry": True, "fleet": self.fleet,
+                          "adaptive": self.adaptive}
+                if self.fleet:
+                    # the prep interval: the last step call's end to this
+                    # one's start, host wall clock
+                    kw["clock"] = self.clock(
+                        (t0 - self._prev_dispatch) * 1e3
+                        if self._prev_dispatch is not None else 0.0)
+                with self.tracer.span("step", epoch=epoch, batch=start + s):
+                    self.state, out = train_step(
+                        self.model, self.setup, self.dist, self.state, xs,
+                        ys, self.gens, self.nbps, self.dropout_gens,
+                        guards=self.guards, faults=self.faults, **kw)
+                self._prev_dispatch = time.perf_counter()
                 metrics = out if isinstance(out, dict) else {"loss": out}
                 loss = metrics["loss"]
                 self.last_guards = metrics.get("guards")
@@ -560,6 +614,12 @@ class Trainer:
                 if s + 1 == PROFILE_STEPS:
                     prof.close()
         return losses
+
+    def clock(self, dt_ms: float) -> torch.Tensor:
+        """The fleet clock of a step: ``dt_ms`` in every worker's slot of
+        a [world] f32 tensor on the device (:func:`telemetry.fleet.
+        make_clock`)."""
+        return make_clock(dt_ms, self.comm.world, self.device)
 
     def evaluate(self, split: str = "test") -> Dict[str, float]:
         """The config's meters over ``split`` (``{"acc/test_top1": %,
@@ -585,6 +645,16 @@ class Trainer:
             for meter in meters.values():
                 meter.update_counts(int(totals[f"top{meter.k}"]), n)
         return {k: m.compute() for k, m in meters.items()}
+
+
+def _telemetry_static(setup) -> Dict:
+    """The engine's sink header block (the dense baseline's engine has
+    none: its kind and size)."""
+    eng = setup.engine
+    if hasattr(eng, "telemetry_static"):
+        return eng.telemetry_static()
+    return {"engine": type(eng).__name__,
+            "num_params": int(setup.layout.total)}
 
 
 def _print_meters(meters: Dict[str, float]) -> None:
@@ -640,6 +710,15 @@ def main(argv=None) -> List[float]:
                    help="resume across a world-size change: reshard the "
                         "per-worker state, keep the global batch "
                         "(configs/elastic.py); the directory ends in .npE")
+    p.add_argument("--trace", action="store_true",
+                   help="structured tracing: host spans + dgcph.* phase "
+                        "markers, saved as a Perfetto-loadable "
+                        "<save_path>/trace.json (configs/trace.py)")
+    p.add_argument("--adaptive", action="store_true",
+                   help="straggler-adaptive exchange: a lagging worker "
+                        "sends a smaller fraction of its quota, the rest "
+                        "stays in its residual; needs the fleet taps "
+                        "(configs/adaptive.py; also DGC_ADAPTIVE=1)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -666,6 +745,19 @@ def main(argv=None) -> List[float]:
         _configs.with_autotune(cfg)
     if args.num_local_workers:
         cfg.train.num_local_workers = args.num_local_workers
+    if args.adaptive or os.environ.get("DGC_ADAPTIVE"):
+        if not cfg.train.dgc:
+            raise SystemExit("--adaptive degrades the sparse DGC wire "
+                             "(recipes with train.dgc = True)")
+        tel = cfg.train.get("telemetry") or {}
+        if not (tel.get("enabled", False) and tel.get("fleet", False)):
+            raise SystemExit(
+                "--adaptive reads the fleet w_clock lane: it needs "
+                "train.telemetry.enabled + fleet (the *_telemetry recipes; "
+                "resnet50_wm5_adaptive stacks both)")
+        _configs.with_adaptive(cfg)
+    if args.trace:
+        _configs.with_trace(cfg)
     ec = cfg.train.get("elastic") or {}
     elastic_on = bool(args.elastic or ec.get("enabled", False))
     if args.init_method:
@@ -715,6 +807,7 @@ def main(argv=None) -> List[float]:
         metric = cfg.train.metric
         last_epoch, best = -1, None
         resume_epoch, resume_batch = None, 0
+        elastic_info = None
         restored = (trainer.restore_checkpoint(ckpt, best=args.evaluate,
                                                elastic=elastic_on)
                     if args.evaluate or ckpt.latest_epoch() is not None
@@ -722,7 +815,7 @@ def main(argv=None) -> List[float]:
         if restored is not None:
             last_epoch, saved = restored
             best = saved.get(metric + "_best")
-            einfo = saved.pop("_elastic", None)
+            einfo = elastic_info = saved.pop("_elastic", None)
             if einfo is not None:
                 printr(f"[elastic] resharded checkpoint state "
                        f"{einfo['from_world']} -> {einfo['to_world']} "
@@ -747,8 +840,10 @@ def main(argv=None) -> List[float]:
         epochs = (args.epochs if args.epochs is not None
                   else cfg.train.num_epochs)
         writer = MetricWriter(save_path)
+        tel = _Telemetry(cfg, trainer, save_path, elastic_info)
         res = _Resilience(cfg.train.get("resilience") or {}, trainer,
                           save_path, device, last_epoch, resume_batch)
+        tracer = trainer.tracer
         try:
             for epoch in range(last_epoch + 1, epochs):
                 times: List[float] = []
@@ -756,10 +851,13 @@ def main(argv=None) -> List[float]:
                                if args.profile and epoch == last_epoch + 1
                                else None)
                 start = resume_batch if epoch == resume_epoch else 0
-                losses = [float(x) for x in trainer.run_epoch(
+                raw = trainer.run_epoch(
                     epoch, args.steps, times, profile_dir=profile_dir,
                     start=start, stop=res.stop(epoch),
-                    on_step=res.on_step(epoch))]
+                    on_step=_chain(res.on_step(epoch), tel.on_step(epoch)))
+                # the epoch's one host sync: it waits for every queued step
+                with tracer.span("exchange_wait", epoch=epoch):
+                    losses = [float(x) for x in raw]
                 # x = samples seen, counting every earlier epoch whole
                 seen = ((epoch * trainer.steps_per_epoch + start)
                         * trainer.global_batch)
@@ -774,8 +872,10 @@ def main(argv=None) -> List[float]:
                     res.preempted(ckpt, epoch, metric, best)
                 res.check_streak(losses, epoch)
                 if trainer.autotuner is not None:
-                    trainer.autotune_epoch_end(epoch)
-                meters = trainer.evaluate()
+                    trainer.autotune_epoch_end(
+                        epoch, profile=_load_profile(save_path))
+                with tracer.span("eval", epoch=epoch):
+                    meters = trainer.evaluate()
                 is_best = best is None or best < meters[metric]
                 if is_best:
                     best = meters[metric]
@@ -783,8 +883,9 @@ def main(argv=None) -> List[float]:
                 _print_meters(meters)
                 for k, v in meters.items():
                     writer.add_scalar(k, v, seen)
-                path = trainer.save_checkpoint(ckpt, epoch, meters,
-                                               best=is_best)
+                with tracer.span("checkpoint", epoch=epoch):
+                    path = trainer.save_checkpoint(ckpt, epoch, meters,
+                                                   best=is_best)
                 printr(f"[save_path] = {path}")
                 # the epoch's summary last, on every process
                 res.last_ckpt_epoch = epoch
@@ -793,12 +894,116 @@ def main(argv=None) -> List[float]:
                     "ratio": trainer.compression.compress_ratio,
                     "loss": losses, "step_s": times, "eval": meters}))
         finally:
+            # also on the preemption (75) and streak (70) exits: the trace
+            # saved, the sink drained and closed
             writer.close()
             res.close()
+            tel.close()
         return out
     finally:
         if grouped and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _chain(*fns: Callable[[int, dict], None]) -> Callable[[int, dict], None]:
+    def after(batch: int, metrics: dict) -> None:
+        for fn in fns:
+            fn(batch, metrics)
+    return after
+
+
+def _load_profile(save_path: str) -> Optional[Dict]:
+    """``<save_path>/profile.json`` (a ``dgc-profile`` table) when there is
+    a readable one, else None."""
+    path = os.path.join(save_path, "profile.json")
+    if not os.path.exists(path):
+        return None
+    try:
+        return load_profile(path)
+    except (ValueError, OSError, KeyError):
+        return None
+
+
+class _Telemetry:
+    """The CLI's telemetry (the recipe's ``train.telemetry`` and
+    ``train.trace``): the async sink at ``<save_path>/telemetry/`` (the
+    coordinator's file, or under the fleet taps one ``host<i>/`` shard a
+    process), its header the engine's ``telemetry_static`` with the run's
+    topology, one record every ``every`` steps (the telemetry means, the
+    guard counters, the fleet columns and the loss, still on the device:
+    the sink copies them without a wait), and the host span tracer saved
+    to ``<save_path>/trace.json``. Inert when both are off."""
+
+    def __init__(self, cfg, trainer: Trainer, save_path: str,
+                 elastic_info: Optional[Dict] = None):
+        tc = cfg.train.get("telemetry") or {}
+        self.trainer = trainer
+        self.every = int(tc.get("every", 1) or 1)
+        self.sink = None
+        grouped = dist.is_initialized()
+        rank = dist.get_rank() if grouped else 0
+        if trainer.telemetry:
+            sub = (os.path.join("telemetry", f"host{rank}") if trainer.fleet
+                   else "telemetry")
+            self.sink = TelemetrySink(
+                os.path.join(save_path, sub),
+                static=dict(_telemetry_static(trainer.setup),
+                            world=trainer.comm.world,
+                            num_local_workers=trainer.num_local,
+                            process_index=rank,
+                            num_processes=(dist.get_world_size() if grouped
+                                           else 1)),
+                rotate_bytes=int(tc.get("rotate_mb", 64)) << 20,
+                enabled=trainer.fleet or rank == 0,
+                guards=trainer.guards is not None, fleet=trainer.fleet)
+            printr(f"[telemetry] -> {self.sink.path or '(non-coordinator)'}"
+                   + (" [fleet]" if trainer.fleet else ""))
+            trainer.sink = self.sink
+            if trainer.autotuner is not None:
+                # refit and replan events ride the telemetry stream
+                trainer.autotuner.sink = self.sink
+            if elastic_info is not None:
+                self.sink.write_record(dict(elastic_info,
+                                            event="elastic_restart"))
+        if trainer.adaptive is not None:
+            printr(f"[adaptive] {trainer.adaptive}")
+        trc = cfg.train.get("trace") or {}
+        self.trace_path = self._trace_was = None
+        if trc.get("enabled", False):
+            self._trace_was = _trace.enable(True)
+            trainer.tracer = _trace.SpanTracer(
+                sink=self.sink,
+                max_events=int(trc.get("max_events", 65536)))
+            self.trace_path = os.path.join(save_path, "trace.json")
+            printr(f"[trace] phase markers on; host spans -> "
+                   f"{self.trace_path}")
+
+    def on_step(self, epoch: int) -> Callable[[int, dict], None]:
+        tr = self.trainer
+
+        def after(batch: int, metrics: dict) -> None:
+            if self.sink is None or batch % self.every:
+                return
+            stats = dict(metrics["telemetry"])
+            if "guards" in metrics:
+                stats.update(metrics["guards"])
+            if "fleet" in metrics:
+                stats.update(metrics["fleet"])
+                stats["loss"] = metrics["loss"]
+            seen = (epoch * tr.steps_per_epoch + batch + 1) * tr.global_batch
+            self.sink.write(seen, stats)
+        return after
+
+    def close(self) -> None:
+        if self.trace_path is not None:
+            path = self.trainer.tracer.save(self.trace_path)
+            printr(f"[trace] chrome trace -> {path} (load at "
+                   "ui.perfetto.dev)")
+            self.trace_path = None
+            _trace.enable(self._trace_was)
+        if self.sink is not None:
+            self.sink.close()
+            self.sink = None
 
 
 class _Resilience:
@@ -833,7 +1038,8 @@ class _Resilience:
         wd = float(rc.get("watchdog_secs", 0) or 0)
         if wd > 0:
             self.watchdog = _preempt.Watchdog(
-                wd, flight=self.flight, flight_path=self.flight_path)
+                wd, sink=trainer.sink, flight=self.flight,
+                flight_path=self.flight_path)
         printr(f"[resilience] guards={trainer.guards} checksum="
                f"{getattr(trainer.setup.engine, 'checksum', False)} "
                f"watchdog={wd or 'off'} flight={fl or 'off'}")
@@ -858,6 +1064,7 @@ class _Resilience:
                 self.flight.record(self.gstep, epoch=epoch, batch=batch,
                                    loss=metrics["loss"],
                                    guards=metrics.get("guards"),
+                                   spans_ms=self.trainer.tracer.step_summary(),
                                    last_ckpt_epoch=self.last_ckpt_epoch)
             if self.watchdog is not None:
                 self.watchdog.beat()

@@ -30,7 +30,9 @@ a restored JAX state across):
   resharded onto the caller's (``resilience.elastic.reshard_workers``),
   and the meters carry an ``_elastic`` record. A checkpoint written
   without guards restores into a guarded run with fresh guard state (and
-  a guarded one into an unguarded run without it).
+  a guarded one into an unguarded run without it). The adaptive
+  exchange's policy state (``TrainState.adaptive``) is never saved; a
+  restore re-seeds it at full send fraction, as the reference does.
 * **Several processes.** Under a ``torch.distributed`` group every
   process writes the files of the workers it holds and the coordinator
   (rank 0) the replicated state; the coordinator alone publishes,
@@ -184,7 +186,10 @@ def load_state_tensors(state: TrainState, gens: Sequence[torch.Generator],
                       opt_state=(opts if per_worker
                                  else _opt_from(state.opt_state, rep,
                                                 device)),
-                      memory=memory, batch_stats=stats, guards=guards)
+                      memory=memory, batch_stats=stats, guards=guards,
+                      adaptive=(None if state.adaptive is None else
+                                {k: torch.ones_like(v)
+                                 for k, v in state.adaptive.items()}))
 
 
 def _check_like(got: Tensors, want: Tensors, what: str) -> None:

@@ -8,7 +8,11 @@ guards' state (``resilience.guard``; None without guards), and
 ``pending_skip`` the last guarded step's skip verdict, a host copy in
 flight and the event that ends it: the step count of the optimizer state is a host int, taken back
 by :func:`~dgc_tpu_torch.training.step.resolve_pending_skip` when the
-verdict is read (the next step's update, or a save)."""
+verdict is read (the next step's update, or a save). ``adaptive`` is the
+straggler-adaptive exchange's policy state (``{"w_frac": [world]}``,
+``resilience.adaptive``; None when it is off): last step's per-worker send
+fractions, replicated, carried to the next step and, as in the reference,
+not checkpointed (a restore re-seeds it)."""
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -28,3 +32,4 @@ class TrainState:
     batch_stats: List[torch.Tensor]   # per local worker, flat
     guards: Optional[Dict[str, torch.Tensor]] = None   # replicated
     pending_skip: Optional[tuple] = None
+    adaptive: Optional[Dict[str, torch.Tensor]] = None  # replicated

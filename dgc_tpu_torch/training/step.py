@@ -56,6 +56,18 @@ first; the unguarded step copies nothing). The exchange still runs on a
 skipped step, so its checksum count and its phase draws are kept, as in
 the reference. The guarded step returns ``{"loss", "step", "guards"}``.
 
+Telemetry (``train_step(..., telemetry=True)``, the reference's
+``build_train_step(telemetry=...)``): the engine returns each worker's
+``STEP_METRICS`` and the step means them in one packed all-reduce
+(``telemetry.taps.pmean_stats``); with ``fleet=True`` one packed all-gather
+gives the means and the per-worker fleet lanes instead
+(``telemetry.fleet.gather_stats``), fed the host's prep interval as
+``clock``; with ``adaptive=AdaptiveConfig(...)`` each worker sends last
+step's ``state.adaptive["w_frac"][rank]`` of its quota and the next
+fractions come from the gathered clocks. The stats stay on the device.
+The stages run inside the phase markers ``fwd_bwd``, ``update`` and
+``loss`` (``telemetry.trace``; nothing while tracing is off).
+
 The flat step also runs the dense baseline's engine
 (:class:`~dgc_tpu_torch.compression.flat.FlatDenseExchange`), which
 samples nothing and keeps no memory. :func:`eval_step` is the
@@ -73,8 +85,12 @@ from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.models import (compute_dtype, param_tree, stats_tree,
                                   uses_dropout)
 from dgc_tpu_torch.ops import kernels
+from dgc_tpu_torch.resilience import adaptive as _adaptive
 from dgc_tpu_torch.resilience import faults as _faults
 from dgc_tpu_torch.resilience import guard as _guard
+from dgc_tpu_torch.telemetry import fleet as _fleet
+from dgc_tpu_torch.telemetry import taps as _taps
+from dgc_tpu_torch.telemetry.trace import phase
 from dgc_tpu_torch.training.state import TrainState
 
 __all__ = ["FlatSetup", "make_flat_setup", "make_per_tensor_setup",
@@ -108,13 +124,14 @@ def make_per_tensor_setup(model, dist_opt) -> FlatSetup:
 
 def make_flat_state(model, dist_opt, setup: FlatSetup, device,
                     flat_params=None, flat_stats=None,
-                    guards=None) -> TrainState:
+                    guards=None, adaptive=None) -> TrainState:
     """Initial state from the model's own weights, or from given flat
     buffers (e.g. carried from the JAX package). The memory is the flat
     engine's, or the per-name state of the per-tensor path when
     ``setup`` has no engine; the optimizer state one a local worker under
     the Adasum scheme; ``guards``: a ``GuardConfig`` whose fresh state the
-    train state carries."""
+    train state carries; ``adaptive``: an ``AdaptiveConfig`` whose policy
+    state (every worker at full send fraction) it carries."""
     if flat_params is None:
         flat_params = setup.layout.flatten(param_tree(model), device=device)
     if flat_stats is None:
@@ -131,7 +148,9 @@ def make_flat_state(model, dist_opt, setup: FlatSetup, device,
                 else dist_opt.init_memory(param_tree(model), device)
                 for _ in range(local)],
         batch_stats=[flat_stats.to(device).clone() for _ in range(local)],
-        guards=None if guards is None else _guard.init_state(guards, device))
+        guards=None if guards is None else _guard.init_state(guards, device),
+        adaptive=(None if adaptive is None
+                  else _adaptive.init_state(dist_opt.comm.world, device)))
 
 
 def _read_later(skip: torch.Tensor):
@@ -220,13 +239,46 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
                gens: Sequence[torch.Generator], nbps: int = 1,
                dropout_gens: Optional[Sequence[torch.Generator]] = None,
                guards: Optional[_guard.GuardConfig] = None,
-               faults: Optional[_faults.FaultPlan] = None):
+               faults: Optional[_faults.FaultPlan] = None,
+               telemetry: bool = False, fleet: bool = False,
+               adaptive: Optional[_adaptive.AdaptiveConfig] = None,
+               clock: Optional[torch.Tensor] = None):
     """One step for this process's workers (``images[w]`` / ``labels[w]``
     / ``gens[w]`` / ``dropout_gens[w]`` per local worker). Returns
     ``(state, mean loss)``, the loss on the device; with ``guards``
-    (``state.guards`` must hold their state) ``(state, {"loss", "step",
-    "guards"})``. ``faults``: the armed fault plan (``nan@K``)."""
+    (``state.guards`` must hold their state) or ``telemetry``
+    ``(state, metrics)``: ``"loss"``, with guards ``"step"`` and
+    ``"guards"``, with telemetry ``"telemetry"`` (the ``STEP_METRICS``
+    mean over every worker, one packed all-reduce) and with ``fleet``
+    ``"fleet"`` (``FLEET_METRICS``: one packed all-gather gives both,
+    :func:`~dgc_tpu_torch.telemetry.fleet.gather_stats`), all on the
+    device. ``faults``: the armed fault plan (``nan@K``).
+
+    ``fleet`` needs ``telemetry`` and ``clock``, the [world] f32 prep
+    interval (``telemetry.fleet.make_clock``; worker r reads ``clock[r]``;
+    host wall clock taken outside the step). ``adaptive`` (an
+    ``AdaptiveConfig``; needs ``fleet`` and a state made with
+    ``make_flat_state(..., adaptive=cfg)``): each worker sends last step's
+    ``state.adaptive["w_frac"][rank]`` of its quota, and the next verdict
+    is computed from the gathered ``w_clock`` lane (no collective more).
+    Telemetry needs the flat engine (``setup.engine``), as in the
+    reference."""
     engine = setup.engine
+    if fleet and not telemetry:
+        raise ValueError("fleet dispersion taps require telemetry=True "
+                         "(they extend the telemetry lane)")
+    if adaptive is not None and not fleet:
+        raise ValueError("adaptive straggler exchange requires fleet=True "
+                         "(the policy reads the gathered w_clock lane)")
+    if telemetry and engine is None:
+        raise ValueError("telemetry taps require the flat engine path "
+                         "(pass setup=make_flat_setup(...))")
+    if fleet and clock is None:
+        raise ValueError("fleet=True needs clock= (telemetry.fleet."
+                         "make_clock of the host's prep interval)")
+    if adaptive is not None and state.adaptive is None:
+        raise ValueError("adaptive= needs a state made with "
+                         "make_flat_state(..., adaptive=cfg)")
     if getattr(engine, "checksum", False) and guards is None:
         raise ValueError(
             "DGCCompressor(checksum=True) needs guards= on the train step — "
@@ -241,58 +293,91 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
         stats0 = _guard.snapshot(state.batch_stats)
     grads: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
-    for w in range(len(comm.ranks)):
-        g, loss = worker_grad(model, setup, state.params,
-                              state.batch_stats[w], images[w], labels[w],
-                              nbps, dropout_gens[w] if dropout_gens else None)
-        grads.append(g)
-        losses.append(loss)
+    with phase("fwd_bwd"):
+        for w in range(len(comm.ranks)):
+            g, loss = worker_grad(model, setup, state.params,
+                                  state.batch_stats[w], images[w],
+                                  labels[w], nbps,
+                                  dropout_gens[w] if dropout_gens else None)
+            grads.append(g)
+            losses.append(loss)
     grads = _faults.inject_nan_grads(faults, grads, state.step)
     phases = [engine.draw_phases(gen) for gen in gens]
     resolve_pending_skip(state)
+    kw = {}
+    if telemetry:
+        kw["telemetry"] = True
+    frac = None
+    if adaptive is not None:
+        # each worker's send fraction: LAST step's replicated verdict
+        frac = kw["send_frac"] = [state.adaptive["w_frac"][r]
+                                  for r in comm.ranks]
+    if guards is not None:
+        mem0 = _guard.snapshot(state.memory)
+        kw["health"] = {} if getattr(engine, "checksum", False) else None
+    with phase("update"):
+        out = dist_opt.update_flat(grads, state.opt_state, state.params,
+                                   state.memory, phases, engine, **kw)
+    params, opt_state = out[0], out[1]
+    with phase("loss"):
+        if guards is None:
+            mean_loss = comm.all_reduce(losses)[0] / comm.world
+        else:
+            # the flag rides the loss all-reduce: one collective, as
+            # unguarded
+            packed = comm.all_reduce([torch.stack([
+                loss, _guard.nonfinite_flag(g, loss)])
+                for g, loss in zip(grads, losses)])[0]
+            mean_loss = packed[0] / comm.world
+    metrics = {"loss": mean_loss}
+    if fleet:
+        # ONE packed all_gather yields the telemetry means AND the
+        # per-worker dispersion columns (it replaces the all-reduce)
+        metrics["telemetry"], metrics["fleet"] = _fleet.gather_stats(
+            out[3], comm, clock=clock, total_elems=setup.layout.total,
+            eff_ratio=frac)
+    elif telemetry:
+        metrics["telemetry"] = _taps.pmean_stats(out[3], comm)
+    if adaptive is not None:
+        # next step's verdict from this step's gathered clock column: a
+        # pure function of gathered values, memoryless
+        state.adaptive = {"w_frac": _adaptive.update_policy(
+            adaptive, metrics["fleet"]["w_clock"])}
     if guards is None:
-        params, opt_state, _ = dist_opt.update_flat(
-            grads, state.opt_state, state.params, state.memory, phases,
-            engine)
-        mean_loss = comm.all_reduce(losses)[0] / comm.world
         state.step += 1
         state.params = params
         state.opt_state = opt_state
-        return state, mean_loss
-    mem0 = _guard.snapshot(state.memory)
-    health = {} if getattr(engine, "checksum", False) else None
-    params, opt_state, _ = dist_opt.update_flat(
-        grads, state.opt_state, state.params, state.memory, phases, engine,
-        health=health)
-    # the flag rides the loss all-reduce: one collective, as unguarded
-    packed = comm.all_reduce([torch.stack([loss, _guard.nonfinite_flag(
-        g, loss)]) for g, loss in zip(grads, losses)])[0]
-    mean_loss = packed[0] / comm.world
+        return state, (metrics if telemetry else mean_loss)
     skip, gstate, gmetrics = _guard.apply(
         guards, state.guards, bad_count=packed[1], mean_loss=mean_loss,
-        checksum_failures=(health or {}).get("checksum_failures"))
+        checksum_failures=(kw["health"] or {}).get("checksum_failures"))
     state.params = _guard.tree_select(skip, state.params, params)
     state.opt_state = _guard.tree_select(skip, state.opt_state, opt_state)
     state.memory = _guard.tree_select(skip, mem0, state.memory)
     state.batch_stats = _guard.tree_select(skip, stats0, state.batch_stats)
     state.guards = gstate
     state.pending_skip = _read_later(skip)
-    step = state.step
+    metrics.update(step=state.step, guards=gmetrics)
     state.step += 1
-    return state, {"loss": mean_loss, "step": step, "guards": gmetrics}
+    return state, metrics
 
 
 def train_step_per_tensor(model, setup: FlatSetup, dist_opt,
                           state: TrainState,
                           images: Sequence[torch.Tensor],
                           labels: Sequence[torch.Tensor],
-                          gens: Sequence[torch.Generator], nbps: int = 1):
+                          gens: Sequence[torch.Generator], nbps: int = 1,
+                          telemetry: bool = False):
     """One per-tensor step for this process's workers (``setup`` from
     :func:`make_per_tensor_setup`, ``state.memory`` per-name): each
     worker's gradients as ``{name: tensor}``, the distributed optimizer's
     per-tensor ``update`` (phases drawn from ``gens[w]``), the loss
     all-reduce. Returns ``(state, mean loss)``; the loss stays on the
-    device. The step guards are the flat path's, as in the reference."""
+    device. The step guards and the telemetry taps are the flat path's,
+    as in the reference: ``telemetry=True`` is refused."""
+    if telemetry:
+        raise ValueError("telemetry taps require the flat engine path "
+                         "(pass setup=make_flat_setup(...))")
     comm = dist_opt.comm
     grads: List[dict] = []
     losses: List[torch.Tensor] = []

@@ -2,9 +2,11 @@
 points give the same refit (alpha, bandwidth), the same replan decision
 and plan at every epoch boundary, the same ``fabric.json`` fields (the
 timestamp aside), over the buckets both packages build from ResNet-20
-across the wm5 warm-up; the point pool's cap and filter; and the inputs
-the port has no source for (a telemetry profile, the fleet lanes) and the
-gossip candidates refused."""
+across the wm5 warm-up; the point pool's cap and filter; the telemetry
+inputs (a ``dgc-profile`` table's per-bucket all-gather costs through
+``add_profile`` and ``epoch_end(profile=)``, a run's fleet lanes through
+``add_fleet_view``) giving the JAX autotuner's points, refit and sink
+records; and the gossip candidates refused."""
 
 import json
 
@@ -21,6 +23,7 @@ from dgc_tpu.utils.pytree import named_flatten
 from dgc_tpu_torch.compression import autotune as ta
 from dgc_tpu_torch.compression import dgc as tdgc
 from dgc_tpu_torch.compression import flat as tflat
+from dgc_tpu_torch.telemetry.sink import TelemetrySink
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +104,15 @@ def test_refits_and_replans_match_jax(engines, tmp_path, monkeypatch, world,
         jat.plan.regimes)
 
 
-def test_point_pool_and_refusals(engines):
+class _Sink:
+    def __init__(self):
+        self.records = []
+
+    def write_record(self, rec):
+        self.records.append(rec)
+
+
+def test_point_pool_and_refusals(engines, tmp_path):
     je, te = engines[5]
     tat = ta.Autotuner("32x25GbE", world=4, max_points=3, min_points=2)
     jat = ja.Autotuner("32x25GbE", world=4, max_points=3, min_points=2)
@@ -113,12 +124,41 @@ def test_point_pool_and_refusals(engines):
                                         (40.0, 5.0)]
     fresh = ta.Autotuner("32x25GbE", world=4)
     assert fresh.epoch_end(te) is None and fresh.refit_count == 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tat.add_profile({"dgc": {}}, te)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tat.add_fleet_view("runs", 100)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tat.epoch_end(te, profile={"dgc": {"buckets": {}}})
+    # the telemetry inputs: a profile table's per-bucket all-gather ms
+    # against each bucket's wire bytes, and a run's fleet lanes
+    assert te.bucket_wire_bytes() == je.bucket_wire_bytes()
+    prof = {"dgc": {"buckets": {
+        f"b{i}": {"allgather": 0.05 * (i + 1), "select": 1.0}
+        for i in range(len(te.buckets))}}}
+    prof["dgc"]["buckets"]["b0"]["allgather"] = 0.0       # not a point
+    for a in (tat, jat):
+        a.max_points = 4096
+        assert a.add_profile(None, None) == 0
+        assert a.add_profile({"dgc": {}}, te) == 0
+    assert tat.add_profile(prof, te) == jat.add_profile(prof, je) == len(
+        te.buckets) - 1
+    assert tat.points == jat.points
+    run = tmp_path / "run"
+    sinks = []
+    with TelemetrySink(str(run / "telemetry" / "host0"), fleet=True) as s:
+        for step in range(5):
+            s.write(step, {"w_clock": np.asarray([10.0 + step, 30.0,
+                                                  0.0, 20.0], np.float32)})
+    assert tat.add_fleet_view(str(run), 700) == jat.add_fleet_view(
+        str(run), 700) == 5
+    assert tat.add_fleet_view(str(tmp_path / "none"), 700) == 0
+    assert tat.points == jat.points and tat.points[-1] == (700.0, 30.0)
+    for a, sink in ((tat, _Sink()), (jat, _Sink())):
+        a.sink = sink
+        sinks.append(sink)
+    tplan = tat.epoch_end(te, epoch=5, profile=prof)
+    jplan = jat.epoch_end(je, epoch=5, profile=prof)
+    assert tat.points == jat.points
+    assert (tat.fabric.gbps, tat.fabric.alpha_ms) == pytest.approx(
+        (jat.fabric.gbps, jat.fabric.alpha_ms), rel=1e-12)
+    assert (tplan is None) == (jplan is None)
+    assert sinks[0].records == sinks[1].records
+    assert sinks[0].records[0]["event"] == "autotune_replan"
     with pytest.raises(ValueError, match="item 8"):
         ta.Autotuner("32x25GbE", world=4, candidates=("gossip_ring",))
     with pytest.raises(ValueError, match="item 8"):

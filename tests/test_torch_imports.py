@@ -43,7 +43,10 @@ def test_port_imports_no_jax():
                 "accuracy_parity", "resilience.faults", "resilience.guard",
                 "resilience.integrity", "resilience.preempt",
                 "resilience.elastic", "telemetry.flight", "optim.adasum",
-                "parallel.comm"):
+                "parallel.comm", "telemetry.registry", "telemetry.sink",
+                "telemetry.taps", "telemetry.trace", "telemetry.attrib",
+                "telemetry.fleet", "telemetry.regress",
+                "resilience.adaptive"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 
