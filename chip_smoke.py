@@ -261,6 +261,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    bitwise, worker 3's wire the slots of rank below ``ceil(quota x
    0.775)``, its withheld selections in its velocity and out of its
    transmit record.
+4m. The serving slice (``phase_serving_path``, ``phase_surgery_drill``).
+   ``resnet50_wm5`` at full width, W=4, 1 step at epoch 4 and 3 at epoch
+   5, with an ``Exporter`` on the card (ratio 0.001) publishing the base
+   before step 1 and a delta after each step from the trainer's
+   parameters, and two card ``Replica``s and one CPU ``Replica`` polling
+   after each publish: every replica's digest the exporter's at every
+   ``(V, S)`` (the apply card == CPU), 8 ``topk_rows`` launches a delta,
+   52,085 B an update; then a second stream over 3 more steps with
+   ``DGC_SERVE_DROP=1:2``: the replicas report the gap, the next publish
+   rebases to V=2 and every replica ends at its digest. ``topk_rows`` is
+   held and timed at the 8 buckets' shapes (the line's ``serving``
+   entry), the real publish ticks split into flatten, encode, apply,
+   digest and write, and a delta poll and the rebase's poll timed on
+   each device. The surgery drill through
+   ``train.main`` in this process (``--surgery``, W=4 on one process): an
+   excise order for process 0 before step 2 -> exit 76, the exit record,
+   the order cleared -> the same command resumes at batch 1, bitwise the
+   uninterrupted run.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -287,6 +305,7 @@ import functools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -4604,6 +4623,370 @@ def phase_adaptive_path():
     return counts
 
 
+def _poll_all(label, reps, exp):
+    """Every replica polls once: each must report ``ok`` at the exporter's
+    head with the exporter's digest there. Returns each poll's ms (wall,
+    the poll's own digest copy included)."""
+    from dgc_tpu_torch.telemetry import registry
+    ms = []
+    for r in reps:
+        t0 = time.perf_counter()
+        st = r.poll()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        registry.validate_replica_status(st)
+        key = f"{exp.base_version}:{exp.delta_seq}"
+        if st["health"] != "ok" or r.digest() != exp.digests[key]:
+            raise AssertionError(f"{label}: replica {r.name} at {key}: "
+                                 f"{st['health']}, digest {r.digest()} "
+                                 f"vs {exp.digests[key]}")
+    return ms
+
+
+class _PublishParts:
+    """Times the parts of real publish ticks: inside ``with parts:`` the
+    exporter's ``spec.flatten`` / ``encode`` / ``apply``, ``DeltaSpec.
+    digest`` (the copy to the host and sha256) and the protocol's atomic
+    writes (the artifact's ``.npz`` and the manifest) are wrapped, each
+    synchronised on the card, and their ms summed into one ``{part: ms}``
+    dict a tick, appended to ``ticks``. What the parts leave out of the
+    tick (the difference, the resync check, the digest trail) is the
+    caller's remainder."""
+
+    PARTS = (("spec", "flatten", "flatten_ms"),
+             ("spec", "encode", "encode_ms"),
+             ("spec", "apply", "apply_ms"),
+             ("cls", "digest", "digest_ms"),
+             ("protocol", "save_npz_atomic", "write_ms"),
+             ("protocol", "write_json_atomic", "write_ms"))
+
+    def __init__(self, exp):
+        from dgc_tpu_torch.serving import protocol
+        from dgc_tpu_torch.serving.delta import DeltaSpec
+        self.owners = {"spec": exp.spec, "cls": DeltaSpec,
+                       "protocol": protocol}
+        self.ticks = []
+
+    def _timed(self, fn, part):
+        import torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            tick = self.ticks[-1]
+            tick[part] = tick.get(part, 0.0) + (time.perf_counter()
+                                                - t0) * 1e3
+            return out
+        return run
+
+    def __enter__(self):
+        self.ticks.append({})
+        self.saved = []
+        for owner, name, part in self.PARTS:
+            obj = self.owners[owner]
+            self.saved.append((obj, name, obj.__dict__.get(name)))
+            fn = self._timed(getattr(obj, name), part)
+            setattr(obj, name, staticmethod(fn) if owner == "cls" else fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, was in reversed(self.saved):
+            if was is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, was)
+        return False
+
+
+def _serving_topk(spec, delta, errs):
+    """``topk_rows`` at the serving encode's shapes (each bucket's [rows,
+    cols] magnitudes, the row tails at -1, k the bucket's largest quota),
+    on the path's last delta: bitwise its plain version, twice, and
+    timed (:func:`_topk_call`)."""
+    import torch
+    out = []
+    for b in spec.buckets:
+        x = delta[b.base:b.base + b.rows * b.cols].view(b.rows, b.cols)
+        col = torch.arange(b.cols, device=x.device)
+        numels = torch.as_tensor(b.numels, device=x.device).long()
+        imp = torch.where(col[None, :] < numels[:, None], x.abs(), -1.0)
+        out.append(_topk_call(f"serving [{b.rows}, {b.cols}] k={b.max_sel}",
+                              imp, b.max_sel, errs))
+    return out
+
+
+def phase_serving_path():
+    """The serving slice's main path at full width: ``resnet50_wm5``
+    (224x224, batch 32 a worker, W=4 on the card), 1 step at epoch 4 and
+    3 at epoch 5; an ``Exporter`` on the card (ratio 0.001) publishes the
+    base before step 1 and a delta after each step from the trainer's
+    parameters (``{flax name: view}`` of its flat buffer); two card
+    ``Replica``s and one CPU ``Replica`` poll after each publish, and
+    each digest equals the exporter's at every ``(V, S)`` (card == CPU
+    on the apply). Then a second stream from the same trainer with
+    ``DGC_SERVE_DROP=1:2`` and auto resync over 3 more steps: the
+    replicas report the gap, the next publish rebases to V=2, and every
+    replica ends at V=2's digest. Counts zeroed before the path and read
+    after; the publishes' ``topk_rows`` launches (8 buckets a delta)
+    counted apart. Then ``topk_rows`` held and timed at the 8 buckets'
+    shapes, the publish tick's split (:class:`_PublishParts`, over the
+    first stream's ticks) and a delta poll's ms apart from the rebase's. Returns ``(path counts, serving entry of topk_rows)``."""
+    import os
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.ops import kernels as K
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.serving import DeltaSpec, Exporter, Replica
+    from dgc_tpu_torch.train import Trainer
+    label = "resnet50_serving"
+    trainer = Trainer(configs.resnet50_wm5(), comm=LocalComm(4),
+                      device=DEVICE)
+    layout = trainer.setup.layout
+
+    def params():
+        return layout.unflatten_named(trainer.state.params)
+    root = tempfile.mkdtemp(prefix="dgc_serving_")
+    log = {"publish_ms": [], "poll_ms": {}, "rebase_poll_ms": {},
+           "topk_launches": [], "split": []}
+
+    def stream(name, drop=None):
+        d = os.path.join(root, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = Exporter(d, params(), ratio=0.001, max_lag=8,
+                       lineage={"epoch": 4, "step": 0}, device=DEVICE)
+        log["base_ms"] = (time.perf_counter() - t0) * 1e3
+        reps = [Replica(d, name=f"card{i}", device=DEVICE) for i in (0, 1)]
+        reps.append(Replica(d, name="cpu0", device="cpu"))
+        _poll_all(f"{label} {name} base", reps, exp)
+        state = {"gstep": 0, "records": []}
+        parts = _PublishParts(exp)
+        if drop is None:
+            log["split"] = parts.ticks
+
+        def on_step(epoch):
+            def after(batch, metrics):
+                state["gstep"] += 1
+                if drop:
+                    os.environ["DGC_SERVE_DROP"] = drop
+                torch.cuda.synchronize()
+                before = K.LAUNCHES["topk_rows"]
+                t0 = time.perf_counter()
+                with parts:
+                    rec = exp.publish(params(), step=state["gstep"])
+                    torch.cuda.synchronize()
+                log["publish_ms"].append((time.perf_counter() - t0) * 1e3)
+                log["topk_launches"].append(K.LAUNCHES["topk_rows"] - before)
+                os.environ.pop("DGC_SERVE_DROP", None)
+                state["records"].append(rec)
+                if rec.get("dropped"):
+                    for r in reps:
+                        st = r.poll()
+                        if st["health"] != "gap" or r.gaps != 1:
+                            raise AssertionError(f"{label}: {r.name} after "
+                                                 f"the drop: {st}")
+                    return
+                ms = _poll_all(f"{label} {name} step {state['gstep']}",
+                               reps, exp)
+                # a poll after a rebase reloads the whole base
+                polls = log["rebase_poll_ms" if rec["kind"] == "base"
+                            else "poll_ms"]
+                for r, m in zip(reps, ms):
+                    polls.setdefault(r.name, []).append(m)
+            return after
+        return exp, reps, state, on_step
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    exp, reps, st1, on_step = stream("stream")
+    per_epoch, times = _run_schedule(label, trainer, [(4, 1), (5, 3)],
+                                     on_step)
+    exp2, reps2, st2, on_step2 = stream("dropped", drop="1:2")
+    per_epoch2, _ = _run_schedule(f"{label} dropped", trainer, [(5, 3)],
+                                  on_step2)
+    torch.cuda.synchronize()
+    counts = {k: per_epoch[4][k] + per_epoch[5][k] + per_epoch2[5][k]
+              for k in per_epoch[4]}
+    kinds = [(r["kind"], r["base_version"], r["delta_seq"],
+              bool(r.get("dropped"))) for r in st2["records"]]
+    if kinds != [("delta", 1, 1, False), ("delta", 1, 2, True),
+                 ("base", 2, 0, False)]:
+        raise AssertionError(f"{label}: the dropped stream published {kinds}")
+    for r in reps2:
+        if (r.base_version, r.delta_seq, r.resyncs, r.gaps) != (2, 0, 1, 1) \
+                or r.digest() != exp2.digests["2:0"]:
+            raise AssertionError(f"{label}: {r.name} ended at "
+                                 f"{r.base_version}:{r.delta_seq}")
+    if st2["records"][2]["request"]["reason"] != "gap at 1:2":
+        raise AssertionError(f"{label}: {st2['records'][2]['request']}")
+    desc = exp.spec.describe()
+    if desc["wire_bytes_per_update"] != 52_085 or \
+            desc["num_params"] != 25_557_032:
+        raise AssertionError(f"{label}: {desc}")
+    nb = len(exp.spec.buckets)
+    deltas = [n for n, r in zip(log["topk_launches"],
+                                st1["records"] + st2["records"])
+              if r["kind"] == "delta"]
+    if deltas != [nb] * len(deltas):
+        raise AssertionError(f"{label}: topk_rows launches a delta {deltas}")
+    missing = [k for k in ("topk_rows", "apply_rows", "opaque_view_from",
+                           "compensate_bits_cands") if counts[k] == 0]
+    if missing or counts["topk_rows"] < sum(deltas):
+        raise AssertionError(f"{label}: never launched {missing}, or "
+                             f"{counts['topk_rows']} top-k launches")
+    # held at the serving shapes, on the last tick's delta
+    errs = []
+    spec = exp.spec
+    last = spec.flatten(params()) - exp.published
+    shapes = _serving_topk(spec, last, errs)
+    ticks = log["split"][1:4]
+    split = {k: statistics.median(t.get(k, 0.0) for t in ticks)
+             for k in ("flatten_ms", "encode_ms", "apply_ms", "digest_ms",
+                       "write_ms")}
+    split["rest_ms"] = statistics.median(
+        p - sum(t.values()) for p, t in zip(log["publish_ms"][1:4], ticks))
+    card_poll = statistics.median(log["poll_ms"]["card0"]
+                                  + log["poll_ms"]["card1"])
+    cpu_poll = statistics.median(log["poll_ms"]["cpu0"])
+    rebase = log["rebase_poll_ms"]
+    publish = statistics.median(log["publish_ms"][1:4])
+    print(f"[{label}] wire_bytes_per_update {desc['wire_bytes_per_update']}"
+          f" (full checkpoint {desc['full_checkpoint_bytes']}, payload "
+          f"{desc['payload']}, {nb} buckets, {desc['bits_per_index']} bits "
+          f"an index)")
+    print(f"[{label}] publish tick {publish:.2f} ms (median of steps 2-4, "
+          f"parts synchronised; base {log['base_ms']:.1f} ms): flatten "
+          f"{split['flatten_ms']:.2f}, encode {split['encode_ms']:.2f}, "
+          f"apply {split['apply_ms']:.2f}, digest "
+          f"{split['digest_ms']:.2f}, write {split['write_ms']:.2f}, rest "
+          f"{split['rest_ms']:.2f} ms")
+    print(f"[{label}] replica poll (one delta, digest included; median of "
+          f"{len(log['poll_ms']['card0'])} a replica): card "
+          f"{card_poll:.2f} ms, CPU {cpu_poll:.2f} ms; poll after the "
+          f"rebase (base reload): card {rebase['card0'][0]:.2f} / "
+          f"{rebase['card1'][0]:.2f} ms, CPU {rebase['cpu0'][0]:.2f} ms; "
+          f"3 replicas == exporter at {len(st1['records']) + 1} heads, "
+          "dropped 1:2 -> gap -> rebase to 2:0 on all 3")
+    print(f"[{label}] topk_rows at the 8 buckets: " + ", ".join(
+        f"[{c['shape'][0]}, {c['shape'][1]}] k={c['k']} {c['ms']:.4f} ms "
+        f"(plain {c['plain_ms']:.4f}, torch.topk {c['library_ms']:.4f})"
+        for c in shapes))
+    DETAIL[label] = dict(describe=desc, publish_ms=log["publish_ms"],
+                         poll_ms=log["poll_ms"], base_ms=log["base_ms"],
+                         rebase_poll_ms=rebase, split_ms=split,
+                         split_ticks=log["split"], topk_launches=log["topk_launches"],
+                         step_s=times, launches_by_epoch=per_epoch,
+                         topk_shapes=shapes)
+    serving = dict(
+        shapes=shapes, launches_a_delta=nb,
+        ms=sum(c["ms"] for c in shapes),
+        plain_ms=sum(c["plain_ms"] for c in shapes),
+        library_ms=sum(c["library_ms"] for c in shapes),
+        bound_ms=sum(c["bound_ms"] for c in shapes),
+        max_abs_err=max(errs, default=0.0))
+    del trainer, exp, exp2, reps, reps2
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, serving
+
+
+def phase_surgery_drill():
+    """Cohort surgery through the CLI's entry point (``train.main`` in this
+    process, from a scratch directory), one process on the card:
+    ``--config resnet20_wm5_resilience --surgery --world 4 --epochs 1
+    --steps 3``, an excise order for process 0 published at the boundary
+    before step 2 (``surgery.publish_order``, through the step-boundary
+    check): exit 76, the exit record (verdict ``manual``, target 0, world
+    1, step 1), the order cleared, the emergency checkpoint at
+    ``preempt_batch`` 0; the same command again resumes at batch 1, and
+    its epoch checkpoint's every tensor and its losses are the
+    uninterrupted run's (:func:`_uninterrupted`). The two-process
+    agreement and the lost cohort's deadline need several processes:
+    their CPU tests hold them over gloo."""
+    import os
+    import torch
+    from dgc_tpu_torch import train
+    from dgc_tpu_torch.resilience import surgery
+    label = "surgery_drill"
+    recipe = "resnet20_wm5_resilience"
+    args = ["--epochs", "1", "--steps", "3", "--synthetic-size", "2048"]
+    flags = ["--config", recipe, "--world", "4", "--surgery", "--device",
+             DEVICE, *args]
+    cwd = os.getcwd()
+    stop = train._Resilience.stop
+
+    def stop_publishing(self, epoch):
+        check = stop(self, epoch)
+
+        def publish_then_check(batch):
+            if batch == 1:
+                surgery.publish_order(
+                    os.path.join(self.ckpt_dir, surgery.ORDER_FILE),
+                    "manual", 0, step=1)
+            return check(batch)
+        return publish_then_check
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        want = _uninterrupted(recipe, args, Path(tmp, "uninterrupted"))
+        t_full = time.perf_counter() - t0
+        os.chdir(tmp)
+        try:
+            train._Resilience.stop = stop_publishing
+            t0 = time.perf_counter()
+            try:
+                train.main(flags)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            finally:
+                train._Resilience.stop = stop
+            t_cut = time.perf_counter() - t0
+            if code != surgery.EXIT_SURGERY:
+                raise AssertionError(f"{label}: exit {code}, want 76")
+            (run,) = Path(tmp, "runs").iterdir()
+            ckpt = run / "checkpoints"
+            rec = surgery.read_exit_record(str(ckpt / surgery.EXIT_RECORD))
+            got = {k: rec[k] for k in ("verdict", "target", "lost", "world",
+                                       "process_index", "step")}
+            if got != dict(verdict="manual", target=0, lost=False, world=1,
+                           process_index=0, step=1):
+                raise AssertionError(f"{label}: exit record {rec}")
+            if (ckpt / surgery.ORDER_FILE).exists():
+                raise AssertionError(f"{label}: the order was not cleared")
+            meters = json.loads((ckpt / "e0" / "meters.json").read_text())
+            if meters["preempt_batch"] != 0:
+                raise AssertionError(f"{label}: meters {meters}")
+            t0 = time.perf_counter()
+            resumed = train.main(flags)
+            t_resume = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        a, b = _epoch_files(run, 0), _epoch_files(Path(tmp,
+                                                       "uninterrupted"), 0)
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: files {sorted(a)}, {sorted(b)}")
+        n = 0
+        for f in a:
+            for k in a[f]:
+                n += 1
+                if not torch.equal(a[f][k], b[f][k]):
+                    raise AssertionError(f"{label}: resumed {f}:{k} differs "
+                                         "from the uninterrupted run's")
+    if resumed != want[1:]:
+        raise AssertionError(f"{label}: resumed losses {resumed}, "
+                             f"uninterrupted {want}")
+    DETAIL[label] = {"record": got, "tensors": n, "losses": resumed,
+                     "uninterrupted_s": t_full, "excised_s": t_cut,
+                     "resumed_s": t_resume}
+    print(f"[{label}] excise order for process 0 before step 2 -> exit 76, "
+          f"record {got}, order cleared -> resume at batch 1: losses and "
+          f"{n} checkpoint tensors bitwise the uninterrupted run's "
+          f"({t_full:.1f} / {t_cut:.1f} / {t_resume:.1f} s)")
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -4769,6 +5152,10 @@ def main(argv):
     phase_telemetry_vs_cpu()
     by_path["resnet50_telemetry"] = phase_telemetry_path()
     by_path["resnet50_adaptive"] = phase_adaptive_path()
+    # the serving slice: the delta stream at ResNet-50 and cohort surgery
+    by_path["resnet50_serving"], serving_topk = phase_serving_path()
+    entries["topk_rows"]["serving"] = serving_topk
+    phase_surgery_drill()
     phase_elastic()
     phase_preempt_drill("resnet20_wm5_resilience", "resnet20",
                         ["--epochs", "1", "--steps", "4"], kill=2)
@@ -4787,7 +5174,7 @@ def main(argv):
         # two-tier and Adasum paths)
         for path in (slice_label, "resnet50_resilience", "resnet50_twotier",
                      "resnet20_adasum", "resnet50_telemetry",
-                     "resnet50_adaptive"):
+                     "resnet50_adaptive", "resnet50_serving"):
             e[f"launches_{path}"] = by_path[path][name]
     DETAIL["launches_by_path"] = by_path
     DETAIL["wire_bytes_per_worker"] = wire_bytes
@@ -4799,6 +5186,9 @@ def main(argv):
         f"{k[6:]} {spent.get(k, 0.0):.1f}" for k in (
             "phase_telemetry_vs_cpu", "phase_telemetry_path",
             "phase_adaptive_path")))
+    print("[phases] serving slice: " + ", ".join(
+        f"{k[6:]} {spent.get(k, 0.0):.1f}" for k in (
+            "phase_serving_path", "phase_surgery_drill")))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,12 +24,14 @@ follows a cosine over ``--epochs``, epoch-wise.
 
     python -m dgc_tpu_torch.accuracy_parity --arms dense,dgc --epochs 150
     python -m dgc_tpu_torch.accuracy_parity --arms dense,dgc --seeds 3 \\
-        --json-out runs/parity.json
+        --json-out runs/parity.json --telemetry-out runs/parity.jsonl
 
 Progress goes to stderr; the last line of stdout is the JSON result (per
 arm: ``final_top1``, ``mean_last3_top1``, the ``curve`` of ``(epoch,
 mean loss, top1)`` and ``wall_s``; over several seeds their mean and
-spread).
+spread). ``--telemetry-out`` also writes one ``parity_arm`` record per
+(arm, seed) through the telemetry sink, under the reference's static
+header.
 """
 
 import argparse
@@ -49,6 +51,7 @@ from dgc_tpu_torch.models import create
 from dgc_tpu_torch.optim.distributed import DistributedOptimizer
 from dgc_tpu_torch.optim.sgd import dgc_sgd, sgd
 from dgc_tpu_torch.parallel.comm import LocalComm
+from dgc_tpu_torch.telemetry.sink import TelemetrySink
 from dgc_tpu_torch.training.lr import cosine_schedule, make_lr_schedule
 from dgc_tpu_torch.training.step import (eval_step, make_flat_setup,
                                          make_flat_state, train_step)
@@ -234,6 +237,10 @@ def main(argv=None) -> dict:
                     help="run each arm at seeds seed..seed+N-1 and report "
                          "the mean and spread")
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--telemetry-out", default=None,
+                    help="also log per-(arm, seed) results through the "
+                         "telemetry sink (dgc_tpu_torch.telemetry.sink "
+                         "JSONL)")
     args = ap.parse_args(argv)
     arms = args.arms.split(",")
     for arm in arms:
@@ -268,6 +275,19 @@ def main(argv=None) -> dict:
             "spread_last3_top1": float(np.max(finals) - np.min(finals)),
             "std_last3_top1": float(np.std(finals)),
         }
+    if args.telemetry_out:
+        with TelemetrySink(args.telemetry_out, static={
+                "experiment": "accuracy_parity", "ratio": args.ratio,
+                "workers": args.workers, "epochs": args.epochs,
+                "arms": arms, "seeds": seeds}) as sk:
+            for (arm, seed), r in runs.items():
+                sk.write_record({
+                    "event": "parity_arm", "arm": arm, "seed": seed,
+                    "final_top1": r["final_top1"],
+                    "mean_last3_top1": r["mean_last3_top1"],
+                    "wall_s": r["wall_s"]})
+        print(f"telemetry run written: {args.telemetry_out}",
+              file=sys.stderr)
     print(json.dumps(results))
     if args.json_out:
         with open(args.json_out, "w") as f:

@@ -41,7 +41,9 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   ``checksum`` on (the JAX harness's ``--train.resilience.checksum
   True``): the ``train.resilience`` block (the guards, the payload
   checksum, the watchdog, the emergency checkpoint, the flight recorder,
-  the non-finite streak; the cohort-surgery keys are not ported);
+  the non-finite streak, and cohort surgery — ``surgery`` off by default,
+  ``boundary_timeout``, ``boundary_retries``, ``boundary_backoff`` — which
+  the CLI's ``--surgery`` turns on);
 * :func:`resnet50_wm5_twotier` and :func:`resnet20_wm5_twotier` —
   ``configs/dgc/twotier.py`` stacked on the wm5 recipes:
   ``train.num_local_workers`` (8, which must divide the world; smaller
@@ -333,7 +335,9 @@ def with_resilience(cfg: Config, checksum: bool = True) -> Config:
     cfg.train.resilience = Config(
         enabled=True, nonfinite_guard=True, spike_window=0,
         spike_factor=10.0, checksum=checksum, watchdog_secs=300,
-        emergency_checkpoint=True, flight_steps=256, nonfinite_streak=3)
+        emergency_checkpoint=True, flight_steps=256, nonfinite_streak=3,
+        surgery=False, boundary_timeout=60.0, boundary_retries=3,
+        boundary_backoff=5.0)
     return cfg
 
 

@@ -12,12 +12,14 @@ that event (``event.synchronize()``, on its own thread), formats the
 record from the host buffer and appends one JSON line. So the main thread
 adds no host sync: by the time the drain thread waits, the step that
 produced the buffer has long been queued, and draining overlaps the
-steps after it. The pinned buffers form a small ring: a buffer goes back
-to the ring only after its record is written, so no copy overwrites one
-that is not drained; when every buffer is in flight (the drain thread
-fell behind) the record is dropped and counted, as the reference drops
-one on a full queue. On the CPU the stats are copied into the buffer
-directly and no event is recorded.
+steps after it. The pinned buffers form a ring: a buffer goes back to
+the ring only after its record is unpacked, so no copy overwrites one that
+is not drained. The ring has a buffer for every record the queue holds
+(the reference's 4,096) and one for the record the drain thread holds, so
+a record is dropped, and counted, exactly when the reference drops one: on
+a full queue. Buffers and events are made on first use, so an idle ring
+holds none. On the CPU the stats are copied into the buffer directly and
+no event is recorded.
 
 File format (schema-versioned, see :mod:`dgc_tpu_torch.telemetry.registry`):
 
@@ -52,10 +54,12 @@ __all__ = ["TelemetrySink", "JsonlAppender", "SchemaMismatchError",
 
 _CLOSE = object()
 
-#: pinned host buffers in the ring (records in flight at once): a step's
-#: record is a few KB, and a drain that falls this many records behind
-#: drops the newest rather than stall the train loop
-RING = 64
+#: records the queue holds (the reference's bound): a drain that falls
+#: this many records behind drops the newest rather than stall the loop
+QUEUE = 4096
+#: pinned host buffers in the ring at most (records in flight at once):
+#: one a queued record, and one for the record the drain thread holds
+RING = QUEUE + 1
 
 
 class JsonlAppender:
@@ -147,8 +151,8 @@ class TelemetrySink:
     ``path`` — a ``.jsonl`` file path, or a directory (the sink then writes
     ``<path>/telemetry.jsonl``). ``static`` goes into the header verbatim
     (engine geometry, run config). ``enabled=False`` turns every method into
-    a no-op — the processes that write no file. :data:`RING` pinned host
-    buffers are in flight at once.
+    a no-op — the processes that write no file. At most :data:`RING`
+    pinned host buffers are in flight at once.
     """
 
     def __init__(self, path: str, static: Optional[Dict] = None,
@@ -175,13 +179,12 @@ class TelemetrySink:
         os.makedirs(os.path.dirname(os.path.abspath(base)), exist_ok=True)
         self._base = base
         self._open_file(base)
-        # the ring: a buffer and its event a slot, the free slots queued
-        self._bufs: List[Optional[torch.Tensor]] = [None] * RING
-        self._events: List[Optional[object]] = [None] * RING
+        # the ring: a buffer and its event a slot, made on first use (the
+        # caller's thread); the drain thread queues each slot back
+        self._bufs: List[torch.Tensor] = []
+        self._events: List[Optional[object]] = []
         self._free: "queue.Queue" = queue.Queue()
-        for s in range(RING):
-            self._free.put(s)
-        self._q: "queue.Queue" = queue.Queue(maxsize=4096)
+        self._q: "queue.Queue" = queue.Queue(maxsize=QUEUE)
         self._thread = threading.Thread(target=self._drain, daemon=True,
                                         name="dgc-telemetry-sink")
         self._thread.start()
@@ -260,7 +263,11 @@ class TelemetrySink:
         try:
             slot = self._free.get_nowait()
         except queue.Empty:
-            return None
+            if len(self._bufs) >= RING:
+                return None
+            slot = len(self._bufs)
+            self._bufs.append(None)
+            self._events.append(None)
         names = list(tens)
         dev = next(iter(tens.values())).device
         flat = torch.cat([tens[k].detach().reshape(-1).to(dev, torch.float32)

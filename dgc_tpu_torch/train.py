@@ -117,6 +117,16 @@ node's gradients densely, then run DGC across the nodes.
     python -m dgc_tpu_torch.train --config resnet20_wm5_resilience \\
         --device cpu --world 2 --epochs 1 --steps 6 --batch-size 8 \\
         --synthetic-size 64                               # resumes at 4
+
+Cohort surgery (``--surgery``, the block's ``surgery`` key): the
+step-boundary agreement becomes :class:`~dgc_tpu_torch.resilience.surgery.
+SurgeryCoordinator`'s gather of ``(preempt, verdict, target)`` with a
+deadline. An excise order published to ``<save_path>/checkpoints/
+surgery.json`` (``surgery.publish_order``) stops every process at the
+next boundary: the emergency checkpoint, the exit record
+(``surgery_exit.json``), the order cleared, exit 76. A member that misses
+the deadline and its retries makes the rest dump the flight ring, write
+the record and exit 76 at once.
 """
 
 import argparse
@@ -150,6 +160,7 @@ from dgc_tpu_torch.parallel.multihost import initialize_multihost
 from dgc_tpu_torch.resilience import elastic as _elastic
 from dgc_tpu_torch.resilience import faults as _faults
 from dgc_tpu_torch.resilience import preempt as _preempt
+from dgc_tpu_torch.resilience import surgery as _surgery
 from dgc_tpu_torch.resilience.adaptive import AdaptiveConfig
 from dgc_tpu_torch.resilience.guard import GuardConfig
 from dgc_tpu_torch.telemetry import trace as _trace
@@ -714,6 +725,10 @@ def main(argv=None) -> List[float]:
                    help="structured tracing: host spans + dgcph.* phase "
                         "markers, saved as a Perfetto-loadable "
                         "<save_path>/trace.json (configs/trace.py)")
+    p.add_argument("--surgery", action="store_true",
+                   help="cohort surgery: fold excise orders into the "
+                        "step-boundary agreement (exit 76); needs the "
+                        "resilience block (the *_resilience recipes)")
     p.add_argument("--adaptive", action="store_true",
                    help="straggler-adaptive exchange: a lagging worker "
                         "sends a smaller fraction of its quota, the rest "
@@ -758,6 +773,13 @@ def main(argv=None) -> List[float]:
         _configs.with_adaptive(cfg)
     if args.trace:
         _configs.with_trace(cfg)
+    if args.surgery:
+        rc = cfg.train.get("resilience") or {}
+        if not rc.get("enabled", False):
+            raise SystemExit("--surgery widens the resilience layer's "
+                             "step-boundary agreement: it needs "
+                             "train.resilience (the *_resilience recipes)")
+        rc.surgery = True
     ec = cfg.train.get("elastic") or {}
     elastic_on = bool(args.elastic or ec.get("enabled", False))
     if args.init_method:
@@ -1021,7 +1043,9 @@ class _Resilience:
         self.gstep = ((last_epoch + 1) * trainer.steps_per_epoch
                       + resume_batch)
         self.handler = self.watchdog = self.flight = self.streak = None
+        self.surgeon = self.surgery_exit = None
         self.flight_path = os.path.join(save_path, "flight.json")
+        self.ckpt_dir = os.path.join(save_path, "checkpoints")
         if not self.on:
             return
         self.handler = _preempt.PreemptionHandler()
@@ -1040,22 +1064,64 @@ class _Resilience:
             self.watchdog = _preempt.Watchdog(
                 wd, sink=trainer.sink, flight=self.flight,
                 flight_path=self.flight_path)
+        if bool(rc.get("surgery", False)):
+            self.surgeon = _surgery.SurgeryCoordinator(
+                os.path.join(self.ckpt_dir, _surgery.ORDER_FILE),
+                boundary_timeout=float(rc.get("boundary_timeout", 60.0)),
+                retries=int(rc.get("boundary_retries", 3)),
+                backoff=float(rc.get("boundary_backoff", 5.0)),
+                log=lambda m: printr(f"[surgery] {m}"))
         printr(f"[resilience] guards={trainer.guards} checksum="
                f"{getattr(trainer.setup.engine, 'checksum', False)} "
-               f"watchdog={wd or 'off'} flight={fl or 'off'}")
+               f"watchdog={wd or 'off'} flight={fl or 'off'} "
+               f"surgery={'on' if self.surgeon is not None else 'off'}")
 
     def stop(self, epoch: int) -> Optional[Callable[[int], bool]]:
         """The step-boundary check: every process agrees on a preemption
-        (one tiny all-reduce with several)."""
+        (one tiny all-reduce with several). With surgery on, the agreement
+        is the coordinator's gather of ``(preempt, verdict, target)`` with
+        its deadline: an agreed excise stops the epoch as a preemption
+        does, a lost cohort exits 76 at once."""
         faults = self.trainer.faults
         if self.handler is None and faults is None:
             return None
 
         def check(batch: int) -> bool:
             _faults.maybe_slow(faults, self.gstep)
-            return self.handler is not None and _preempt.agree_preempt(
-                self.handler.requested, self.device)
+            if self.handler is None:
+                return False
+            if self.surgeon is None:
+                return _preempt.agree_preempt(self.handler.requested,
+                                              self.device)
+            ag = self.surgeon.agree(self.handler.requested)
+            if ag.lost:
+                self._cohort_lost(ag)
+            if ag.excise or ag.preempt:
+                self.surgery_exit = ag if ag.excise else None
+                return True
+            return False
         return check
+
+    def _exit_record(self, agreement) -> None:
+        """The exit-76 record: the verdict, the target and the process
+        count the cohort ran at, for the supervisors."""
+        pidx, pcount = self.surgeon._topology()
+        _surgery.write_exit_record(
+            os.path.join(self.ckpt_dir, _surgery.EXIT_RECORD), agreement,
+            world=pcount, process_index=pidx, step=self.gstep)
+
+    def _cohort_lost(self, agreement) -> None:
+        """A member is hung or dead mid-agreement: no further collective
+        (the emergency save included) can complete. Dump the flight ring,
+        leave the exit record and go down hard; recovery rolls back to the
+        last atomic checkpoint."""
+        if self.flight is not None:
+            self.flight.dump(self.flight_path, reason="surgery: cohort lost")
+        self._exit_record(agreement)
+        printr(f"[surgery] cohort lost at the boundary — exit "
+               f"{_surgery.EXIT_SURGERY} (roll back to the last checkpoint)")
+        sys.stdout.flush()
+        os._exit(_surgery.EXIT_SURGERY)
 
     def on_step(self, epoch: int) -> Callable[[int, dict], None]:
         def after(batch: int, metrics: dict) -> None:
@@ -1078,13 +1144,22 @@ class _Resilience:
     def preempted(self, ckpt: CheckpointManager, epoch: int, metric: str,
                   best) -> None:
         """The emergency exit: the flight ring, the checkpoint of the epoch
-        in progress with its last trained batch, then exit 75."""
+        in progress with its last trained batch, then exit 75; after an
+        agreed excise, also the exit record and the consumed order
+        cleared, then exit 76."""
         b = self.trainer.stopped_at
-        printr(f"\n[preempt] signal {self.handler.signum}: stopping at "
-               f"epoch {epoch}, batch {b}")
+        ag = self.surgery_exit
+        if ag is not None:
+            printr(f"\n[surgery] excise agreed: verdict={ag.verdict} "
+                   f"target={ag.target} — stopping at epoch {epoch}, "
+                   f"batch {b}")
+            reason = f"surgery: excise {ag.verdict} worker {ag.target}"
+        else:
+            printr(f"\n[preempt] signal {self.handler.signum}: stopping at "
+                   f"epoch {epoch}, batch {b}")
+            reason = f"preempt signal {self.handler.signum}"
         if self.flight is not None:
-            p = self.flight.dump(self.flight_path,
-                                 reason=f"preempt signal {self.handler.signum}")
+            p = self.flight.dump(self.flight_path, reason=reason)
             if p:
                 printr(f"[preempt] flight recorder -> {p}")
         if bool(self.rc.get("emergency_checkpoint", True)):
@@ -1098,10 +1173,17 @@ class _Resilience:
                 self.trainer.topology)
             printr(f"[preempt] emergency checkpoint -> {path} "
                    f"({time.perf_counter() - t0:.2f} s)")
+        if ag is not None:
+            # everyone was alive at the boundary, so the save above is
+            # whole: the record for the supervisors, and the consumed order
+            # retired (a relaunched cohort must not excise again)
+            self._exit_record(ag)
+            _surgery.clear_order(self.surgeon.order_path)
         self.close()
         _preempt.clean_shutdown()
         sys.stdout.flush()
-        raise SystemExit(_preempt.EXIT_PREEMPTED)
+        raise SystemExit(_preempt.EXIT_PREEMPTED if ag is None
+                         else _surgery.EXIT_SURGERY)
 
     def check_streak(self, losses: List[float], epoch: int) -> None:
         """Feed the epoch's losses to the breaker; on a trip, dump the

@@ -143,3 +143,45 @@ def test_wire_arms_are_set_as_the_jax_script_sets_them(arm, want):
     for k, v in want.items():
         got = comp.memory.dtype if k == "dtype" else getattr(comp, k)
         assert got == v, k
+
+
+def _reference_telemetry_fields():
+    """The keys of the JAX script's ``--telemetry-out`` header (``static``)
+    and of its ``parity_arm`` records, read from its source."""
+    import ast
+    with open(os.path.join(REPO, "scripts", "accuracy_parity.py")) as f:
+        tree = ast.parse(f.read())
+    static = record = None
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = getattr(node.func, "id", getattr(node.func, "attr", None))
+        if name == "TelemetrySink":
+            (kw,) = [k for k in node.keywords if k.arg == "static"]
+            static = [k.value for k in kw.value.keys]
+        elif name == "write_record":
+            record = [k.value for k in node.args[0].keys]
+    return static, record
+
+
+def test_telemetry_out_writes_the_reference_records(tmp_path):
+    from dgc_tpu.telemetry import sink as jsink
+    out = str(tmp_path / "parity.jsonl")
+    res = ap.main(["--device", "cpu", "--arms", "dense,dgc", "--epochs", "1",
+                   "--train-size", "32", "--batch", "16", "--workers", "2",
+                   "--eval-size", "512", "--classes", "10", "--seeds", "2",
+                   "--telemetry-out", out])
+    static, fields = _reference_telemetry_fields()
+    header, recs = jsink.read_run(out)
+    assert sorted(header["static"]) == sorted(static)
+    assert header["static"] == {
+        "experiment": "accuracy_parity", "ratio": 0.001, "workers": 2,
+        "epochs": 1, "arms": ["dense", "dgc"], "seeds": [0, 1]}
+    assert [(r["arm"], r["seed"]) for r in recs] == [
+        ("dense", 0), ("dense", 1), ("dgc", 0), ("dgc", 1)]
+    for r in recs:
+        assert set(r) == set(fields) | {"t_host"}
+        assert r["event"] == "parity_arm"
+        run = res[r["arm"]]["seeds"][str(r["seed"])]
+        for k in ("final_top1", "mean_last3_top1", "wall_s"):
+            assert r[k] == run[k], k

@@ -46,9 +46,39 @@ def test_port_imports_no_jax():
                 "parallel.comm", "telemetry.registry", "telemetry.sink",
                 "telemetry.taps", "telemetry.trace", "telemetry.attrib",
                 "telemetry.fleet", "telemetry.regress",
-                "resilience.adaptive"):
+                "resilience.adaptive", "serving", "serving.protocol",
+                "serving.delta", "serving.exporter", "serving.replica",
+                "resilience.surgery"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
+
+
+_LAZY_PROBE = """
+import json, sys
+from dgc_tpu_torch.resilience import surgery
+import dgc_tpu_torch.serving as serving
+surgery.publish_order(sys.argv[1], "manual", 0)
+before = sorted(m for m in sys.modules if m.startswith("dgc_tpu_torch."))
+spec = serving.DeltaSpec
+print(json.dumps({"before": before, "after": sorted(
+    m for m in sys.modules if m.startswith("dgc_tpu_torch.")),
+    "spec": spec.__module__}))
+"""
+
+
+def test_serving_package_loads_its_codecs_on_first_use(tmp_path):
+    """The serving package imports its file protocol only: the surgery
+    order files (a host-only reader) load none of the codecs, the flat
+    engine or the kernels; ``serving.DeltaSpec`` loads them."""
+    out = _run(["-c", _LAZY_PROBE, str(tmp_path / "order.json")], ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for mod in ("serving.delta", "serving.exporter", "serving.replica",
+                "compression.flat", "ops.kernels"):
+        assert f"dgc_tpu_torch.{mod}" not in res["before"], mod
+    assert "dgc_tpu_torch.serving.protocol" in res["before"]
+    assert "dgc_tpu_torch.serving.delta" in res["after"]
+    assert res["spec"] == "dgc_tpu_torch.serving.delta"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

@@ -450,6 +450,82 @@ def test_sink_ring_drops_when_every_buffer_is_in_flight(tmp_path,
     assert recs[-1] == {"event": "sink_dropped", "count": 6 - len(steps)}
 
 
+def _held_backlog(s, hold, backlog, stats):
+    """Write one record, wait until the drain thread holds it (``hold``
+    blocks there until released), then write ``backlog - 1`` more; returns
+    the drops counted while the drain is held."""
+    entered, gate = threading.Event(), threading.Event()
+    hold(entered, gate)
+    s.write(0, stats(0))
+    assert entered.wait(10)
+    for step in range(1, backlog):
+        s.write(step, stats(step))
+    dropped = s._dropped
+    gate.set()
+    s.close()
+    return dropped
+
+
+@pytest.mark.parametrize("backlog", [100, sink.QUEUE + 1, 4200])
+def test_sink_drops_what_the_reference_drops(tmp_path, monkeypatch,
+                                             backlog):
+    """A drain held on its first record (the port's waits on that record's
+    copy, holding its buffer) and ``backlog`` records written: the port
+    drops exactly what the reference sink drops at the same backlog —
+    nothing while the queue's 4,096 hold the rest, then the newest."""
+    def stats_t(step):
+        return {"loss": torch.tensor(float(step)),
+                "threshold": torch.full((3,), float(step))}
+
+    def stats_j(step):
+        return {"loss": np.float32(step),
+                "threshold": np.full(3, step, np.float32)}
+
+    def hold_port(entered, gate):
+        orig = sink._Packed.unpack
+
+        def held(self):
+            entered.set()
+            gate.wait(30)
+            return orig(self)
+        monkeypatch.setattr(sink._Packed, "unpack", held)
+
+    t = sink.TelemetrySink(str(tmp_path / "port"))
+    got = _held_backlog(t, hold_port, backlog, stats_t)
+    j = jsink.TelemetrySink(str(tmp_path / "ref"))
+
+    def hold_ref(entered, gate):
+        orig = j._maybe_rotate
+
+        def held():
+            entered.set()
+            gate.wait(30)
+            orig()
+        j._maybe_rotate = held
+
+    want = _held_backlog(j, hold_ref, backlog, stats_j)
+    assert got == want == max(0, backlog - 1 - sink.QUEUE)
+    assert len(t._bufs) == min(backlog, sink.RING)
+    for path, dropped in ((t.path, got), (j.path, want)):
+        recs = sink.read_run(path)[1]
+        steps = [r["step"] for r in recs if "event" not in r]
+        assert steps == list(range(backlog - dropped))
+        if dropped:
+            assert recs[-1] == {"event": "sink_dropped", "count": dropped}
+
+
+def test_sink_ring_is_made_on_first_use(tmp_path):
+    s = sink.TelemetrySink(str(tmp_path))
+    assert s._bufs == [] and s._events == [] and s._free.qsize() == 0
+    rng = np.random.RandomState(4)
+    for step in range(3):
+        s.write(step, _stats(rng))
+        s.flush()
+    # each record's buffer went back to the ring before the next write
+    assert len(s._bufs) == 1
+    s.close()
+
+
 def test_sink_rotation_disabled_and_tolerant_reads(tmp_path):
     s = sink.TelemetrySink(str(tmp_path / "r.jsonl"), rotate_bytes=3000)
     rng = np.random.RandomState(3)
