@@ -279,6 +279,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    excise order for process 0 before step 2 -> exit 76, the exit record,
    the order cleared -> the same command resumes at batch 1, bitwise the
    uninterrupted run.
+4n. The control slice (``phase_control_drill``): a ``ControlPlane`` in a
+   process of its own (never initialising CUDA) supervises three
+   ``resnet20_wm5_control`` trainers (W=4) on the card: ``steady`` killed
+   after step 2 (exit 75), relaunched and resumed bitwise the
+   uninterrupted run (whose launches show ``compensate_bits``,
+   ``topk_rows`` and ``apply_rows``); ``cursed`` aborted by the non-finite
+   streak (exit 70, one launch, quarantined on its flight dump); ``hung``
+   SIGKILLed from its stale heartbeat within a 30 s budget and a poll;
+   every fleet event under its run's ``run_id``, the fleet monitor's
+   exposition over all three; ``python -m dgc_tpu_torch.control`` on a
+   clean run exits 0. The relaunch, the hang's detection, the plane's tick
+   and ``collect_fleet`` are timed.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -4987,6 +4999,346 @@ def phase_surgery_drill():
           f"({t_full:.1f} / {t_cut:.1f} / {t_resume:.1f} s)")
 
 
+#: the control drill's plane process, written into its scratch directory:
+#: the fleet from ``fleet.json`` (``hung`` given the hang timeout, ``steady``
+#: a heartbeat file for the relaunch latency), one ``ControlPlane`` run with
+#: its ticks timed and ``steady``'s heartbeats polled, then
+#: ``collect_fleet`` timed; one JSON line out
+_PLANE = """
+import json, os, sys, threading, time
+import torch
+from dgc_tpu_torch.control.__main__ import load_fleet
+from dgc_tpu_torch.control.plane import ControlPlane
+from dgc_tpu_torch.telemetry import monitor
+
+root, specs = load_fleet(sys.argv[1])
+specs = [s._replace(hang_timeout=float(sys.argv[2])) if s.name == "hung"
+         else s._replace(heartbeat=os.path.join(s.run_dir, "heartbeat"))
+         if s.name == "steady" else s for s in specs]
+plane = ControlPlane(specs, root, interval=0.5)
+ticks, beats, done = [], set(), threading.Event()
+tick = plane.tick
+
+def timed_tick(now=None):
+    t0 = time.perf_counter()
+    try:
+        return tick(now)
+    finally:
+        ticks.append(time.perf_counter() - t0)
+
+def poll(path):
+    while not done.wait(0.05):
+        try:
+            with open(path) as f:
+                beats.add(float(f.read()))
+        except (OSError, ValueError):
+            pass
+
+plane.tick = timed_tick
+threading.Thread(target=poll, daemon=True, args=(os.path.join(
+    plane.specs["steady"].run_dir, "heartbeat"),)).start()
+final = plane.run()
+done.set()
+collect_s = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    monitor.collect_fleet(root)
+    collect_s.append(time.perf_counter() - t0)
+print(json.dumps({"final": final, "ticks": ticks, "beats": sorted(beats),
+                  "collect_fleet_s": collect_s,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+#: ``cursed``'s trainer: the CLI whose losses turn non-finite from the 4th
+#: step on (the loss function patched as ``tests/test_torch_preempt_cli.py``
+#: patches it, past three finite steps): the guards skip those steps and
+#: the streak aborts the run at the epoch's end. Three finite steps first
+#: hold the guards' cumulative non-finite rate at 0.5, never above the
+#: quarantine rule's 0.5, so the flight dump is the plane's only evidence;
+#: with every loss NaN the rate passes 0.5 steps before the dump, and which
+#: evidence a tick reads first would be a race
+_CURSED = """
+import sys
+import torch.nn.functional as F
+from dgc_tpu_torch import train
+ce, step, steps = F.cross_entropy, train.train_step, [0]
+
+def counted(*a, **k):
+    steps[0] += 1
+    return step(*a, **k)
+
+train.train_step = counted
+F.cross_entropy = lambda *a, **k: ce(*a, **k) * (
+    float("nan") if steps[0] > 3 else 1.0)
+train.main(sys.argv[1:])
+"""
+
+_HANG_TIMEOUT = 30.0
+#: each supervised run's flags after ``--config ... --world 4``
+_CONTROL_ARGS = ["--epochs", "1", "--steps", "4", "--synthetic-size", "2048"]
+#: ``cursed``'s: six steps (three finite, three not)
+_CURSED_ARGS = ["--epochs", "1", "--steps", "6", "--synthetic-size", "3072"]
+
+
+def _run_log(run, events):
+    return [e for e in events if e.get("run") == run]
+
+
+def _spawn(cmd, cwd, env):
+    """``cmd`` in a session of its own (so it and every trainer it starts
+    can be killed together), its output in ``cwd/plane.out`` and
+    ``plane.err``."""
+    with open(Path(cwd, "plane.out"), "w") as out, \
+            open(Path(cwd, "plane.err"), "w") as err:
+        return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out,
+                                stderr=err, start_new_session=True)
+
+
+def phase_control_drill():
+    """The control plane supervising the port's trainer on the card. In a
+    scratch directory, ``fleet.json`` holds three runs of ``python -m
+    dgc_tpu_torch.train --config resnet20_wm5_control --world 4 --epochs
+    1 --steps 4 --synthetic-size 2048``, each with its ``--suffix`` and
+    its ``run_dir`` the save path the CLI derives (each child's output
+    appended to a log beside it by ``sh -c 'exec ...'``):
+    ``steady`` under ``DGC_FAULTS=kill@2`` (exit 75, relaunched by its
+    supervisor, the resume at batch 2, exit 0: its epoch-0 checkpoint's
+    every tensor and its losses bitwise :func:`_uninterrupted`'s, whose
+    launch counts show ``compensate_bits``, ``topk_rows`` and
+    ``apply_rows``); ``cursed`` (6 steps, :data:`_CURSED_ARGS`) through
+    a launcher that makes the losses NaN from the 4th step on
+    (:data:`_CURSED`: the streak's exit 70 after one launch, quarantined,
+    one audited ``quarantine`` on the flight dump's
+    ``nonfinite-streak``); ``hung`` under
+    ``DGC_FAULTS=hang:secs=600@2`` with a 30 s hang timeout (its stale
+    ``DGC_HEARTBEAT`` gets it SIGKILLed within the budget and one poll,
+    quarantined). The plane runs in a fresh process (:data:`_PLANE`)
+    that must not initialise CUDA; every fleet event of a run carries
+    the ``run_id`` of its telemetry header and flight static; the fleet
+    monitor's ``--once --openmetrics`` exposition labels every run's
+    gauges and ``cursed``'s flight dump; ``python -m
+    dgc_tpu_torch.control`` on ``steady`` alone, without the fault,
+    exits 0 (started once ``hung`` has beaten, beside the rest). Timed:
+    the relaunch (exit 75 to the relaunched child's first heartbeat; the
+    backoff is 1 s), the hang's detection (last heartbeat to the kill),
+    the plane's median tick, ``collect_fleet``."""
+    import os
+    import shlex
+    import signal
+    import torch
+    from dgc_tpu_torch import configs, train
+    label = "control_drill"
+    recipe = "resnet20_wm5_control"
+    args = _CONTROL_ARGS
+    base = train.get_save_path(*configs.CONFIG_FILES[recipe])
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("DGC_FAULTS", None)
+    torch.cuda.empty_cache()        # the children own the card from here
+
+    def run_spec(tmp, name, cmd, flags=args, **extra):
+        run_dir = os.path.join(tmp, f"{base}-{name}.np4")
+        os.makedirs(run_dir, exist_ok=True)
+        log = os.path.join(run_dir, "train.log")
+        return dict(extra, name=name, run_dir=run_dir, backoff=1.0, cmd=[
+            "sh", "-c", f'exec "$0" "$@" >> {shlex.quote(log)} 2>&1',
+            *cmd, "--config", recipe, "--world", "4", *flags,
+            f"--suffix=-{name}"])
+
+    def read(path):
+        with open(path) as f:
+            return f.read()
+
+    def jsonl(path):
+        return [json.loads(x) for x in read(path).splitlines() if x.strip()]
+
+    cli = [sys.executable, "-m", "dgc_tpu_torch.train"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts()
+        t0 = time.perf_counter()
+        want = _uninterrupted(recipe, args, Path(tmp, "uninterrupted"))
+        t_full = time.perf_counter() - t0
+        counts = _read_counts(label, ("compensate_bits", "topk_rows",
+                                      "apply_rows"))
+        Path(tmp, "cursed.py").write_text(_CURSED)
+        Path(tmp, "plane.py").write_text(_PLANE)
+        runs = [run_spec(tmp, "steady", cli, env={"DGC_FAULTS": "kill@2"}),
+                run_spec(tmp, "cursed", [sys.executable,
+                                         os.path.join(tmp, "cursed.py")],
+                         _CURSED_ARGS),
+                run_spec(tmp, "hung", cli,
+                         env={"DGC_FAULTS": "hang:secs=600@2"})]
+        root = os.path.dirname(runs[0]["run_dir"])
+        Path(tmp, "fleet.json").write_text(json.dumps(
+            {"fleet_root": root, "runs": runs}))
+        # the CLI on steady alone, without the fault, must end clean: it
+        # starts once hung has beaten (no start-up of its own competes with
+        # hung's hang budget) and runs beside the rest of the drill
+        solo = Path(tmp, "solo")
+        solo.mkdir()
+        Path(solo, "fleet.json").write_text(json.dumps(
+            {"runs": [run_spec(str(solo), "solo", cli)]}))
+        procs = {}
+        try:
+            t0 = time.perf_counter()
+            procs["plane"] = _spawn([sys.executable, "plane.py", "fleet.json",
+                                     str(_HANG_TIMEOUT)], tmp, env)
+            beat = Path(runs[2]["run_dir"], "heartbeat")
+            while (not beat.exists() and procs["plane"].poll() is None
+                   and time.perf_counter() - t0 < 300):
+                time.sleep(0.2)
+            t1 = time.perf_counter()
+            procs["solo"] = _spawn([sys.executable, "-m",
+                                    "dgc_tpu_torch.control", "fleet.json",
+                                    "--interval", "0.5"], str(solo), env)
+            rc = procs["plane"].wait(timeout=600)
+            t_plane = time.perf_counter() - t0
+            rc_solo = procs["solo"].wait(timeout=300)
+            t_solo = time.perf_counter() - t1
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:       # the plane and its trainers
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        out, err = (read(os.path.join(tmp, f"plane.{k}")) for k in ("out",
+                                                                     "err"))
+        if rc:
+            raise AssertionError(f"{label}: the plane exited {rc}:\n"
+                                 f"{err[-4000:]}")
+        solo_out = read(os.path.join(solo, "plane.out"))
+        if rc_solo or "fleet done: 1/1 runs clean" not in solo_out:
+            raise AssertionError(f"{label}: python -m dgc_tpu_torch.control "
+                                 f"exited {rc_solo}:\n{solo_out[-2000:]}"
+                                 + read(os.path.join(solo, "plane.err"))[-2000:])
+        res = json.loads(out.strip().splitlines()[-1])
+        final = res["final"]
+        logs = {r["name"]: read(os.path.join(r["run_dir"], "train.log"))
+                for r in runs}
+        if res["cuda_initialized"]:
+            raise AssertionError(f"{label}: the plane initialised CUDA")
+        states = {n: (v["state"], v["rc"], v["launches"])
+                  for n, v in final.items()}
+        if states != {"steady": ("done", 0, 2),
+                      "cursed": ("quarantined", 70, 1),
+                      "hung": ("quarantined", -9, 1)}:
+            raise AssertionError(f"{label}: final states {states}\n"
+                                 + "\n".join(f"{n}: {t[-2000:]}"
+                                             for n, t in logs.items()))
+        if not final["hung"]["quarantined"].startswith("hang:"):
+            raise AssertionError(f"{label}: hung {final['hung']}")
+        events = jsonl(os.path.join(root, "control_events.jsonl"))
+        actions = [e for e in events if e["event"] == "control_action"]
+        cursed_acts = [(a["action"], a["evidence"]["kind"],
+                        a["evidence"].get("reason", ""))
+                       for a in actions if a["run"] == "cursed"]
+        if (len(cursed_acts) != 1 or cursed_acts[0][:2] != (
+                "quarantine", "flight_dump")
+                or not cursed_acts[0][2].startswith("nonfinite-streak")):
+            raise AssertionError(f"{label}: cursed's actions {cursed_acts}")
+        if [a["run"] for a in actions if a["run"] == "steady"]:
+            raise AssertionError(f"{label}: steady was remediated: "
+                                 f"{actions}")
+        # one run id a run: the fleet stream, the telemetry header (the
+        # last launch's) and the flight static agree
+        for r in runs:
+            name, rid = r["name"], final[r["name"]]["run_id"]
+            ids = {e["run_id"] for e in _run_log(name, events)}
+            with open(os.path.join(r["run_dir"], "telemetry", "host0",
+                                   "telemetry.jsonl")) as f:
+                header = json.loads(f.readline())
+            ids.add(header["static"].get("run_id"))
+            if name != "hung":
+                ids.add(json.loads(read(os.path.join(
+                    r["run_dir"], "flight.json")))["static"].get("run_id"))
+            if ids != {rid}:
+                raise AssertionError(f"{label}: {name}'s run ids {ids}")
+        # steady: killed after step 2, relaunched, resumed at batch 2
+        sup = [e for e in _run_log("steady", events) if e["event"] in (
+            "launch", "relaunch", "done")]
+        if [(e["event"], e.get("rc")) for e in sup] != [
+                ("launch", None), ("relaunch", 75), ("launch", None),
+                ("done", 0)]:
+            raise AssertionError(f"{label}: steady's events {sup}")
+        if ("stopping at epoch 0, batch 1" not in logs["steady"]
+                or "[resumed] mid-epoch 0 at batch 2" not in logs["steady"]):
+            raise AssertionError(f"{label}: steady's log\n"
+                                 f"{logs['steady'][-3000:]}")
+        got = [x for s in _summaries(logs["steady"]) for x in s["loss"]]
+        if got != want:
+            raise AssertionError(f"{label}: killed + resumed losses {got}, "
+                                 f"uninterrupted {want}")
+        a = _epoch_files(runs[0]["run_dir"], 0)
+        b = _epoch_files(Path(tmp, "uninterrupted"), 0)
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: files {sorted(a)}, {sorted(b)}")
+        n = 0
+        for f in a:
+            if set(a[f]) != set(b[f]):
+                raise AssertionError(f"{label}: {f} keys differ")
+            for k in a[f]:
+                n += 1
+                if not torch.equal(a[f][k], b[f][k]):
+                    raise AssertionError(f"{label}: steady's {f}:{k} "
+                                         "differs from the uninterrupted "
+                                         "run's")
+        relaunch_t = sup[1]["t"]
+        first_beat = min(b for b in res["beats"] if b > sup[2]["t"])
+        relaunch_s = first_beat - relaunch_t
+        # hung: killed from its stale heartbeat within the budget + a poll
+        (kill,) = [e for e in _run_log("hung", events)
+                   if e["event"] == "hang_kill"]
+        hung_dir = runs[2]["run_dir"]
+        detect_s = kill["t"] - os.path.getmtime(os.path.join(hung_dir,
+                                                            "heartbeat"))
+        stale_s = float(re.search(r"no heartbeat for ([\d.]+)s",
+                                  kill["reason"]).group(1))
+        poll = min(1.0, _HANG_TIMEOUT / 4.0)
+        if not (_HANG_TIMEOUT < stale_s <= _HANG_TIMEOUT + poll + 0.05
+                and detect_s <= _HANG_TIMEOUT + poll + 0.5):
+            raise AssertionError(f"{label}: the hang was detected after "
+                                 f"{detect_s:.2f} s (reported {stale_s} s)")
+        hang_acts = [(a["action"], a["evidence"]["kind"]) for a in actions
+                     if a["run"] == "hung"]
+        # the fleet monitor exports every run's gauges
+        mon = subprocess.run(
+            [sys.executable, "-m", "dgc_tpu_torch.telemetry.monitor", root,
+             "--fleet", "--once", "--openmetrics"], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=120)
+        want_lines = [f'dgc_step{{run="{final[r["name"]]["run_id"]}"}}'
+                      for r in runs]
+        want_lines.append(
+            f'dgc_flight_dump{{run="{final["cursed"]["run_id"]}"}}')
+        if mon.returncode or any(x not in mon.stdout for x in want_lines):
+            raise AssertionError(f"{label}: monitor exited "
+                                 f"{mon.returncode}, wanted {want_lines}:\n"
+                                 f"{mon.stdout[-3000:]}{mon.stderr[-2000:]}")
+    tick_ms = 1e3 * statistics.median(res["ticks"])
+    collect_ms = 1e3 * statistics.median(res["collect_fleet_s"])
+    DETAIL[label] = {
+        "final": final, "losses": got, "tensors": n,
+        "launches_uninterrupted": counts, "relaunch_s": relaunch_s,
+        "relaunch_backoff_s": 1.0, "hang_detect_s": detect_s,
+        "hang_reported_s": stale_s, "hang_timeout_s": _HANG_TIMEOUT,
+        "hang_actions": hang_acts, "tick_ms": [1e3 * t for t in res["ticks"]],
+        "tick_median_ms": tick_ms, "collect_fleet_ms": [
+            1e3 * t for t in res["collect_fleet_s"]],
+        "plane_s": t_plane, "uninterrupted_s": t_full, "solo_s": t_solo,
+        "actions": actions}
+    print(f"[{label}] 3 supervised resnet20_wm5_control runs, W=4: steady "
+          f"kill@2 -> exit 75 -> relaunched -> resumed at batch 2, losses "
+          f"and {n} checkpoint tensors bitwise the uninterrupted run's; "
+          f"cursed exit 70 after 1 launch, quarantined on its flight dump; "
+          f"hung SIGKILLed {detect_s:.2f} s after its last heartbeat "
+          f"(budget {_HANG_TIMEOUT:.0f} s), then {hang_acts}; the plane "
+          "never initialised CUDA; the fleet monitor labels all 3 runs; "
+          "python -m dgc_tpu_torch.control on steady alone exits 0")
+    print(f"[{label}] relaunch {relaunch_s:.2f} s (exit 75 to the first "
+          f"heartbeat, 1 s backoff included), plane tick median "
+          f"{tick_ms:.2f} ms over {len(res['ticks'])} ticks, collect_fleet "
+          f"{collect_ms:.2f} ms; plane {t_plane:.1f} s, solo {t_solo:.1f} s, "
+          f"uninterrupted {t_full:.1f} s")
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -5162,6 +5514,8 @@ def main(argv):
     phase_preempt_drill("resnet50_wm5_resilience", "resnet50",
                         ["--epochs", "1", "--steps", "2",
                          "--synthetic-size", "256"], kill=1)
+    # the control slice: the plane supervising the trainer on the card
+    phase_control_drill()
     phase_input_path(trace_inline="--profile" in argv)
     phase_crop_kernel()
     phase_process_group()
@@ -5189,6 +5543,8 @@ def main(argv):
     print("[phases] serving slice: " + ", ".join(
         f"{k[6:]} {spent.get(k, 0.0):.1f}" for k in (
             "phase_serving_path", "phase_surgery_drill")))
+    print(f"[phases] control slice: control_drill "
+          f"{spent.get('phase_control_drill', 0.0):.1f}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -57,7 +57,14 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   ``configs/adaptive.py`` stacked last: the ``train.adaptive`` block
   (``enabled`` and the policy's knobs), which the CLI's ``--adaptive``
   also sets (:func:`with_adaptive`; ``--trace`` sets the trace block,
-  :func:`with_trace`).
+  :func:`with_trace`);
+* :func:`resnet20_wm5_control` and :func:`resnet50_wm5_control` —
+  ``configs/control.py`` stacked on the wm5 recipes
+  (:func:`with_control`): telemetry every step with the fleet taps, and
+  a resilience block with the watchdog (whose heartbeat the supervisor
+  reads), the emergency checkpoint (exit 75), the flight recorder and
+  the non-finite streak (exit 70) — every signal the control plane's
+  rule table reads.
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -79,9 +86,10 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet50_wm5_resilience", "resnet20_wm5_resilience",
            "resnet50_wm5_twotier", "resnet20_wm5_twotier",
            "resnet20_wm5_telemetry", "resnet50_wm5_telemetry",
-           "resnet50_wm5_adaptive", "with_autotune", "with_resilience",
-           "with_telemetry", "with_trace", "with_adaptive", "RECIPES",
-           "CONFIG_FILES"]
+           "resnet50_wm5_adaptive", "resnet20_wm5_control",
+           "resnet50_wm5_control", "with_autotune", "with_resilience",
+           "with_telemetry", "with_trace", "with_adaptive", "with_control",
+           "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -420,6 +428,32 @@ def resnet50_wm5_adaptive() -> Config:
     return with_adaptive(resnet50_wm5_telemetry())
 
 
+def with_control(cfg: Config) -> Config:
+    """``configs/control.py`` stacked on ``cfg``: the telemetry block
+    (where ``cfg`` lacks one) with the fleet taps, and the resilience
+    block (where ``cfg`` lacks one) without the checksum."""
+    if "telemetry" not in cfg.train:
+        cfg.train.telemetry = Config(enabled=True, every=1, rotate_mb=64)
+    cfg.train.telemetry.fleet = True
+    if "resilience" not in cfg.train:
+        cfg.train.resilience = Config(
+            enabled=True, nonfinite_guard=True, spike_window=0,
+            spike_factor=10.0, checksum=False, watchdog_secs=300,
+            emergency_checkpoint=True, flight_steps=256,
+            nonfinite_streak=3)
+    return cfg
+
+
+def resnet20_wm5_control() -> Config:
+    """:func:`resnet20_wm5` with every signal the control plane reads."""
+    return with_control(resnet20_wm5())
+
+
+def resnet50_wm5_control() -> Config:
+    """:func:`resnet50_wm5` with every signal the control plane reads."""
+    return with_control(resnet50_wm5())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
@@ -430,7 +464,8 @@ RECIPES = {f.__name__: f for f in (
     resnet50_wm5_bf16mem, resnet50_wm5_bf16mem_int8_packidx,
     resnet20_wm5_autotune, resnet50_wm5_resilience, resnet20_wm5_resilience,
     resnet50_wm5_twotier, resnet20_wm5_twotier, resnet20_wm5_telemetry,
-    resnet50_wm5_telemetry, resnet50_wm5_adaptive)}
+    resnet50_wm5_telemetry, resnet50_wm5_adaptive, resnet20_wm5_control,
+    resnet50_wm5_control)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
@@ -472,4 +507,6 @@ CONFIG_FILES = {
     "resnet50_wm5_telemetry": (_R50, _WM5) + _TELEM,
     "resnet50_wm5_adaptive": (_R50, _WM5) + _TELEM
     + ("configs/adaptive.py",),
+    "resnet20_wm5_control": (_R20, _WM5, "configs/control.py"),
+    "resnet50_wm5_control": (_R50, _WM5, "configs/control.py"),
 }

@@ -8,9 +8,10 @@ Counterpart of ``dgc_tpu/resilience/preempt.py``:
 * :class:`Watchdog` is a daemon thread fed one ``beat()`` a step; after
   ``timeout`` seconds without one it prints every thread's stack and
   dumps the flight recorder's ring (diagnostics only: it never kills the
-  run), and flushes the telemetry sink it is given. The reference also
-  refreshes a heartbeat file for its supervisor (ROADMAP.md queue 1 item
-  11).
+  run), and flushes the telemetry sink it is given. ``beat()`` also
+  refreshes a heartbeat file, at most once a second: the liveness signal
+  whose staleness makes the supervisor
+  (:class:`dgc_tpu_torch.control.supervisor.Supervisor`) kill the run.
 * :func:`agree_preempt` turns the local flag into an all-process verdict
   (a one-element all-reduce over the ``torch.distributed`` group), so
   every process enters the emergency save at the same step boundary; one
@@ -72,13 +73,16 @@ class Watchdog:
     """A daemon thread that dumps the stacks (and the flight ring to
     ``flight_path``, and flushes ``sink``, a ``TelemetrySink``) once a
     step stalls past ``timeout`` seconds, then rearms. ``beat()`` once a
-    step."""
+    step. ``heartbeat_path`` — a file written at start and rewritten by
+    ``beat()`` at most once a second; a supervisor with a hang timeout
+    kills the run once its mtime goes stale (killing is the supervisor's
+    job, never the watchdog's)."""
 
     def __init__(self, timeout: float,
                  on_stall: Optional[Callable[[], None]] = None,
                  interval: Optional[float] = None, stream=None,
                  flight=None, flight_path: Optional[str] = None,
-                 sink=None):
+                 sink=None, heartbeat_path: Optional[str] = None):
         if timeout <= 0:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout}")
         self.timeout = timeout
@@ -90,6 +94,8 @@ class Watchdog:
         self._sink = sink
         self._interval = interval if interval is not None else max(
             0.1, timeout / 4.0)
+        self._heartbeat_path = heartbeat_path
+        self._hb_last = 0.0
         # _last and stalls are shared by beat() and the watchdog thread
         self._lock = threading.Lock()
         self._last = time.monotonic()
@@ -97,10 +103,23 @@ class Watchdog:
         self._thread = threading.Thread(target=self._run,
                                         name="dgc-watchdog", daemon=True)
         self._thread.start()
+        if heartbeat_path:
+            self._write_heartbeat()     # the supervisor sees life at once
 
     def beat(self):
+        now = time.monotonic()
         with self._lock:
-            self._last = time.monotonic()
+            self._last = now
+        if self._heartbeat_path and now - self._hb_last >= 1.0:
+            self._write_heartbeat()
+
+    def _write_heartbeat(self):
+        try:
+            with open(self._heartbeat_path, "w") as f:
+                f.write(f"{time.time():.3f}\n")
+            self._hb_last = time.monotonic()
+        except OSError:
+            pass        # a full disk must not become a watchdog crash
 
     def _run(self):
         while not self._stop.wait(self._interval):

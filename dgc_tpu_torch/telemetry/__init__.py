@@ -27,9 +27,9 @@ Plus the tracing / postmortem layer (same sink, own schemas):
 * :mod:`fleet` — the cross-worker lanes (one packed all-gather) and the
   host-side merge of a run's per-host shards.
 * :mod:`flight` — the crash flight recorder.
-
-Not ported: the JAX package's live monitor (``monitor.py``), which belongs
-with the control plane (ROADMAP.md).
+* :mod:`monitor` — the live monitor over a run or a fleet of runs
+  (OpenMetrics ``/metrics`` and a status view), the control plane's
+  eyes; loaded on its own, not by this package.
 """
 
 from dgc_tpu_torch.telemetry.registry import (

@@ -111,6 +111,12 @@ The two-tier recipes (``*_twotier``, ``configs/dgc/twotier.py``:
 ``train.num_local_workers``, which must divide the world) average each
 node's gradients densely, then run DGC across the nodes.
 
+Under a supervisor (:mod:`dgc_tpu_torch.control`; the ``*_control``
+recipes carry every signal its rule table reads) the run stamps
+``DGC_RUN_ID`` into its telemetry header's and flight recorder's static
+as ``run_id``, and its watchdog refreshes the ``DGC_HEARTBEAT`` file
+whose stale mtime makes the supervisor kill a hung run.
+
     DGC_FAULTS=kill@3 python -m dgc_tpu_torch.train \\
         --config resnet20_wm5_resilience --device cpu --world 2 \\
         --epochs 1 --steps 6 --batch-size 8 --synthetic-size 64  # exits 75
@@ -148,6 +154,7 @@ from dgc_tpu_torch.compression.base import Compression
 from dgc_tpu_torch.compression.dgc import DGCCompressor
 from dgc_tpu_torch.compression.flat import ParamLayout
 from dgc_tpu_torch.compression.memory import DGCSGDMemory
+from dgc_tpu_torch.control import resolve_run_id
 from dgc_tpu_torch.data.datasets import CIFAR, ImageNet
 from dgc_tpu_torch.data.native import Prefetcher, stage_ahead
 from dgc_tpu_torch.data.sampler import epoch_batches, num_steps_per_epoch
@@ -967,6 +974,9 @@ class _Telemetry:
         if trainer.telemetry:
             sub = (os.path.join("telemetry", f"host{rank}") if trainer.fleet
                    else "telemetry")
+            # a supervised run carries its supervisor's run id, so the
+            # header, the supervise stream and every monitor gauge agree
+            run_id = resolve_run_id()
             self.sink = TelemetrySink(
                 os.path.join(save_path, sub),
                 static=dict(_telemetry_static(trainer.setup),
@@ -974,7 +984,8 @@ class _Telemetry:
                             num_local_workers=trainer.num_local,
                             process_index=rank,
                             num_processes=(dist.get_world_size() if grouped
-                                           else 1)),
+                                           else 1),
+                            **({"run_id": run_id} if run_id else {})),
                 rotate_bytes=int(tc.get("rotate_mb", 64)) << 20,
                 enabled=trainer.fleet or rank == 0,
                 guards=trainer.guards is not None, fleet=trainer.fleet)
@@ -1052,18 +1063,23 @@ class _Resilience:
         fl = int(rc.get("flight_steps", 0) or 0)
         if fl > 0:
             eng = trainer.setup.engine
+            run_id = resolve_run_id()
             self.flight = FlightRecorder(capacity=fl, static=dict(
                 world=trainer.comm.world,
                 num_local_workers=trainer.num_local, save_path=save_path,
-                payload=getattr(eng, "payload_size", 0)))
+                payload=getattr(eng, "payload_size", 0),
+                **({"run_id": run_id} if run_id else {})))
         ns = int(rc.get("nonfinite_streak", 0) or 0)
         if ns > 0:
             self.streak = NonfiniteStreak(ns)
         wd = float(rc.get("watchdog_secs", 0) or 0)
         if wd > 0:
+            # DGC_HEARTBEAT (set by a supervisor): the file whose stale
+            # mtime makes the supervisor kill a hung run
             self.watchdog = _preempt.Watchdog(
                 wd, sink=trainer.sink, flight=self.flight,
-                flight_path=self.flight_path)
+                flight_path=self.flight_path,
+                heartbeat_path=os.environ.get("DGC_HEARTBEAT"))
         if bool(rc.get("surgery", False)):
             self.surgeon = _surgery.SurgeryCoordinator(
                 os.path.join(self.ckpt_dir, _surgery.ORDER_FILE),

@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
                 "telemetry.fleet", "telemetry.regress",
                 "resilience.adaptive", "serving", "serving.protocol",
                 "serving.delta", "serving.exporter", "serving.replica",
-                "resilience.surgery"):
+                "resilience.surgery", "control", "control.__main__",
+                "control.supervisor", "control.rules", "control.actions",
+                "control.scheduler", "control.plane", "telemetry.monitor"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 
@@ -79,6 +81,28 @@ def test_serving_package_loads_its_codecs_on_first_use(tmp_path):
     assert "dgc_tpu_torch.serving.protocol" in res["before"]
     assert "dgc_tpu_torch.serving.delta" in res["after"]
     assert res["spec"] == "dgc_tpu_torch.serving.delta"
+
+
+_CONTROL_PROBE = """
+import json, sys
+import dgc_tpu_torch.control, dgc_tpu_torch.control.__main__
+import dgc_tpu_torch.telemetry.monitor
+import torch
+print(json.dumps({"loaded": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dgc_tpu")),
+    "triton": "triton" in sys.modules,
+    "cuda": torch.cuda.is_initialized()}))
+"""
+
+
+def test_control_plane_imports_no_jax_and_no_device():
+    """The control plane and the monitor, alone in a fresh interpreter,
+    load neither JAX nor the JAX package, and initialise no device."""
+    out = _run(["-c", _CONTROL_PROBE], ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"loaded": [], "triton": False, "cuda": False}
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
