@@ -100,8 +100,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``chiprun_out/chip_smoke_detail.json``.
 3. Check the flat engine's W=4 exchange on the card against the same
    exchange on the CPU (plain versions) on one input: bitwise, for
-   ResNet-20, ResNet-50 and ResNet-110 at the epoch-0 and epoch-5
-   ratios, and with
+   ResNet-20 at the epoch-0 and epoch-5 ratios, ResNet-50 at epoch 0 and
+   ResNet-110 at epoch 5 (ResNet-50's epoch 5 is held again by the
+   telemetry and resilience slices', ResNet-110's epoch 0 is ResNet-20's
+   route), and with
    ``megakernel=True`` and ``fused_select=True`` at the epoch-3 and
    epoch-5 ratios (ResNet-50: epoch 5; the card's megakernel engine also
    against the card's default engine); and ``engine.sparsify(vec, phases)`` without
@@ -121,8 +123,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    strided_sample=False`` card == CPU bitwise at epochs 0 and 5; the
    engine with the memory's ``gradient_clipping`` (a norm clip, and the
    global one) at W=3, epochs 4 and 5, within rtol 1e-6, records equal.
-   VGG-16's W=4 exchange card == CPU at the epoch-0 ratio (the 3-D
-   fallback on the split fc buckets, n = 175.0M entries applied a worker),
+   VGG-16's W=2 exchange card == CPU at the epoch-0 ratio (the 3-D
+   fallback on the split fc buckets, n = 87.5M entries applied a worker),
    one step, bitwise (its epoch-5 segment path is ResNet-50's).
    The wires (``phase_wires_vs_cpu``): ResNet-20's W=4 exchange card ==
    CPU bitwise, 2 steps at the epoch-0 and epoch-5 ratios, for every wire
@@ -173,8 +175,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``ladder_counts``) bitwise ``_ladder_adapt_from_topk``.
 4h. The run lifecycle. Resume is bitwise at full width, W=4 on the card:
    ``resnet20_wm5`` (epochs 4 and 5, 2 steps each), ``resnet110_wm5o``
-   (across its dense -> compressed handover: epoch 4 at ratio 1, epoch 5
-   at 0.001) and ``resnet50_wm5`` (1 step each, the segment path) run
+   (1 step each across its dense -> compressed handover: epoch 4 at
+   ratio 1, epoch 5 at 0.001) and ``resnet50_wm5`` (1 step each, the
+   segment path) run
    uninterrupted, then again as epoch 4, a checkpoint save, a fresh
    ``Trainer`` that restores, and epoch 5: the losses, parameters,
    optimizer state, every worker's memory and transmit record, BatchNorm
@@ -190,7 +193,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    printed.
 4i. The VGG-16 path (``vgg16_bn_wm5``: full width, 224x224 synthetic
    ImageNet, batch 32 a worker, W=4 on the card, dropout from each
-   worker's generator): one step at each of epochs 0, 1 and 4 (the 3-D
+   worker's generator): one step at each of epochs 0 and 4 (the 3-D
    fallback: ``sel3d`` counted, no candidates kernel) and two at epoch 5
    (the segment path: ``compensate_bits_cands``, no ``sel3d``), every
    epoch launching ``topk_rows`` and ``apply_rows``, then the evaluation;
@@ -291,6 +294,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    exposition over all three; ``python -m dgc_tpu_torch.control`` on a
    clean run exits 0. The relaunch, the hang's detection, the plane's tick
    and ``collect_fleet`` are timed.
+4o. The gossip slice (``phase_gossip_path``): the flat engine on gossip
+   plans at ResNet-50's epoch-5 geometry, W=4, 8 rounds for each topology
+   (ring: ``sync_every`` 2, ``max_staleness`` 4; hcube: masks 1-3) card ==
+   CPU bitwise (the CPU side on a thread while the VGG paths run), each
+   round's velocity mass balanced against residual, inbox and output
+   within 1e-6; the ``droplink:peer=3@1-5`` ladder (forced syncs and
+   worker 3's ages exact); ``resnet50_wm5_gossip`` at full width with the
+   fleet taps (1 step at epoch 4, 3 at 5): the staleness lanes and forced
+   count ``round_state_np``'s, the launches the written prediction
+   (``seg_top2_candidates`` on a training path, no
+   ``compensate_bits_cands``), its step time and ``resnet50_wm5``'s in
+   turns; ``resnet20_wm5_gossip`` resumed bitwise with the inbox in
+   flight, and that checkpoint restored elastically on 2 workers (inbox
+   and mass conserved, ages merged by max).
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -2316,12 +2333,16 @@ def _exchange_seq(engines, dev, world=4):
 def phase_engine_vs_cpu(geoms, label, steps, world=4, epochs=(0, 5)):
     """The exchange among ``world`` workers on the card and on the CPU,
     same inputs: every output bitwise, at the ``epochs``' ratios (at W = 3
-    this holds the divide by W: an IEEE divide on both)."""
+    this holds the divide by W: an IEEE divide on both). Each check's
+    seconds go to the detail's ``engine_vs_cpu_s``."""
     for epoch in epochs:
         eng = geoms[epoch][1]
+        t0 = time.perf_counter()
         _check_equal(f"{label} engine exchange W={world} (epoch {epoch})",
                      _exchange_run(eng, DEVICE, steps, world),
                      _exchange_run(eng, "cpu", steps, world))
+        DETAIL.setdefault("engine_vs_cpu_s", {})[
+            f"{label} W={world} epoch {epoch}"] = time.perf_counter() - t0
     print(f"[engine] {label} W={world} exchange, {steps} step(s): card == "
           f"CPU bitwise at the ratios of epochs {list(epochs)}")
 
@@ -2859,10 +2880,12 @@ def _predicted_launches(eng, world, steps):
     a top-k launch for every selection and threshold top-k whose k the
     kernel takes (the segment path: the threshold and the candidates'
     selection; the 2-D path: the selection unless fused, the threshold
-    unless the bucket samples every element)."""
+    unless the bucket samples every element); without the fused
+    candidates (a gossip plan) a ``seg_top2_candidates`` launch for each
+    segment bucket a worker step."""
     from dgc_tpu_torch.ops import kernels as K
     out = {"compensate_bits": 0, "compensate_bits_cands": 0, "topk_rows": 0,
-           "apply_rows": 0}
+           "apply_rows": 0, "seg_top2_candidates": 0}
     if eng.dense:
         return out
     if eng._mk_fwd_ids or eng._sel3d.count(True):
@@ -2882,6 +2905,10 @@ def _predicted_launches(eng, world, steps):
     n = world * steps
     out["compensate_bits_cands" if eng._seg_fused else "compensate_bits"] = n
     out["topk_rows"], out["apply_rows"] = per * n, n
+    # segment buckets without the fused candidates (a gossip plan) take
+    # the standalone candidates kernel, one launch a bucket
+    out["seg_top2_candidates"] = (0 if eng._seg_fused else n * sum(
+        eng._seg[bi] for bi in eng._sparse_ids))
     return out
 
 
@@ -2988,7 +3015,7 @@ _VGG_SEG = (("topk_rows", "apply_rows", "compensate_bits_cands"),
 def phase_vgg_paths(profile=False):
     """VGG-16-BN on synthetic ImageNet, full width (224x224, batch 32 a
     worker, W=4 on the card, dropout from each worker's generator): one
-    step at each of epochs 0, 1 and 4 (the 3-D fallback), two at epoch 5
+    step at each of epochs 0 and 4 (the 3-D fallback), two at epoch 5
     (the segment path), each epoch's launch rules held, then the
     evaluation; the bf16 twin one step at epochs 0 and 5, no opaque copy,
     its first loss within 2% of the f32 path's (the same weights, batch
@@ -3004,10 +3031,10 @@ def phase_vgg_paths(profile=False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     peak("before")
-    rules = {e: _VGG_WARMUP for e in (0, 1, 4)}
+    rules = {e: _VGG_WARMUP for e in (0, 4)}
     rules[5] = _VGG_SEG
     trainer, by_path["vgg16_bn"] = phase_train_path(
-        "vgg16_bn", "vgg16_bn_wm5", [(0, 1), (1, 1), (4, 1), (5, 2)],
+        "vgg16_bn", "vgg16_bn_wm5", [(0, 1), (4, 1), (5, 2)],
         ["topk_rows", "apply_rows", "compensate_bits",
          "compensate_bits_cands", "sel3d"], epoch_rules=rules)
     phase_evaluate(trainer, "vgg16_bn")
@@ -3622,8 +3649,10 @@ def phase_bf16_kernels(geoms20, geoms50):
     return out
 
 
-#: the wire regimes of the card == CPU check (the reference's, but its
-#: gossip ones), then the mixed plans over ResNet-20's two buckets
+#: the wire regimes of the card == CPU check (the reference's but its
+#: gossip ones, which ride the fp32 wire and are held by
+#: :func:`phase_gossip_path`), then the mixed plans over ResNet-20's two
+#: buckets
 _WIRE_REGIMES = ("dense", "fp32", "fp32_packed", "fp16", "fp16_packed",
                  "int8", "int8_packed", "int4_packed", "int8_delta_idx")
 _WIRE_MIXED = (("int8_delta_idx", "fp16_packed"), ("dense", "int4_packed"),
@@ -4074,8 +4103,8 @@ def phase_preempt_drill(recipe, label, args, kill):
 
 
 def _total_mass(trainer):
-    """Every worker's error-feedback mass, pending records folded, summed
-    in float64 on the card."""
+    """Every worker's error-feedback mass, pending records folded (and a
+    gossip inbox in flight), summed in float64 on the card."""
     import torch
     from dgc_tpu_torch.ops import kernels as K
     T = trainer.setup.engine.T
@@ -4087,6 +4116,8 @@ def _total_mass(trainer):
         total += (mem["momentums_c"] * (keep if mask else 1)).double().sum()
         total += mem["momentums_d"].double().sum()
         total += mem["velocities_d"].double().sum()
+        if "gossip_inbox" in mem:
+            total += mem["gossip_inbox"].double().sum()
     return float(total)
 
 
@@ -5339,6 +5370,325 @@ def phase_control_drill():
           f"uninterrupted {t_full:.1f} s")
 
 
+# ------------------------------------------------------------------ #
+# the gossip slice: ring and hypercube rounds with bounded staleness #
+# ------------------------------------------------------------------ #
+
+#: the launches of ``resnet50_wm5_gossip``'s path (W=4: 1 step at epoch
+#: 4, 3 at epoch 5): no fused candidates (gossip turns them off), so each
+#: worker step compensates through ``compensate_bits`` and, at epoch 5,
+#: its six segment buckets take ``seg_top2_candidates`` over the velocity
+#: with the inbox in it; the top-k, apply and weight-copy counts are those
+#: of the other paths on this schedule (``resnet50_wm5_telemetry``'s).
+#: Each epoch's counts are also held against :func:`_predicted_launches`
+_GOSSIP_PREDICTED = {"compensate_bits": 16, "compensate_bits_cands": 0,
+                     "seg_top2_candidates": 72, "topk_rows": 212,
+                     "apply_rows": 16, "opaque_view_from": 16}
+#: the gossip engine's rounds a topology (ResNet-50's epoch-5 geometry,
+#: W=4): full rounds 0, 2, 4 and 6, gossip rounds covering every ring
+#: stride and hypercube mask
+_GOSSIP_ROUNDS = 8
+
+
+def _gossip_engine(eng, topology, **kw):
+    """``eng``'s geometry (its compressor at its ratio) on a gossip plan
+    of ``topology`` for W=4 (``kw``: the schedule's knobs)."""
+    from dgc_tpu_torch.compression.flat import FlatDGCEngine
+    from dgc_tpu_torch.compression.planner import plan_engine
+    plan = plan_engine(eng, fabric="32x25GbE", world=4,
+                       candidates=(f"gossip_{topology}",), **kw)
+    return FlatDGCEngine(eng.c, eng.layout, plan=plan)
+
+
+def _mass_balance(eng, mems, out):
+    """The round's velocity mass (the compensate's and the inbox fold's,
+    unmasked in the memory under deferred masking) against what it
+    became: the residual the records keep, the inbox in flight and the
+    sparse output every worker applied, W times; relative to the
+    velocities' absolute mass, in float64 on the device."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    T = eng.T
+    gap = torch.zeros((), dtype=torch.float64, device=out.device)
+    scale = torch.zeros((), dtype=torch.float64, device=out.device)
+    for m in mems:
+        v = m["velocities_c"].double()
+        keep = K.keep_from_bits(m["sent_bits"], T)
+        gap += v.sum() - (v * keep).sum() - m["gossip_inbox"].double().sum()
+        scale += v.abs().sum()
+    gap -= len(mems) * out[:T].double().sum()
+    return float(gap.abs() / scale.clamp(min=1e-12))
+
+
+def _gossip_grads(total, rounds=_GOSSIP_ROUNDS, world=4):
+    """Each round's seeded gradients, ``[round][worker]`` on the CPU."""
+    import torch
+    return [[torch.randn(total, generator=torch.Generator().manual_seed(
+        100 * step + w)) for w in range(world)] for step in range(rounds)]
+
+
+def _gossip_rounds(eng, dev, grads, balance=False):
+    """The gossip exchanges of ``eng`` on ``dev``, one a round of
+    ``grads`` (``[round][worker]``, on the CPU): ``(every output and the
+    final memory on the CPU, per round (full, forced count, ages[, mass
+    balance]))``."""
+    import torch
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    world = len(grads[0])
+    mems = [eng.init_memory(dev) for _ in range(world)]
+    res, hist = [], []
+    for step, gs in enumerate(grads):
+        phases = [eng.draw_phases(torch.Generator().manual_seed(
+            10 * step + w)) for w in range(world)]
+        outs = eng.exchange([g.to(dev) for g in gs], mems, phases,
+                            LocalComm(world))
+        hist.append((bool(outs[0][:eng.T].ne(0).any()),
+                     int(mems[0]["gossip_forced"]),
+                     mems[0]["gossip_age"].tolist())
+                    + ((_mass_balance(eng, mems, outs[0]),) if balance
+                       else ()))
+        res += outs
+    res += [t for m in mems for t in m.values()]
+    return [t.cpu() for t in res], hist
+
+
+def start_gossip_cpu():
+    """The CPU side of :func:`phase_gossip_path`'s engine rounds, on a
+    thread (torch's CPU ops leave the interpreter lock, so it runs while
+    the card phases after the build run): each topology's engine at
+    ResNet-50's epoch-5 geometry, the seeded gradients, and their CPU
+    rounds and seconds. Returns the future."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dgc_tpu_torch.ops import kernels as K
+    base = _geometries("resnet50_wm5", (5,))[5][1]
+    engines = {topo: _gossip_engine(base, topo) for topo in ("ring", "hcube")}
+    # the thread must not move the route counters the card phases read
+    # (``flat.ROUTES``): no 3-D fallback, every k on the top-k kernel
+    if any(base._sel3d) or any(max(b.max_k, b.max_sel) > K.TOPK_MAX_K
+                               for b in base.buckets):
+        raise AssertionError("gossip CPU rounds would take a counted route")
+
+    def run():
+        t0 = time.perf_counter()
+        grads = _gossip_grads(base.layout.total)
+        out = {"grads": grads, "engines": engines}
+        for topo, eng in engines.items():
+            out[topo] = _gossip_rounds(eng, "cpu", grads)
+        out["cpu_s"] = time.perf_counter() - t0
+        return out
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_gossip_path(cpu_rounds):
+    """The gossip slice (``compression/gossip.py`` on the flat engine;
+    ``cpu_rounds``: :func:`start_gossip_cpu`'s future):
+
+    1. the engine at ResNet-50's epoch-5 geometry (T = 27,068,416), W=4,
+       card == CPU bitwise over 8 rounds for each topology (ring:
+       ``sync_every`` 2, ``max_staleness`` 4; hcube: masks 1-3), every
+       round's velocity mass balanced against residual, inbox and output
+       within 1e-6; then the ``droplink:peer=3@1-5`` ladder at
+       ``sync_every = max_staleness = 4`` on the card: forced counts
+       ``[0, 0, 0, 0, 0, 1, 2, 2]``, worker 3's age ``[0, 1, 2, 3, 4, 4,
+       0, 1]``;
+    2. ``resnet50_wm5_gossip`` (ring) at full width, 224x224, batch 32 a
+       worker, W=4 with the fleet taps: 1 step at epoch 4 and 3 at epoch
+       5, finite losses, the ``w_staleness`` lanes and the forced count
+       ``round_state_np``'s, the launches :data:`_GOSSIP_PREDICTED` and
+       each epoch's :func:`_predicted_launches` (``compensate_bits_cands``
+       none), then its step time and ``resnet50_wm5``'s in turns;
+    3. ``resnet20_wm5_gossip`` W=4 saved after a gossip round (the inbox
+       in flight) and resumed: bitwise the uninterrupted run;
+    4. that checkpoint restored elastically on 2 workers: the inbox total
+       and the error-feedback mass conserved, ages, clock and forced count
+       merged by max.
+
+    Returns the ResNet-50 path's launch counts."""
+    import numpy as np
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.compression import gossip
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    from dgc_tpu_torch.train import Trainer
+    from dgc_tpu_torch.training.checkpoint import CheckpointManager
+    res = {}
+    t0 = time.perf_counter()
+    cpu = cpu_rounds.result()
+    wait_s = time.perf_counter() - t0
+    engines = cpu.pop("engines")
+    for topo, eng in engines.items():
+        t0 = time.perf_counter()
+        got, hist = _gossip_rounds(eng, DEVICE, cpu["grads"], balance=True)
+        t_card = time.perf_counter() - t0
+        want, hist_cpu = cpu.pop(topo)
+        _check_equal(f"gossip {topo} engine W=4 (resnet50 epoch 5)", got,
+                     want)
+        worst = max(h[3] for h in hist)
+        if worst > 1e-6 or [h[:3] for h in hist] != hist_cpu:
+            raise AssertionError(f"gossip {topo}: mass balance {worst}, "
+                                 f"rounds {hist} / {hist_cpu}")
+        fulls = [h[0] for h in hist]
+        if fulls != [r % eng._gossip.sync_every == 0
+                     for r in range(_GOSSIP_ROUNDS)]:
+            raise AssertionError(f"gossip {topo}: full rounds {fulls}")
+        res[topo] = {"config": list(eng._gossip), "rounds": hist,
+                     "max_mass_gap": worst, "card_s": t_card}
+        del got, want
+    # the ladder: a droplink on worker 3 over rounds 1..5
+    with _faults_armed("droplink:peer=3@1-5"):
+        eng = _gossip_engine(engines["ring"], "ring", gossip_sync_every=4,
+                             gossip_max_staleness=4)
+    _, hist = _gossip_rounds(eng, DEVICE, cpu.pop("grads"), balance=True)
+    res["cpu_s"], res["cpu_wait_s"] = cpu["cpu_s"], wait_s
+    forced = [h[1] for h in hist]
+    age3 = [h[2][3] for h in hist]
+    worst = max(h[3] for h in hist)
+    if (forced != [0, 0, 0, 0, 0, 1, 2, 2] or age3 != [0, 1, 2, 3, 4, 4, 0, 1]
+            or worst > 1e-6):
+        raise AssertionError(f"gossip ladder: forced {forced}, worker 3's "
+                             f"age {age3}, mass balance {worst}")
+    res["ladder"] = {"forced": forced, "age3": age3, "max_mass_gap": worst,
+                     "full": [h[0] for h in hist]}
+    del eng, engines
+    torch.cuda.empty_cache()
+    print(f"[gossip] resnet50 epoch-5 engine W=4, {_GOSSIP_ROUNDS} rounds: "
+          f"ring and hcube card == CPU bitwise, full rounds "
+          f"{[h[0] for h in res['ring']['rounds']]}, mass balance within "
+          f"{max(res[t]['max_mass_gap'] for t in ('ring', 'hcube')):.3g} "
+          f"(card {res['ring']['card_s']:.1f} / {res['hcube']['card_s']:.1f}"
+          f" s; CPU side {res['cpu_s']:.1f} s on its thread, waited "
+          f"{wait_s:.1f} s); droplink:peer=3@1-5 ladder forced {forced}, "
+          f"worker 3's age {age3}, mass within {worst:.3g}")
+
+    # 2. the slice's path at full width, with the fleet taps
+    label = "resnet50_gossip"
+    schedule = [(4, 1), (5, 3)]
+    trainer = Trainer(configs.resnet50_wm5_gossip(), comm=LocalComm(4),
+                      device=DEVICE)
+    lanes = []
+
+    def on_step(epoch):
+        return lambda batch, m: lanes.append(
+            (m["fleet"]["w_staleness"].tolist(),
+             float(m["fleet"]["gossip_forced_syncs"]),
+             float(m["fleet"]["max_staleness_seen"]), float(m["loss"])))
+    per_epoch, times, engines = {}, {}, {}
+    for epoch, steps in schedule:
+        pe, tm = _run_schedule(label, trainer, [(epoch, steps)], on_step)
+        per_epoch.update(pe)
+        times.update(tm)
+        engines[epoch] = trainer.setup.engine
+    counts = {k: sum(c[k] for c in per_epoch.values()) for k in per_epoch[4]}
+    for epoch, steps in schedule:
+        want = _predicted_launches(engines[epoch], 4, steps)
+        got = {k: per_epoch[epoch][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label} epoch {epoch}: launches {got}, "
+                                 f"the engine's prediction {want}")
+    g = trainer.setup.engine._gossip
+    age, want_lanes = np.zeros(4, np.int32), []
+    for r in range(len(lanes)):
+        age = gossip.round_state_np(g, r, age)[2]
+        want_lanes.append((age.astype(float).tolist(), 0.0,
+                           float(age.max())))
+    if [x[:3] for x in lanes] != want_lanes:
+        raise AssertionError(f"{label}: fleet lanes {lanes}, want "
+                             f"{want_lanes}")
+    if not all(math.isfinite(x[3]) for x in lanes):
+        raise AssertionError(f"{label}: losses {lanes}")
+    got = {k: counts[k] for k in _GOSSIP_PREDICTED}
+    if got != _GOSSIP_PREDICTED:
+        raise AssertionError(f"{label}: launches {got}, predicted "
+                             f"{_GOSSIP_PREDICTED}")
+    plain = Trainer(configs.resnet50_wm5(), comm=LocalComm(4), device=DEVICE)
+    plain.run_epoch(4, 1)
+    turns = {"resnet50_wm5": [], label: []}
+    for which in (label, "resnet50_wm5", "resnet50_wm5", label, label,
+                  "resnet50_wm5"):
+        t = []
+        (trainer if which == label else plain).run_epoch(6, 2, t)
+        turns[which] += t
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    DETAIL[f"launches {label} by epoch"] = per_epoch
+    DETAIL["gossip"] = {**res, "path_lanes": lanes, "step_s": times,
+                        "turns_step_s": turns, "median_step_s": med,
+                        "launches": got, "predicted": _GOSSIP_PREDICTED}
+    print(f"[{label}] W=4, epochs 4 (1 step) and 5 (3 steps): regimes "
+          f"{sorted(set(trainer.setup.engine.regimes))}, {g}; losses "
+          f"{[x[3] for x in lanes]}; w_staleness lanes "
+          f"{[x[0] for x in lanes]} and forced syncs "
+          f"{[x[1] for x in lanes]} = round_state_np's; launches {got} = "
+          f"the prediction; median step s in turns {med}")
+    del trainer, plain
+    torch.cuda.empty_cache()
+
+    # 3. resume with the inbox in flight; 4. its elastic restore on 2
+    def small(world):
+        return Trainer(configs.resnet20_wm5_gossip(), comm=LocalComm(world),
+                       device=DEVICE)
+
+    def inflight(t):
+        return sum(float(m["gossip_inbox"].double().sum())
+                   for m in t.state.memory)
+    a = small(4)
+    a.run_epoch(4, 2)
+    want_losses = [float(x) for x in a.run_epoch(5, 2)]
+    want = _snapshot(a)
+    del a
+    b = small(4)
+    b.run_epoch(4, 2)
+    inbox = inflight(b)
+    if not all(bool(m["gossip_inbox"].ne(0).any()) for m in b.state.memory):
+        raise AssertionError("gossip resume: no inbox in flight at the save")
+    mass4 = _total_mass(b)
+    ages4 = b.state.memory[0]["gossip_age"].tolist()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        b.save_checkpoint(ckpt, 4, {"acc/test_top1": 0.0})
+        del b
+        c = small(4)
+        if c.restore_checkpoint(ckpt) is None:
+            raise AssertionError("gossip resume: nothing restored")
+        got_losses = [float(x) for x in c.run_epoch(5, 2)]
+        if got_losses != want_losses:
+            raise AssertionError(f"gossip resume: losses {got_losses}, "
+                                 f"uninterrupted {want_losses}")
+        _check_same_state("gossip resumed state", _snapshot(c), want)
+        del c
+        d = small(2)
+        t0 = time.perf_counter()
+        restored = d.restore_checkpoint(ckpt, elastic=True)
+        restore_s = time.perf_counter() - t0
+        if restored is None or "_elastic" not in restored[1]:
+            raise AssertionError(f"gossip elastic: restored {restored}")
+    ages2 = [m["gossip_age"].tolist() for m in d.state.memory]
+    want_ages = [max(ages4[0:2]), max(ages4[2:4])]
+    inbox2, mass2 = inflight(d), _total_mass(d)
+    if (not math.isclose(inbox2, inbox, rel_tol=1e-6)
+            or not math.isclose(mass2, mass4, rel_tol=1e-6)
+            or ages2 != [want_ages] * 2):
+        raise AssertionError(f"gossip elastic 4->2: inbox {inbox2} (saved "
+                             f"{inbox}), mass {mass2} (saved {mass4}), "
+                             f"ages {ages2} (want {want_ages})")
+    losses2 = [float(x) for x in d.run_epoch(5, 1)]
+    if not all(math.isfinite(x) for x in losses2):
+        raise AssertionError(f"gossip elastic: losses {losses2}")
+    DETAIL["gossip"].update(resume_losses=got_losses, elastic={
+        "inbox_saved": inbox, "inbox_restored": inbox2,
+        "mass_saved": mass4, "mass_restored": mass2, "ages": ages2,
+        "restore_s": restore_s, "losses": losses2})
+    print(f"[gossip resume] resnet20_wm5_gossip W=4 saved after a gossip "
+          f"round (inbox {inbox:.6g} in flight), resumed: losses "
+          f"{got_losses} and the state bitwise the uninterrupted run's; "
+          f"4 -> 2 elastic: inbox {inbox2:.6g}, mass {mass2:.9g} (saved "
+          f"{mass4:.9g}), ages {ages2}, "
+          f"restore {restore_s:.2f} s, then loss {losses2}")
+    return counts
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -5410,9 +5760,12 @@ def main(argv):
                 for model, c in d.items()}
     _print_entries(entries)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
-    phase_engine_vs_cpu(geoms50, "resnet50", steps=1)
+    # ResNet-50's epoch 5 (the fused candidates) and ResNet-110's epoch 0
+    # (the route of ResNet-20's) are held card == CPU again by
+    # phase_telemetry_vs_cpu / phase_guard_vs_cpu and above
+    phase_engine_vs_cpu(geoms50, "resnet50", steps=1, epochs=(0,))
     phase_engine_vs_cpu(geoms, "resnet20", steps=2, world=3)
-    phase_engine_vs_cpu(geoms110, "resnet110", steps=1)
+    phase_engine_vs_cpu(geoms110, "resnet110", steps=1, epochs=(5,))
     phase_routes_vs_cpu("resnet20_wm5", "resnet20", steps=2)
     phase_routes_vs_cpu("resnet50_wm5", "resnet50", steps=1, epochs=(5,))
     phase_per_tensor_vs_cpu()
@@ -5423,9 +5776,11 @@ def main(argv):
     phase_dense_vs_cpu(world=3)
     phase_nonresample_vs_cpu()
     phase_clip_vs_cpu()
-    # VGG's epoch 0 (the 3-D fallback, its own); the segment path at full
+    # VGG's epoch 0 (the 3-D fallback, its own) over 2 workers, whose CPU
+    # side applies half of W=4's 175.0M entries; the segment path at full
     # width is ResNet-50's epoch 5
-    phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1, epochs=(0,))
+    phase_engine_vs_cpu(geoms_vgg, "vgg16_bn", steps=1, world=2,
+                        epochs=(0,))
     del geoms_vgg
     wire_bytes = phase_wires_vs_cpu()
     phase_run_to_run()
@@ -5472,11 +5827,14 @@ def main(argv):
         phase_profile(r20, "resnet20")
         phase_profile(r50, "resnet50")
     del r20, r50
+    # the gossip slice's CPU rounds run on a thread while the VGG paths
+    # (bound by the card and the checkpoint's disk) run
+    gossip_cpu = start_gossip_cpu()
     by_path.update(phase_vgg_paths("--profile" in argv))
     resume = ["topk_rows", "apply_rows", "opaque_view_from"]
     cifar = resume + ["compensate_bits", "opaque_view"]
     phase_resume("resnet20_wm5", "resnet20_wm5", [(4, 2), (5, 2)], cifar)
-    phase_resume("resnet110_wm5o", "resnet110_wm5o", [(4, 2), (5, 2)],
+    phase_resume("resnet110_wm5o", "resnet110_wm5o", [(4, 1), (5, 1)],
                  cifar)
     # at epoch 5 every ResNet-50 compensate emits the segment candidates
     phase_resume("resnet50_wm5", "resnet50_wm5", [(4, 1), (5, 1)],
@@ -5516,6 +5874,8 @@ def main(argv):
                          "--synthetic-size", "256"], kill=1)
     # the control slice: the plane supervising the trainer on the card
     phase_control_drill()
+    # the gossip slice: ring and hypercube rounds on the flat engine
+    by_path["resnet50_gossip"] = phase_gossip_path(gossip_cpu)
     phase_input_path(trace_inline="--profile" in argv)
     phase_crop_kernel()
     phase_process_group()
@@ -5528,7 +5888,8 @@ def main(argv):
         # two-tier and Adasum paths)
         for path in (slice_label, "resnet50_resilience", "resnet50_twotier",
                      "resnet20_adasum", "resnet50_telemetry",
-                     "resnet50_adaptive", "resnet50_serving"):
+                     "resnet50_adaptive", "resnet50_serving",
+                     "resnet50_gossip"):
             e[f"launches_{path}"] = by_path[path][name]
     DETAIL["launches_by_path"] = by_path
     DETAIL["wire_bytes_per_worker"] = wire_bytes
@@ -5545,6 +5906,8 @@ def main(argv):
             "phase_serving_path", "phase_surgery_drill")))
     print(f"[phases] control slice: control_drill "
           f"{spent.get('phase_control_drill', 0.0):.1f}")
+    print(f"[phases] gossip slice: gossip_path "
+          f"{spent.get('phase_gossip_path', 0.0):.1f}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,8 +32,16 @@ bucket's all-gather device milliseconds from a ``dgc-profile`` table
 and :meth:`Autotuner.add_fleet_view` the per-step cohort maximum of a
 fleet lane from a run's sink shards (:mod:`dgc_tpu_torch.telemetry.
 fleet`). Refits and replans go to ``sink`` as ``autotune_replan``
-records. The gossip candidates are refused, as in
-:mod:`~dgc_tpu_torch.compression.planner`.
+records.
+
+The gossip regimes (``planner.GOSSIP_REGIMES``) are not in the default
+candidates the replans sweep: gossip changes the consistency model
+(bounded staleness, :mod:`~dgc_tpu_torch.compression.gossip`), not only
+the wire, so a caller opts in with ``candidates=REGIMES + (family,)``
+(the trainer does for a recipe with ``train.gossip``); from then on each
+refit weighs the family's amortized neighborhood cost against the
+all-gather, with the schedule knobs ``gossip_sync_every`` /
+``gossip_max_staleness`` carried into every replan.
 """
 
 import json
@@ -53,7 +61,6 @@ from dgc_tpu_torch.compression.planner import (
     REGIMES,
     fit_link_model,
     plan_engine,
-    refuse_gossip,
     resolve_fabric,
 )
 
@@ -108,7 +115,6 @@ class Autotuner:
                  sink=None,
                  gossip_sync_every: Optional[int] = None,
                  gossip_max_staleness: Optional[int] = None):
-        refuse_gossip(candidates, gossip_sync_every, gossip_max_staleness)
         base = resolve_fabric(fabric, runs_dir=runs_dir)
         name = (base.name if base.name.startswith("autotuned-")
                 else f"autotuned-{base.name}")
@@ -122,6 +128,10 @@ class Autotuner:
         self.max_points = int(max_points)
         self.fabric_out = fabric_out
         self.sink = sink
+        #: the gossip schedule knobs (meaningful with a gossip family in
+        #: ``candidates``), threaded into every replan
+        self.gossip_sync_every = gossip_sync_every
+        self.gossip_max_staleness = gossip_max_staleness
         #: measured (wire bytes, ms) pool, newest last
         self.points: List[Tuple[float, float]] = []
         self.refit_count = 0      # fits performed
@@ -139,9 +149,11 @@ class Autotuner:
         (possibly refit) fabric — the rebuild path: a warm-up ratio change
         reshapes the buckets, so the plan is recomputed against the engine
         that will realize it."""
-        self._plan = plan_engine(engine, fabric=self.fabric,
-                                 world=self.world, cost=self.cost,
-                                 candidates=self.candidates)
+        self._plan = plan_engine(
+            engine, fabric=self.fabric, world=self.world, cost=self.cost,
+            candidates=self.candidates,
+            gossip_sync_every=self.gossip_sync_every,
+            gossip_max_staleness=self.gossip_max_staleness)
         return self._plan
 
     # -- measured inputs -------------------------------------------- #
@@ -215,7 +227,9 @@ class Autotuner:
         if self.fabric_out:
             self.write_fabric(self.fabric_out, epoch=epoch)
         new = plan_engine(engine, fabric=self.fabric, world=self.world,
-                          cost=self.cost, candidates=self.candidates)
+                          cost=self.cost, candidates=self.candidates,
+                          gossip_sync_every=self.gossip_sync_every,
+                          gossip_max_staleness=self.gossip_max_staleness)
         changed = self._plan is None or new.key() != self._plan.key()
         if self.sink is not None:
             self.sink.write_record({

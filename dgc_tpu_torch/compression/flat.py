@@ -23,8 +23,8 @@ in lockstep (:class:`dgc_tpu_torch.parallel.comm.LocalComm`):
   ``wire / W`` and this worker's transmit record), then the dense slabs'
   and tail's non-accumulating correction.
 
-Wires and state (the reference's regimes without its gossip ones,
-:data:`_REGIMES`; one regime a bucket, from a ``plan`` —
+Wires and state (the reference's regimes, :data:`_REGIMES`; one regime
+a bucket, from a ``plan`` —
 :mod:`~dgc_tpu_torch.compression.planner` — or uniformly from the
 compressor's flags ``int8_values`` / ``fp16_values`` /
 ``packed_indices``): native values (in the state's dtype) or fp16 values,
@@ -146,8 +146,26 @@ stages run inside the reference's phase markers
 (:func:`dgc_tpu_torch.telemetry.trace.phase`), which cost nothing while
 tracing is off.
 
+The gossip exchange (a plan of ``gossip_ring`` or ``gossip_hcube``
+buckets, :mod:`~dgc_tpu_torch.compression.gossip`): the same wire and
+collectives every round; the memory carries the round clock, the ``[W]``
+staleness ages, the forced-sync count and a ``[T]`` inbox. Each round the
+compensate's velocity takes last round's inbox (after the deferred
+transmit mask) before the selection; the gathered rows are weighed by
+the round (:func:`gossip.row_weights`: 1 each on a full sync, ``W /
+outdeg`` for the rotating neighborhood on a gossip round) before the
+apply's division by W; the apply's scatter then feeds the parameters on
+a full round and only the inbox on a gossip round. The round's
+classification is computed on the device from the memory
+(:func:`gossip.round_state`), never read on the host. An armed
+``droplink`` weighs the dropped worker's row 0 on every receiver and
+voids its own transmit record. Gossip turns the fused candidates off
+(the segment path runs the compensate kernel, then the standalone
+candidates kernel over the velocity with the inbox in it) and refuses
+the megakernel.
+
 Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
-for one): gossip and layouts of 2**31 slots or more.
+for one): layouts of 2**31 slots or more.
 """
 
 import math
@@ -157,7 +175,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dgc_tpu_torch.compression.planner import refuse_gossip
+from dgc_tpu_torch.compression import gossip as _gossip_sched
 from dgc_tpu_torch.compression.wirecodec import (DeltaIndexCodec, IndexCodec,
                                                   pack_int4, unpack_int4)
 from dgc_tpu_torch.ops import kernels
@@ -174,13 +192,15 @@ __all__ = ["ParamLayout", "FlatDGCEngine", "FlatDenseExchange",
 #: the exchange's combine semantics (the reference's allreduce ops)
 OPS = ("average", "sum", "adasum")
 
-#: exchange regime -> (value kind, index lane), the reference's regimes
-#: without its gossip ones: "d" buckets ride the dense all-reduce; the
+#: exchange regime -> (value kind, index lane), the reference's regimes:
+#: "d" buckets ride the dense all-reduce; the
 #: value lane is "f32" (the native values, in the state's dtype), "f16",
 #: "i8" (int8 + one f32 scale a row) or "i4" (nibble-packed int4 + one f32
 #: scale a bucket, on the int8 byte lane); the index lane is False (plain
 #: flat offsets), True (:class:`IndexCodec` words) or "delta"
-#: (:class:`DeltaIndexCodec` words; both word streams share one lane)
+#: (:class:`DeltaIndexCodec` words; both word streams share one lane).
+#: The gossip regimes ride the f32 wire: the round decides whether the
+#: gathered payload feeds the parameters or the neighborhood's inbox
 _REGIMES = {
     "dense": ("d", False),
     "fp32": ("f32", False), "fp32_packed": ("f32", True),
@@ -188,6 +208,8 @@ _REGIMES = {
     "int8": ("i8", False), "int8_packed": ("i8", True),
     "int4_packed": ("i4", True),
     "int8_delta_idx": ("i8", "delta"),
+    "gossip_ring": ("f32", False),
+    "gossip_hcube": ("f32", False),
 }
 
 #: block alignment of the compressed-block boundary and the buffer tail
@@ -703,13 +725,12 @@ class FlatDGCEngine:
             self.plan = None
         else:
             regimes = tuple(getattr(plan, "regimes", plan))
-            refuse_gossip(regimes)
             if len(regimes) != len(self.buckets):
                 raise ValueError(
                     f"plan carries {len(regimes)} regimes for "
                     f"{len(self.buckets)} buckets — the plan was built for "
                     "a different geometry; call Plan.replan(engine) after "
-                    "every warm-up compress-ratio change")
+                    "every warmup compress-ratio change")
             self.plan = plan if hasattr(plan, "regimes") else None
         unknown = [r for r in regimes if r not in _REGIMES]
         if unknown:
@@ -792,6 +813,41 @@ class FlatDGCEngine:
         #: forward megakernel, in base order
         self._mk_fwd_ids = tuple(bi for bi in self._sparse_ids
                                  if self._use_megakernel_fwd(bi))
+        #: the gossip schedule (:class:`gossip.GossipConfig`) when the
+        #: plan carries a gossip family, else None (nothing of it runs);
+        #: the plan has refused mixed families already, what is checked
+        #: here only the engine knows
+        self._gossip = getattr(self.plan, "gossip", None)
+        if self._gossip is not None:
+            from dgc_tpu_torch.compression.memory import DGCSGDMemory
+            if not isinstance(compressor.memory, DGCSGDMemory):
+                raise ValueError(
+                    "gossip regimes need momentum-correction memory "
+                    "(DGCSGDMemory): a worker's untransmitted mass must "
+                    "live in the error-feedback residual between "
+                    "neighborhood rounds")
+            if not self._sparse_ids:
+                raise ValueError(
+                    "gossip plan has no sparse buckets — with an all-"
+                    "dense plan (or compress_ratio >= 1) there is no "
+                    "neighborhood payload to exchange; plan without the "
+                    "gossip candidates instead")
+            if self._megakernel:
+                raise ValueError(
+                    "megakernel=True is not supported with gossip "
+                    "regimes: the fused forward emits its candidates "
+                    "before the neighborhood inbox is folded into the "
+                    "velocities, so they would be one round stale")
+            if getattr(compressor, "fused_apply", False):
+                raise ValueError(
+                    "fused_apply=True is not supported with gossip "
+                    "regimes: the fused scatter cannot split the "
+                    "gathered payload between parameters (full-sync "
+                    "round) and the neighborhood inbox (gossip round)")
+            # the fused compensate emits candidates before the inbox
+            # fold: the segment path takes the compensate kernel and the
+            # standalone candidates kernel instead
+            self._seg_fused = False
         self._consts: Dict[torch.device, list] = {}
         self._wire_dev: Dict[torch.device, dict] = {}
 
@@ -1001,24 +1057,40 @@ class FlatDGCEngine:
         plus the packed transmit record of the last step (deferred
         masking: the next compensate zeroes those coordinates on read).
         The buffers are in the memory's dtype (f32, or the bf16 state);
-        the record is int32."""
+        the record is int32. A gossip plan adds its round state:
+        ``gossip_clock`` (rounds completed), ``gossip_age`` ([W] rounds
+        since each worker's mass last reached the parameters, the same on
+        every worker), ``gossip_inbox`` ([T] neighbor mass received this
+        round, folded into the velocity next round) and ``gossip_forced``
+        (the count of staleness-forced full syncs), all int32 but the
+        inbox."""
         T, P, sdt = self.T, self.layout.total, self.state_dtype
 
         def z(n, dtype=sdt):
             return torch.zeros(n, dtype=dtype, device=device)
-        return {"momentums_c": z(T), "velocities_c": z(T),
-                "momentums_d": z(P - T), "velocities_d": z(P - T),
-                "sent_bits": z(kernels.num_sent_words(T), torch.int32)}
+        mem = {"momentums_c": z(T), "velocities_c": z(T),
+               "momentums_d": z(P - T), "velocities_d": z(P - T),
+               "sent_bits": z(kernels.num_sent_words(T), torch.int32)}
+        if self._gossip is not None:
+            mem["gossip_clock"] = z((), torch.int32)
+            mem["gossip_age"] = z(self._gossip.world, torch.int32)
+            mem["gossip_inbox"] = z(T)
+            mem["gossip_forced"] = z((), torch.int32)
+        return mem
 
     def memory_full(self, mem) -> Dict[str, torch.Tensor]:
         """Canonical ``{momentums, velocities}`` [P] view with the pending
-        transmit mask applied (inspection and checkpoints only)."""
+        transmit mask applied (inspection and checkpoints only). A gossip
+        inbox is velocity in flight: it is folded in after the mask, in
+        the order the next exchange folds it."""
         keep = kernels.keep_from_bits(mem["sent_bits"], self.T).to(
             mem["velocities_c"].dtype)
         vc = mem["velocities_c"] * keep
         mc = mem["momentums_c"]
         if self.c.memory.momentum_masking:
             mc = mc * keep
+        if "gossip_inbox" in mem:
+            vc = vc + mem["gossip_inbox"].to(vc.dtype)
         return {"momentums": torch.cat([mc, mem["momentums_d"]]),
                 "velocities": torch.cat([vc, mem["velocities_d"]])}
 
@@ -1032,7 +1104,9 @@ class FlatDGCEngine:
     def load_memory_state_dict(self, mem, saved):
         """Per-name saved ``{momentums, velocities}`` (tensors or arrays)
         -> flat memory, merging by name over ``mem``'s canonical view; gap
-        slots stay zero and nothing is left pending in the record."""
+        slots stay zero and nothing is left pending in the record. The
+        gossip clock, ages and forced count carry over from ``mem``; the
+        inbox is empty (the canonical view holds its mass)."""
         if saved is None:
             return mem
         lay, T = self.layout, self.T
@@ -1050,6 +1124,11 @@ class FlatDGCEngine:
             out[key + "_c"] = flat[:T]
             out[key + "_d"] = flat[T:]
         out["sent_bits"] = torch.zeros_like(mem["sent_bits"])
+        for k in ("gossip_clock", "gossip_age", "gossip_forced"):
+            if k in mem:
+                out[k] = mem[k]
+        if "gossip_inbox" in mem:
+            out["gossip_inbox"] = torch.zeros_like(mem["gossip_inbox"])
         return out
 
     def _compensate_acc(self, mem, grad_c: torch.Tensor):
@@ -1555,8 +1634,10 @@ class FlatDGCEngine:
         """One worker's send side: compensate (in place on ``mem``), then
         sparsify. Returns the ``(values, indices)`` payload. With buckets
         on the forward megakernel the segment-path buckets get no fused
-        candidates and compute their own, as in the reference. Does not
-        clip: :meth:`exchange` clips every worker's block first.
+        candidates and compute their own, as in the reference. Under a
+        gossip plan last round's inbox is added to the velocity (in place,
+        after the compensate's deferred mask) before the selection. Does
+        not clip: :meth:`exchange` clips every worker's block first.
         ``stats_out``: see :meth:`sparsify`."""
         if self._mk_fwd_ids:
             with phase("forward"):
@@ -1566,6 +1647,11 @@ class FlatDGCEngine:
                                  stats_out=stats_out)
         with phase("compensate"):
             comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
+            if self._gossip is not None:
+                # the received neighbor mass joins the velocity only (its
+                # senders ran their momentum); consumed once, the apply
+                # rewrites the inbox
+                comp.add_(mem["gossip_inbox"])
         return self.sparsify(comp, phases, seg_cands=cands,
                              stats_out=stats_out)
 
@@ -1832,7 +1918,8 @@ class FlatDGCEngine:
               dense_avg: torch.Tensor, mem, rank: int, world: int,
               own_flags: Optional[torch.Tensor] = None,
               slabs: Sequence[Tuple[int, torch.Tensor]] = (),
-              prev=None, op: str = "average") -> torch.Tensor:
+              prev=None, op: str = "average",
+              gossip_full: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One worker's receive side, from the gathered [W, payload] values
         and indices (decoded, f32; indices in range or on the sentinel),
         the averaged (and clipped) dense tail and the dense-planned
@@ -1843,7 +1930,11 @@ class FlatDGCEngine:
         dense-planned slab gets the dense path's semantics from ``prev``
         (:meth:`_slab_state`, the state before this step's compensate).
         The payload is divided by ``world`` only under ``op="average"``
-        (the reference's decompress: any other op sums)."""
+        (the reference's decompress: any other op sums). ``gossip_full``
+        (a bool device scalar, gossip plans only): the scattered payload
+        feeds the parameters on a full round and only ``mem``'s
+        ``gossip_inbox`` on a gossip round, split before the dense slabs
+        are written (they always reach the parameters)."""
         T, S = self.T, self.layout.sentinel
         g_indices = torch.where((g_indices >= 0) & (g_indices < T),
                                 g_indices, S)
@@ -1859,6 +1950,11 @@ class FlatDGCEngine:
                 g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
                 flags.reshape(-1), T,
                 divisor=float(world) if op == "average" else None)
+        if gossip_full is not None:
+            with phase("apply"):
+                mem["gossip_inbox"] = torch.where(
+                    gossip_full, 0.0, acc).to(self.state_dtype)
+                acc = torch.where(gossip_full, acc, 0.0)
         if not slabs and self.layout.total == T:
             return acc
         with phase("dense"):
@@ -2036,6 +2132,26 @@ class FlatDGCEngine:
             return outs, [self._telemetry_stats(gn, cd, m, None)
                           for gn, cd, m in zip(gnorms, deltas, mems)]
         T, world, S = self.T, comm.world, self.layout.sentinel
+        g_cfg = self._gossip
+        if g_cfg is not None:
+            if world != g_cfg.world:
+                raise ValueError(
+                    f"gossip plan was built for world={g_cfg.world} but "
+                    f"exchange runs with world_size={world} — replan for "
+                    "the current cohort")
+            if op != "average":
+                raise ValueError(
+                    "gossip regimes require op='average': the neighbor "
+                    f"mixing weights fold into the averaging divide "
+                    f"(got op={op!r})")
+            # the round's classification from the memory's (replicated)
+            # clock and ages, on the device: every worker computes the
+            # same values, no collective
+            g_clock = mems[0]["gossip_clock"]
+            g_forced0 = mems[0]["gossip_forced"]
+            g_dropped = _faults.gossip_dropped(self._faults, world, g_clock)
+            g_full, g_forced, g_new_age = _gossip_sched.round_state(
+                g_cfg, g_clock, mems[0]["gossip_age"], g_dropped)
         chk = self.checksum and health is not None
         blocks = [g[:T] for g in flat_grads]
         deltas = ([_zero(b.device) for b in blocks] if telemetry
@@ -2102,9 +2218,19 @@ class FlatDGCEngine:
                 gv, gi = self.decode({k: v[li] for k, v in gathered.items()},
                                      checksum=chk,
                                      health=health if li == 0 else {})
+            if g_cfg is not None:
+                # the round on the one gathered wire: each sender's row
+                # weighed (in the values' own dtype, as the reference
+                # multiplies them) before the apply's division by W
+                sdt = self.state_dtype
+                rw = _gossip_sched.row_weights(g_cfg, g_clock, r, g_full,
+                                               g_dropped)
+                gv = (gv.to(sdt) * rw[:, None].to(sdt)).to(gv.dtype)
             outs.append(self.apply(gv, gi, tails[li], mem, r, world,
                                    own_flags=wires[li][1], slabs=slabs[li],
-                                   prev=prev[li], op=op))
+                                   prev=prev[li], op=op,
+                                   gossip_full=(g_full if g_cfg is not None
+                                                else None)))
             if self._faults is not None and self._faults.badidx is not None:
                 # the record is what this worker sent, not what a corrupted
                 # wire delivered back to it (the reference packs the local
@@ -2112,6 +2238,17 @@ class FlatDGCEngine:
                 mem["sent_bits"] = kernels.pack_sent_bits(
                     torch.where(wires[li][1], local_idx[li], S), T,
                     sentinel=S)
+            if g_cfg is not None:
+                if g_dropped is not None:
+                    # the round carried none of a dropped worker's mass:
+                    # its record is voided, so the mass stays in its
+                    # residual for a later round
+                    mem["sent_bits"] = torch.where(
+                        g_dropped[r], torch.zeros_like(mem["sent_bits"]),
+                        mem["sent_bits"])
+                mem["gossip_clock"] = g_clock + 1
+                mem["gossip_age"] = g_new_age
+                mem["gossip_forced"] = g_forced0 + g_forced.to(torch.int32)
         if not telemetry:
             return outs
         return outs, [self._telemetry_stats(gn, cd, m, st, *t)

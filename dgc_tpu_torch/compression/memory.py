@@ -34,9 +34,12 @@ __all__ = ["Memory", "DGCSGDMemory", "ELASTIC_ADDITIVE_PREFIXES"]
 #: across a world-size change: a key whose name starts with one of these
 #: is additive error-feedback mass (the gradient a worker has not yet
 #: sent), so merging workers sums it; any other key but the flat engine's
-#: transmit record ``sent_bits`` is refused. (The reference also lists
-#: ``gossip_inbox``, which joins with the gossip exchange.)
-ELASTIC_ADDITIVE_PREFIXES = ("momentums", "velocities")
+#: transmit record ``sent_bits`` and the gossip round state is refused.
+#: ``gossip_inbox`` is neighbor mass the gossip exchange has received and
+#: not yet folded into the velocity (compression.gossip): additive for the
+#: same reason. The gossip clock, ages and forced count are not additive:
+#: resilience/elastic.py reshards them by their own rules.
+ELASTIC_ADDITIVE_PREFIXES = ("momentums", "velocities", "gossip_inbox")
 
 
 class Memory:

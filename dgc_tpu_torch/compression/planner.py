@@ -1,8 +1,8 @@
 """Regime-aware exchange planner: pick the cheapest wire per bucket.
 
 Counterpart of ``dgc_tpu/compression/planner.py``, a copy of that
-JAX-free module without its gossip families. Per bucket, at engine-build
-time, the planner chooses among
+JAX-free module. Per bucket, at engine-build time, the planner chooses
+among
 
 * ``dense``          — ride the always-present dense-fallback all-reduce
 * ``fp32``           — sparse all-gather, native values + int32 indices
@@ -40,9 +40,19 @@ reference's own model; they were fitted on and for a TPU and are no
 measurement of this port (the autotuner refits the link from this run's
 step times).
 
-The gossip regimes (``gossip_ring``, ``gossip_hcube``) and the gossip
-schedule options are ROADMAP.md queue 1 item 8 in the port: asking for
-them raises.
+The gossip regimes (``gossip_ring``, ``gossip_hcube``,
+:data:`GOSSIP_REGIMES`) ride the fp32 wire, but most rounds only the
+rotating neighborhood's payloads count
+(:mod:`~dgc_tpu_torch.compression.gossip`). They are an opt-in, never in
+the default candidates; their cost is the wire amortized over the
+cadence ``sync_every``: ``E - 1`` neighborhood rounds (alpha charged a
+neighbor and lane, ``d`` payloads over the link) and one full all-gather,
+over ``E`` rounds. A gossip plan carries one schedule for the whole
+sparse tier, so :func:`plan_buckets` resolves a mixed greedy pick by
+totalling each consistent family (ties toward the all-gather), and
+:class:`Plan` refuses mixed gossip families, gossip next to another
+sparse regime (dense buckets are fine), ``gossip_hcube`` on a world that
+is not a power of two and ``max_staleness < sync_every``.
 """
 
 import json
@@ -52,14 +62,14 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dgc_tpu_torch.compression import gossip as _gossip
 
 __all__ = ["Fabric", "CostModel", "BucketGeom", "Plan",
            "BUILTIN_FABRICS", "DEFAULT_COST", "REGIMES", "GOSSIP_REGIMES",
            "FABRIC_SCHEMA", "FABRIC_VERSION",
            "fit_link_model", "load_fabric", "resolve_fabric",
            "bucket_geometry", "packed_index_bits", "delta_index_bits",
-           "plan_buckets", "plan_engine", "bucket_ms_from_profile",
-           "refuse_gossip"]
+           "plan_buckets", "plan_engine", "bucket_ms_from_profile"]
 
 #: regimes the cost model ranks (the engine additionally accepts the
 #: legacy fp16 / fp16_packed / fp32_packed wire formats when a uniform
@@ -69,25 +79,18 @@ __all__ = ["Fabric", "CostModel", "BucketGeom", "Plan",
 REGIMES = ("dense", "fp32", "int8", "int8_packed", "int4_packed",
            "int8_delta_idx")
 
-#: the reference's decentralized regime family (gossip exchange), not
-#: ported: naming one raises (:func:`refuse_gossip`)
+#: the decentralized regime family (the gossip exchange): the fp32 wire,
+#: but most rounds the payload moves only to a rotating neighborhood,
+#: with a scheduled or forced full sync. An opt-in, not in the default
+#: :data:`REGIMES`: pass ``candidates=REGIMES + GOSSIP_REGIMES`` to let
+#: the planner weigh gossip against the all-gather
 GOSSIP_REGIMES = ("gossip_ring", "gossip_hcube")
 
 #: every wire format the engine can realize (REGIMES plus the legacy
 #: uniform formats derived from compressor flags) — Plan validates
 #: against this set
-_KNOWN_REGIMES = frozenset(REGIMES + ("fp32_packed", "fp16", "fp16_packed"))
-
-
-def refuse_gossip(regimes: Sequence[str] = (), sync_every=None,
-                  max_staleness=None) -> None:
-    """Raise where a gossip regime or a gossip schedule option is asked
-    for: the port has no gossip exchange yet."""
-    goss = sorted({r for r in regimes if str(r).startswith("gossip_")})
-    if goss or sync_every is not None or max_staleness is not None:
-        raise ValueError(
-            f"the gossip exchange ({goss or 'gossip schedule options'}) is "
-            "not ported: ROADMAP.md queue 1 item 8")
+_KNOWN_REGIMES = frozenset(
+    REGIMES + GOSSIP_REGIMES + ("fp32_packed", "fp16", "fp16_packed"))
 
 
 FABRIC_SCHEMA = "dgc-fabric"
@@ -318,12 +321,15 @@ def bucket_ms_from_profile(profile: Optional[Dict],
 def _regime_costs(g: BucketGeom, fabric: Fabric, world: int,
                   cost: CostModel, bucket_ms: Optional[float],
                   value_itemsize: int, index_itemsize: int,
-                  megakernel: bool = False) -> Dict[str, float]:
+                  megakernel: bool = False,
+                  gossip_sync_every: Optional[int] = None
+                  ) -> Dict[str, float]:
     """Predicted exchange ms of one bucket under every candidate regime.
 
     ``megakernel=True`` prices the compute side with the fused
     coefficients (``fused_*`` CostModel fields). A measured ``bucket_ms``
-    overrides the coefficients either way."""
+    overrides the coefficients either way. ``gossip_sync_every``: the
+    gossip regimes' cadence (None: the world's default)."""
     bw = fabric.gbps * 1e6            # bytes per ms
     a = fabric.alpha_ms
 
@@ -342,6 +348,20 @@ def _regime_costs(g: BucketGeom, fabric: Fabric, world: int,
     quant = cost.quant_ms_per_elem * g.payload * (1 + world)
     pack = cost.pack_ms_per_elem * g.payload * (1 + world)
     scales = 4 * g.rows
+
+    def gossip_amortized(topology):
+        # the wire a round amortized over the cadence E = sync_every:
+        # (E-1) neighborhood rounds (alpha a neighbor and lane, d
+        # payloads over the link) and 1 full all-gather over two lanes;
+        # the sparse compute runs every round either way
+        E = (gossip_sync_every if gossip_sync_every is not None
+             else _gossip.default_sync_every(world))
+        d = _gossip.neighbors_per_round(topology)
+        pb = g.payload * (value_itemsize + index_itemsize)
+        neigh = 2 * d * a + d * pb / bw
+        full = wire(pb, 2)
+        return comp + ((E - 1) * neigh + full) / E
+
     return {
         # marginal alpha of joining the always-present dense all-reduce
         # is 0
@@ -361,6 +381,9 @@ def _regime_costs(g: BucketGeom, fabric: Fabric, world: int,
         # per-bucket payload sort rides the pack coefficient
         "int8_delta_idx": comp + quant + 2 * pack + wire(
             g.payload * (1 + g.delta_bits / 8) + scales, 3),
+        # the fp32 wire, most rounds paid for the neighborhood only
+        "gossip_ring": gossip_amortized("ring"),
+        "gossip_hcube": gossip_amortized("hcube"),
     }
 
 
@@ -395,8 +418,6 @@ class Plan:
                  candidates: Sequence[str] = REGIMES,
                  gossip_sync_every: Optional[int] = None,
                  gossip_max_staleness: Optional[int] = None):
-        refuse_gossip(tuple(regimes) + tuple(candidates), gossip_sync_every,
-                      gossip_max_staleness)
         for r in regimes:
             if r not in _KNOWN_REGIMES:
                 raise ValueError(f"unknown exchange regime {r!r} "
@@ -409,14 +430,41 @@ class Plan:
         self.bucket_ms = (tuple(bucket_ms)
                           if bucket_ms is not None else None)
         self.candidates = tuple(candidates)
-        #: the reference's gossip schedule (none: not ported)
-        self.gossip = None
+        self.gossip_sync_every = gossip_sync_every
+        self.gossip_max_staleness = gossip_max_staleness
+        # one schedule for the whole sparse tier: the round clock, the
+        # ages and the full-sync decision are the memory's, not a
+        # bucket's, so mixed families or gossip next to an always-synced
+        # sparse regime have no staleness semantics (dense buckets ride
+        # the all-reduce every round)
+        fams = sorted({r for r in self.regimes
+                       if r.startswith("gossip_")})
+        if len(fams) > 1:
+            raise ValueError(f"mixed gossip families in one plan: {fams}")
+        if fams:
+            other = sorted({r for r in self.regimes
+                            if r != "dense"
+                            and not r.startswith("gossip_")})
+            if other:
+                raise ValueError(
+                    f"gossip plan may not mix {fams[0]} with other "
+                    f"sparse regimes {other} (dense buckets are fine)")
+            #: the gossip schedule (:class:`~dgc_tpu_torch.compression.
+            #: gossip.GossipConfig`), None without a gossip family
+            self.gossip = _gossip.make_config(
+                fams[0][len("gossip_"):], self.world,
+                sync_every=gossip_sync_every,
+                max_staleness=gossip_max_staleness)
+        else:
+            self.gossip = None
 
     # -- identity ------------------------------------------------- #
 
     def key(self) -> Tuple:
-        """Static identity of the exchange this plan induces."""
-        return (self.fabric.name, self.world, self.regimes)
+        """Static identity of the exchange this plan induces (with the
+        gossip schedule, whose cadence or bound changes the exchange)."""
+        base = (self.fabric.name, self.world, self.regimes)
+        return base + ((self.gossip,) if self.gossip is not None else ())
 
     def __eq__(self, other):
         return isinstance(other, Plan) and self.key() == other.key()
@@ -471,7 +519,7 @@ class Plan:
         kinds, whether indices ride the words lane, and which error-
         feedback fold-back runs (quantizing regimes fold the rounding
         residual back eagerly, fp32 defers through the transmit
-        record)."""
+        record; gossip rides the fp32 wire and defers too)."""
         sp = self.sparse_regimes
         kinds = {_value_kind(r) for r in sp}
         return {
@@ -480,7 +528,8 @@ class Plan:
             "value_kinds": tuple(sorted(kinds)),
             "packed_words": any(_uses_words(r) for r in sp),
             "eager_foldback": bool(kinds & {"i8", "i4"}),
-            "gossip": None,
+            "gossip": (self.gossip.topology
+                       if self.gossip is not None else None),
         }
 
     # -- prediction ----------------------------------------------- #
@@ -500,12 +549,14 @@ class Plan:
         """Recompute for the current bucket geometry (a warm-up ratio
         change reshapes payloads) with the same fabric/cost/world. The
         caller compares ``key()`` and rebuilds the engine only on
-        change."""
+        change. The gossip candidates and schedule knobs carry over."""
         buckets = getattr(engine_or_buckets, "buckets", engine_or_buckets)
         return plan_buckets([bucket_geometry(b) for b in buckets],
                             fabric=self.fabric, world=self.world,
                             cost=self.cost, bucket_ms=self.bucket_ms,
-                            candidates=self.candidates)
+                            candidates=self.candidates,
+                            gossip_sync_every=self.gossip_sync_every,
+                            gossip_max_staleness=self.gossip_max_staleness)
 
 
 def plan_buckets(geoms: Sequence[BucketGeom], *, fabric,
@@ -521,23 +572,47 @@ def plan_buckets(geoms: Sequence[BucketGeom], *, fabric,
     """Choose the cheapest regime per bucket. Ties break toward the
     earlier candidate (``dense`` first — the never-lose direction).
     ``megakernel`` prices compute with the fused coefficients (see
-    :func:`_regime_costs`)."""
-    refuse_gossip(candidates, gossip_sync_every, gossip_max_staleness)
+    :func:`_regime_costs`).
+
+    Gossip candidates are weighed per bucket like any other regime, but
+    a gossip plan carries ONE schedule for the whole sparse tier, so a
+    pick that names a gossip family is resolved by a family post-pass:
+    the all-gather assignment and each gossip family (buckets choosing
+    between that family and ``dense``) are totalled, and the cheapest
+    consistent one wins — ties toward the all-gather."""
     fabric = resolve_fabric(fabric)
     world = int(world or fabric.workers)
     regimes, tables = [], []
+    plain = [r for r in candidates if not r.startswith("gossip_")]
+    goss = [r for r in candidates if r.startswith("gossip_")]
     for i, g in enumerate(geoms):
         bm = (float(bucket_ms[i])
               if bucket_ms is not None and i < len(bucket_ms) else None)
         costs = _regime_costs(g, fabric, world, cost, bm,
                               value_itemsize, index_itemsize,
-                              megakernel=megakernel)
+                              megakernel=megakernel,
+                              gossip_sync_every=gossip_sync_every)
         best = min(candidates, key=lambda r: (costs[r],
                                               candidates.index(r)))
         regimes.append(best)
         tables.append(costs)
+    if goss and any(r.startswith("gossip_") for r in regimes):
+        def family_pick(fam_candidates):
+            pick = [min(fam_candidates,
+                        key=lambda r: (c[r], fam_candidates.index(r)))
+                    for c in tables]
+            return pick, sum(c[r] for c, r in zip(tables, pick))
+        options = []
+        if plain:
+            options.append(family_pick(plain))
+        for fam in goss:
+            fam_cands = (["dense"] if "dense" in candidates else []) + [fam]
+            options.append(family_pick(fam_cands))
+        regimes = min(options, key=lambda o: o[1])[0]
     return Plan(regimes, fabric, world, tables, cost=cost,
-                bucket_ms=bucket_ms, candidates=candidates)
+                bucket_ms=bucket_ms, candidates=candidates,
+                gossip_sync_every=gossip_sync_every,
+                gossip_max_staleness=gossip_max_staleness)
 
 
 def _itemsize(dtype) -> int:
@@ -556,7 +631,6 @@ def plan_engine(engine, fabric=None, profile: Optional[Dict] = None,
     for the coefficient model); ``fabric`` resolves through
     :func:`resolve_fabric`. ``megakernel`` defaults to the engine's own
     flag, so a megakernel build is priced with the fused coefficients."""
-    refuse_gossip(candidates, gossip_sync_every, gossip_max_staleness)
     fabric = resolve_fabric(fabric)
     geoms = [bucket_geometry(b) for b in engine.buckets]
     bm = bucket_ms_from_profile(profile, len(geoms))
@@ -566,4 +640,6 @@ def plan_engine(engine, fabric=None, profile: Optional[Dict] = None,
                         bucket_ms=bm, candidates=candidates,
                         value_itemsize=_itemsize(engine.layout.dtype),
                         index_itemsize=_itemsize(engine.index_dtype),
-                        megakernel=megakernel)
+                        megakernel=megakernel,
+                        gossip_sync_every=gossip_sync_every,
+                        gossip_max_staleness=gossip_max_staleness)

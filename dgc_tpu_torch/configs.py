@@ -64,7 +64,14 @@ top-1/top-5 meters, ``acc/test_top1`` as the metric):
   a resilience block with the watchdog (whose heartbeat the supervisor
   reads), the emergency checkpoint (exit 75), the flight recorder and
   the non-finite streak (exit 70) — every signal the control plane's
-  rule table reads.
+  rule table reads;
+* :func:`resnet20_wm5_gossip` and :func:`resnet50_wm5_gossip` —
+  ``configs/gossip.py`` stacked on the wm5 recipes (:func:`with_gossip`):
+  the ``train.gossip`` block (``enabled``, ``topology`` "ring" or
+  "hcube", ``sync_every`` and ``max_staleness``, None for the world's
+  defaults ``max(2, W // 2)`` and ``max(W, sync_every)``), and the
+  telemetry block with the fleet taps (where ``cfg`` lacks one), so the
+  ``w_staleness`` lane and the forced-sync count reach the sink.
 
 ``train.dgc`` chooses DGC (``dgc_sgd``) or the dense baseline (stock
 ``sgd``), as in the reference. :data:`CONFIG_FILES` names each recipe's
@@ -87,9 +94,10 @@ __all__ = ["resnet20", "resnet110", "resnet20_wm5", "resnet20_wm0",
            "resnet50_wm5_twotier", "resnet20_wm5_twotier",
            "resnet20_wm5_telemetry", "resnet50_wm5_telemetry",
            "resnet50_wm5_adaptive", "resnet20_wm5_control",
-           "resnet50_wm5_control", "with_autotune", "with_resilience",
+           "resnet50_wm5_control", "resnet20_wm5_gossip",
+           "resnet50_wm5_gossip", "with_autotune", "with_resilience",
            "with_telemetry", "with_trace", "with_adaptive", "with_control",
-           "RECIPES", "CONFIG_FILES"]
+           "with_gossip", "RECIPES", "CONFIG_FILES"]
 
 
 def _meters() -> Config:
@@ -454,6 +462,35 @@ def resnet50_wm5_control() -> Config:
     return with_control(resnet50_wm5())
 
 
+def with_gossip(cfg: Config, topology: str = "ring", sync_every=None,
+                max_staleness=None) -> Config:
+    """``configs/gossip.py`` stacked on ``cfg``: the gossip exchange's
+    opt-in (``train.gossip``: most sparse rounds exchange with a rotating
+    ``topology`` neighborhood, a full sync every ``sync_every`` rounds or
+    when an age would pass ``max_staleness``; None: the world's
+    defaults), and the fleet taps (with the telemetry block where ``cfg``
+    lacks one), which carry the staleness lane."""
+    if "telemetry" not in cfg.train:
+        cfg.train.telemetry = Config(enabled=True, every=1, rotate_mb=64)
+    cfg.train.telemetry.fleet = True
+    if "gossip" not in cfg.train:
+        cfg.train.gossip = Config()
+    cfg.train.gossip.update(enabled=True, topology=topology,
+                            sync_every=sync_every,
+                            max_staleness=max_staleness)
+    return cfg
+
+
+def resnet20_wm5_gossip() -> Config:
+    """:func:`resnet20_wm5` on the gossip exchange (ring)."""
+    return with_gossip(resnet20_wm5())
+
+
+def resnet50_wm5_gossip() -> Config:
+    """:func:`resnet50_wm5` on the gossip exchange (ring)."""
+    return with_gossip(resnet50_wm5())
+
+
 #: the ``--config`` names of the training CLI
 RECIPES = {f.__name__: f for f in (
     resnet20, resnet110, resnet20_wm5, resnet20_wm0, resnet20_wm5o,
@@ -465,7 +502,7 @@ RECIPES = {f.__name__: f for f in (
     resnet20_wm5_autotune, resnet50_wm5_resilience, resnet20_wm5_resilience,
     resnet50_wm5_twotier, resnet20_wm5_twotier, resnet20_wm5_telemetry,
     resnet50_wm5_telemetry, resnet50_wm5_adaptive, resnet20_wm5_control,
-    resnet50_wm5_control)}
+    resnet50_wm5_control, resnet20_wm5_gossip, resnet50_wm5_gossip)}
 
 _R20, _R110 = "configs/cifar/resnet20.py", "configs/cifar/resnet110.py"
 _R50, _R18 = "configs/imagenet/resnet50.py", "configs/imagenet/resnet18.py"
@@ -509,4 +546,6 @@ CONFIG_FILES = {
     + ("configs/adaptive.py",),
     "resnet20_wm5_control": (_R20, _WM5, "configs/control.py"),
     "resnet50_wm5_control": (_R50, _WM5, "configs/control.py"),
+    "resnet20_wm5_gossip": (_R20, _WM5, "configs/gossip.py"),
+    "resnet50_wm5_gossip": (_R50, _WM5, "configs/gossip.py"),
 }

@@ -42,8 +42,14 @@ Two degradation tiers:
 The median is ``jnp.median``'s: the mean of the two middle values of an
 even-length column (``torch.median`` would take the lower one), computed
 as ``(low + high) * 0.5`` from a sort, so the verdict is bitwise the
-reference's in f32. The gossip composition of the reference does not
-apply: gossip is not ported.
+reference's in f32.
+
+Under a gossip plan (:mod:`~dgc_tpu_torch.compression.gossip`) the
+policy masks a worker's payload before the exchange, as it does for the
+all-gather: a degraded straggler's withheld mass stays in its residual,
+the rotating neighborhoods see its shrunken payload round by round, and
+the staleness bound still forces full syncs on schedule. The two settle
+through the same error-feedback residual and need no coupling.
 """
 
 from typing import NamedTuple

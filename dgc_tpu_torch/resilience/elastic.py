@@ -28,13 +28,23 @@ exact conservation of the error-feedback mass:
   collapse's child 0) takes the generators of its first parent; a child
   that starts empty keeps the generators a fresh run seeds for its rank.
 
+* **Gossip round state** (:mod:`~dgc_tpu_torch.compression.gossip`)
+  reshards by its own rules: the clock and the forced-sync count are
+  replicated monotone counters (every child takes the maximum over the
+  parents), and the ``[world]`` age vector follows the regrouping — a
+  merged worker is as stale as its stalest parent, a split child starts
+  with its parent's age, a collapse gives every worker the maximum. The
+  in-flight ``gossip_inbox`` is additive mass and moves with the
+  velocities, so its total is conserved.
+
 Every memory key must be declared: additive error-feedback mass
 (:data:`~dgc_tpu_torch.compression.memory.ELASTIC_ADDITIVE_PREFIXES`:
 ``momentums*`` and ``velocities*`` in f32 or bf16, which also hold the
-int8 error feed's residual) or the transmit record ``sent_bits``; any
-other key is refused. Per-worker optimizer state (the Adasum scheme) has
-no mass-conserving merge and is refused, as is a change of the two-tier
-group size (its memory is per node).
+int8 error feed's residual, and ``gossip_inbox``), the transmit record
+``sent_bits`` or the gossip round state; any other key is refused.
+Per-worker optimizer state (the Adasum scheme) has no mass-conserving
+merge and is refused, as is a change of the two-tier group size (its
+memory is per node).
 """
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -51,6 +61,10 @@ Tensors = Dict[str, torch.Tensor]
 
 _MEM = "memory:"
 _GENERATORS = ("generator", "dropout_generator")
+#: the gossip round state's checkpoint keys (resharded by max and
+#: regrouping, never summed)
+_GOSSIP_KEYS = tuple(_MEM + k for k in ("gossip_clock", "gossip_age",
+                                         "gossip_forced"))
 
 
 def keep_from_bits_np(bits: np.ndarray, total: int) -> np.ndarray:
@@ -109,7 +123,7 @@ def _check_keys(worker: Tensors) -> None:
             _refuse_per_worker_opt()
         parts = name.split(":")
         if parts[0] == "memory" and (
-                parts[-1] == "sent_bits"
+                parts[-1] == "sent_bits" or name in _GOSSIP_KEYS
                 or any(p.startswith(ELASTIC_ADDITIVE_PREFIXES)
                        for p in parts[1:])):
             continue
@@ -174,7 +188,9 @@ def reshard_workers(parents: List[Tensors], fresh: Dict[int, Tensors],
         raise ValueError(f"{len(parents)} worker files for a world of {fw}")
     for p in parents:
         _check_keys(p)
-    mem_keys = [k for k in parents[0] if k.startswith(_MEM)]
+    mem_keys = [k for k in parents[0]
+                if k.startswith(_MEM) and k not in _GOSSIP_KEYS]
+    has_gossip = _GOSSIP_KEYS[1] in parents[0]
     folded = [fold_pending_mask(p, momentum_masking, prefix=_MEM)
               for p in parents]
     out = {}
@@ -210,6 +226,8 @@ def reshard_workers(parents: List[Tensors], fresh: Dict[int, Tensors],
                 child.update({g: tmpl[g] for g in _GENERATORS if g in tmpl})
             child["batch_stats"] = _mean([p["batch_stats"] for p in parents])
         out[c] = child
+    if has_gossip and fw != tw:
+        _reshard_gossip(parents, out, fw, tw, log)
     if fw % tw == 0 and fw != tw:
         log(f"[elastic] merging {fw} workers -> {tw} ({fw // tw}:1, error "
             "feedback summed, BN stats mean-reduced)")
@@ -222,6 +240,32 @@ def reshard_workers(parents: List[Tensors], fresh: Dict[int, Tensors],
             "collapsing all residual mass into worker 0 (exact total mass, "
             "but per-worker/data alignment is lost)")
     return out
+
+
+def _reshard_gossip(parents: List[Tensors], out: Dict[int, Tensors],
+                    fw: int, tw: int, log: Callable[[str], None]) -> None:
+    """The gossip round state of every child in ``out``, from the parents'
+    (the reference's rules: clock and forced count the maximum, the ages
+    regrouped by maximum, inherited on a split, the maximum everywhere on
+    a collapse)."""
+    clock_k, age_k, forced_k = _GOSSIP_KEYS
+    clock = max(int(p[clock_k]) for p in parents)
+    forced = max(int(p[forced_k]) for p in parents)
+    age = np.max(np.stack([p[age_k].numpy() for p in parents]), axis=0)
+    log(f"[elastic] resharding gossip round state across {fw} -> {tw} "
+        f"workers (clock {clock}, max age {int(age.max())})")
+    if fw % tw == 0:
+        k = fw // tw
+        new_age = np.stack([age[c * k:(c + 1) * k].max()
+                            for c in range(tw)])
+    elif tw % fw == 0:
+        new_age = age[np.arange(tw) // (tw // fw)]
+    else:
+        new_age = np.full((tw,), age.max())
+    for child in out.values():
+        child[clock_k] = torch.tensor(clock, dtype=torch.int32)
+        child[age_k] = torch.from_numpy(new_age.astype(np.int32))
+        child[forced_k] = torch.tensor(forced, dtype=torch.int32)
 
 
 def resolve_batch_geometry(from_world: int, to_world: int, nbps: int,

@@ -21,8 +21,12 @@ Comma-separated tokens, each ``kind[@step][:key=val]*``:
 * ``slow[:ms=M][@K-L]``, ``hang[:secs=S]@K``, ``exit:code=N@K`` — host
   stalls, a stop without exit, an ``os._exit`` (windowed as in the JAX
   package).
-* ``droplink:peer=P[@K-L]`` — parsed, but arming it raises: the gossip
-  exchange it drops a link of is not ported (ROADMAP.md queue 1 item 8).
+* ``droplink:peer=P[@K-L]`` — suppress worker P's contribution to the
+  gossip exchange (:mod:`~dgc_tpu_torch.compression.gossip`) for gossip
+  rounds K..L inclusive (``@K``: from K on; no window: every round). The
+  window counts gossip-clock rounds, not train steps. Every receiver
+  weighs P's row 0 and P's own transmit record is voided, so its mass
+  stays in its residual (:func:`gossip_dropped`).
 
 The plan is read once, where the engine and the trainer are built
 (:func:`plan`), never per call: with ``DGC_FAULTS`` unset the engine and
@@ -41,8 +45,8 @@ import torch
 
 __all__ = ["ENV", "FaultPlan", "plan", "armed", "active_plan",
            "inject_nan_grads", "corrupt_wire", "corrupt_indices",
-           "maybe_kill", "maybe_slow", "maybe_hang", "maybe_exit",
-           "should_fail_init"]
+           "gossip_dropped", "maybe_kill", "maybe_slow", "maybe_hang",
+           "maybe_exit", "should_fail_init"]
 
 ENV = "DGC_FAULTS"
 
@@ -136,16 +140,10 @@ def armed() -> bool:
 
 def active_plan() -> Optional[FaultPlan]:
     """The armed plan, or None when ``DGC_FAULTS`` is unset: what the
-    engine and the trainer read once when they are built. A ``droplink``
-    token raises here, as the gossip exchange is not ported."""
+    engine and the trainer read once when they are built."""
     if not armed():
         return None
-    p = plan()
-    if p.droplink_peer is not None:
-        raise ValueError("droplink drops a link of the gossip exchange, "
-                         "which the port does not run (ROADMAP.md queue 1 "
-                         "item 8)")
-    return p
+    return plan()
 
 
 # ------------------------------------------------------------------ #
@@ -158,6 +156,22 @@ def inject_nan_grads(p: Optional[FaultPlan], grads, step: int):
     if p is None or p.nan_step is None or int(step) != p.nan_step:
         return grads
     return [torch.full_like(g, float("nan")) for g in grads]
+
+
+def gossip_dropped(p: Optional[FaultPlan], world: int,
+                   clock: torch.Tensor) -> Optional[torch.Tensor]:
+    """The ``[world]`` bool tensor of workers whose gossip contribution is
+    suppressed at the round in the int32 scalar tensor ``clock`` (on its
+    device; the window test runs there, no host read), or None when no
+    ``droplink`` is armed."""
+    if p is None or p.droplink_peer is None:
+        return None
+    lo, hi = p.droplink_window
+    inside = clock >= lo
+    if hi is not None:
+        inside = inside & (clock <= hi)
+    ids = torch.arange(world, dtype=torch.int32, device=clock.device)
+    return (ids == (p.droplink_peer % world)) & inside
 
 
 def _flip_bit(x: torch.Tensor, bit: int) -> torch.Tensor:

@@ -28,9 +28,12 @@ No cross-host clock sync is needed (intervals, not absolute times) and
 nothing syncs — the stamp rides into the step like the batch does. A
 straggling worker's own work stretches only ITS stamps: the argmax of the
 gathered clock column IS the worker the cohort waited on ("The Tail at
-Scale", Dean & Barroso, CACM 2013). Gossip is not ported, so the gossip
-age lane and the forced-sync counter stamp constants, as the reference
-does with gossip off.
+Scale", Dean & Barroso, CACM 2013). Under a gossip plan
+(:mod:`~dgc_tpu_torch.compression.gossip`) each worker stamps its own
+entry of the memory's replicated age vector in the ``w_staleness`` lane,
+and the memory's forced-sync count is the cohort's
+(``max_staleness_seen``, ``gossip_forced_syncs``); with gossip off both
+stamp a constant 0.
 
 **Host-side** (:func:`load_view` + friends) — merge the per-host rotated
 JSONL sink shards of a run (``<run>/telemetry/host*/telemetry*.jsonl``,
@@ -67,9 +70,10 @@ __all__ = [
 #: fleet lanes appended to the packed telemetry vector, in order; the
 #: first four are the dispersion lanes the worker_skew rollup reads —
 #: w_eff_ratio (the adaptive policy's effective send fraction,
-#: resilience/adaptive.py) and w_staleness (the gossip age, a constant 0
-#: here) are excluded from the skew: an engaged policy is the mechanism
-#: doing its job, not the cohort desyncing
+#: resilience/adaptive.py) and w_staleness (the gossip age since a worker's
+#: mass last reached the parameters, compression/gossip.py) are excluded
+#: from the skew: an engaged policy or a rotating gossip age is the
+#: mechanism doing its job, not the cohort desyncing
 _FLEET_LANES = ("w_clock", "w_grad_norm", "w_residual_mass", "w_sent_ratio",
                 "w_eff_ratio", "w_staleness")
 _SKEW_LANES = ("w_clock", "w_grad_norm", "w_residual_mass", "w_sent_ratio")
@@ -102,9 +106,12 @@ def gather_stats(stats: Sequence[Dict[str, torch.Tensor]], comm, *, clock,
     worker's adaptive effective send fraction (f32 device scalars,
     resilience/adaptive.py); None (adaptive off) stamps a constant 1.0
     lane, so the packed vector's shape — and the collective count — never
-    depends on the mode. ``staleness`` / ``forced`` — the gossip age and
-    forced-sync counter, None here (gossip is not ported): the lane and
-    the scalar stamp a constant 0.0.
+    depends on the mode. ``staleness`` — each local worker's gossip age in
+    rounds (int32 or f32 device scalars, compression/gossip.py);
+    ``forced`` — the cumulative forced-full-sync count (a device scalar,
+    the same on every worker). Both None with gossip off: the lane and the
+    scalar stamp a constant 0.0, so shapes and collectives do not depend
+    on the mode.
 
     Replaces ``taps.pmean_stats``: the telemetry means are computed
     locally from the gathered matrix, and the fleet per-worker columns +

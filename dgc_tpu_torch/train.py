@@ -87,6 +87,21 @@ boundary into ``<save_path>/fabric.json`` and rebuilds the engine at the
 next epoch only when the plan's key changed; a warm-up rebuild re-fits the
 plan to the new geometry. It is refused without DGC.
 
+The gossip exchange (``resnet20_wm5_gossip``, ``resnet50_wm5_gossip``:
+``configs/gossip.py``, the recipe's ``train.gossip`` block with
+``topology`` "ring" or "hcube", ``sync_every`` and ``max_staleness``,
+None for the world's defaults): the trainer plans every bucket on the
+family (``planner.plan_engine(..., candidates=(family,))``, printed as
+``[gossip] GossipConfig(...) -> plan [...]``), keeps that plan for every
+warm-up rebuild, re-fitted to the new geometry, and with ``--autotune``
+adds the family to the autotuner's candidates instead. The fleet taps
+carry each worker's staleness. It is refused without DGC
+(``SystemExit``, as the JAX harness).
+
+    python -m dgc_tpu_torch.train --config resnet20_wm5_gossip \\
+        --device cpu --world 4 --epochs 1 --steps 4 --batch-size 8 \\
+        --synthetic-size 64
+
     python -m dgc_tpu_torch.train --config resnet20_wm5 --autotune \\
         --device cpu --world 2 --epochs 2 --steps 3 --batch-size 8 \\
         --synthetic-size 64
@@ -150,6 +165,7 @@ import torch.distributed as dist
 
 from dgc_tpu_torch import configs as _configs
 from dgc_tpu_torch.compression.autotune import Autotuner
+from dgc_tpu_torch.compression.planner import REGIMES, plan_engine
 from dgc_tpu_torch.compression.base import Compression
 from dgc_tpu_torch.compression.dgc import DGCCompressor
 from dgc_tpu_torch.compression.flat import ParamLayout
@@ -349,6 +365,21 @@ class Trainer:
                 lr, momentum=oc.momentum, weight_decay=oc.weight_decay,
                 nesterov=oc.nesterov, weight_decay_mask=wd_mask),
             self.compression, comm, local_size=self.num_local)
+        gc = tc.get("gossip") or {}
+        #: the gossip exchange's regime family (``train.gossip``), or None
+        self.gossip_family = None
+        self._gossip_kw = {}
+        if gc.get("enabled", False):
+            if not tc.dgc:
+                raise SystemExit("gossip decentralizes the sparse DGC wire "
+                                 "(configs with train.dgc = True)")
+            self.gossip_family = "gossip_" + str(gc.get("topology", "ring"))
+            self._gossip_kw = {
+                f"gossip_{k}": (None if gc.get(k) is None else int(gc[k]))
+                for k in ("sync_every", "max_staleness")}
+        #: the standing gossip plan every warm-up rebuild re-fits (None:
+        #: gossip off, or the autotuner owns the plan)
+        self._gossip_plan = None
         at = tc.get("autotune") or {}
         #: the online replanner (``train.autotune.enabled``), or None
         self.autotuner = None
@@ -356,9 +387,12 @@ class Trainer:
             if not tc.dgc:
                 raise ValueError("autotune plans the sparse DGC wire "
                                  "(recipes with train.dgc = True)")
-            self.autotuner = Autotuner(world=comm.world,
-                                       fabric_out=fabric_out,
-                                       min_points=at.get("min_points", 2))
+            self.autotuner = Autotuner(
+                world=comm.world, fabric_out=fabric_out,
+                min_points=at.get("min_points", 2),
+                candidates=REGIMES + ((self.gossip_family,)
+                                      if self.gossip_family else ()),
+                **self._gossip_kw)
         #: a replan whose key changed: the engine is rebuilt next epoch
         self._plan_pending = False
         self._at_wire = 0
@@ -393,8 +427,19 @@ class Trainer:
 
     def _build_setup(self) -> None:
         """The engine at the compressor's ratio; under the autotuner with
-        the plan of its current fabric, re-fit to this geometry."""
-        self.setup = make_flat_setup(self.model, self.dist)
+        the plan of its current fabric, under a gossip recipe with the
+        standing gossip plan, each re-fit to this geometry."""
+        self.setup = make_flat_setup(self.model, self.dist,
+                                     plan=self._gossip_plan)
+        if self.gossip_family is not None and self.autotuner is None \
+                and self._gossip_plan is None:
+            self._gossip_plan = plan_engine(
+                self.setup.engine, world=self.comm.world,
+                candidates=(self.gossip_family,), **self._gossip_kw)
+            self.setup = make_flat_setup(self.model, self.dist,
+                                         plan=self._gossip_plan)
+            printr(f"[gossip] {self.setup.engine.plan.gossip} -> plan "
+                   f"{list(self.setup.engine.regimes)}")
         if self.autotuner is not None:
             plan = self.autotuner.plan_for(self.setup.engine)
             self.setup = make_flat_setup(self.model, self.dist, plan=plan)

@@ -333,9 +333,16 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
     if fleet:
         # ONE packed all_gather yields the telemetry means AND the
         # per-worker dispersion columns (it replaces the all-reduce)
+        g_stale = g_forced = None
+        if "gossip_age" in state.memory[0]:
+            # gossip on: the ages are replicated by construction, so each
+            # worker reads its own entry, no collective
+            g_stale = [m["gossip_age"][r]
+                       for m, r in zip(state.memory, comm.ranks)]
+            g_forced = state.memory[0]["gossip_forced"]
         metrics["telemetry"], metrics["fleet"] = _fleet.gather_stats(
             out[3], comm, clock=clock, total_elems=setup.layout.total,
-            eff_ratio=frac)
+            eff_ratio=frac, staleness=g_stale, forced=g_forced)
     elif telemetry:
         metrics["telemetry"] = _taps.pmean_stats(out[3], comm)
     if adaptive is not None:

@@ -39,6 +39,17 @@ from dgc_tpu_torch.ops import kernels as tk
 from dgc_tpu_torch.ops import sparsify as tops
 from dgc_tpu_torch.parallel.comm import LocalComm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 2
 FLAGS = dict(strided_sample=False, resample=False)
 

@@ -6,7 +6,8 @@ across the wm5 warm-up; the point pool's cap and filter; the telemetry
 inputs (a ``dgc-profile`` table's per-bucket all-gather costs through
 ``add_profile`` and ``epoch_end(profile=)``, a run's fleet lanes through
 ``add_fleet_view``) giving the JAX autotuner's points, refit and sink
-records; and the gossip candidates refused."""
+records; and the gossip candidates and schedule options planned as the
+JAX autotuner plans them."""
 
 import json
 
@@ -159,7 +160,20 @@ def test_point_pool_and_refusals(engines, tmp_path):
     assert (tplan is None) == (jplan is None)
     assert sinks[0].records == sinks[1].records
     assert sinks[0].records[0]["event"] == "autotune_replan"
-    with pytest.raises(ValueError, match="item 8"):
-        ta.Autotuner("32x25GbE", world=4, candidates=("gossip_ring",))
-    with pytest.raises(ValueError, match="item 8"):
-        ta.Autotuner("32x25GbE", world=4, gossip_max_staleness=3)
+    # the gossip opt-in: the family among the candidates, the schedule
+    # knobs carried into every plan, as the JAX autotuner carries them
+    for kw in (dict(candidates=("gossip_ring",)),
+               dict(candidates=ta.REGIMES + ("gossip_hcube",),
+                    gossip_sync_every=2, gossip_max_staleness=3),
+               dict(gossip_max_staleness=3)):
+        tg = ta.Autotuner("32x25GbE", world=4, **kw)
+        jg = ja.Autotuner("32x25GbE", world=4, **kw)
+        tpl, jpl = tg.plan_for(te), jg.plan_for(je)
+        assert tpl.regimes == jpl.regimes and tpl.key() == jpl.key()
+        assert tpl.gossip == jpl.gossip
+        for a in (tg, jg):
+            for ms, b in ((3.0, 20), (4.0, 30), (5.0, 40)):
+                a.record_step(ms, b)
+        tn, jn = tg.epoch_end(te, epoch=5), jg.epoch_end(je, epoch=5)
+        assert (tn is None) == (jn is None)
+        assert tg.plan.key() == jg.plan.key()

@@ -44,6 +44,17 @@ from dgc_tpu_torch.parallel.comm import LocalComm
 from dgc_tpu_torch.utils import clip_grad as tclip
 from dgc_tpu_torch.utils.pytree import named_flatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-6, atol=1e-7)
 
 LOCAL = [("clip_grad_norm", dict(max_norm=1.5)),

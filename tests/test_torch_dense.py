@@ -60,6 +60,17 @@ from dgc_tpu_torch.training import lr as tlr
 from dgc_tpu_torch.training.state import TrainState as TorchTrainState
 from dgc_tpu_torch.training.step import train_step, worker_grad
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WM5O = [1, 1, 1, 1, 1]
 
 

@@ -32,6 +32,17 @@ from dgc_tpu_torch.compression import flat as tflat
 from dgc_tpu_torch.compression.memory import DGCSGDMemory as TMemory
 from dgc_tpu_torch.parallel.comm import LocalComm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 8
 
 

@@ -10,7 +10,9 @@
   fleet)`` on a 2-device mesh and the port's ``train_step(telemetry=True,
   fleet=True)`` from the same weights, batches, sampling phases and
   clocks, two steps of a CIFAR ResNet with one block a stage: the same
-  keys, the clock, send-fraction and gossip lanes and the static wire
+  keys, the clock, send-fraction and gossip lanes (a constant 0: no
+  gossip plan; tests/test_torch_gossip.py holds them under one) and the
+  static wire
   bytes bitwise, every other number within the rtol 1e-3 the step parity
   test gives the losses (the convolutions sum in other orders, and XLA
   contracts the compensate's multiply-adds under jit). The fleet step
@@ -94,23 +96,34 @@ def _compare(tel, flt, jtel, jflt, label, exact=_EXACT):
                                        err_msg=f"{label} {k}")
 
 
-@pytest.mark.parametrize("adaptive", [False, True])
-def test_gather_stats_matches_jax(adaptive):
+@pytest.mark.parametrize("adaptive,gossip", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="gossip")])
+def test_gather_stats_matches_jax(adaptive, gossip):
+    """The lanes with the adaptive fraction and with the gossip ages and
+    forced count (each worker's age, int32 as the memory holds it); off,
+    the gossip lane and scalars are a constant 0, as the JAX gather's."""
     W = 4
     rng = np.random.RandomState(int(adaptive))
     stats = _worker_stats(rng, W)
     clock = np.asarray([200.0, 200.0, 350.0, 200.0], np.float32)
     eff = np.asarray([1.0, 1.0, 0.775, 1.0], np.float32)
+    age = np.asarray([0, 3, 1, 2], np.int32)
+    forced = np.int32(5)
     total = 270_000
     jstack = {k: jnp.stack([jnp.asarray(s[k]) for s in stats])
               for k in stats[0]}
 
-    def worker(st, c, e):
+    def worker(st, c, e, a):
         return jfleet.gather_stats(st, ("data",), clock=c[None],
                                    total_elems=total,
-                                   eff_ratio=e if adaptive else None)
+                                   eff_ratio=e if adaptive else None,
+                                   staleness=a if gossip else None,
+                                   forced=(jnp.asarray(forced) if gossip
+                                           else None))
     jtel, jflt = jax.vmap(worker, axis_name="data")(
-        jstack, jnp.asarray(clock), jnp.asarray(eff))
+        jstack, jnp.asarray(clock), jnp.asarray(eff), jnp.asarray(age))
     jtel = {k: v[0] for k, v in jtel.items()}
     jflt = {k: v[0] for k, v in jflt.items()}
     tstats = [{k: torch.from_numpy(np.asarray(v)) for k, v in s.items()}
@@ -118,10 +131,16 @@ def test_gather_stats_matches_jax(adaptive):
     tel, flt = tfleet.gather_stats(
         tstats, LocalComm(W), clock=torch.from_numpy(clock),
         total_elems=total,
-        eff_ratio=[torch.tensor(e) for e in eff] if adaptive else None)
+        eff_ratio=[torch.tensor(e) for e in eff] if adaptive else None,
+        staleness=([torch.tensor(a) for a in age] if gossip else None),
+        forced=torch.tensor(forced) if gossip else None)
     _compare(tel, flt, jtel, jflt, "W=4")
     assert float(flt["straggler"]) == 2.0
     assert float(flt["adaptive_engaged"]) == float(adaptive)
+    assert flt["w_staleness"].tolist() == (age.tolist() if gossip
+                                           else [0.0] * W)
+    assert float(flt["max_staleness_seen"]) == (3.0 if gossip else 0.0)
+    assert float(flt["gossip_forced_syncs"]) == (5.0 if gossip else 0.0)
 
 
 def test_gather_stats_two_tiers_worker_major():

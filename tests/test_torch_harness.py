@@ -343,12 +343,17 @@ def test_synthetic_cifar_and_batch_order_match_jax(tmp_path):
 @pytest.mark.parametrize("kw", [dict(checksum=True, int8_values=True),
                                 dict(plan=("gossip_ring",))])
 def test_unported_compressor_options_raise(kw):
-    """Options whose code paths the flat engine does not carry (the gossip
-    regimes, ROADMAP.md queue 1 item 8; the payload checksum over the int8
-    wire, whose scales it would not cover — the reference refuses it too)
-    are refused, not silently run as the default path, at a compressed
-    ratio and at a dense one (whose engine has no bucket: an empty plan,
-    no payload)."""
+    """The payload checksum over the int8 wire (whose scales it would not
+    cover) is refused, not silently run as the default path, at a
+    compressed ratio and at a dense one (whose engine has no bucket: an
+    empty plan, no payload). A bare regime tuple naming a gossip family
+    is what the JAX engine makes of it: a plain f32-wire engine with no
+    gossip schedule (only a planner ``Plan`` carries one) at the
+    compressed ratio, the geometry refusal at the dense one."""
+    import jax
+    from dgc_tpu import DGCCompressor as JDGCCompressor
+    from dgc_tpu.compression.flat import (FlatDGCEngine as JEngine,
+                                          ParamLayout as JLayout)
     kw = dict(kw)
     plan = kw.pop("plan", None)
     for coeff in (None, [1, 1, 1, 1, 1]):
@@ -357,11 +362,30 @@ def test_unported_compressor_options_raise(kw):
         comp.initialize([("w", (64, 64))])
         comp.warmup_compress_ratio(0)
         layout = ParamLayout({"w": (64, 64), "b": (64,)}, ["w"])
+        if plan is not None:
+            jc = JDGCCompressor(0.001, warmup_epochs=5, warmup_coeff=coeff,
+                                **kw)
+            shapes = {"w": jax.ShapeDtypeStruct((64, 64), jnp.float32),
+                      "b": jax.ShapeDtypeStruct((64,), jnp.float32)}
+            jc.initialize([("w", shapes["w"])])
+            jc.warmup_compress_ratio(0)
+            try:
+                je = JEngine(jc, JLayout(shapes, ["w"]), plan=plan)
+            except ValueError as e:
+                with pytest.raises(ValueError) as got:
+                    FlatDGCEngine(comp, layout, plan=plan)
+                assert str(got.value) == str(e)
+                continue
+            te = FlatDGCEngine(comp, layout, plan=plan)
+            assert te.regimes == je.regimes and te._gossip is None
+            assert je._gossip is None
+            assert te.payload_size == je.payload_size
+            continue
         if coeff is not None and "checksum" in kw:
             # a dense epoch sends no payload: nothing to checksum
             assert not FlatDGCEngine(comp, layout, plan=plan).checksum
             continue
-        with pytest.raises(ValueError, match="item 8|int8_values"):
+        with pytest.raises(ValueError, match="int8_values"):
             FlatDGCEngine(comp, layout, plan=plan)
 
 

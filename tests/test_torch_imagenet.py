@@ -52,6 +52,17 @@ from dgc_tpu_torch.training import lr as tlr
 from dgc_tpu_torch.training.step import FlatSetup, worker_grad
 from test_torch_folder import image_folder
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 2
 TOL = dict(rtol=1e-4, atol=1e-5)
 FLAX = {"resnet18": flax_resnet18, "resnet50": flax_resnet50}

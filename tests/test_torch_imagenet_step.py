@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from dgc_tpu import DGCCompressor, DGCSGDMemory, DistributedOptimizer, dgc_sgd
@@ -35,6 +36,17 @@ from dgc_tpu_torch.compression import flat as tflat
 from dgc_tpu_torch.interop import carry_variables
 from dgc_tpu_torch.parallel.comm import LocalComm
 from dgc_tpu_torch.train import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W = 2
 FLAX = {"resnet18": flax_resnet18, "resnet50": flax_resnet50}

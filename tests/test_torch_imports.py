@@ -50,7 +50,9 @@ def test_port_imports_no_jax():
                 "serving.delta", "serving.exporter", "serving.replica",
                 "resilience.surgery", "control", "control.__main__",
                 "control.supervisor", "control.rules", "control.actions",
-                "control.scheduler", "control.plane", "telemetry.monitor"):
+                "control.scheduler", "control.plane", "telemetry.monitor",
+                "compression.gossip", "compression.planner",
+                "compression.autotune"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 

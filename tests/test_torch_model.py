@@ -21,6 +21,17 @@ from dgc_tpu_torch.interop import carry_variables, export_variables
 from dgc_tpu_torch.models import param_tree, resnet_cifar, stats_tree
 from dgc_tpu_torch.training.step import FlatSetup, worker_grad
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STAGES = (1, 1, 1)
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -252,19 +252,54 @@ def _small_layout(comp):
 
 @pytest.mark.parametrize("kw", [
     dict(checksum=True, int8_values=True), dict(plan=("gossip_hcube",)),
-    dict(memory=tmemory.DGCSGDMemory(dtype="float16"))])
+    dict(memory=tmemory.DGCSGDMemory(dtype="float16")),
+    dict(plan=("gossip_hcube", 6)), dict(plan=("gossip_hcube", 4))])
 def test_flat_engine_refuses_what_it_does_not_carry(kw):
     """The flat engine carries the bf16 state, the int8 / fp16 wires (the
-    per-tensor path's too) and the payload checksum since they were
-    ported; it still refuses the gossip regimes (ROADMAP.md queue 1 item
-    8), the checksum over the int8 wire (its scales would ride uncovered,
-    as the reference refuses it) and a state dtype the reference has no
-    kernel for."""
+    per-tensor path's too), the payload checksum and the gossip exchange
+    since they were ported; it still refuses the checksum over the int8
+    wire (its scales would ride uncovered, as the reference refuses it)
+    and a state dtype the reference has no kernel for. A gossip plan is
+    built or refused where the JAX engine builds or refuses it: a bare
+    regime tuple is a plain f32-wire engine in both, a planner ``Plan``
+    of ``gossip_hcube`` builds the schedule at W=4 and is refused at
+    W=6."""
     kw = dict(kw)
     plan = kw.pop("plan", None)
     comp = tdgc.DGCCompressor(0.05, **kw)
-    with pytest.raises(ValueError, match="ROADMAP|float16|int8_values"):
-        comp.make_flat_exchange(_small_layout(comp), plan=plan)
+    if plan is None:
+        with pytest.raises(ValueError, match="float16|int8_values"):
+            comp.make_flat_exchange(_small_layout(comp), plan=plan)
+        return
+    from dgc_tpu import DGCCompressor as JDGCCompressor
+    from dgc_tpu.compression import planner as jplanner
+    from dgc_tpu.compression.flat import FlatDGCEngine as JEngine
+    from dgc_tpu.compression.flat import ParamLayout as JLayout
+    from dgc_tpu_torch.compression import planner as tplanner
+    jc = JDGCCompressor(0.05, memory=jmemory.DGCSGDMemory())
+    shapes = {"w": jax.ShapeDtypeStruct((64, 32), jnp.float32),
+              "b": jax.ShapeDtypeStruct((32,), jnp.float32)}
+    jc.initialize([("w", shapes["w"])])
+    layout = _small_layout(comp)
+
+    def build(pkg, engine, c, lay):
+        if len(plan) == 2 and isinstance(plan[1], int):
+            p = pkg.Plan((plan[0],), pkg.BUILTIN_FABRICS["32x25GbE"],
+                         plan[1])
+        else:
+            p = plan
+        return engine(c, lay, plan=p)
+    try:
+        je = build(jplanner, JEngine, jc, JLayout(shapes, ["w"]))
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            build(tplanner, tflat.FlatDGCEngine, comp, layout)
+        assert str(got.value) == str(e)
+        return
+    te = build(tplanner, tflat.FlatDGCEngine, comp, layout)
+    assert te.regimes == je.regimes and te._gossip == je._gossip
+    mem = te.init_memory("cpu")
+    assert sorted(mem) == sorted(je.init_memory())
 
 
 def test_unported_options_still_raise():

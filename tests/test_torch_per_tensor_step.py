@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from dgc_tpu import DGCCompressor, DGCSGDMemory, DistributedOptimizer, dgc_sgd
@@ -34,6 +35,16 @@ from dgc_tpu_torch.training.state import TrainState as TorchTrainState
 from dgc_tpu_torch.training.step import (make_flat_state,
                                          make_per_tensor_setup,
                                          train_step_per_tensor, worker_grad)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 """The port's regime planner against the JAX package's (a copy of that
-JAX-free module without its gossip families): the same regimes from
+JAX-free module): the same regimes from
 ``plan_buckets`` / ``plan_engine`` for every built-in fabric at W = 2, 4
 and 8 over the buckets both packages build from ResNet-20 across the wm5
 warm-up (with and without the megakernel's coefficients, with a measured
@@ -7,7 +7,8 @@ fabric and with a per-bucket profile), the same cost tables and
 ``predicted_ms`` (rtol 1e-12), the same lanes and collectives;
 ``fit_link_model`` on the same points; ``fabric.json`` round trips with
 equal ``Plan.key()``; the fabric resolution chain; and the gossip
-regimes and options refused (ROADMAP.md queue 1 item 8)."""
+families built or refused exactly where the JAX package builds or refuses
+them, under its message."""
 
 import json
 
@@ -57,7 +58,7 @@ def _same_plan(t, j):
     assert t.world == j.world and t.fabric == tp.Fabric(*j.fabric)
     assert len(t.bucket_costs) == len(j.bucket_costs)
     for tc, jc in zip(t.bucket_costs, j.bucket_costs):
-        assert set(tc) == set(jc) - set(jp.GOSSIP_REGIMES)
+        assert set(tc) == set(jc)
         for r, v in tc.items():
             np.testing.assert_allclose(v, jc[r], rtol=1e-12, atol=0)
     tpm, jpm = t.predicted_ms(), j.predicted_ms()
@@ -159,19 +160,78 @@ def test_fabric_json_round_trip_and_resolution(engines, tmp_path,
         tp.resolve_fabric("nowhere")
 
 
+def _outcome(fn):
+    """``("ok", value)`` or ``("raise", type, message)``."""
+    try:
+        return ("ok", fn())
+    except Exception as e:                  # noqa: BLE001 — compared below
+        return ("raise", type(e), str(e))
+
+
+def _same_outcome(tfn, jfn):
+    """The port builds where the JAX package builds (the same plan) and
+    raises where it raises, with its exception and message."""
+    t, j = _outcome(tfn), _outcome(jfn)
+    assert t[0] == j[0], (t, j)
+    if t[0] == "raise":
+        assert t[1:] == j[1:]
+        return None
+    _same_plan(t[1], j[1])
+    assert t[1].gossip == j[1].gossip
+    return t[1]
+
+
 def test_gossip_is_refused(engines):
+    """The gossip families and options where the JAX package plans them
+    (gossip plans, the family post-pass, the schedule in the key) and
+    where it refuses them (mixed families, gossip next to a plain sparse
+    regime, hcube off a power-of-two world, a bound below the cadence, an
+    unknown regime)."""
     je, te = engines[5]
     geoms = [tp.bucket_geometry(b) for b in te.buckets]
-    with pytest.raises(ValueError, match="item 8"):
-        tp.plan_buckets(geoms, fabric="32x25GbE",
-                        candidates=tp.REGIMES + tp.GOSSIP_REGIMES)
-    with pytest.raises(ValueError, match="item 8"):
-        tp.plan_engine(te, candidates=("gossip_ring",))
-    with pytest.raises(ValueError, match="item 8"):
-        tp.plan_engine(te, gossip_sync_every=4)
-    with pytest.raises(ValueError, match="item 8"):
-        tp.Plan(("gossip_hcube", "dense"), tp.BUILTIN_FABRICS["32x25GbE"], 4)
-    with pytest.raises(ValueError, match="unknown exchange regime"):
-        tp.Plan(("int2",), tp.BUILTIN_FABRICS["32x25GbE"], 4)
+    fab = tp.BUILTIN_FABRICS["32x25GbE"]
+    jfab = jp.BUILTIN_FABRICS["32x25GbE"]
+    plan = _same_outcome(
+        lambda: tp.plan_buckets(geoms, fabric="32x25GbE",
+                                candidates=tp.REGIMES + tp.GOSSIP_REGIMES),
+        lambda: jp.plan_buckets(geoms, fabric="32x25GbE",
+                                candidates=jp.REGIMES + jp.GOSSIP_REGIMES))
+    assert plan.candidates == tp.REGIMES + tp.GOSSIP_REGIMES
+    for fam in tp.GOSSIP_REGIMES:
+        plan = _same_outcome(
+            lambda: tp.plan_engine(te, candidates=(fam,), world=4),
+            lambda: jp.plan_engine(je, candidates=(fam,), world=4))
+        assert plan.regimes == (fam,) * len(te.buckets)
+        assert plan.verify_descriptor()["gossip"] == fam[len("gossip_"):]
+        assert plan.key()[-1] == plan.gossip
+        assert tuple(plan.replan(te).key()) == tuple(
+            jp.Plan.replan(jp.plan_engine(je, candidates=(fam,), world=4),
+                           je).key())
+    plan = _same_outcome(
+        lambda: tp.plan_engine(te, candidates=("gossip_ring",), world=8,
+                               gossip_sync_every=2, gossip_max_staleness=5),
+        lambda: jp.plan_engine(je, candidates=("gossip_ring",), world=8,
+                               gossip_sync_every=2, gossip_max_staleness=5))
+    assert plan.gossip == (("ring", 8, 2, 5))
+    assert plan.replan(te).gossip == plan.gossip
+    assert _same_outcome(lambda: tp.plan_engine(te, gossip_sync_every=4),
+                         lambda: jp.plan_engine(je, gossip_sync_every=4)
+                         ).gossip is None
+    for regimes, world, kw in (
+            (("gossip_hcube", "dense"), 4, {}),
+            (("gossip_hcube",), 6, {}),
+            (("gossip_ring", "fp32"), 4, {}),
+            (("gossip_ring", "gossip_hcube"), 4, {}),
+            (("gossip_ring",), 4, dict(gossip_sync_every=4,
+                                       gossip_max_staleness=3)),
+            (("gossip_ring",), 1, {}),
+            (("int2",), 4, {})):
+        _same_outcome(lambda: tp.Plan(regimes, fab, world, **kw),
+                      lambda: jp.Plan(regimes, jfab, world, **kw))
+    _same_outcome(
+        lambda: tp.plan_buckets(geoms, fabric="32x25GbE", world=6,
+                                candidates=("gossip_hcube",)),
+        lambda: jp.plan_buckets(geoms, fabric="32x25GbE", world=6,
+                                candidates=("gossip_hcube",)))
     assert tp.Plan(("fp16_packed",), tp.BUILTIN_FABRICS["32x25GbE"],
                    4).num_gathers == 2

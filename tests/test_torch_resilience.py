@@ -52,10 +52,21 @@ def test_fault_grammar_refusals(monkeypatch):
     assert faults.armed() and faults.active_plan().nan_step == 0
     assert [faults.should_fail_init(a) for a in range(3)] == [
         jfaults.should_fail_init(a) for a in range(3)] == [True, True, False]
-    # the gossip exchange droplink drops a link of is not ported
-    monkeypatch.setenv(faults.ENV, "droplink:peer=1")
-    with pytest.raises(ValueError, match="item 8"):
-        faults.active_plan()
+    # droplink arms as in the JAX package: the same plan, and the same
+    # dropped vector at every gossip round of its window
+    for spec in ("droplink:peer=1", "droplink:peer=9@2-3"):
+        monkeypatch.setenv(faults.ENV, spec)
+        p = faults.active_plan()
+        assert tuple(p) == tuple(jfaults.plan())
+        for clock in range(5):
+            want = jfaults.gossip_dropped(8, jnp.asarray(clock, jnp.int32))
+            got = faults.gossip_dropped(p, 8, torch.tensor(clock,
+                                                           dtype=torch.int32))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    monkeypatch.setenv(faults.ENV, "nan@0")
+    assert faults.gossip_dropped(faults.active_plan(), 8,
+                                 torch.zeros((), dtype=torch.int32)) is None
+    assert jfaults.gossip_dropped(8, jnp.zeros((), jnp.int32)) is None
 
 
 def test_injectors_copy_and_match_jax():

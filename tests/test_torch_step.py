@@ -45,6 +45,17 @@ from dgc_tpu_torch.parallel.comm import LocalComm
 from dgc_tpu_torch.train import Trainer
 from dgc_tpu_torch.training import lr as tlr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread (the file runs beside other test workers, where
+    several threads a worker oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 2
 
 

@@ -248,8 +248,13 @@ def test_plans_and_refusals(params):
     assert te.regimes == ("fp32", "fp32") and te._sparse_ids == [0, 1]
     with pytest.raises(ValueError, match="different geometry"):
         _engines(params, 5, plan=("fp32",))
-    with pytest.raises(ValueError, match="item 8"):
-        _engines(params, 5, plan=("gossip_ring", "fp32"))
+    # a bare regime tuple with a gossip family: a plain f32-wire engine
+    # with no gossip schedule in both packages (only a planner Plan
+    # carries one, and the planner refuses gossip next to fp32)
+    je, te = _engines(params, 5, plan=("gossip_ring", "fp32"))
+    assert te.regimes == je.regimes == ("gossip_ring", "fp32")
+    assert te._gossip is None and je._gossip is None
+    assert te.wire_bytes_per_worker() == je.wire_bytes_per_worker()
     with pytest.raises(ValueError, match="unknown exchange regime"):
         _engines(params, 5, plan=("int2", "fp32"))
     # the payload checksum is ported (test_torch_checksum.py holds it):
