@@ -308,6 +308,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    turns; ``resnet20_wm5_gossip`` resumed bitwise with the inbox in
    flight, and that checkpoint restored elastically on 2 workers (inbox
    and mass conserved, ages merged by max).
+   The analysis slice (``phase_analysis``): the lints, the race lint and
+   the model checker over the port's writers (``drop_fsync`` red); the
+   33 contracts over recorded steps of the W=8 fixture on the card, and
+   two that read a profiler window (guards and telemetry add no
+   synchronising call over the plain step); ``resnet50_wm5`` W=4, a step
+   at epoch 4 and one at 5 under the verifier's recorder: the recorded
+   collectives ``Plan.collectives()`` plus the loss mean, error-feedback
+   conservation bit for bit for every worker and bucket (red on C3 under
+   ``DGC_VERIFY_MUTATE=drop_foldback``), the alias coverage and the
+   card's peak memory, the launches the engines' own count.
 5. One step through ``ProcessGroupComm`` on a one-rank NCCL group. Then
    the CLI in subprocesses from a scratch directory: ``torchrun
    --standalone --nproc_per_node=1`` trains ``resnet20_wm5`` as one NCCL
@@ -3753,28 +3763,12 @@ class _faults_armed:
         return False
 
 
-def _recording_comm(world, local_size=1):
-    """A ``LocalComm`` that counts its collectives (``.calls``), also those
-    of its two tiers' groups."""
+def _recording_comm(world):
+    """A ``LocalComm`` of ``world`` workers counting its collectives (and
+    its two tiers' groups'): the analysis layer's recording Comm."""
+    from dgc_tpu_torch.analysis.program import RecordingComm
     from dgc_tpu_torch.parallel.comm import LocalComm
-    calls = {"all_gather": 0, "all_reduce": 0, "swap": 0}
-
-    def counted(obj):
-        for name in calls:
-            fn = getattr(obj, name)
-
-            def wrap(xs, *a, _fn=fn, _n=name):
-                calls[_n] += 1
-                return _fn(xs, *a)
-            setattr(obj, name, wrap)
-        return obj
-
-    class Recording(LocalComm):
-        def split(self, local_size):
-            return tuple(counted(g) for g in super().split(local_size))
-    comm = counted(Recording(world))
-    comm.calls = calls
-    return comm
+    return RecordingComm(LocalComm(world))
 
 
 def _exchange_health(eng, dev, world=4, nan=False, local_size=1, op=None):
@@ -4243,9 +4237,6 @@ def phase_process_group():
 #: the norms and masses sum [T] elements, in another order on each
 _EXACT_STATS = ("payload_elems", "selected_frac", "threshold", "wire_bytes",
                 "clip_delta")
-#: the host calls that wait for the device
-_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-               "cudaEventSynchronize", "cudaMemcpy")
 #: device kernel name -> the phase its launches must land in
 _PHASE_OF = (("compensate_bits_cands_kernel", "compensate"),
              ("compensate_bits_kernel", "compensate"),
@@ -4331,34 +4322,11 @@ def phase_telemetry_vs_cpu():
 
 def _sync_calls(trainer, epoch, steps, on_step=None):
     """``steps`` steps of ``trainer`` at ``epoch`` (``on_step`` after each)
-    under the profiler: the synchronising calls (:data:`_SYNC_CALLS`) its
-    main thread made, by name."""
-    import os
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with torch.profiler.record_function("chip_smoke.window"):
-                trainer.run_epoch(epoch, steps, on_step=on_step)
-            torch.cuda.synchronize()
-        path = os.path.join(d, "t.json")
-        prof.export_chrome_trace(path)
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    win = [e for e in events if e.get("name") == "chip_smoke.window"
-           and e.get("cat") == "user_annotation"]
-    if len(win) != 1:
-        raise AssertionError(f"the profiler window: {len(win)} ranges")
-    tid, t0 = win[0]["tid"], float(win[0]["ts"])
-    t1 = t0 + float(win[0]["dur"])
-    out = {}
-    for e in events:
-        if (e.get("cat") == "cuda_runtime" and e.get("tid") == tid
-                and e.get("name") in _SYNC_CALLS
-                and t0 <= float(e["ts"]) <= t1):
-            out[e["name"]] = out.get(e["name"], 0) + 1
-    return out
+    under the profiler: the synchronising calls its main thread made, by
+    name (the analysis layer's ``max_syncs`` reading)."""
+    from dgc_tpu_torch.analysis.program import sync_calls
+    return sync_calls(lambda: trainer.run_epoch(epoch, steps,
+                                                on_step=on_step))
 
 
 def _attributed_window(trainer, schedule):
@@ -5689,6 +5657,190 @@ def phase_gossip_path(cpu_rounds):
     return counts
 
 
+def _card_name():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def phase_analysis():
+    """The analysis slice on the card (``dgc_tpu_torch.analysis``):
+
+    1. the host layers — the lints, the race lint, the model checker over
+       the port's writers, and the ``drop_fsync`` mutation, which must
+       turn the checker red;
+    2. the contract suite on the card (the W=8 fixture over a recording
+       ``LocalComm``): every contract green, guards and telemetry adding
+       no synchronising call over the plain step;
+    3. ``resnet50_wm5`` at full width, W=4, 1 step at epoch 4 and 1 at
+       epoch 5 under the verifier's recorder: the recorded collectives a
+       step equal ``Plan.collectives()`` plus the loss mean and the plain
+       contract's; error-feedback conservation bit for bit for every
+       worker and bucket (:class:`~dgc_tpu_torch.analysis.verify.
+       ConservationProbe`: C1 payload = compensated velocity at its
+       indices and on the wire, C2 the wire's indices, C3 the transmit
+       record's bits = the indices and the unselected velocity unchanged
+       into the next compensate), red on C3 under
+       ``DGC_VERIFY_MUTATE=drop_foldback``; the state's alias coverage and
+       the card's peak memory in the report's schema; the launches of
+       ``compensate_bits``, ``topk_rows``, ``compensate_bits_cands``,
+       ``apply_rows`` and ``opaque_view_from`` the engines' own count.
+    Returns the ResNet-50 steps' launch counts."""
+    import os
+    import weakref
+
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.analysis import contracts, program, suite, verify
+    from dgc_tpu_torch.analysis.astlint import lint_paths
+    from dgc_tpu_torch.analysis.mc import run_mc_suite
+    from dgc_tpu_torch.analysis.racelint import race_lint_paths
+    from dgc_tpu_torch.compression.planner import Plan
+    from dgc_tpu_torch.ops import kernels as K
+    from dgc_tpu_torch.train import Trainer
+    t_start = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    card = _card_name()
+    out = {"card": card}
+
+    # 1. the host layers (no device)
+    t = time.perf_counter()
+    lint = lint_paths(root=root)
+    race = race_lint_paths(root=root)
+    mc = run_mc_suite(log=lambda m: None)
+    red = run_mc_suite(log=lambda m: None, mutate="drop_fsync", fast=True)
+    bad = ([f.format() for f in lint + race if not f.allowed]
+           + [f"{n}: {v[:2]}" for n, v in mc if v])
+    if bad or not any(v for _, v in red):
+        raise AssertionError(f"analysis host layers: {bad[:4]}, "
+                             f"drop_fsync red {[n for n, v in red if v]}")
+    out["host"] = {"lint_allowed": len(lint), "race_allowed": len(race),
+                   "mc_protocols": len(mc),
+                   "drop_fsync_red": [n for n, v in red if v],
+                   "s": time.perf_counter() - t}
+
+    # 2. the contract suite on the card
+    t = time.perf_counter()
+    syncs = []
+    results = suite.run_contract_suite(
+        log=lambda m: syncs.append(m) if m.startswith("syncs ") else None,
+        device=DEVICE)
+    failed = {n: v for n, v in results if v}
+    if failed or len(results) != 33 + 2 * (DEVICE != "cpu"):
+        raise AssertionError(f"analysis contracts on the card: {failed} "
+                             f"({len(results)} contracts)")
+    out["contracts"] = {"green": len(results), "syncs": syncs,
+                        "s": time.perf_counter() - t}
+
+    # 3. ResNet-50 at full width under the recorder
+    t = time.perf_counter()
+    comm = _recording_comm(4)
+    trainer = Trainer(configs.resnet50_wm5(), comm=comm, device=DEVICE)
+    probe = verify.ConservationProbe()
+    engines, per_epoch, calls = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with program.Recorder(trace=False, modules=False, probe=probe):
+        for epoch in (4, 5):
+            if epoch == 5:
+                refs = {k: weakref.ref(v) for k, v in
+                        contracts.state_storages(trainer.state).items()}
+            comm.reset()
+            probe.begin_step()
+            _zero_counts()
+            trainer.run_epoch(epoch, 1)
+            torch.cuda.synchronize()
+            per_epoch[epoch] = _read_counts(f"analysis resnet50 epoch "
+                                            f"{epoch}", ())
+            engines[epoch] = trainer.setup.engine
+            calls[epoch] = comm.counts()
+            sites = list(comm.sites)
+    peak = torch.cuda.max_memory_allocated()
+    after = contracts.state_storages(trainer.state)
+    coverage = sum(r() is not None and r() is after.get(k)
+                   for k, r in refs.items()) / len(refs)
+    layout = trainer.setup.layout
+    opaque = sum(K.opaque_view_eligible(layout.total, layout.offsets[n],
+                                        layout.sizes[n])
+                 for n in layout.convert_hoist_risky())
+    for epoch, eng in engines.items():
+        want = dict(Plan(eng.regimes, fabric="32x25GbE",
+                         world=4).collectives(dense_reduces=1))
+        want["all-reduce"] += 1                 # the loss mean
+        got = {k: calls[epoch][k] for k in want}
+        if got != want or got != suite.FLAT_COLLECTIVES or sum(
+                calls[epoch].values()) != sum(want.values()):
+            raise AssertionError(f"analysis resnet50 epoch {epoch}: "
+                                 f"collectives {calls[epoch]}, "
+                                 f"Plan.collectives() + the loss {want}")
+        want_l = dict(_predicted_launches(eng, 4, 1),
+                      opaque_view_from=4 * opaque)
+        got_l = {k: per_epoch[epoch][k] for k in want_l}
+        if got_l != want_l:
+            raise AssertionError(f"analysis resnet50 epoch {epoch}: "
+                                 f"launches {got_l}, the engine's "
+                                 f"{want_l}")
+    launched = {k: sum(c[k] for c in per_epoch.values()) for k in (
+        "compensate_bits", "topk_rows", "compensate_bits_cands",
+        "apply_rows", "opaque_view_from")}
+    if not all(launched.values()):
+        raise AssertionError(f"analysis resnet50: launches {launched}")
+    conserve = {e: probe.check(engines[e], i)
+                for i, e in enumerate((4, 5))}
+    broken = {e: c for e, c in conserve.items() if any(c.values())}
+    if broken:
+        raise AssertionError(f"analysis resnet50: conservation {broken}")
+    # the seeded mutation: the same check turns red on C3
+    os.environ["DGC_VERIFY_MUTATE"] = "drop_foldback"
+    try:
+        with program.Recorder(trace=False, modules=False, probe=probe):
+            probe.begin_step()
+            trainer.run_epoch(5, 1)
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("DGC_VERIFY_MUTATE", None)
+    mutated = probe.check(engines[5], 2)
+    if not mutated["C3"] or mutated["C1"] or mutated["C2"]:
+        raise AssertionError(f"analysis resnet50: drop_foldback gave "
+                             f"{mutated}, want C3 red only")
+    report = {"schema": verify.REPORT_SCHEMA, "alias_coverage":
+              round(coverage, 4), "peak_live_bytes": float(peak),
+              "configs": {"resnet50_wm5": {
+                  "conservation": "ok", "peak_live_bytes": int(peak),
+                  "collectives": sorted(f"{op}@{ax}" for op, ax, _, _ in
+                                        sites)}},
+              "devices": {"ef-conservation-runtime": "cuda",
+                          "donation-liveness": "cuda (alias coverage; "
+                          "torch.cuda.max_memory_allocated)"},
+              "card": card}
+    del trainer, probe
+    torch.cuda.empty_cache()
+    out["resnet50"] = {"collectives_a_step": {e: {k: v for k, v in c.items()
+                                                  if v}
+                                              for e, c in calls.items()},
+                       "launches": launched, "opaque_per_worker": opaque,
+                       "drop_foldback": {k: v[:2] for k, v in
+                                         mutated.items()},
+                       "report": report, "s": time.perf_counter() - t}
+    out["s"] = time.perf_counter() - t_start
+    DETAIL["analysis"] = out
+    print(f"[analysis] {card}: host layers {len(lint)} + {len(race)} "
+          f"allowlisted findings, mc {len(mc)} protocols green, drop_fsync "
+          f"red on {out['host']['drop_fsync_red']} "
+          f"({out['host']['s']:.1f} s); contracts {len(results)}/"
+          f"{len(results)} green on the card ({out['contracts']['s']:.1f} "
+          f"s), {syncs}")
+    print(f"[analysis] {card}: resnet50_wm5 W=4 epochs 4+5: collectives a "
+          f"step {out['resnet50']['collectives_a_step']} = Plan."
+          f"collectives() + the loss mean; conservation C1-C3 bitwise on "
+          f"every worker and bucket, drop_foldback red on C3 "
+          f"({len(mutated['C3'])} workers); launches {launched}; "
+          f"alias_coverage {coverage:.4f}, peak {peak} bytes "
+          f"({out['resnet50']['s']:.1f} s); phase {out['s']:.1f} s")
+    return launched
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -5876,6 +6028,8 @@ def main(argv):
     phase_control_drill()
     # the gossip slice: ring and hypercube rounds on the flat engine
     by_path["resnet50_gossip"] = phase_gossip_path(gossip_cpu)
+    # the analysis slice: lints, model checker, contracts, conservation
+    phase_analysis()
     phase_input_path(trace_inline="--profile" in argv)
     phase_crop_kernel()
     phase_process_group()
@@ -5908,12 +6062,11 @@ def main(argv):
           f"{spent.get('phase_control_drill', 0.0):.1f}")
     print(f"[phases] gossip slice: gossip_path "
           f"{spent.get('phase_gossip_path', 0.0):.1f}")
+    print(f"[phases] analysis slice: analysis "
+          f"{spent.get('phase_analysis', 0.0):.1f}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(_card_name())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

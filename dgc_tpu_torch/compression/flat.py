@@ -1638,13 +1638,23 @@ class FlatDGCEngine:
         gossip plan last round's inbox is added to the velocity (in place,
         after the compensate's deferred mask) before the selection. Does
         not clip: :meth:`exchange` clips every worker's block first.
-        ``stats_out``: see :meth:`sparsify`."""
+        ``stats_out``: see :meth:`sparsify`.
+
+        The ``dgcver.*`` anchors (:func:`kernels.vtag`) report the error-
+        feedback state, the selection's input and the payload to the
+        verifier's recorder, and do nothing without one.
+        ``DGC_VERIFY_MUTATE=cast_bf16`` (a seeded mutation the verifier
+        must catch) round-trips the compensated velocity through bf16
+        before the selection."""
+        kernels.vtag(mem["momentums_c"], "dgcver.src.momentum")
+        kernels.vtag(mem["velocities_c"], "dgcver.src.residual")
         if self._mk_fwd_ids:
             with phase("forward"):
                 vec, fwd_sel = self._compensate_megakernel(
                     mem, flat_grad[:self.T])
-            return self.sparsify(vec, phases, fwd_sel=fwd_sel,
-                                 stats_out=stats_out)
+            kernels.vtag(vec, "dgcver.sel_input")
+            return self._tag_selection(self.sparsify(
+                vec, phases, fwd_sel=fwd_sel, stats_out=stats_out))
         with phase("compensate"):
             comp, cands = self._compensate_acc(mem, flat_grad[:self.T])
             if self._gossip is not None:
@@ -1652,8 +1662,18 @@ class FlatDGCEngine:
                 # senders ran their momentum); consumed once, the apply
                 # rewrites the inbox
                 comp.add_(mem["gossip_inbox"])
-        return self.sparsify(comp, phases, seg_cands=cands,
-                             stats_out=stats_out)
+        if os.environ.get("DGC_VERIFY_MUTATE", "") == "cast_bf16":
+            comp = comp.to(torch.bfloat16).to(comp.dtype)
+        kernels.vtag(comp, "dgcver.sel_input")
+        return self._tag_selection(self.sparsify(
+            comp, phases, seg_cands=cands, stats_out=stats_out))
+
+    @staticmethod
+    def _tag_selection(sel):
+        """The payload's anchors, before any send-fraction mask."""
+        kernels.vtag(sel[0], "dgcver.sel_values")
+        kernels.vtag(sel[1], "dgcver.sel_indices")
+        return sel
 
     def mask_send_frac(self, values: torch.Tensor, indices: torch.Tensor,
                        send_frac) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1950,6 +1970,10 @@ class FlatDGCEngine:
                 g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
                 flags.reshape(-1), T,
                 divisor=float(world) if op == "average" else None)
+        if os.environ.get("DGC_VERIFY_MUTATE", "") == "drop_foldback":
+            # a seeded mutation the verifier must catch: the transmit
+            # record is lost, so the next compensate re-sends the payload
+            mem["sent_bits"] = torch.zeros_like(mem["sent_bits"])
         if gossip_full is not None:
             with phase("apply"):
                 mem["gossip_inbox"] = torch.where(
@@ -2033,6 +2057,8 @@ class FlatDGCEngine:
         outs = []
         for avg, mem in zip(avgs, mems):
             if T:
+                kernels.vtag(mem["momentums_c"], "dgcver.src.momentum")
+                kernels.vtag(mem["velocities_c"], "dgcver.src.residual")
                 keep = kernels.keep_from_bits(mem["sent_bits"], T).to(
                     mem["velocities_c"].dtype)
                 mem["velocities_c"] = mem["velocities_c"] * keep
@@ -2123,6 +2149,7 @@ class FlatDGCEngine:
             raise ValueError(f"op must be one of {OPS}, got {op!r}")
         if local_comm is not None and local_comm.world > 1:
             flat_grads = node_mean(flat_grads, local_comm, op)
+        kernels.vtag(flat_grads, "dgcver.src.grad")
         gnorms = [taps.l2(g) for g in flat_grads] if telemetry else None
         if self.dense:
             outs, deltas = self._exchange_dense(flat_grads, mems, comm, op,
@@ -2218,6 +2245,8 @@ class FlatDGCEngine:
                 gv, gi = self.decode({k: v[li] for k, v in gathered.items()},
                                      checksum=chk,
                                      health=health if li == 0 else {})
+            kernels.vtag(gv, "dgcver.wire_values")
+            kernels.vtag(gi, "dgcver.wire_indices")
             if g_cfg is not None:
                 # the round on the one gathered wire: each sender's row
                 # weighed (in the values' own dtype, as the reference
@@ -2249,6 +2278,9 @@ class FlatDGCEngine:
                 mem["gossip_clock"] = g_clock + 1
                 mem["gossip_age"] = g_new_age
                 mem["gossip_forced"] = g_forced0 + g_forced.to(torch.int32)
+            kernels.vtag(mem["momentums_c"], "dgcver.sink.momentum")
+            kernels.vtag(mem["velocities_c"], "dgcver.sink.residual")
+            kernels.vtag(mem["sent_bits"], "dgcver.sink.sent_bits")
         if not telemetry:
             return outs
         return outs, [self._telemetry_stats(gn, cd, m, st, *t)

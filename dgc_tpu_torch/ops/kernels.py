@@ -85,7 +85,7 @@ __all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
            "seg_top2_eligible", "seg_cols_local", "seg_top2_candidates",
            "seg_top2_candidates_plain", "compensate_bits_cands",
            "compensate_bits_cands_plain", "opaque_view", "opaque_view_from",
-           "opaque_view_eligible"]
+           "opaque_view_eligible", "vtag"]
 
 _LANE = 128
 #: f32 sublanes of the reference's (8, 128) tile (opaque-view alignment)
@@ -115,6 +115,21 @@ LAUNCHES = {"fused_compensate": 0, "fused_compensate_masked": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: the verifier's active recorder (``analysis.program.Recorder``), or None
+VTAG_RECORDER = None
+
+
+def vtag(x, name: str):
+    """Dataflow anchor for the verifier (``analysis/verify.py``): returns
+    ``x`` (a tensor, or a dict / list / tuple of them) unchanged and
+    reports it under ``name`` to the active recorder. With no recorder it
+    does nothing: no op, no launch, no sync."""
+    rec = VTAG_RECORDER
+    if rec is not None:
+        rec.tag(x, name)
+    return x
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -92,8 +92,10 @@ def apply(cfg: GuardConfig, gstate: Dict[str, torch.Tensor], *,
         armed = wcount >= w
         finite = torch.isfinite(mean_loss)
         spike = armed & finite & (mean_loss > cfg.spike_factor * wmean)
-        pushed = window.clone()
-        pushed[wpos.long()] = mean_loss.to(torch.float32)
+        # the push as a select at the slot (an index_put with a 0-dim
+        # device index reads the index on the host: a sync a step)
+        slot = torch.arange(w, device=dev) == wpos
+        pushed = torch.where(slot, mean_loss.to(torch.float32), window)
         window = torch.where(finite, pushed, window)
         wpos = torch.where(finite, (wpos + 1) % w, wpos)
         wcount = torch.where(finite, torch.clamp(wcount + 1, max=w), wcount)

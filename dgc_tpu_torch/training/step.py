@@ -167,15 +167,17 @@ def _read_later(skip: torch.Tensor):
 
 
 def resolve_pending_skip(state: TrainState) -> TrainState:
-    """Read the last guarded step's skip verdict (one host sync) and take
-    back the optimizer state's step count where it skipped: the count is
-    a host int, the rest of the revert happened on the device."""
+    """Read the last guarded step's skip verdict and take back the
+    optimizer state's step count where it skipped: the count is a host
+    int, the rest of the revert happened on the device. The read waits
+    (one host sync) only while the device is still on that step."""
     pending = state.pending_skip
     if pending is None:
         return state
     state.pending_skip = None
     skip, ready = pending
-    if ready is not None:
+    if ready is not None and not ready.query():
+        # the device is still on that step: wait for its end only
         ready.synchronize()
     if bool(skip):
         if isinstance(state.opt_state, list):
@@ -300,7 +302,7 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
                                   labels[w], nbps,
                                   dropout_gens[w] if dropout_gens else None)
             grads.append(g)
-            losses.append(loss)
+            losses.append(kernels.vtag(loss, "dgcver.src.loss"))
     grads = _faults.inject_nan_grads(faults, grads, state.step)
     phases = [engine.draw_phases(gen) for gen in gens]
     resolve_pending_skip(state)
@@ -356,7 +358,8 @@ def train_step(model, setup: FlatSetup, dist_opt, state: TrainState,
         state.opt_state = opt_state
         return state, (metrics if telemetry else mean_loss)
     skip, gstate, gmetrics = _guard.apply(
-        guards, state.guards, bad_count=packed[1], mean_loss=mean_loss,
+        guards, kernels.vtag(state.guards, "dgcver.src.guards"),
+        bad_count=packed[1], mean_loss=mean_loss,
         checksum_failures=(kw["health"] or {}).get("checksum_failures"))
     state.params = _guard.tree_select(skip, state.params, params)
     state.opt_state = _guard.tree_select(skip, state.opt_state, opt_state)

@@ -110,10 +110,17 @@ def _mesh_step(engine, mesh):
                      check_vma=False)
 
 
-def _check_steps(je, te, step, epoch, steps):
+def _check_steps(je, te, step, epoch, steps, recorded=False):
+    """``recorded``: also run each exchange on a second set of memories
+    under the verifier's recorder (every ``dgcver.*`` anchor reporting to
+    it): outputs and memories bitwise those of the unrecorded run, whose
+    anchors, with no recorder, do nothing."""
+    from dgc_tpu_torch.analysis.program import Recorder
+    from dgc_tpu_torch.ops import kernels
     T, P_, S = te.T, te.layout.total, te.layout.sentinel
     jmem = jax.tree.map(lambda x: jnp.stack([x] * W), je.init_memory())
     tmems = [te.init_memory("cpu") for _ in range(W)]
+    rmems = [te.init_memory("cpu") for _ in range(W)]
     rng = np.random.RandomState(epoch)
     for s in range(steps):
         grads = rng.randn(W, P_).astype(np.float32)
@@ -126,8 +133,19 @@ def _check_steps(je, te, step, epoch, steps):
         pre = [{k: v.clone() for k, v in m.items()} for m in tmems]
         tvals, tidx = zip(*[te.compress(torch.from_numpy(grads[w]), pre[w],
                                         phases[w]) for w in range(W)])
+        assert kernels.VTAG_RECORDER is None
         touts = te.exchange([torch.from_numpy(g) for g in grads], tmems,
                             phases, LocalComm(W))
+        if recorded:
+            with Recorder() as rec:
+                routs = te.exchange([torch.from_numpy(g) for g in grads],
+                                    rmems, phases, LocalComm(W))
+            assert rec.prog.eqns
+            for a, b in zip(routs + [t for m in rmems for t in m.values()],
+                            touts + [t for m in tmems for t in m.values()]):
+                assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                                   else a, b.view(torch.int32)
+                                   if b.is_floating_point() else b)
         for w in range(W):
             np.testing.assert_array_equal(
                 tvals[w].numpy().view(np.int32),
@@ -169,7 +187,8 @@ def _check_steps(je, te, step, epoch, steps):
 def test_exchange_matches_jax_engine(params, epoch):
     je, te = _engines(params, epoch)
     assert te.payload_size == je.payload_size
-    _check_steps(je, te, _vmap_step(je), epoch, steps=2)
+    _check_steps(je, te, _vmap_step(je), epoch, steps=2,
+                 recorded=epoch == 5)
 
 
 def test_exchange_matches_jax_engine_on_mesh8(mesh8, params):

@@ -52,7 +52,10 @@ def test_port_imports_no_jax():
                 "control.supervisor", "control.rules", "control.actions",
                 "control.scheduler", "control.plane", "telemetry.monitor",
                 "compression.gossip", "compression.planner",
-                "compression.autotune"):
+                "compression.autotune", "analysis", "analysis.__main__",
+                "analysis.rules", "analysis.astlint", "analysis.racelint",
+                "analysis.protospec", "analysis.mc", "analysis.program",
+                "analysis.contracts", "analysis.suite", "analysis.verify"):
         assert f"dgc_tpu_torch.{mod}" in res["modules"], mod
     assert res["loaded"] == []
 
@@ -115,3 +118,29 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
         out = _run(["chip_smoke.py"], cwd)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+_ANALYSIS_PROBE = """
+import importlib, json, pkgutil, sys
+import dgc_tpu_torch.analysis as analysis
+mods = [m.name for m in pkgutil.walk_packages(analysis.__path__,
+                                              "dgc_tpu_torch.analysis.")]
+for m in mods:
+    importlib.import_module(m)
+from dgc_tpu_torch.analysis.astlint import lint_paths
+lint_paths(["dgc_tpu_torch/analysis"])
+print(json.dumps({"modules": mods, "loaded": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dgc_tpu"))}))
+"""
+
+
+def test_analysis_layer_imports_no_jax():
+    """Every ``dgc_tpu_torch.analysis`` module, imported on its own in a
+    fresh interpreter (and the linter run), loads no JAX and nothing of
+    the JAX package."""
+    out = _run(["-c", _ANALYSIS_PROBE], ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(res["modules"]) == 10      # and the package itself
+    assert res["loaded"] == []
