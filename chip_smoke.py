@@ -8,6 +8,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. Build every CUDA kernel from ``dgc_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel), launch the candidates and compensate libraries
    once and compile the Triton kernel (``compensate_bits``).
+1b. A flat layout of 2**31 slots or more, first, on the empty card
+   (``phase_large_layout``): ResNet-50 at the epoch-5 ratio beside a
+   synthetic compressed tensor of 2**31 + 128 elements (T =
+   2,174,683,136), the bf16 error-feedback state. The index dtypes int64
+   and the apply fed the int64 wire; every kernel that meets offsets past
+   2**31 held bitwise against its plain version over the whole buffer,
+   chunk by chunk (a window across 2**31 and ResNet-50's region whole
+   among the chunks): ``compensate_bits``' 64-bit form,
+   ``compensate_bits_cands`` and ``seg_top2_candidates`` at f32 and bf16
+   state, ``topk_rows`` on the 3-D fallback's [65536, 32770] candidate
+   rows, ``apply_rows``' 64-bit form on a W=2 payload (and one inside the
+   window, outside which nothing changes), ``opaque_view_from`` past and
+   across 2**31; then W=2 workers take 2 steps through
+   ``DistributedOptimizer.update_flat`` under the conservation probe
+   (C1-C3 bitwise, its copies on the host), the path's 64-bit launches
+   counted; ResNet-50's slice of the parameters, exchanged gradient and
+   memory bitwise the ResNet-50-only layout's fed the same gradients and
+   draws; the times against their bounds, the 32-bit compensates re-timed
+   at ResNet-50's T, and the peak allocated memory. The kernels line
+   lists these 64-bit forms as ``<kernel> int64``.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the DGC paths give it — ResNet-20 across the wm5 warm-up for
    ``compensate_bits``, ``topk_rows`` and ``apply_rows``, ResNet-110 at
@@ -485,7 +505,12 @@ def _ptxas_summary(log):
                 ident = mangled[m.end():end]
                 if re.fullmatch(r"[A-Za-z_]\w*kernel", ident):
                     t = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
-                    return ident + (f"<{','.join(re.findall(r'[01]', t[1]))}>"
+                    if t:
+                        return ident + "<" + ",".join(
+                            re.findall(r"[01]", t[1])) + ">"
+                    # an index-type template (int or long long)
+                    t = re.match(r"I([ix])E", mangled[end:])
+                    return ident + ({"i": "<int>", "x": "<long long>"}[t[1]]
                                     if t else "")
         return mangled
 
@@ -540,7 +565,7 @@ def phase_build():
 def _check_equal(name, got, want):
     """Bitwise equality of each pair (floats by their bits, so signed
     zeros and NaN payloads count); returns the largest absolute difference
-    over the finite values."""
+    over the finite values, which bitwise equality makes 0.0."""
     import torch
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     for a, b in zip(got, want):
@@ -553,10 +578,7 @@ def _check_equal(name, got, want):
             same = torch.equal(a, b)
         if not same:
             raise AssertionError(f"{name}: kernel and plain version differ")
-    errs = [(a.double() - b.double()).abs() for a, b in zip(got, want)
-            if a.dtype in bits]
-    errs = [e[torch.isfinite(e)] for e in errs]
-    return max((float(e.max()) for e in errs if e.numel()), default=0.0)
+    return 0.0
 
 
 def _topk_inputs(eng, gen, host_gen):
@@ -5841,6 +5863,676 @@ def phase_analysis():
     return launched
 
 
+# ------------------------------------------------------------------ #
+# the large layout: 2**31 slots or more on one card                  #
+# ------------------------------------------------------------------ #
+
+#: the synthetic compressed tensor beside ResNet-50, the JAX package's
+#: own 64-bit test size (tests/test_flat.py): the layout passes 2**31
+LARGE_W = 2 ** 31 + 128
+#: elements of one chunk of the chunked plain versions: whole candidate
+#: segments (32,768), 768 MiB of f32
+_LARGE_CHUNK = 3 * 2 ** 26
+#: half the width of the window that straddles the 32-bit limit
+_LARGE_WINDOW = 2 ** 20
+
+
+def _large_engines(w_numel=LARGE_W, recipe="resnet50_wm5", epoch=5):
+    """The large layout and its engine: ``recipe``'s compressed tensors at
+    the epoch-``epoch`` ratio, the bf16 error-feedback state, and one more
+    compressed tensor ``w`` of ``w_numel`` elements (sorted first, so every
+    tensor of the recipe lies past it), beside the recipe's own layout and
+    engine: ``(big layout, big engine, layout, engine, compressors)``."""
+    import torch
+    from dgc_tpu_torch import configs
+    from dgc_tpu_torch.compression.dgc import DGCCompressor
+    from dgc_tpu_torch.compression.flat import FlatDGCEngine, ParamLayout
+    from dgc_tpu_torch.compression.memory import DGCSGDMemory
+    from dgc_tpu_torch.models import from_config
+    cfg = configs.RECIPES[recipe]()
+    cc = cfg.train.compression
+    with torch.device("meta"):
+        model = from_config(cfg.model, None)          # shapes only
+    shapes = {n.replace(".", "/"): tuple(p.shape)
+              for n, p in model.named_parameters()}
+    conv = [n for n, s in shapes.items() if len(s) > 1]
+    out = []
+    for tree, names in ((dict(shapes, w=(w_numel,)), conv + ["w"]),
+                        (shapes, conv)):
+        comp = DGCCompressor(
+            cc.compress_ratio, memory=DGCSGDMemory(
+                cc.memory.momentum, nesterov=cc.memory.nesterov,
+                momentum_masking=cc.memory.momentum_masking,
+                dtype="bfloat16"),
+            sample_ratio=cc.sample_ratio, warmup_epochs=cc.warmup_epochs,
+            warmup_coeff=cc.warmup_coeff)
+        comp.initialize((n, tree[n]) for n in names)
+        comp.warmup_compress_ratio(epoch)
+        layout = ParamLayout(tree, list(comp.attributes))
+        out.append((layout, FlatDGCEngine(comp, layout), comp))
+    (lay, eng, comp), (lay50, eng50, comp50) = out
+    return lay, eng, lay50, eng50, (comp, comp50)
+
+
+def _large_bounds(T, straddle, shift):
+    """Chunk boundaries over [0, T): ``_LARGE_CHUNK`` apart up to the
+    window that straddles the 32-bit limit, then the window itself
+    ([straddle, shift)) and the recipe's region ([shift, T)) whole."""
+    b = list(range(0, straddle, _LARGE_CHUNK)) + [straddle, shift, T]
+    return list(zip(b[:-1], b[1:]))
+
+
+def _chunked_equal(name, bounds, got, want):
+    """``got(lo, hi)`` bitwise ``want(lo, hi)`` on every chunk of
+    ``bounds``; the largest difference over the finite values."""
+    err = 0.0
+    for lo, hi in bounds:
+        err = max(err, _check_equal(f"{name} [{lo}, {hi})", got(lo, hi),
+                                    want(lo, hi)))
+    return err
+
+
+def _bits_window(bits, lo, hi):
+    """The transmit record's words of [lo, hi) (lo a multiple of 4,096)."""
+    return bits[(lo >> 12) * 128:-(-hi // 4096) * 128]
+
+
+def _large_compensates(T, bounds, dtype, gen):
+    """``compensate_bits`` (its 64-bit form), ``compensate_bits_cands`` and
+    ``seg_top2_candidates`` launched once each over the whole [T] state of
+    ``dtype`` (f32 or bf16; infinities, NaNs and -0.0 planted around the
+    32-bit limit), held bitwise against their plain versions chunk by
+    chunk over all of [0, T), and timed (the plain versions chunked
+    alike). Returns ``{kernel: call}``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    L, dev = K.INDEX32_LIMIT, DEVICE
+    nw = K.num_sent_words(T)
+    g = torch.empty(T, device=dev).normal_(generator=gen)
+    m = torch.empty(T, dtype=dtype, device=dev).normal_(generator=gen)
+    v = torch.empty(T, dtype=dtype, device=dev).normal_(generator=gen)
+    for t in (g, m, v):
+        t[L - 4:L + 4] = torch.tensor([math.inf, -math.inf, math.nan, -0.0,
+                                       0.0, 1.0, -2.0, 3.0])
+    bits = (torch.randint(-2 ** 31, 2 ** 31, (nw,), dtype=torch.int32,
+                          device=dev, generator=gen)
+            & torch.randint(-2 ** 31, 2 ** 31, (nw,), dtype=torch.int32,
+                            device=dev, generator=gen))
+    m0, v0 = m.clone(), v.clone()
+    sb = 2 * m.element_size()          # state bytes an element, read + write
+    out = {}
+    checked = (f"bitwise over [0, T) in {len(bounds)} chunks (the window "
+               f"[{bounds[-2][0]}, {bounds[-2][1]}) across the 32-bit "
+               f"limit; [{bounds[-1][0]}, {T}), ResNet-50's, whole)")
+
+    def plain_comp(lo, hi):
+        return K.compensate_bits_plain(g[lo:hi], m0[lo:hi], v0[lo:hi],
+                                       _bits_window(bits, lo, hi), 0.9,
+                                       False, True)
+    K.compensate_bits(g, m, v, bits, 0.9, False, True)
+    err = _chunked_equal(f"compensate_bits 64-bit {dtype}", bounds,
+                         lambda lo, hi: (m[lo:hi], v[lo:hi]), plain_comp)
+    bound_ms, bound_by = _bound((4 + 2 * sb) * T + 4 * nw, 5 * T)
+    out["compensate_bits"] = dict(
+        shape=[T], max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, checked=checked, **_large_times(
+            lambda: K.compensate_bits(g, m, v, bits, 0.9),
+            lambda: [plain_comp(lo, hi) for lo, hi in bounds]))
+
+    m0.copy_(m)
+    v0.copy_(v)
+
+    def plain_cands(lo, hi):
+        mm, vv, cv, cb = K.compensate_bits_cands_plain(
+            g[lo:hi], m0[lo:hi], v0[lo:hi], _bits_window(bits, lo, hi), 0.9,
+            True, True)
+        return mm, vv, cv, cb
+    _, _, cv, cb = K.compensate_bits_cands(g, m, v, bits, 0.9, True, True)
+    span = K.SEG_SPAN
+
+    def got_cands(lo, hi):
+        s0, s1 = lo // span, lo // span + (hi - lo) // span
+        return m[lo:hi], v[lo:hi], cv[s0:s1], cb[s0:s1]
+    err = _chunked_equal(f"compensate_bits_cands 64-bit {dtype}", bounds,
+                         got_cands, plain_cands)
+    # the candidates: 2 KB a segment
+    bound_ms, bound_by = _bound((4 + 2 * sb) * T + 4 * nw
+                                + 2048 * (T // span), 5 * T)
+    out["compensate_bits_cands"] = dict(
+        shape=[T], max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, checked=checked, **_large_times(
+            lambda: K.compensate_bits_cands(g, m, v, bits, 0.9, True, True),
+            lambda: [plain_cands(lo, hi) for lo, hi in bounds]))
+    del m0, v0, cv, cb
+
+    # the standalone candidates over the whole velocity: rows of two
+    # segments, so every bucket-local column fits its int32
+    cols = 2 * span
+    rows = T // cols
+    vals, ccol = K.seg_top2_candidates(v, 0, rows, cols)
+
+    def rows_of(lo, hi):
+        return lo // cols, min(hi // cols, rows)
+    err = _chunked_equal(
+        f"seg_top2_candidates 64-bit {dtype}", bounds,
+        lambda lo, hi: (vals[slice(*rows_of(lo, hi))],
+                        ccol[slice(*rows_of(lo, hi))]),
+        lambda lo, hi: K.seg_top2_candidates_plain(
+            v, rows_of(lo, hi)[0] * cols, max(0, rows_of(lo, hi)[1]
+                                              - rows_of(lo, hi)[0]), cols))
+    nseg = rows * cols // span
+    bound_ms, bound_by = _bound(m.element_size() * rows * cols
+                                + 2048 * nseg, 3 * rows * cols)
+    out["seg_top2_candidates"] = dict(
+        shape=[rows, cols], max_abs_err=err, bound_ms=bound_ms,
+        bound_by=bound_by, checked=checked, **_large_times(
+            lambda: K.seg_top2_candidates(v, 0, rows, cols),
+            lambda: [K.seg_top2_candidates_plain(v, a * cols, b - a, cols)
+                     for a, b in (rows_of(lo, hi) for lo, hi in bounds)
+                     if b > a],
+            lambda: v[:rows * cols].view(nseg, 256, 128).float().abs()
+            .topk(2, dim=1)))
+    del vals, ccol, g, m, v, bits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_times(kernel, plain, library=None):
+    """``ms``, ``plain_ms`` (and ``library_ms``) at the large layout's
+    sizes: 3 calls after a warm-up, the chunked plain version once."""
+    out = {"ms": _device_ms(kernel, reps=3, warmup=1),
+           "plain_ms": _device_ms(plain, reps=1, warmup=0)}
+    if library is not None:
+        out["library_ms"] = _device_ms(library, reps=3, warmup=1)
+    return out
+
+
+def _retime_compensates32(T, dtype, gen):
+    """The device ms of ``compensate_bits`` and ``compensate_bits_cands``
+    at a T under 2**31 (their 32-bit launches), state of ``dtype``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    g = torch.randn(T, device=DEVICE, generator=gen)
+    m, v = (torch.randn(T, device=DEVICE, generator=gen).to(dtype)
+            for _ in range(2))
+    bits = torch.zeros(K.num_sent_words(T), dtype=torch.int32,
+                       device=DEVICE)
+    out = _timed(
+        compensate_bits=lambda: K.compensate_bits(g, m, v, bits, 0.9),
+        compensate_bits_cands=lambda: K.compensate_bits_cands(
+            g, m, v, bits, 0.9, True, True))
+    del g, m, v, bits
+    return out
+
+
+#: the kernels a layout of 2**31 slots or more meets at 64-bit offsets:
+#: route, source, the TPU kernel it replaces, and how it got there
+_LARGE_KERNELS = {
+    "compensate_bits": ("triton", "dgc_tpu_torch/ops/kernels.py",
+                        "dgc_tpu/ops/kernels.py:527",
+                        "the INDEX64 instantiation"),
+    "compensate_bits_cands": ("cuda", "dgc_tpu_torch/csrc/seg_top2.cu",
+                              "dgc_tpu/ops/kernels.py:1265",
+                              "one form, 64-bit offsets"),
+    "seg_top2_candidates": ("cuda", "dgc_tpu_torch/csrc/seg_top2.cu",
+                            "dgc_tpu/ops/kernels.py:1130",
+                            "one form, 64-bit offsets"),
+    "topk_rows": ("cuda", "dgc_tpu_torch/csrc/topk_rows.cu",
+                  "dgc_tpu/ops/kernels.py:739",
+                  "one form, 64-bit row bases"),
+    "apply_rows": ("cuda", "dgc_tpu_torch/csrc/apply_rows.cu",
+                   "dgc_tpu/ops/kernels.py:1743",
+                   "the apply_rows_launch64 instantiation"),
+    "opaque_view_from": ("cuda", "dgc_tpu_torch/csrc/opaque_copy.cu",
+                         "dgc_tpu/ops/kernels.py:1872",
+                         "one form, a pointer past 2**31 elements")}
+
+
+def _large_entries(held, counts64):
+    """The kernels line's entries of the 64-bit forms (the bf16 state's
+    compensates, the large path's, as their head; the f32 state beside):
+    ``launches`` are the large path's 64-bit launches."""
+    entries = {}
+    for kernel, (route, source, replaces, form) in _LARGE_KERNELS.items():
+        by = held[kernel]
+        head = by.get("bfloat16", by["float32"])
+        name = f"{kernel} int64"
+        entries[name] = dict(
+            name=name, route=route, source=source, replaces=replaces,
+            form=form, launches=counts64[kernel], launches_path="large_layout",
+            max_abs_err=max(c["max_abs_err"] for c in by.values()),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            library_ms=head.get("library_ms"), shape=head["shape"],
+            of="the large layout (T = 2**31 + ResNet-50)",
+            **({"float32": {k: by["float32"][k] for k in (
+                "ms", "plain_ms", "bound_ms")}} if "bfloat16" in by else {}))
+    return entries
+
+
+def _large_topk(eng, gen):
+    """``topk_rows`` on the 3-D fallback's candidate rows of the large
+    bucket (the [rows x 128, cols / 128] view, 2**31 elements or more):
+    one launch over the whole input, every row held bitwise against the
+    plain version a block of rows at a time, timed beside ``torch.topk``."""
+    import torch
+    from dgc_tpu_torch.compression.flat import lane_quota
+    from dgc_tpu_torch.ops import kernels as K
+    L = K.INDEX32_LIMIT
+    w0 = eng.buckets[0]
+    if eng._sel3d[0]:
+        R, C = w0.rows * 128, w0.cols // 128
+        k = lane_quota(w0.cols, w0.max_sel)
+    else:                          # a rehearsal's small stand-in
+        R, C, k = 256, L // 256 + 2, 66
+    x = torch.empty(R, C, device=DEVICE).uniform_(generator=gen)
+    vals, cols = K.topk_rows(x, k)
+    rb = max(1, _LARGE_CHUNK // C)
+    blocks = [(r, min(r + rb, R)) for r in range(0, R, rb)]
+    err = _chunked_equal("topk_rows 64-bit", blocks,
+                         lambda a, b: (vals[a:b], cols[a:b]),
+                         lambda a, b: K.topk_rows_plain(x[a:b], k))
+    bound_ms, bound_by = _bound(4 * R * C + 8 * R * k, 2 * R * C)
+    out = dict(shape=[R, C], k=k, max_abs_err=err, bound_ms=bound_ms,
+               bound_by=bound_by, checked=(
+                   f"every row bitwise, {len(blocks)} blocks of {rb} rows "
+                   f"(row {L // C} straddles the 32-bit limit)"),
+               **_large_times(lambda: K.topk_rows(x, k),
+                              lambda: [K.topk_rows_plain(x[a:b], k)
+                                       for a, b in blocks],
+                              lambda: torch.topk(x, k, dim=1)))
+    del x, vals, cols
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_payload(T, shift, S, n_w, n_r, gen, lo=None, hi=None):
+    """A W=2 gathered payload over [0, T): each worker's distinct
+    coordinates, ``n_w`` over [0, shift) and ``n_r`` over [shift, T) (or
+    all in [lo, hi)), worker 1 sharing half of worker 0's; pads on the
+    sentinel ``S``, zeros, -0.0 and out-of-range entries planted, worker
+    0's real entries flagged. ``(values, int64 indices, flags)``."""
+    import torch
+    dev = DEVICE
+
+    def spread(a, b, n):
+        stride = (b - a) // n
+        return a + torch.arange(n, device=dev) * stride + torch.randint(
+            0, stride, (n,), device=dev, generator=gen)
+    if lo is None:
+        w0 = torch.cat([spread(0, shift, n_w), spread(shift, T, n_r),
+                        torch.arange(T - 2048, T, 64, device=dev)])
+    else:
+        w0 = spread(lo, hi, n_w + n_r)
+    half = w0.numel() // 2
+    w1 = torch.cat([w0[:half], spread(0 if lo is None else lo,
+                                      T if lo is None else hi,
+                                      w0.numel() - half)])
+    pads = torch.full((64,), S, device=dev)
+    odd = torch.tensor([-1, T, T + 5, 2 ** 33], device=dev)
+    idx = torch.cat([w0, pads, w1, pads, odd])
+    vals = torch.empty(idx.numel(), device=dev).normal_(generator=gen)
+    vals[::101] = 0.0
+    vals[1::211] = -0.0
+    vals[idx == S] = 0.0               # the engine's pads carry +0.0
+    flags = torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
+    flags[:w0.numel()] = True
+    return vals, idx, flags
+
+
+def _large_apply(T, shift, S, payload, win, gen):
+    """``apply_rows``' 64-bit instantiation over [T]: a W=2 payload the
+    size of the large path's, held bitwise whole against the plain version
+    (the sums and the record), then a payload inside the window that
+    straddles the 32-bit limit, after which everything outside the window
+    is +0.0 and its record words 0, and the window the plain version's;
+    timed beside ``index_add_``."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    L = K.INDEX32_LIMIT
+    n_w, n_r = payload
+    vals, idx, flags = _large_payload(T, shift, S, n_w, n_r, gen)
+    plan = K.apply_plan(idx.numel(), T)
+    got = K.apply_rows(vals, idx, flags, T, 2.0)
+    want = K.apply_rows_plain(vals, idx, flags, T, 2.0)
+    err = _check_equal("apply_rows 64-bit", got, want)
+    del got, want
+    lo, hi = L - win, L + win
+    wv, wi, wf = _large_payload(T, shift, S, n_w // 8, 0, gen, lo, hi)
+    acc, bits = K.apply_rows(wv, wi, wf, T, 2.0)
+    outside = (int(torch.count_nonzero(acc.view(torch.int32)[:lo]))
+               + int(torch.count_nonzero(acc.view(torch.int32)[hi:]))
+               + int(torch.count_nonzero(bits[:(lo >> 12) * 128]))
+               + int(torch.count_nonzero(bits[(hi >> 12) * 128:])))
+    if outside:
+        raise AssertionError(f"apply_rows 64-bit: {outside} words changed "
+                             f"outside the window [{lo}, {hi})")
+    inside = (wi >= lo) & (wi < hi)
+    err = max(err, _check_equal(
+        "apply_rows 64-bit window", (acc[lo:hi], _bits_window(bits, lo, hi)),
+        K.apply_rows_plain(wv[inside], wi[inside] - lo, wf[inside],
+                           hi - lo, 2.0)))
+    del acc, bits, wv, wi, wf, inside
+    n = idx.numel()
+    ilong, half = idx.long().clamp(0, T - 1), vals / 2.0
+    bound_ms, bound_by = _bound(9 * n + 4 * T + 4 * K.num_sent_words(T),
+                                2 * n)
+    out = dict(shape=[n], total=T, route=plan.route, cap=plan.cap,
+               scratch_bytes=plan.scratch_bytes, max_abs_err=err,
+               bound_ms=bound_ms, bound_by=bound_by, checked=(
+                   f"bitwise whole (sums and record); a payload inside "
+                   f"[{lo}, {hi}) changed nothing outside it"),
+               **_large_times(
+                   lambda: K.apply_rows(vals, idx, flags, T, 2.0),
+                   lambda: K.apply_rows_plain(vals, idx, flags, T, 2.0),
+                   lambda: torch.zeros(T, device=DEVICE).index_add_(
+                       0, ilong, half)))
+    del vals, idx, flags, ilong, half
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_opaque(lay, gen):
+    """``opaque_view_from`` on a flat [P] buffer at the guarded weights
+    past the 32-bit limit and at a window straddling it, bitwise ``clone``
+    of the slice."""
+    import torch
+    from dgc_tpu_torch.ops import kernels as K
+    L = K.INDEX32_LIMIT
+    flat = torch.empty(lay.total, device=DEVICE).normal_(generator=gen)
+    cases = [(lay.offsets[n], lay.sizes[n])
+             for n in sorted(lay.convert_hoist_risky())
+             if K.opaque_view_eligible(lay.total, lay.offsets[n],
+                                       lay.sizes[n])]
+    cases.append((L - 2 ** 16, 2 ** 17))
+    err = max(_check_equal(f"opaque_view_from 64-bit at {b}",
+                           (K.opaque_view_from(flat, b, n),),
+                           (K.opaque_view_from_plain(flat, b, n),))
+              for b, n in cases)
+    b, n = cases[-1]
+    bound_ms, bound_by = _bound(8 * n, 0)
+    out = dict(shape=[n], base=b, cases=len(cases), max_abs_err=err,
+               bound_ms=bound_ms, bound_by=bound_by, checked=(
+                   f"bitwise at {len(cases)} slices (the guarded weights "
+                   f"past the 32-bit limit, one across it at {b})"),
+               **_timed(
+                   ms=lambda: K.opaque_view_from(flat, b, n),
+                   plain_ms=lambda: K.opaque_view_from_plain(flat, b, n),
+                   library_ms=lambda: flat[b:b + n].clone()))
+    del flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fill_named(flat, lay, gen, std):
+    """Each named tensor's region of ``flat`` drawn ~N(0, std) in place;
+    the gaps and row tails stay as they are (zeros)."""
+    for name in lay.names:
+        o = lay.offsets[name]
+        flat[o:o + lay.sizes[name]].normal_(0.0, std, generator=gen)
+
+
+def _large_steps(lay, eng, comp, phases, grads_fn, steps, probe=None):
+    """``steps`` exchange-and-update steps of W=2 workers through the
+    flat entry point (``DistributedOptimizer.update_flat``, ``dgc_sgd``)
+    from seeded parameters, each worker's gradient from ``grads_fn(step,
+    worker, flat)``; under a recorder with ``probe`` where given.
+    Returns ``(params, memories, last exchanged gradient, step seconds)``."""
+    import torch
+    from dgc_tpu_torch.analysis import program
+    from dgc_tpu_torch.optim.distributed import DistributedOptimizer
+    from dgc_tpu_torch.optim.sgd import dgc_sgd
+    from dgc_tpu_torch.parallel.comm import LocalComm
+    opt = DistributedOptimizer(dgc_sgd(0.1, momentum=0.9), comp,
+                               LocalComm(2))
+    params = grads_fn(-1, 0, torch.zeros(lay.total, device=DEVICE))
+    opt_state = opt.init(params)
+    mems = [eng.init_memory(DEVICE) for _ in range(2)]
+    grads = [torch.zeros(lay.total, device=DEVICE) for _ in range(2)]
+    secs, last = [], None
+    for step in range(steps):
+        for w, g in enumerate(grads):
+            grads_fn(step, w, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        del last
+        if probe is not None:
+            probe.begin_step()
+            with program.Recorder(trace=False, modules=False, probe=probe):
+                params, opt_state, ex = opt.update_flat(
+                    grads, opt_state, params, mems, phases[step], eng)
+        else:
+            params, opt_state, ex = opt.update_flat(
+                grads, opt_state, params, mems, phases[step], eng)
+        last = ex[0]
+        del ex
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    del grads
+    return params, mems, last, secs
+
+
+def phase_large_layout(w_numel=LARGE_W, steps=2):
+    """A flat layout of 2**31 slots or more on one card (ROADMAP queue 1
+    item 14): ResNet-50's compressed tensors at the epoch-5 ratio (0.001)
+    beside a synthetic compressed tensor ``w`` of 2**31 + 128 elements,
+    T = 2,174,683,136, the bf16 error-feedback state (the f32 state's
+    peak, about 96 GB, does not fit the card):
+
+    (a) the layout's and the engine's index dtype int64, and the apply fed
+        the int64 wire;
+    (b) every kernel that meets offsets past 2**31 held bitwise against its
+        plain version over all of [0, T), chunk by chunk (a window that
+        straddles 2**31 and ResNet-50's region whole among the chunks):
+        ``compensate_bits``' 64-bit form, ``compensate_bits_cands`` and
+        ``seg_top2_candidates`` at f32 and bf16 state; ``topk_rows`` on the
+        3-D fallback's [65536, 32770] candidate rows of ``w``;
+        ``apply_rows``' 64-bit form on a W=2 payload of the path's size,
+        and on one inside the straddling window, outside which nothing
+        changes; ``opaque_view_from`` at the guarded weights past 2**31
+        and across it;
+    (c) W=2 workers (``LocalComm``) take ``steps`` exchange-and-update
+        steps through ``DistributedOptimizer.update_flat``, gradients drawn
+        on the card from a seeded generator, under the conservation probe
+        (copies kept on the host): C1-C3 bitwise on every worker and
+        bucket; the path's launches (``compensate_bits_cands``,
+        ``topk_rows``, ``apply_rows``, all at 64-bit offsets) counted;
+    (d) ResNet-50's slice of the parameters, the exchanged gradient and
+        the memory bitwise the ResNet-50-only layout's, fed the same
+        gradients and draws (the bucket partition and the draws printed
+        equal);
+    (e) device times against their bounds, the 32-bit forms of the
+        compensates re-timed at ResNet-50's T beside them, and the peak
+        allocated memory, with the card's name and power limit.
+    Returns the 64-bit forms' kernel entries."""
+    import gc
+
+    import torch
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the path's [T]-sized buffers come and go in several sizes near the
+    # card's capacity: segments that grow, so a freed block's tail is not
+    # stranded (the setting the allocator reads for new segments; back off
+    # after the phase)
+    settings = getattr(torch.cuda.memory, "_set_allocator_settings", None)
+    if settings is not None and DEVICE != "cpu":
+        settings("expandable_segments:True")
+    try:
+        return _large_layout(w_numel, steps, t_start)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if settings is not None and DEVICE != "cpu":
+            settings("expandable_segments:False")
+
+
+def _large_layout(w_numel, steps, t_start):
+    """The body of :func:`phase_large_layout`."""
+    import gc
+
+    import torch
+    from dgc_tpu_torch.analysis import verify
+    from dgc_tpu_torch.ops import kernels as K
+    card = _card_name()
+    L = K.INDEX32_LIMIT
+    lay, eng, lay50, eng50, (comp, comp50) = _large_engines(w_numel)
+    T, S, shift = eng.T, lay.sentinel, eng.buckets[1].base
+    # (a) the index dtypes, from shapes alone
+    if not (lay.index_dtype == eng.index_dtype == torch.int64
+            and T >= L and shift >= L):
+        raise AssertionError(f"large layout: T {T}, index dtypes "
+                             f"{lay.index_dtype} / {eng.index_dtype}")
+    seen = []
+    apply_rows = K.apply_rows
+
+    def spy(values, indices, *a, **k):
+        seen.append(indices.dtype)
+        return apply_rows(values, indices, *a, **k)
+    out = {"card": card, "T": T, "total": lay.total, "shift": shift,
+           "payload_per_worker": eng.payload_size,
+           "w_bucket": [eng.buckets[0].rows, eng.buckets[0].cols],
+           "w_route": "sel3d" if eng._sel3d[0] else (
+               "seg" if eng._seg[0] else "2d")}
+    print(f"[large] {card}: T {T} (total {lay.total}), ResNet-50 from "
+          f"{shift}, payload {eng.payload_size} a worker, w "
+          f"{out['w_bucket']} on the {out['w_route']} route; index dtype "
+          f"{lay.index_dtype} / wire {eng.index_dtype}")
+
+    # (b) the kernels at 64-bit offsets
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    win = min(_LARGE_WINDOW, L // 4)
+    bounds = _large_bounds(T, L - win, shift)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    held = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, c in _large_compensates(T, bounds, dtype, gen).items():
+            held.setdefault(name, {})[str(dtype)[6:]] = c
+    held["topk_rows"] = {"float32": _large_topk(eng, gen)}
+    held["apply_rows"] = {"float32": _large_apply(
+        T, shift, S, (eng.buckets[0].payload, eng50.payload_size), win,
+        gen)}
+    held["opaque_view_from"] = {"float32": _large_opaque(lay, gen)}
+    out["holds_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["holds_s"] = time.perf_counter() - t
+    for name, by in held.items():
+        for dt, c in by.items():
+            print(f"[large] {name} 64-bit ({dt}) {c['shape']}: "
+                  f"{c['checked']}; {c['ms']:.4f} ms (plain "
+                  f"{c['plain_ms']:.4f}, bound "
+                  f"{c['bound_ms']:.4f} by {c['bound_by']}"
+                  + (f", library {c['library_ms']:.4f}"
+                     if c.get("library_ms") is not None else "") + ")")
+    # the 32-bit forms at ResNet-50's T, in the same call
+    g50 = torch.Generator(device=DEVICE).manual_seed(50)
+    re32 = {str(dt)[6:]: _retime_compensates32(eng50.T, dt, g50)
+            for dt in (torch.float32, torch.bfloat16)}
+    out["retime_32bit_resnet50"] = re32
+    print(f"[large] 32-bit forms at ResNet-50's T {eng50.T}: " + "; ".join(
+        f"{dt} compensate_bits {r['compensate_bits']:.4f} ms, "
+        f"compensate_bits_cands {r['compensate_bits_cands']:.4f} ms"
+        for dt, r in re32.items()))
+
+    # (c) the path: W=2 through update_flat under the probe
+    gen_w = torch.Generator().manual_seed(7)
+    gen_r = torch.Generator().manual_seed(8)
+    phases, phases50 = [], []
+    for _ in range(steps):
+        big, small = [], []
+        for _w in range(2):
+            bd, sd = eng.draw_phases(gen_w), eng50.draw_phases(gen_r)
+            big.append([bd[0]] + sd)
+            small.append(sd)
+        phases.append(big)
+        phases50.append(small)
+    same_draws = all(b[1:] == s for pb, ps in zip(phases, phases50)
+                     for b, s in zip(pb, ps))
+    same_buckets = [(b.base - shift, b.rows, b.cols, b.payload, b.max_sel)
+                    for b in eng.buckets[1:]] == [
+        (b.base, b.rows, b.cols, b.payload, b.max_sel) for b in eng50.buckets]
+    print(f"[large] ResNet-50's bucket partition the same in both layouts: "
+          f"{same_buckets}; its sampling draws the same: {same_draws}")
+    saved = {}
+    g_path = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def grads_big(step, w, flat):
+        _fill_named(flat, lay, g_path, 0.05 if step < 0 else 1e-3)
+        saved[(step, w)] = flat[shift:].clone()
+        return flat
+    probe = verify.ConservationProbe(store="cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.apply_rows = spy
+    try:
+        _zero_counts()
+        params, mems, ex, secs = _large_steps(lay, eng, comp, phases,
+                                              grads_big, steps, probe)
+        counts = _read_counts("large layout",
+                              ["compensate_bits_cands", "topk_rows",
+                               "apply_rows", "sel3d"])
+        counts64 = dict(K.LAUNCHES64)
+    finally:
+        K.apply_rows = apply_rows
+    peak = torch.cuda.max_memory_allocated()
+    # (the plain versions a CPU rehearsal runs count no launch)
+    if set(seen) != {torch.int64} or DEVICE != "cpu" and not all(
+            counts64[k] for k in ("compensate_bits_cands", "topk_rows",
+                                  "apply_rows")):
+        raise AssertionError(f"large layout: the apply got {set(seen)}, "
+                             f"64-bit launches {counts64}")
+    # the next compensate's input: the velocity the next step would read
+    probe.begin_step()
+    for mem in mems:
+        probe.on_tag("dgcver.src.residual", mem["velocities_c"])
+    conserve = [probe.check(eng, s) for s in range(steps)]
+    if any(any(c.values()) for c in conserve):
+        raise AssertionError(f"large layout: conservation {conserve}")
+    keep = {"params": params[shift:].clone(), "ex": ex[shift:].clone(),
+            "mems": [{k: (v[shift:] if k.endswith("_c") else
+                          v[(shift >> 12) * 128:] if k == "sent_bits"
+                          else v).clone() for k, v in m.items()}
+                     for m in mems]}
+    finite = bool(torch.isfinite(params).all())
+    del params, mems, ex, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[large] W=2, {steps} steps through update_flat: "
+          + ", ".join(f"{s:.3f}" for s in secs) + " s; launches "
+          f"compensate_bits_cands {counts['compensate_bits_cands']}, "
+          f"topk_rows {counts['topk_rows']}, apply_rows "
+          f"{counts['apply_rows']} (64-bit: {counts64}); the apply fed "
+          f"{sorted(str(d) for d in set(seen))}; conservation C1-C3 "
+          f"bitwise on both workers, every bucket; parameters finite "
+          f"{finite}; peak allocated {peak} B ({peak / 2 ** 30:.2f} GiB)")
+    if not finite:
+        raise AssertionError("large layout: non-finite parameters")
+
+    # (d) ResNet-50 alone, fed the same gradients and draws
+    def grads_small(step, w, flat):
+        flat.copy_(saved[(step, w)])
+        return flat
+    p50, m50, ex50, _ = _large_steps(lay50, eng50, comp50, phases50,
+                                     grads_small, steps)
+    _check_equal("large layout: ResNet-50's parameters", (keep["params"],),
+                 (p50,))
+    _check_equal("large layout: ResNet-50's exchanged gradient",
+                 (keep["ex"],), (ex50,))
+    for w, (mb, ms) in enumerate(zip(keep["mems"], m50)):
+        _check_equal(f"large layout: ResNet-50's memory, worker {w}",
+                     [mb[k] for k in sorted(ms)], [ms[k] for k in sorted(ms)])
+    print("[large] ResNet-50's parameters, exchanged gradient and memory "
+          "bitwise the ResNet-50-only layout's")
+    del p50, m50, ex50, keep, saved
+    torch.cuda.empty_cache()
+    out.update(same_buckets=same_buckets, same_draws=same_draws,
+               step_s=secs, launches=counts, launches64=counts64,
+               peak_bytes=peak, held=held, s=time.perf_counter() - t_start)
+    DETAIL["large_layout"] = out
+    print(f"[large] phase {out['s']:.1f} s on {card}")
+    return _large_entries(held, counts64)
+
+
 def _clock_phases():
     """Time every outermost ``phase_*`` call into ``DETAIL["phase_s"]``
     (by phase, summed over its calls): where the run's time goes."""
@@ -5884,6 +6576,8 @@ def main(argv):
     spent = _clock_phases()
     _share_datasets()
     phase_build()
+    # first, on the empty card: a layout of 2**31 slots or more
+    large = phase_large_layout()
     geoms = _geometries()
     geoms50_all = _geometries("resnet50_wm5")
     geoms50 = {e: geoms50_all[e] for e in (0, 5)}
@@ -5911,6 +6605,7 @@ def main(argv):
                                           "f32_bound_ms", "max_abs_err")}
                 for model, c in d.items()}
     _print_entries(entries)
+    entries.update(large)
     phase_engine_vs_cpu(geoms, "resnet20", steps=2)
     # ResNet-50's epoch 5 (the fused candidates) and ResNet-110's epoch 0
     # (the route of ResNet-20's) are held card == CPU again by
@@ -6035,6 +6730,8 @@ def main(argv):
     phase_process_group()
     phase_cli()
     for name, e in entries.items():
+        if name in large:
+            continue            # counted on the large layout's path
         # the count of the one path that is each kernel's own
         e["launches_path"] = _OWN_PATH.get(name, "resnet50")
         e["launches"] = by_path[e["launches_path"]][name]
@@ -6064,6 +6761,8 @@ def main(argv):
           f"{spent.get('phase_gossip_path', 0.0):.1f}")
     print(f"[phases] analysis slice: analysis "
           f"{spent.get('phase_analysis', 0.0):.1f}")
+    print(f"[phases] large layout: large_layout "
+          f"{spent.get('phase_large_layout', 0.0):.1f}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(_card_name())

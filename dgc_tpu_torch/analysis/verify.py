@@ -327,16 +327,29 @@ class ConservationProbe:
       every unselected element of the velocity reaches the next step's
       compensate unchanged.
 
-    Call :meth:`begin_step` before each step."""
+    Call :meth:`begin_step` before each step. ``store``: the device the
+    copies are kept on (by default the tensor's own); ``"cpu"`` keeps a
+    layout of 2**31 slots or more, whose [T] velocities fill the card,
+    checkable. The check itself builds nothing of size [T] beyond a
+    transmit record: the record is compared word for word with the
+    record of the selected indices, and the velocities chunk by chunk."""
 
     _KEEP = ("dgcver.sel_input", "dgcver.sel_values", "dgcver.sel_indices",
              "dgcver.sink.sent_bits", "dgcver.src.residual")
+    #: elements of the velocities compared at once
+    CHUNK = 1 << 26
 
-    def __init__(self):
+    def __init__(self, store=None):
         self.steps: List[Dict[str, List[torch.Tensor]]] = []
+        self.store = store
 
     def begin_step(self) -> None:
         self.steps.append({})
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        return t.clone() if self.store is None else t.to(self.store,
+                                                          copy=True)
 
     def on_tag(self, name: str, t: torch.Tensor) -> None:
         if not self.steps:
@@ -344,9 +357,9 @@ class ConservationProbe:
         cur = self.steps[-1]
         if name in ("dgcver.wire_values", "dgcver.wire_indices"):
             if name not in cur:      # the first receiver's copy
-                cur[name] = [t.detach().clone()]
+                cur[name] = [self._copy(t)]
         elif name in self._KEEP:
-            cur.setdefault(name, []).append(t.detach().clone())
+            cur.setdefault(name, []).append(self._copy(t))
 
     def check(self, engine, step: int = 0) -> Dict[str, List[str]]:
         """``{"C1": [...], "C2": [...], "C3": [...]}`` violations of step
@@ -370,7 +383,9 @@ class ConservationProbe:
         for w, (vin, vals, idx, bits) in enumerate(zip(
                 cur["dgcver.sel_input"], cur["dgcver.sel_values"],
                 cur["dgcver.sel_indices"], cur["dgcver.sink.sent_bits"])):
-            idx = idx.to(torch.int64)
+            dev = vin.device
+            idx = idx.to(dev, torch.int64)
+            vals = vals.to(dev)
             # the sentinel (a structural-zero slot inside [0, T)) pads
             valid = (idx >= 0) & (idx < T) & (idx != S)
             at = vin.reshape(-1)[idx.clamp(0, T - 1)].to(vals.dtype)
@@ -380,30 +395,52 @@ class ConservationProbe:
                 out["C1"].append(f"worker {w}: {n} payload values differ "
                                  "from the compensated velocity at their "
                                  "indices")
-            if not _bitwise_equal(wv[w].to(vals.dtype), vals):
+            if not _bitwise_equal(wv[w].to(dev, vals.dtype), vals):
                 out["C1"].append(f"worker {w}: the wire's values differ "
                                  "from the payload")
-            gi = wi[w].to(torch.int64)
+            gi = wi[w].to(dev, torch.int64)
             gi = torch.where((gi >= 0) & (gi < T), gi, S)
             if not torch.equal(gi, torch.where(valid, idx, S)):
                 out["C2"].append(f"worker {w}: the wire's indices differ "
                                  "from the payload's")
-            sel = torch.zeros(T, dtype=torch.bool, device=idx.device)
-            sel[idx[valid]] = True
-            sent = ~kernels.keep_from_bits(bits, T).to(torch.bool)
-            if not torch.equal(sent, sel):
+            sel = torch.unique(idx[valid])        # sorted, each once
+            bits = bits.to(dev)
+            want_bits = kernels.pack_sent_bits(sel, T)
+            if not torch.equal(bits, want_bits):
                 out["C3"].append(
                     f"worker {w}: the transmit record sets "
-                    f"{int(sent.sum())} bits, the payload selects "
-                    f"{int(sel.sum())} indices ({int((sent ^ sel).sum())} "
-                    "differ)")
+                    f"{_popcount(bits)} bits, the payload selects "
+                    f"{sel.numel()} indices "
+                    f"({_popcount(bits ^ want_bits)} differ)")
             if nxt is not None and "dgcver.src.residual" in nxt:
                 v_next = nxt["dgcver.src.residual"][w].reshape(-1)[:T]
                 v_now = vin.reshape(-1)[:T]
-                if not _bitwise_equal(v_next[~sel], v_now[~sel]):
+                if (v_next.dtype != v_now.dtype
+                        or self._unselected_changed(v_next.to(dev), v_now,
+                                                    sel)):
                     out["C3"].append(f"worker {w}: unselected velocity "
                                      "changed before the next compensate")
         return out
+
+    def _unselected_changed(self, v_next: torch.Tensor, v_now: torch.Tensor,
+                            sel: torch.Tensor) -> bool:
+        """Whether any element outside the sorted indices ``sel`` differs
+        bitwise between the two velocities, compared a chunk at a time."""
+        for c0 in range(0, v_now.shape[0], self.CHUNK):
+            c1 = min(c0 + self.CHUNK, v_now.shape[0])
+            diff = _bits(v_next[c0:c1]) != _bits(v_now[c0:c1])
+            lo, hi = torch.searchsorted(
+                sel, torch.tensor([c0, c1], device=sel.device)).tolist()
+            diff[sel[lo:hi] - c0] = False
+            if bool(diff.any()):
+                return True
+        return False
+
+
+def _popcount(words: torch.Tensor) -> int:
+    """The set bits of an int32 tensor."""
+    return int(sum(((words >> s) & 1).sum(dtype=torch.int64)
+                   for s in range(32)))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

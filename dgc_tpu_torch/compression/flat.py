@@ -164,8 +164,13 @@ voids its own transmit record. Gossip turns the fused candidates off
 candidates kernel over the velocity with the inbox in it) and refuses
 the megakernel.
 
-Not ported yet to the engine (``ROADMAP.md``; it raises where a flag asks
-for one): layouts of 2**31 slots or more.
+Layouts of 2**31 slots or more (``ParamLayout.index_dtype`` int64, as in
+the reference) run the default route: the engine's wire is then int64,
+the apply takes it as it is, and the kernels on that route launch their
+64-bit instantiations (:func:`kernels.index64`). The routes whose kernels
+have no 64-bit form yet refuse such a layout when the engine is built,
+naming ``ROADMAP.md`` queue 1 item 14: the forward megakernel, the fused
+select and the non-resample adaptation's one-level ladder.
 """
 
 import math
@@ -376,11 +381,11 @@ class ParamLayout:
             off += self.sizes[n]
         self.p_data_end = off
         self.total = _round_up(off, _ALIGN) if off else 0
-        if self.total >= 2 ** 31:
-            raise ValueError("layouts of 2**31 slots or more need 64-bit "
-                             "offsets in every kernel and the int64 apply, "
-                             "which are not ported (ROADMAP.md queue 1 item "
-                             "14)")
+        #: the least index dtype the flat offsets fit in: int32, or int64
+        #: at 2**31 slots or more (the reference's rule; the engine then
+        #: forces the int64 wire)
+        self.index_dtype = (torch.int64 if kernels.index64(self.total)
+                            else torch.int32)
 
     def _group_by_size(self, compressed: Sequence[str]) -> List[List[str]]:
         """Partition the size-sorted tensors into contiguous buckets by the
@@ -712,11 +717,12 @@ class FlatDGCEngine:
         #: the error-feedback state's dtype: f32, or the bf16 memory
         self.state_dtype = mdt or torch.float32
         #: the wire's index dtype: int64 where the compressor asks for it
-        #: (``int32_indices=False``); the apply narrows to int32 once, which
-        #: the layout's bound (< 2**31 slots) keeps exact
-        self.index_dtype = (torch.int32
-                            if getattr(compressor, "int32_indices", True)
-                            else torch.int64)
+        #: (``int32_indices=False``) or the layout's offsets need it (2**31
+        #: slots or more; the reference's ``want64``); the apply narrows an
+        #: int64 wire to int32 only below 2**31 slots
+        want64 = (not getattr(compressor, "int32_indices", True)
+                  or layout.index_dtype == torch.int64)
+        self.index_dtype = torch.int64 if want64 else torch.int32
         compressed = self.T > 0 and compressor.compress_ratio < 1.0
         self.buckets = (_build_buckets(compressor.attributes, layout,
                                        compressor) if compressed else [])
@@ -848,8 +854,32 @@ class FlatDGCEngine:
             # fold: the segment path takes the compensate kernel and the
             # standalone candidates kernel instead
             self._seg_fused = False
+        self._check_index64_routes()
         self._consts: Dict[torch.device, list] = {}
         self._wire_dev: Dict[torch.device, dict] = {}
+
+    def _check_index64_routes(self) -> None:
+        """Refuse, at a layout of 2**31 slots or more, the routes whose
+        kernels have no 64-bit form yet (``ROADMAP.md`` queue 1 item 14):
+        the forward megakernel, the fused select and the non-resample
+        adaptation's one-level ladder. The default route runs there."""
+        if not kernels.index64(self.layout.total):
+            return
+        flat2d = [self.buckets[i] for i in self._sparse_ids
+                  if not self._seg[i] and not self._sel3d[i]]
+        refused = []
+        if self._mk_fwd_ids:
+            refused.append("the forward megakernel (megakernel=True)")
+        if any(self._use_fused_select(b) for b in flat2d):
+            refused.append("the fused select (fused_select=True)")
+        if (not self.c.resample and self.c.max_adaptation_iters > 0
+                and any(b.adapt.any() and not b.exact for b in flat2d)):
+            refused.append("the one-level ladder (resample=False)")
+        if refused:
+            raise ValueError(
+                f"a layout of {self.layout.total} slots (2**31 or more) "
+                f"runs only the default route: {', '.join(refused)} has no "
+                "64-bit kernel yet (ROADMAP.md queue 1 item 14)")
 
     def _build_lanes(self, sparse: List[_Bucket]) -> None:
         """The static lane layout over the sparse buckets (the reference's
@@ -1232,7 +1262,10 @@ class FlatDGCEngine:
             col = torch.arange(b.cols, device=device)
             slot = torch.arange(b.max_sel, device=device)
             c = {
-                "in_row": col[None, :] < t(b.numels, torch.int64)[:, None],
+                # [R, cols]; the 3-D fallback never reads it (its bucket
+                # past 2**31 slots would hold 2.1 GB of it)
+                "in_row": (None if sel3d else
+                           col[None, :] < t(b.numels, torch.int64)[:, None]),
                 "row_off": t(b.row_offsets, self.index_dtype)[:, None],
                 "slot_ok": slot[None, :] < t(b.num_selects,
                                              torch.int64)[:, None],
@@ -1963,12 +1996,15 @@ class FlatDGCEngine:
         flags = torch.zeros(g_indices.shape, dtype=torch.bool,
                             device=g_indices.device)
         flags[rank] = own_flags
-        # the one narrowing of an int64 index wire (T < 2**31: the layout
-        # refuses larger buffers)
+        # the one narrowing of an int64 index wire, where the buffer is
+        # under 2**31 slots; at or above, the apply takes the int64 wire
+        # (its 64-bit kernel)
+        idx = g_indices.reshape(-1)
+        if not kernels.index64(T):
+            idx = idx.to(torch.int32)
         with phase("apply"):
             acc, mem["sent_bits"] = kernels.apply_rows(
-                g_values.reshape(-1), g_indices.reshape(-1).to(torch.int32),
-                flags.reshape(-1), T,
+                g_values.reshape(-1), idx, flags.reshape(-1), T,
                 divisor=float(world) if op == "average" else None)
         if os.environ.get("DGC_VERIFY_MUTATE", "") == "drop_foldback":
             # a seeded mutation the verifier must catch: the transmit

@@ -62,6 +62,19 @@
 // in Python (dgc_tpu_torch/ops/kernels.py::apply_plan), which states the
 // crossover between the routes and where it was measured.
 //
+// Two instantiations, on the index type I (apply_rows_launch and
+// apply_rows_launch64; the wrapper picks by `total`, as PyTorch's
+// canUse32BitIndexMath does). I = int is the kernel every buffer under
+// 2**31 coordinates runs. I = long long takes int64 indices and a 64-bit
+// `n`, `total` and chunk count: a routed key then keeps its coordinate
+// chunk-local (12 bits, where the 32-bit key holds the flat index) and
+// the chunk id lives beside it — implicit in a list segment, an int32 of
+// its own beside each overflow entry — so no flat index loses a bit at
+// any size. Above 2**31 coordinates there are 524,288 chunks or more, far
+// above kHistMax, so the 64-bit scatter always takes the one-atomic-per-
+// chunk-and-warp route. The output's word layout and the payload-order
+// sums from +0.0 are the same in both.
+//
 // Bound on the card: bytes. Each payload entry read once (9 bytes: value,
 // index, flag), `acc` (4 total bytes) and the record (total / 8 bytes)
 // written once. At ResNet-50's ratio 0.001 (T = 27,068,416, n = 102,332) that
@@ -97,7 +110,8 @@ constexpr int kHistMax = 12288;          // chunks a shared histogram holds
 constexpr uint32_t kFlag = 0x80000000u;  // flag bit beside the position
 constexpr uint32_t kPos = 0x7fffffffu;
 
-// A routed entry: flat index << 32 | flag << 31 | payload position. Keys
+// A routed entry: flat index << 32 | flag << 31 | payload position (the
+// 64-bit instantiation: the chunk-local coordinate << 32 | ...). Keys
 // are unique (one per position) and order a chunk's entries by
 // coordinate, then position, once the flag is masked.
 using Key = unsigned long long;
@@ -105,14 +119,18 @@ __device__ __forceinline__ Key order_of(Key k) { return k & ~(Key)kFlag; }
 __device__ __forceinline__ int coord_of(Key k) {
   return (int)(k >> 32) & (kChunk - 1);
 }
+// (32-bit keys only: a 64-bit key carries no chunk)
 __device__ __forceinline__ int chunk_of(Key k) { return (int)(k >> 44); }
 
-__device__ __forceinline__ bool contributes(int p, float v, uint8_t f,
-                                            int total) {
+template <typename I>
+__device__ __forceinline__ bool contributes(I p, float v, uint8_t f,
+                                            I total) {
   return p >= 0 && p < total && (v != 0.0f || f != 0);
 }
 
-__device__ __forceinline__ Key make_key(int p, long long i, uint8_t f) {
+template <typename I>
+__device__ __forceinline__ Key make_key(I p, long long i, uint8_t f) {
+  if constexpr (sizeof(I) == 8) p &= kChunk - 1;  // the chunk is beside it
   return (Key)p << 32 | (uint32_t)i | (f ? kFlag : 0u);
 }
 
@@ -222,8 +240,9 @@ __device__ __forceinline__ void zero_chunk(const Shared& sh) {
 
 // The chunk's sums (the float tile over cur) and record words, written
 // once with 16-byte stores; coordinates past `total` are not written.
+template <typename I>
 __device__ __forceinline__ void store_chunk(const Shared& sh, int chunk,
-                                            int total, float* acc,
+                                            I total, float* acc,
                                             int* bits) {
   const int t = threadIdx.x;
   const float4* tile = reinterpret_cast<const float4*>(sh.cur);
@@ -241,7 +260,9 @@ __device__ __forceinline__ void store_chunk(const Shared& sh, int chunk,
 
 // A chunk's m entries: the first `nseg` in key/val (its list segment, or
 // the scan route's staging), the rest among the `nov` entries of the
-// overflow region whose chunk is `chunk`.
+// overflow region whose chunk is `chunk` (read from the key, or with
+// WIDE keys from ovchunk beside it).
+template <bool WIDE>
 struct Entries {
   const Key* key;
   const float* val;
@@ -249,6 +270,7 @@ struct Entries {
   const Key* ovkey;
   const float* ovval;
   int nov, chunk, m;
+  const int* ovchunk;
 
   // f(key, value) for every entry, by every thread of the block; a thread
   // loads kBatch segment entries at once
@@ -274,7 +296,11 @@ struct Entries {
     if (m > nseg) {
       for (int i = t; i < nov; i += kThreads) {
         const Key k = ovkey[i];
-        if (chunk_of(k) == chunk) f(k, ovval[i]);
+        if constexpr (WIDE) {
+          if (ovchunk[i] == chunk) f(k, ovval[i]);
+        } else {
+          if (chunk_of(k) == chunk) f(k, ovval[i]);
+        }
       }
     }
   }
@@ -321,8 +347,9 @@ __device__ void sparse_chunk(const Shared& sh, int m, Key k, float v,
 // global scratch), order each run by position, and sum it into the tile.
 // cur holds each run's start; thread t owns coordinates
 // [kPer t, kPer t + kPer), whose counts are cnt[] from `start` on.
+template <class E>
 __device__ __forceinline__ void place_and_sum(
-    const Entries& en, const Shared& sh, uint32_t* P, float* V,
+    const E& en, const Shared& sh, uint32_t* P, float* V,
     const int (&cnt)[kPer], int start, int has_div, float divisor) {
   const int t = threadIdx.x;
   en.each([&](Key k, float v) {
@@ -387,7 +414,8 @@ __device__ __forceinline__ void place_and_sum(
 // m > kSparse: a histogram of the entries by coordinate, an exclusive
 // scan, then place_and_sum in shared memory when the m entries fit `cap`,
 // else in global scratch: m slots of gP/gV taken from *gnext.
-__device__ void dense_chunk(const Entries& en, const Shared& sh, int cap,
+template <class E>
+__device__ void dense_chunk(const E& en, const Shared& sh, int cap,
                             uint32_t* gP, float* gV, int* gnext,
                             int has_div, float divisor) {
   const int t = threadIdx.x;
@@ -426,9 +454,10 @@ __device__ void dense_chunk(const Entries& en, const Shared& sh, int cap,
 
 // One chunk from its entries (cur, rec, lng zeroed and the block synced);
 // k, v: the thread's segment entry t, loaded ahead for the sparse path.
+template <class E, typename I>
 __device__ __forceinline__ void apply_chunk(
-    const Entries& en, Key k, float v, const Shared& sh, int cap,
-    uint32_t* gP, float* gV, int* gnext, int chunk, int total, float* acc,
+    const E& en, Key k, float v, const Shared& sh, int cap,
+    uint32_t* gP, float* gV, int* gnext, int chunk, I total, float* acc,
     int* bits, int has_div, float divisor) {
   if (en.m <= kSparse) {
     sparse_chunk(sh, en.m, k, v, has_div, divisor);
@@ -441,10 +470,11 @@ __device__ __forceinline__ void apply_chunk(
 
 // Route "scan": block b stages the payload's entries of chunk b in shared
 // memory (at most n <= cap of them), then applies them.
+template <typename I>
 __global__ void __launch_bounds__(kThreads, 4)
-apply_rows_scan_kernel(const int* __restrict__ idx,
+apply_rows_scan_kernel(const I* __restrict__ idx,
                        const float* __restrict__ val,
-                       const uint8_t* __restrict__ flg, int n, int total,
+                       const uint8_t* __restrict__ flg, I n, I total,
                        int cap, float* __restrict__ acc,
                        int* __restrict__ bits, int has_div, float divisor) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -452,8 +482,8 @@ apply_rows_scan_kernel(const int* __restrict__ idx,
   const int chunk = blockIdx.x;
   zero_chunk(sh);
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int p = idx[i];
+  for (I i = threadIdx.x; i < n; i += kThreads) {
+    const I p = idx[i];
     const float v = val[i];
     const uint8_t fl = flg[i];
     if (contributes(p, v, fl, total) && (p >> 12) == chunk) {
@@ -464,7 +494,8 @@ apply_rows_scan_kernel(const int* __restrict__ idx,
   }
   __syncthreads();
   const int m = sh.tmp[40];
-  const Entries en{sh.stK, sh.stV, m, nullptr, nullptr, 0, chunk, m};
+  const Entries<sizeof(I) == 8> en{sh.stK, sh.stV, m, nullptr, nullptr, 0,
+                                   chunk, m, nullptr};
   const int t = threadIdx.x;
   // m <= n <= cap by the plan: the global scratch is never reached
   apply_chunk(en, t < m ? sh.stK[t] : 0, t < m ? sh.stV[t] : 0.0f, sh, cap,
@@ -474,15 +505,18 @@ apply_rows_scan_kernel(const int* __restrict__ idx,
 
 // Route "list", chunk pass: block b applies the cursor[b] entries routed
 // to it, the first `seg` in its segment [b seg, b seg + seg) of the list,
-// the rest in the overflow region (ctr[0] entries). ctr[1] hands out the
-// global P/V scratch of chunks over `cap`.
+// the rest in the overflow region (ctr[0] entries; the 64-bit form's
+// chunk ids in ovchunk). ctr[1] hands out the global P/V scratch of
+// chunks over `cap`.
+template <typename I>
 __global__ void __launch_bounds__(kThreads, 4)
 apply_rows_kernel(const int* __restrict__ cursor, int* ctr,
                   const Key* __restrict__ key,
                   const float* __restrict__ lval, int seg,
                   const Key* __restrict__ ovkey,
-                  const float* __restrict__ ovval, uint32_t* ovP,
-                  float* ovV, int cap, int total, float* __restrict__ acc,
+                  const float* __restrict__ ovval,
+                  const int* __restrict__ ovchunk, uint32_t* ovP,
+                  float* ovV, int cap, I total, float* __restrict__ acc,
                   int* __restrict__ bits, int has_div, float divisor) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = carve(smem, 0, cap);
@@ -504,8 +538,9 @@ apply_rows_kernel(const int* __restrict__ cursor, int* ctr,
     v = lval[base + t];
   }
   __syncthreads();
-  const Entries en{key + base, lval + base, min(m, seg), ovkey, ovval,
-                   m > seg ? ctr[0] : 0, chunk, m};
+  const Entries<sizeof(I) == 8> en{key + base, lval + base, min(m, seg),
+                                   ovkey, ovval, m > seg ? ctr[0] : 0,
+                                   chunk, m, ovchunk};
   apply_chunk(en, k, v, sh, cap, ovP, ovV, &ctr[1], chunk, total, acc, bits,
               has_div, divisor);
 }
@@ -523,18 +558,24 @@ __device__ __forceinline__ int warp_slot(int* ctr, int key, bool ok) {
 }
 
 // Write a routed entry to slot `slot` of its chunk's segment, or, past the
-// segment's `seg` slots, to the overflow region (ctr[0] counts it).
+// segment's `seg` slots, to the overflow region (ctr[0] counts it). A
+// WIDE key carries no chunk: `chunk` gives it, and the overflow keeps it
+// in ovchunk.
+template <bool WIDE>
 __device__ __forceinline__ void put(Key k, float v, int slot, int seg,
                                     Key* key, float* lval, int* ctr,
-                                    Key* ovkey, float* ovval) {
+                                    Key* ovkey, float* ovval, int* ovchunk,
+                                    int chunk) {
+  if constexpr (!WIDE) chunk = chunk_of(k);
   if (slot < seg) {
-    const long long at = (long long)chunk_of(k) * seg + slot;
+    const long long at = (long long)chunk * seg + slot;
     key[at] = k;
     lval[at] = v;
   } else {
     const int at = atomicAdd(&ctr[0], 1);
     ovkey[at] = k;
     ovval[at] = v;
+    if constexpr (WIDE) ovchunk[at] = chunk;
   }
 }
 
@@ -550,16 +591,19 @@ struct Staged {
 // next slot of its chunk from cursor[] and is written there. With at most
 // kHistMax chunks the tile is counted per chunk in shared memory first
 // (one global atomic per chunk the tile touches) and ordered by chunk, so
-// the list is written in runs of consecutive slots; above, each warp makes
-// one atomic per chunk its lanes touch and writes where it stands.
+// the list is written in runs of consecutive slots; above (and always in
+// the 64-bit form), each warp makes one atomic per chunk its lanes touch
+// and writes where it stands.
+template <typename I>
 __global__ void __launch_bounds__(kRouteThreads)
-apply_rows_route_kernel(const int* __restrict__ idx,
+apply_rows_route_kernel(const I* __restrict__ idx,
                         const float* __restrict__ val,
-                        const uint8_t* __restrict__ flg, int n, int total,
-                        int nchunks, int seg, int* __restrict__ cursor,
+                        const uint8_t* __restrict__ flg, I n, I total,
+                        I nchunks, int seg, int* __restrict__ cursor,
                         int* ctr, Key* __restrict__ key,
                         float* __restrict__ lval, Key* __restrict__ ovkey,
-                        float* __restrict__ ovval) {
+                        float* __restrict__ ovval, int* __restrict__ ovchunk) {
+  constexpr bool kWide = sizeof(I) == 8;
   extern __shared__ __align__(16) unsigned char rsm[];
   int* hist = reinterpret_cast<int*>(rsm);          // [nchunks]
   int* gbase = hist + nchunks;                      // [nchunks]
@@ -567,10 +611,13 @@ apply_rows_route_kernel(const int* __restrict__ idx,
       rsm + ((8 * (size_t)nchunks + 15) & ~(size_t)15));   // [kTile]
   __shared__ int tmp[33];
   const int t = threadIdx.x;
-  const bool shared_hist = nchunks <= kHistMax;
+  const bool shared_hist = !kWide && nchunks <= kHistMax;
+  // the shared histogram's chunk count (the 32-bit form's, at most
+  // kHistMax where it is used)
+  const int nch = (int)nchunks;
   for (long long t0 = (long long)blockIdx.x * kTile; t0 < n;
        t0 += (long long)gridDim.x * kTile) {
-    int p[kItems];
+    I p[kItems];
     float v[kItems];
     uint8_t fl[kItems];
 #pragma unroll
@@ -590,15 +637,16 @@ apply_rows_route_kernel(const int* __restrict__ idx,
     if (!shared_hist) {
 #pragma unroll
       for (int b = 0; b < kItems; ++b) {
-        const int slot = warp_slot(cursor, p[b] >> 12, p[b] >= 0);
+        const int c = (int)(p[b] >> 12);
+        const int slot = warp_slot(cursor, c, p[b] >= 0);
         if (p[b] >= 0) {
-          put(make_key(p[b], t0 + b * kRouteThreads + t, fl[b]), v[b], slot,
-              seg, key, lval, ctr, ovkey, ovval);
+          put<kWide>(make_key(p[b], t0 + b * kRouteThreads + t, fl[b]), v[b],
+                     slot, seg, key, lval, ctr, ovkey, ovval, ovchunk, c);
         }
       }
       continue;
     }
-    for (int c = t; c < nchunks; c += kRouteThreads) hist[c] = 0;
+    for (int c = t; c < nch; c += kRouteThreads) hist[c] = 0;
     __syncthreads();
     int r[kItems];
 #pragma unroll
@@ -606,13 +654,13 @@ apply_rows_route_kernel(const int* __restrict__ idx,
       if (p[b] >= 0) r[b] = atomicAdd(&hist[p[b] >> 12], 1);
     }
     __syncthreads();
-    for (int c = t; c < nchunks; c += kRouteThreads) {
+    for (int c = t; c < nch; c += kRouteThreads) {
       const int h = hist[c];
       if (h) gbase[c] = atomicAdd(&cursor[c], h);
     }
     // the tile's chunks' offsets in the tile, in place of their counts
-    const int per = (nchunks + kRouteThreads - 1) / kRouteThreads;
-    const int lo = t * per, hi = min(lo + per, nchunks);
+    const int per = (nch + kRouteThreads - 1) / kRouteThreads;
+    const int lo = t * per, hi = min(lo + per, nch);
     int tot = 0;
     for (int c = lo; c < hi; ++c) tot += hist[c];
     int m;
@@ -635,7 +683,8 @@ apply_rows_route_kernel(const int* __restrict__ idx,
     __syncthreads();
     for (int j = t; j < m; j += kRouteThreads) {
       const Staged e = stage[j];
-      put(e.key, e.val, e.slot, seg, key, lval, ctr, ovkey, ovval);
+      put<false>(e.key, e.val, e.slot, seg, key, lval, ctr, ovkey, ovval,
+                 nullptr, 0);
     }
     __syncthreads();
   }
@@ -651,35 +700,26 @@ cudaError_t set_smem(const void* kern, int bytes, int* done) {
   return err;
 }
 
-}  // namespace
-
-// idx, flags (bool as uint8), values: the payload, [n]. acc: [total] f32 and
-// bits: [nchunks * 128] int32, written whole (no initialisation needed).
-// route 0 = scan, 1 = list; cap: entries of a chunk kept in shared memory,
-// and the list route's segment of each chunk; smem: dynamic shared bytes of
-// a chunk block; route_grid: blocks of the list route's scatter; scratch:
-// the list route's scratch, laid out as cursor [nchunks] i32 and two
-// counters, key [nchunks * cap] u64, value [nchunks * cap] f32, overflow
-// key [n] u64, value [n] f32, P [n] u32, V [n] f32, each start 16-byte
-// aligned (the wrapper sizes it with the same layout). Returns the CUDA
-// error code (0 = launched).
-extern "C" int apply_rows_launch(const int* idx, const uint8_t* flags,
-                                 const float* val, int n, float* acc,
-                                 int* bits, int total, int has_div,
-                                 float divisor, int route, int nchunks,
-                                 int cap, int smem, int route_grid,
-                                 void* scratch, int device, void* stream) {
+// The launches of one instantiation (see apply_rows_launch below); each
+// instantiation keeps its own record of the shared memory it has set.
+template <typename I>
+cudaError_t launch(const I* idx, const uint8_t* flags, const float* val,
+                   I n, float* acc, int* bits, I total, int has_div,
+                   float divisor, int route, I nchunks, int cap, int smem,
+                   int route_grid, void* scratch, int device,
+                   cudaStream_t st) {
+  constexpr bool kWide = sizeof(I) == 8;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (nchunks == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (err != cudaSuccess) return err;
+  if (nchunks == 0) return cudaSuccess;
   static int smem_set[3] = {0, 0, 0};
   if (route == 0) {
-    err = set_smem((const void*)apply_rows_scan_kernel, smem, &smem_set[0]);
-    if (err != cudaSuccess) return (int)err;
-    apply_rows_scan_kernel<<<nchunks, kThreads, smem, st>>>(
+    err = set_smem((const void*)&apply_rows_scan_kernel<I>, smem,
+                   &smem_set[0]);
+    if (err != cudaSuccess) return err;
+    apply_rows_scan_kernel<I><<<(unsigned)nchunks, kThreads, smem, st>>>(
         idx, val, flags, n, total, cap, acc, bits, has_div, divisor);
-    return (int)cudaGetLastError();
+    return cudaGetLastError();
   }
   const size_t slots = (size_t)nchunks * cap;
   unsigned char* s = static_cast<unsigned char*>(scratch);
@@ -697,23 +737,70 @@ extern "C" int apply_rows_launch(const int* idx, const uint8_t* flags,
   uint32_t* ovP = reinterpret_cast<uint32_t*>(s);
   s += align16(sizeof(uint32_t) * n);
   float* ovV = reinterpret_cast<float*>(s);
+  int* ovchunk = nullptr;
+  if constexpr (kWide) {
+    s += align16(sizeof(float) * n);
+    ovchunk = reinterpret_cast<int*>(s);
+  }
   const int route_smem =
-      nchunks <= kHistMax
+      !kWide && nchunks <= kHistMax
           ? (int)align16(8 * (size_t)nchunks) + (int)sizeof(Staged) * kTile
           : 0;
-  if ((err = set_smem((const void*)apply_rows_kernel, smem, &smem_set[1])) ||
-      (err = set_smem((const void*)apply_rows_route_kernel, route_smem,
+  if ((err = set_smem((const void*)&apply_rows_kernel<I>, smem,
+                      &smem_set[1])) ||
+      (err = set_smem((const void*)&apply_rows_route_kernel<I>, route_smem,
                       &smem_set[2])))
-    return (int)err;
+    return err;
   err = cudaMemsetAsync(cursor, 0, sizeof(int) * (nchunks + 2), st);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   if (n > 0) {
-    apply_rows_route_kernel<<<route_grid, kRouteThreads, route_smem, st>>>(
-        idx, val, flags, n, total, nchunks, cap, cursor, ctr, key, lval,
-        ovkey, ovval);
+    apply_rows_route_kernel<I>
+        <<<route_grid, kRouteThreads, route_smem, st>>>(
+            idx, val, flags, n, total, nchunks, cap, cursor, ctr, key, lval,
+            ovkey, ovval, ovchunk);
   }
-  apply_rows_kernel<<<nchunks, kThreads, smem, st>>>(
-      cursor, ctr, key, lval, cap, ovkey, ovval, ovP, ovV, cap, total, acc,
-      bits, has_div, divisor);
-  return (int)cudaGetLastError();
+  apply_rows_kernel<I><<<(unsigned)nchunks, kThreads, smem, st>>>(
+      cursor, ctr, key, lval, cap, ovkey, ovval, ovchunk, ovP, ovV, cap,
+      total, acc, bits, has_div, divisor);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// idx, flags (bool as uint8), values: the payload, [n]. acc: [total] f32 and
+// bits: [nchunks * 128] int32, written whole (no initialisation needed).
+// route 0 = scan, 1 = list; cap: entries of a chunk kept in shared memory,
+// and the list route's segment of each chunk; smem: dynamic shared bytes of
+// a chunk block; route_grid: blocks of the list route's scatter; scratch:
+// the list route's scratch, laid out as cursor [nchunks] i32 and two
+// counters, key [nchunks * cap] u64, value [nchunks * cap] f32, overflow
+// key [n] u64, value [n] f32, P [n] u32, V [n] f32 (and for the 64-bit
+// form the overflow's chunk ids [n] i32), each start 16-byte aligned (the
+// wrapper sizes it with the same layout). Returns the CUDA error code (0 =
+// launched).
+extern "C" int apply_rows_launch(const int* idx, const uint8_t* flags,
+                                 const float* val, int n, float* acc,
+                                 int* bits, int total, int has_div,
+                                 float divisor, int route, int nchunks,
+                                 int cap, int smem, int route_grid,
+                                 void* scratch, int device, void* stream) {
+  return (int)launch<int>(idx, flags, val, n, acc, bits, total, has_div,
+                          divisor, route, nchunks, cap, smem, route_grid,
+                          scratch, device, (cudaStream_t)stream);
+}
+
+// The 64-bit instantiation: int64 indices and a 64-bit n, total and chunk
+// count (a buffer of 2**31 coordinates or more); the rest as above.
+extern "C" int apply_rows_launch64(const long long* idx,
+                                   const uint8_t* flags, const float* val,
+                                   long long n, float* acc, int* bits,
+                                   long long total, int has_div,
+                                   float divisor, int route,
+                                   long long nchunks, int cap, int smem,
+                                   int route_grid, void* scratch, int device,
+                                   void* stream) {
+  return (int)launch<long long>(idx, flags, val, n, acc, bits, total,
+                                has_div, divisor, route, nchunks, cap, smem,
+                                route_grid, scratch, device,
+                                (cudaStream_t)stream);
 }

@@ -14,7 +14,9 @@
 // launch. Bound on the card: bytes, one read and one write of the tensor
 // (8 B per element); the copy does no arithmetic. At the engine's sizes
 // (512-4,096 elements) it is a launch: what it can save is instructions
-// ahead of the first load.
+// ahead of the first load. A slice past 2**31 elements of a larger flat
+// buffer needs no 64-bit index: the wrapper passes its address, and the
+// kernel's indices stay under n (at most 2**31 - 1, refused above).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -56,6 +56,12 @@
 // pass reads each bucket once (4 B per element, 2 for bf16) and writes 2 KB
 // per segment. The compares (about 3 per element) are far below the f32
 // rate.
+//
+// Offsets: the segment, element, record-word and candidate offsets are
+// long long throughout (seg, e0, w0, rem, o below), so this one form serves
+// buffers of 2**31 elements or more as well; the launch counts (segments a
+// call, at most 2**31 - 1) are the only ints. Held bitwise over a whole
+// 2.17e9-element buffer by chip_smoke.py's phase_large_layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

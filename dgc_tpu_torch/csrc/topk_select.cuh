@@ -1,7 +1,9 @@
 // The selection core of the row kernels (topk_rows.cu, select_pack_rows.cu,
 // dgc_forward_rows.cu): the k largest order keys of a row, in lax.top_k
 // order, for Hopper (sm_90a), and select_rows(), the body the three kernels
-// share, over a row policy (see there).
+// share, over a row policy (see there). A row's base and its outputs' are
+// size_t offsets (rows * cols past 2**31, as the 3-D fallback's candidate
+// rows of a 2**31-slot layout are); within a row, columns are ints.
 //
 // A block owns a row, or, in a thread-block cluster, each block owns a
 // slice of one row. Its keys are read from shared memory where the row was

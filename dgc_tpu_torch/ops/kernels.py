@@ -42,6 +42,19 @@ and never synchronise. The two compensates are one-entry calls of
 :func:`fused_compensate_multi`, which compensates many tensors in one
 launch.
 
+Layouts of 2**31 slots or more: a wrapper picks its kernel's 64-bit
+instantiation where the offsets or sizes it computes reach 2**31
+(:func:`index64`, PyTorch's ``canUse32BitIndexMath`` rule) and the
+32-bit one below, so every smaller layout launches the code it always
+has: :func:`compensate_bits` (the Triton kernel's ``INDEX64``) and
+:func:`apply_rows` (``apply_rows_launch64``: int64 indices). The
+candidates kernels, the top-k rows and the opaque copy compute their
+offsets in 64 bits in their one form. :data:`LAUNCHES64` counts the
+launches at such offsets. The multi-tensor compensate refuses a tensor
+past 2**31 elements, and the engine the routes of the forward megakernel,
+the fused select and the one-level ladder at such a layout (``ROADMAP.md``
+queue 1 item 14).
+
 The transmit-record helpers (:func:`num_sent_words`, :func:`pack_sent_bits`,
 :func:`keep_from_bits`, :func:`realign_bits`) define a format shared with
 the JAX package and are bitwise its functions.
@@ -64,7 +77,8 @@ import torch
 from dgc_tpu_torch.ops import build as _build
 from dgc_tpu_torch.telemetry import trace as _trace
 
-__all__ = ["LAUNCHES", "reset_launches", "num_sent_words", "pack_sent_bits",
+__all__ = ["LAUNCHES", "LAUNCHES64", "reset_launches", "num_sent_words",
+           "pack_sent_bits", "sent_word_bit", "index64", "INDEX32_LIMIT",
            "keep_from_bits", "realign_bits", "keep_from_sent",
            "fused_compensate", "fused_compensate_plain",
            "fused_compensate_masked", "fused_compensate_masked_plain",
@@ -112,9 +126,19 @@ LAUNCHES = {"fused_compensate": 0, "fused_compensate_masked": 0,
             "dgc_forward_rows": 0}
 
 
+#: of those, the launches whose offsets or sizes reach 2**31 or more
+#: (:func:`index64`): the 64-bit instantiations of ``compensate_bits`` and
+#: ``apply_rows``, and the kernels whose one form already computes its
+#: offsets in 64 bits, at such a size
+LAUNCHES64 = {"compensate_bits": 0, "compensate_bits_cands": 0,
+              "seg_top2_candidates": 0, "topk_rows": 0, "apply_rows": 0,
+              "opaque_view_from": 0}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES64):
+        for k in counts:
+            counts[k] = 0
 
 
 #: the verifier's active recorder (``analysis.program.Recorder``), or None
@@ -168,19 +192,42 @@ def num_sent_words(total: int) -> int:
     return -(-total // _BITS_GROUP) * _LANE
 
 
+def index64(x: int) -> bool:
+    """Whether ``x`` (the largest offset, count or size a kernel computes
+    or takes) needs the kernel's 64-bit instantiation: from 2**31 on, as
+    PyTorch's own ``canUse32BitIndexMath`` decides. Below it every kernel
+    launches its 32-bit form, the code every layout under 2**31 slots has
+    always run."""
+    return x >= INDEX32_LIMIT
+
+
+#: the first value a 32-bit kernel cannot hold
+INDEX32_LIMIT = 2 ** 31
+
+
+def sent_word_bit(idx: torch.Tensor):
+    """The transmit record's ``(word, bit)`` of each flat position: word
+    ``(p >> 12) * 128 + (p & 127)``, bit ``(p >> 7) & 31``, in the
+    indices' own integer type (int64 positions past 2**31 keep every
+    bit)."""
+    return (idx >> 12) * 128 + (idx & 127), (idx >> 7) & 31
+
+
 @_trace.phased("pack")
 def pack_sent_bits(indices: torch.Tensor, total: int,
                    sentinel: Optional[int] = None) -> torch.Tensor:
     """Transmit indices -> packed one-bit-per-coordinate record (int32).
 
     Flat position p maps to word ``(p >> 12) * 128 + (p & 127)``, bit
-    ``(p >> 7) & 31``. ``sentinel`` entries are dropped. Bits are ADDED,
-    as in the reference (``jnp.zeros(W).at[w].add(1 << bit)``), so real
-    indices must be unique."""
+    ``(p >> 7) & 31`` (:func:`sent_word_bit`; int64 indices are read as
+    they are, any other as int32). ``sentinel`` entries are dropped. Bits
+    are ADDED, as in the reference (``jnp.zeros(W).at[w].add(1 << bit)``),
+    so real indices must be unique."""
     W = num_sent_words(total)
-    idx = indices.to(torch.int32)
-    w = (idx >> 12) * 128 + (idx & 127)
-    bit = (idx >> 7) & 31
+    idx = (indices if indices.dtype == torch.int64
+           else indices.to(torch.int32))
+    w, bit = sent_word_bit(idx)
+    bit = bit.to(torch.int32)
     if sentinel is not None:
         w = torch.where(idx == sentinel, W, w)    # a dropped extra word
     one = torch.ones_like(bit)
@@ -240,9 +287,12 @@ def realign_bits(bits: torch.Tensor, base: int, n: int) -> torch.Tensor:
 # and NaNs as the reference has them; the launch disables FMA contraction
 # so `momentum * m0 + g` rounds twice, as the plain version does. A bf16
 # state (12 B per element plus the record) is up-cast as it is loaded and
-# rounded to nearest even as it is stored (STATE_BF16). The CUDA
-# kernels that compensate (K10/K11, and K5, K9 on the fly) repeat its
-# arithmetic (_momentum_correct) op by op in csrc/compensate.cuh.
+# rounded to nearest even as it is stored (STATE_BF16). Past 2**31
+# elements (INDEX64, picked by the wrapper) the program's offset and the
+# record word it reads are int64; below, the int32 form is the code every
+# smaller layout ran before. The CUDA kernels that compensate (K10/K11,
+# and K5, K9 on the fly) repeat its arithmetic (_momentum_correct) op by
+# op in csrc/compensate.cuh.
 
 # triton.language and the @triton.jit helper, bound at the first build:
 # module globals, because Triton resolves the names a kernel uses in the
@@ -280,8 +330,14 @@ def _triton_kernels():
                                NESTEROV: tl.constexpr,
                                MASK_MOMENTUM: tl.constexpr,
                                STATE_BF16: tl.constexpr,
-                               BLOCK: tl.constexpr):
-        p = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+                               BLOCK: tl.constexpr,
+                               INDEX64: tl.constexpr):
+        pid = tl.program_id(0)
+        if INDEX64:
+            # past 2**31 elements: the offset, and the record word
+            # computed from it, in int64
+            pid = pid.to(tl.int64)
+        p = pid * BLOCK + tl.arange(0, BLOCK)
         inb = p < n
         g = tl.load(g_ptr + p, mask=inb, other=0.0)
         m0 = tl.load(m_ptr + p, mask=inb, other=0.0).to(tl.float32)
@@ -354,13 +410,15 @@ def compensate_bits(grad, mmt, vec, bits, momentum: float,
     if n:
         kernel = _triton_kernels()["compensate_bits"]
         grid = (-(-n // _BITS_GROUP),)
+        wide = index64(grid[0] * _BITS_GROUP - 1)
         kernel[grid](grad, mmt, vec, bits, n, float(momentum),
                      NESTEROV=bool(nesterov),
                      MASK_MOMENTUM=bool(momentum_masking),
                      STATE_BF16=mmt.dtype == torch.bfloat16,
-                     BLOCK=_BITS_GROUP, num_warps=8,
+                     BLOCK=_BITS_GROUP, INDEX64=wide, num_warps=8,
                      enable_fp_fusion=False)
         LAUNCHES["compensate_bits"] += 1
+        LAUNCHES64["compensate_bits"] += wide
     return mmt, vec
 
 
@@ -561,6 +619,11 @@ def fused_compensate_multi(grads, mmts, vecs, momentum: float,
         _check_state(name, g, m, v, s)
     _check(len({m.dtype for m in mmts}) <= 1,
            f"{name}: every state must share one dtype")
+    ns = [g.shape[0] for g in grads]
+    _check(not ns or not index64(max(ns) + 2 * COMPENSATE_TILE - 1),
+           f"{name}: a tensor of {max(ns or [0])} elements needs 64-bit "
+           "offsets, which the multi-tensor compensate has not got yet "
+           "(ROADMAP.md queue 1 item 14)")
     _check_no_alias(name, [*mmts, *vecs],
                     [*grads, *(s for s in sl if s is not None)])
     if not k:
@@ -572,9 +635,6 @@ def fused_compensate_multi(grads, mmts, vecs, momentum: float,
         for t, x in zip([*mmts, *vecs], [*new_m, *new_v]):
             t.copy_(x)
         return mmts, vecs
-    ns = [g.shape[0] for g in grads]
-    _check(max(ns) <= 2 ** 31 - 2 * COMPENSATE_TILE,
-           f"{name}: a tensor of {max(ns)} elements is too long")
     addrs = [(g.data_ptr(), m.data_ptr(), v.data_ptr(),
               s.data_ptr() if s is not None else None)
              for g, m, v, s in zip(grads, mmts, vecs, sl)]
@@ -907,6 +967,7 @@ def seg_top2_candidates(flat: torch.Tensor, base: int, rows: int, cols: int):
             raise RuntimeError(
                 f"seg_top2_candidates launch failed: CUDA error {err}")
         LAUNCHES["seg_top2_candidates"] += 1
+        LAUNCHES64["seg_top2_candidates"] += index64(rows * cols - 1)
     return (vals.view(rows, -1),
             seg_cols_local(blks.view(rows, nseg, 2, _LANE)))
 
@@ -960,6 +1021,7 @@ def compensate_bits_cands(grad, mmt, vec, bits, momentum: float,
             raise RuntimeError(
                 f"compensate_bits_cands launch failed: CUDA error {err}")
         LAUNCHES["compensate_bits_cands"] += 1
+        LAUNCHES64["compensate_bits_cands"] += index64(n - 1)
     return mmt, vec, cv, cb
 
 
@@ -1168,6 +1230,7 @@ def _topk_rows_launch(x: torch.Tensor, k: int, plan: Optional[TopkPlan]):
         if err:
             raise RuntimeError(f"topk_rows launch failed: CUDA error {err}")
         LAUNCHES["topk_rows"] += 1
+        LAUNCHES64["topk_rows"] += index64(R * x.shape[1] - 1)
     return vals, cols_out
 
 
@@ -1354,7 +1417,10 @@ def apply_rows_plain(values, indices, flags, total: int,
     duplicate rank, each round a scatter with unique indices — so it is
     deterministic on any device. Zero-valued and out-of-range entries add
     nothing. The divide is :func:`divide_exact`, an IEEE divide on every
-    device."""
+    device. Indices are int32 or int64 (widened where ``total`` itself
+    needs 64 bits)."""
+    if index64(total):
+        indices = indices.to(torch.int64)
     v = values if divisor is None else divide_exact(values, divisor)
     key = torch.where((v != 0) & _in_range(indices, total), indices, total)
     skey, order = torch.sort(key, stable=True)
@@ -1391,6 +1457,16 @@ APPLY_SCAN_MAX_WORK = 16 << 20
 #: in global scratch
 _APPLY_SMEM_FIXED = 22_784
 _APPLY_CAP_MIN, _APPLY_CAP_MAX = 512, 11_264
+#: the 64-bit form's least ``cap`` (the kernel's floor, a sparse chunk's
+#: 256 entries): its list is ``cap`` slots a chunk over 524,288 chunks or
+#: more, mostly empty at DGC's ratios, so it keeps 3/2 of the mean load
+#: without the 256-entry margin, at least 256 (12 B x 256 a chunk: 0.75
+#: B a slot of ``total``, 1.63 GB at 2.17e9 slots); a fuller chunk reads
+#: the rest from the overflow region, exactly as before
+_APPLY_CAP_MIN_WIDE = 256
+#: most payload entries one apply takes: a routed entry's position has
+#: 31 bits
+APPLY_MAX_N = 2 ** 31 - 1
 _APPLY_TILE = 2048
 _APPLY_ROUTE_GRID_MAX = 132 * 4
 
@@ -1402,7 +1478,9 @@ class ApplyPlan(NamedTuple):
     route's segment of each chunk); ``smem_bytes`` its dynamic shared
     memory; ``route_grid`` the blocks of the list route's scatter (2,048
     entries a tile); ``scratch_bytes`` the list route's scratch (0 for the
-    scan route)."""
+    scan route); ``index64`` the 64-bit instantiation (a ``total`` of
+    2**31 or more: int64 indices, chunk-local routed keys with the chunk
+    id beside each overflow entry)."""
     route: str
     chunk: int
     grid: int
@@ -1410,6 +1488,7 @@ class ApplyPlan(NamedTuple):
     smem_bytes: int
     route_grid: int
     scratch_bytes: int
+    index64: bool = False
 
 
 def _align16(x: int) -> int:
@@ -1425,8 +1504,14 @@ def apply_plan(n: int, total: int, route: Optional[str] = None
     plus 256 in shared memory (rounded up to 256, within [512, 11264]:
     two blocks an SM at most): the engine's chunks hold up to 1.4x the
     mean (ResNet-20 at the epoch-0 ratio, W=4). ``route`` forces one (for
-    measurements)."""
+    measurements). A ``total`` of 2**31 or more takes the 64-bit
+    instantiation (:func:`index64`): its list keeps 3/2 of the mean
+    entries per chunk, at least :data:`_APPLY_CAP_MIN_WIDE`, and one more
+    int32 a payload entry for the overflow's chunk ids."""
+    _check(0 <= n <= APPLY_MAX_N,
+           f"apply_plan: {n} payload entries (at most {APPLY_MAX_N})")
     grid = -(-total // APPLY_CHUNK)
+    wide = index64(total)
     if route is None:
         route = ("scan" if n <= APPLY_SCAN_MAX_N
                  and n * grid <= APPLY_SCAN_MAX_WORK else "list")
@@ -1434,23 +1519,34 @@ def apply_plan(n: int, total: int, route: Optional[str] = None
     if route == "scan":
         cap = max(n, 1)
         return ApplyPlan("scan", APPLY_CHUNK, grid, cap,
-                         _APPLY_SMEM_FIXED + 20 * cap, 0, 0)
+                         _APPLY_SMEM_FIXED + 20 * cap, 0, 0, wide)
     mean = n // max(grid, 1)
-    cap = -(-(mean + mean // 2 + 256) // 256) * 256
-    cap = min(max(cap, _APPLY_CAP_MIN), _APPLY_CAP_MAX)
+    if wide:
+        cap = max(-(-(mean + mean // 2) // 256) * 256, _APPLY_CAP_MIN_WIDE)
+    else:
+        cap = max(-(-(mean + mean // 2 + 256) // 256) * 256, _APPLY_CAP_MIN)
+    cap = min(cap, _APPLY_CAP_MAX)
     route_grid = max(1, min(-(-n // _APPLY_TILE), _APPLY_ROUTE_GRID_MAX))
     slots = grid * cap
     scratch = (_align16(4 * (grid + 2)) + _align16(8 * slots)
-               + _align16(4 * slots) + _align16(8 * n) + 3 * _align16(4 * n))
+               + _align16(4 * slots) + _align16(8 * n)
+               + (4 if wide else 3) * _align16(4 * n))
     return ApplyPlan("list", APPLY_CHUNK, grid, cap,
-                     _APPLY_SMEM_FIXED + 8 * cap, route_grid, scratch)
+                     _APPLY_SMEM_FIXED + 8 * cap, route_grid, scratch, wide)
 
 
 _APPLY_ARGS = {"apply_rows_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    # the 64-bit instantiation: int64 indices, n, total and chunk count
+    "apply_rows_launch64": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p]}
 
 
 @_trace.phased("apply")
@@ -1463,33 +1559,51 @@ def apply_rows(values, indices, flags, total: int,
     entry whose ``flag`` is true (the local worker's non-sentinel slots,
     whose indices are unique). Entries whose index lies outside
     ``[0, total)`` are dropped (the engine routes them to its sentinel
-    first). Returns ``(acc [total] f32, bits [num_sent_words(total)]
-    int32)``."""
+    first). Indices are int32 or int64; on the card the kernel's
+    instantiation follows ``total`` (:func:`index64`): below 2**31 the
+    32-bit kernel (int64 indices narrowed, any outside ``[0, total)``
+    to -1 first, so none wraps into range), from 2**31 the 64-bit one
+    (int32 indices widened). Returns ``(acc [total] f32, bits
+    [num_sent_words(total)] int32)``."""
     n = values.shape[0]
     _check(values.dim() == 1 and indices.shape == (n,) and flags.shape == (n,),
            "apply_rows: values, indices, flags must be 1-D of one length")
-    _check(values.dtype == torch.float32 and indices.dtype == torch.int32
+    _check(values.dtype == torch.float32
+           and indices.dtype in (torch.int32, torch.int64)
            and flags.dtype == torch.bool,
-           "apply_rows: values f32, indices int32, flags bool")
+           "apply_rows: values f32, indices int32 or int64, flags bool")
     num_sent_words(total)                   # checks total % 128
     if not _on_card("apply_rows", values, indices, flags):
         return apply_rows_plain(values, indices, flags, total, divisor)
-    return _apply_rows_launch(values, indices, flags, total, divisor,
-                              apply_plan(n, total))
+    plan = apply_plan(n, total)
+    if plan.index64:
+        indices = indices.to(torch.int64)
+    elif indices.dtype == torch.int64:
+        indices = torch.where(_in_range(indices, total), indices,
+                              -1).to(torch.int32)
+    return _apply_rows_launch(values, indices, flags, total, divisor, plan)
 
 
 def _apply_rows_launch(values, indices, flags, total: int,
                        divisor: Optional[float], plan: ApplyPlan):
     """Launch the apply kernel on checked CUDA operands with ``plan``
-    (measurements force a route through here)."""
+    (measurements force a route through here): the 64-bit instantiation
+    for a ``plan.index64``, whose indices must then be int64, else the
+    32-bit one on int32 indices."""
     n, dev = values.shape[0], values.device
+    want = torch.int64 if plan.index64 else torch.int32
+    _check(indices.dtype == want,
+           f"apply_rows: the {'64' if plan.index64 else '32'}-bit kernel "
+           f"takes {want} indices, got {indices.dtype}")
     acc = torch.empty(total, dtype=torch.float32, device=dev)
     bits = torch.empty(num_sent_words(total), dtype=torch.int32, device=dev)
     if plan.grid:
         scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                                device=dev) if plan.scratch_bytes else None)
         lib = _build.library("apply_rows.cu", _APPLY_ARGS)
-        err = lib.apply_rows_launch(
+        launch = (lib.apply_rows_launch64 if plan.index64
+                  else lib.apply_rows_launch)
+        err = launch(
             indices.data_ptr(), flags.data_ptr(), values.data_ptr(), n,
             acc.data_ptr(), bits.data_ptr(), total,
             int(divisor is not None),
@@ -1501,6 +1615,7 @@ def _apply_rows_launch(values, indices, flags, total: int,
         if err:
             raise RuntimeError(f"apply_rows launch failed: CUDA error {err}")
         LAUNCHES["apply_rows"] += 1
+        LAUNCHES64["apply_rows"] += plan.index64
     return acc, bits
 
 
@@ -1538,6 +1653,8 @@ def _copy_on_card(name: str, src: torch.Tensor, offset: int,
         if err:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
+        if name in LAUNCHES64:
+            LAUNCHES64[name] += index64(offset + numel - 1)
     return out
 
 

@@ -250,8 +250,12 @@ def test_apply_rows_checks_its_operands():
     v = torch.ones(4)
     i = torch.arange(4, dtype=torch.int32)
     f = torch.ones(4, dtype=torch.bool)
+    # int32 and int64 indices are taken (int64 for layouts of 2**31
+    # slots or more); any other index dtype is refused
     with pytest.raises(ValueError):
-        tk.apply_rows(v, i.long(), f, 128)
+        tk.apply_rows(v, i.to(torch.int16), f, 128)
+    with pytest.raises(ValueError):
+        tk.apply_rows(v, i.float(), f, 128)
     with pytest.raises(ValueError):
         tk.apply_rows(v, i, f[:3], 128)
     with pytest.raises(ValueError):

@@ -8,9 +8,10 @@ head, the victim pick, and a sequence number that resumes across
 restarts; the tolerant readers agree on torn and absent files. Then the
 plane's gang drills on fake members: the grant, queue and complete cycle
 (``true``-like commands), and the priority-inversion drill
-(``tests/sched_worker.py``: a low-priority 2-seat gang shrinks through
-the surgery excise path so a high-priority gang can grow, with the
-excised seat's residual mass conserved)."""
+(``tests/torch_sched_worker.py``: a low-priority 2-seat gang shrinks
+through the surgery excise path so a high-priority gang can grow, with
+the excised seat's residual mass conserved; the high-priority gang runs
+until its grow has landed, whatever the host's speed)."""
 
 import json
 import os
@@ -32,7 +33,7 @@ from dgc_tpu_torch.resilience import surgery
 from dgc_tpu_torch.telemetry import monitor, registry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(REPO, "tests", "sched_worker.py")
+WORKER = os.path.join(REPO, "tests", "torch_sched_worker.py")
 
 
 class FakeClock:
@@ -249,15 +250,26 @@ def test_plane_gang_grant_queue_and_complete(tmp_path):
             "g", gang("g", 1))
 
 
-def _member(root, gang, i, env_file, world, steps, priority=0):
+def _member(root, gang, i, env_file, world, steps, priority=0,
+            until_world=0):
+    """A gang member of ``steps`` steps; with ``until_world``, one that
+    steps on until its cohort has run 40 steps at that world (the grow
+    landing), at most 4,000 steps."""
     run_dir = os.path.join(root, f"{gang}{i}")
+    until = (["--until-world", str(until_world), "--world-steps", "40",
+              "--max-steps", "4000"] if until_world else [])
     return RunSpec(
         f"{gang}{i}",
         [sys.executable, WORKER, run_dir,
          "--cohort", os.path.join(root, f"cohort_{gang}"),
-         "--steps", str(steps), "--step-ms", "25", "--world", str(world)],
+         "--steps", str(steps), "--step-ms", "25", "--world", str(world)]
+        + until,
         run_dir=run_dir, env_file=env_file,
-        env={"JAX_PROCESS_ID": str(i), "DGC_BOUNDARY_TIMEOUT": "3.5"},
+        # a peer's first step waits on its start-up, which a loaded host
+        # stretches for seconds: a boundary timeout past any start-up, so
+        # only a real hang trips it (none in these drills; an excise
+        # order reaches a member waiting at a boundary directly)
+        env={"JAX_PROCESS_ID": str(i), "DGC_BOUNDARY_TIMEOUT": "60"},
         backoff=0.1, priority=priority)
 
 
@@ -274,15 +286,16 @@ def test_priority_inversion_drill(tmp_path):
                   min_hits=2, debounce_s=5.0, budget=1),)
     plane = ControlPlane([], root, rules=table, interval=0.25,
                          scheduler=sched)
-    # hi runs long enough to still be training when the autoscale admit,
-    # the preemption and the grow land, however loaded the host is
+    # hi trains until the autoscale admit, the preemption and the grow
+    # have landed and its grown cohort has run, however loaded the host
+    # is: its end waits on the grow, not on a step count
     plane.submit("low", [_member(root, "low", i, envs["low"], 2, 100)
                          for i in range(2)], priority=0)
     plane.submit(
-        "hi", [_member(root, "hi", 0, envs["hi"], 2, 400)],
+        "hi", [_member(root, "hi", 0, envs["hi"], 2, 40, until_world=2)],
         priority=2, slots_max=2,
-        grow_spec=lambda seat: _member(root, "hi", seat, envs["hi"], 2,
-                                       400))
+        grow_spec=lambda seat: _member(root, "hi", seat, envs["hi"], 2, 40,
+                                       until_world=2))
     plane.submit("bat", [_member(root, "bat", 0, envs["bat"], 1, 10)],
                  priority=0)
     final = plane.run(max_ticks=800)
